@@ -1,0 +1,46 @@
+"""Carry weights between the JAX package and the port.
+
+The JAX package and the port name their parameter leaves alike and both
+stack each block's leaves over a leading ``nper`` (period) axis, so a
+tree converts leaf for leaf and both packages compute the same thing
+from the same weights. The tests build params with the JAX init, pass
+them here as numpy (``jax.tree.map(np.asarray, params)``), and feed both
+packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
+
+
+def _to_torch(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes.bfloat16: same bits
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(np.uint16).view(
+            ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def params_from_jax(tree, device="cuda") -> dict:
+    """Nested dict of numpy arrays (the JAX param tree) -> the same tree of
+    torch tensors on ``device``, bit for bit."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _to_torch(a, dev), tree)
+
+
+def params_to_jax(tree) -> dict:
+    """Inverse of ``params_from_jax``: torch tensors -> numpy arrays (which
+    ``jnp.asarray`` takes as they are)."""
+    return tree_map(_to_numpy, tree)

@@ -1,0 +1,59 @@
+"""Shared primitive layers (plain functions on tensors, explicit params);
+mirrors ``repro.models.layers``."""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32)).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    """numpy float32, the same computation as the JAX package, so the
+    inverse frequencies match bit for bit."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+@functools.lru_cache(maxsize=16)
+def _inv_freq(head_dim: int, theta: float, device: torch.device):
+    """``rope_freqs`` on ``device``, copied there once: a copy from
+    pageable host memory waits for the device's queue to drain, which
+    per layer call would serialise the host with the card."""
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotary embedding, split-half (llama) convention.
+
+    x: (B, S, H, hd); positions: (S,) or (B, S) int.
+    """
+    hd = x.shape[-1]
+    inv = _inv_freq(hd, float(theta), x.device)
+    ang = positions.to(torch.float32)[..., None] * inv       # (..., S, hd/2)
+    if ang.dim() == 2:                                        # (S, hd/2)
+        ang = ang[None]                                       # (1, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]                       # (B|1,S,1,hd/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, wi, wg, wo, cdt):
+    x = x.to(cdt)
+    h = F.silu(x @ wg.to(cdt)) * (x @ wi.to(cdt))
+    return h @ wo.to(cdt)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, cdt):
+    return table[tokens.to(torch.int64)].to(cdt)

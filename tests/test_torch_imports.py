@@ -1,0 +1,96 @@
+"""The port stands on its own: nothing under ``src/repro_torch/`` and
+nothing in ``chip_smoke.py`` imports JAX or the JAX package, its entry
+points default to the card, and ``chip_smoke.py`` refuses to run without
+one."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    """Every module of the port imports in a process where importing JAX
+    or the JAX package fails."""
+    mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+            for p in sorted(PORT.rglob("*.py"))]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'): sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from repro_torch.configs import make_run_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    run = make_run_config("qwen3-0.6b", "decode_32k", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(run).init()
+    params = build_model(run).init(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(run, params, paged=True)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
+    """No card: a non-zero exit and no result line — in the checkout and
+    in a directory holding chip_smoke.py and nothing else of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        script = pathlib.Path(shutil.copy(script, tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
