@@ -31,11 +31,15 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 
-# tolerances, each with its reason
-ATTN_TOL = 2e-2        # one bf16 step at the outputs' magnitude: kernel and
-                       # plain version each round an fp32 result to bf16
-LOGITS_REL_TOL = 5e-2  # prefill logits, kernel path vs plain path, over
-                       # 28 bf16 layers, relative to max |logit|
+# tolerances, each with its reason (the readings they were set from are
+# in PERF.md)
+ATTN_RTOL = 2 ** -6    # attention outputs, elementwise: |kernel - plain| <=
+ATTN_ATOL = 1e-4       # ATTN_ATOL + ATTN_RTOL * |plain|, two bf16 steps of
+                       # the value. Kernel and plain version each round an
+                       # fp32 result to bf16 once, after sums taken in other
+                       # orders, so they may differ by one step
+LOGITS_REL_TOL = 1.5e-2  # prefill logits, kernel path vs plain path, over
+                         # 28 bf16 layers, relative to max |logit|
 
 # fp32 operations per vocab entry of the fused sampler's noise + argmax
 # (mix: 10 integer ops; two portable logs of 18 float ops; 4 more)
@@ -86,6 +90,14 @@ class Timer:
         return float(np.median(times))
 
 
+def attn_err(got, want):
+    """(max |got - want|, the largest share of its limit ATTN_ATOL +
+    ATTN_RTOL * |want| that any element uses; the check is share <= 1)."""
+    d = (got.float() - want.float()).abs()
+    lim = ATTN_ATOL + ATTN_RTOL * want.float().abs()
+    return float(d.max()), float((d / lim).max())
+
+
 def bound(nbytes: float, ops: float, rate: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
@@ -106,8 +118,9 @@ def phase_flash_attention(torch, ops, timer, cfg):
         got = ops.flash_attention(q, k, v, causal=True)
         want = ops.flash_attention(q, k, v, causal=True, backend="ref")
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        check(err <= ATTN_TOL, f"flash_attention S={S}: max_abs_err {err}")
+        err, share = attn_err(got, want)
+        check(share <= 1, f"flash_attention S={S}: max_abs_err {err}, "
+                          f"{share:.3g} of the limit")
         check(torch.equal(got, ops.flash_attention(q, k, v)),
               f"flash_attention S={S}: not deterministic")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -120,9 +133,11 @@ def phase_flash_attention(torch, ops, timer, cfg):
         flops = 4 * H * hd * S * (S + 1) / 2             # causal QK^T + PV
         b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
         rows.append({"shape": f"q (1,{S},{H},{hd}) bf16, causal",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "max_abs_err": err, "share_of_limit": share,
+                     "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
-        log(f"flash_attention S={S}: max_abs_err {err:.3g} | kernel {ms:.4f}"
+        log(f"flash_attention S={S}: max_abs_err {err:.3g} ({share:.3g} "
+            f"of the limit) | kernel {ms:.4f}"
             f" ms | plain {plain:.4f} ms | sdpa {lib:.4f} ms | bound "
             f"{b_ms:.4f} ms ({b_by})")
     return rows
@@ -160,8 +175,8 @@ def phase_paged_decode(torch, ops, timer, cfg, quant: bool):
         row_bytes = 2 * 2                           # k+v bf16
     got, want = fn(*args), fn(*args, backend="ref")
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    check(err <= ATTN_TOL, f"{name}: max_abs_err {err}")
+    err, share = attn_err(got, want)
+    check(share <= 1, f"{name}: max_abs_err {err}, {share:.3g} of the limit")
     inactive = (pos < 0).nonzero().flatten()
     check(bool(torch.all(got[inactive] == 0)),
           f"{name}: an inactive slot's row is not exactly zero")
@@ -175,12 +190,14 @@ def phase_paged_decode(torch, ops, timer, cfg, quant: bool):
               + tables.numel() * 4 + pos.numel() * 4)
     flops = 4 * H * hd * rows_read
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    log(f"{name} B=8 page=16 NP=64: max_abs_err {err:.3g} | kernel "
+    log(f"{name} B=8 page=16 NP=64: max_abs_err {err:.3g} ({share:.3g} of "
+        f"the limit) | kernel "
         f"{ms:.4f} ms | plain {plain:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
     return {"shape": f"q ({B},1,{H},{hd}), pages (513,16,{K},{hd}) "
                      f"{'int8' if quant else 'bf16'}, NP=64",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "max_abs_err": err, "share_of_limit": share, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def phase_fused_sample(torch, ops, timer, cfg):

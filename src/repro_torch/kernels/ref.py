@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.sampling import prepare_rows, torch_gumbel
+from repro_torch.kernels.sampling import torch_gumbel
 
 
 # ---------------------------------------------------------------------------
@@ -105,18 +105,10 @@ def sample_rows_ref(z, keys4):
     """The part of fused_sample the kernel computes: z (B,Vp) float32 from
     ``prepare_rows``; keys4 (B,4) int32 (seed, rid, counter, noisy).
     Returns (B,) int32 first-index argmax of z + noise (noisy rows) or z
-    (greedy rows)."""
+    (greedy rows). The whole plain sampler is ``ops.fused_sample(...,
+    backend="ref")``: ``prepare_rows``, then this."""
     idx = torch.arange(z.shape[1], device=z.device, dtype=torch.int64)
     g = torch_gumbel(keys4, idx)
     y = torch.where(keys4[:, 3:4] != 0, z + g, z)
     return torch.argmax(y, dim=-1).to(torch.int32)
 
-
-def fused_sample_ref(logits, temp, top_k, keys, *, vocab_size: int):
-    """Plain fused_sample: same ``prepare_rows`` front half, same portable
-    counter-hash Gumbel noise, plain argmax. Bit-identical to the CUDA
-    kernel and to ServeEngine._sample."""
-    z, noisy = prepare_rows(logits, temp, top_k, vocab_size=vocab_size)
-    keys4 = torch.cat([keys.to(torch.int32),
-                       noisy.to(torch.int32)[:, None]], dim=1)
-    return sample_rows_ref(z, keys4)

@@ -3,9 +3,12 @@
 JSON line).
 
 Serves synthetic requests and reports latency/throughput. Runs on the
-card unless ``--device cpu`` is given. The engine is the paged one, so
-pass ``--paged``; ``--fleet`` (engines as tenants under the SVFF
-manager) comes with the SVFF core slice.
+card unless ``--device cpu`` is given. The paged KV layout is the only
+one ported, so it is on with or without ``--paged``. Options the port
+does not have yet are refused when given: ``--prefill-chunk`` (chunked
+prefill), and ``--fleet`` with its ``--autoscale``, ``--spares`` and
+``--slo-max-load`` (engines as tenants under the SVFF manager, which
+come with the SVFF core slice).
 
     python -m repro_torch.launch.serve --paged
 """
@@ -34,38 +37,47 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=8)
-    ap.add_argument("--paged", action="store_true",
-                    help="block-granular paged KV cache")
+    ap.add_argument("--paged", action="store_true", default=True,
+                    help="block-granular paged KV cache (the only layout "
+                         "ported: always on)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="chunked prefill (attention stacks; 0 = whole)")
+                    help="chunked prefill (not ported yet: refused)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--fleet", type=int, default=0,
                     help="serve through a ServeFleet of N engine tenants"
-                         " under the SVFFManager (0 = bare engine)")
+                         " (not ported yet: refused)")
     ap.add_argument("--autoscale", action="store_true",
-                    help="fleet mode: enable the elastic control plane")
-    ap.add_argument("--spares", type=int, default=1,
-                    help="fleet mode: warm parked standby engines")
-    ap.add_argument("--slo-max-load", type=int, default=64)
+                    help="fleet mode (not ported yet: refused)")
+    ap.add_argument("--spares", type=int, default=None,
+                    help="fleet mode (not ported yet: refused)")
+    ap.add_argument("--slo-max-load", type=int, default=None,
+                    help="fleet mode (not ported yet: refused)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain versions)")
     args = ap.parse_args(argv)
 
-    if args.fleet > 0:
+    fleet = [f for f, on in (("--fleet", args.fleet > 0),
+                             ("--autoscale", args.autoscale),
+                             ("--spares", args.spares is not None),
+                             ("--slo-max-load", args.slo_max_load is not None))
+             if on]
+    if fleet:
         raise NotImplementedError(
-            "--fleet: ServeFleet comes with the SVFF core slice "
+            f"{', '.join(fleet)}: ServeFleet comes with the SVFF core slice "
             "(ROADMAP Queue 1 item 2)")
+    if args.prefill_chunk:
+        raise NotImplementedError(
+            "--prefill-chunk: chunked prefill is not ported yet (ROADMAP "
+            "Queue 1 item 5)")
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 logits in fp32
     run = make_run_config(args.arch, args.shape, smoke=args.smoke)
     model = build_model(run)
     params = model.init(seed=run.seed, device=device)
     eng = ServeEngine(run, params, device=device, slots=args.slots,
-                      max_len=args.max_len, paged=args.paged,
-                      page_size=args.page_size,
-                      prefill_chunk=args.prefill_chunk)
+                      max_len=args.max_len, page_size=args.page_size)
 
     rng = np.random.default_rng(0)
     reqs = []

@@ -6,8 +6,9 @@
 plain versions for CPU tensors or with ``backend="ref"``. Both follow the
 Pallas kernels' numerics (fp32 probabilities into the PV product).
 ``attention_ref`` is the JAX package's model-level reference, which casts
-the probabilities to v's dtype before PV; it serves the shapes the
-kernel does not take (a query offset or a KV length).
+the probabilities to v's dtype before PV; nothing on the serve path calls
+it. A query offset or a KV length (chunked prefill, dense decode) is not
+ported yet and is refused rather than run on plain torch.
 """
 from __future__ import annotations
 
@@ -20,30 +21,19 @@ from repro_torch.kernels import ops as kops
 NEG_INF = -1e30
 
 
-def attention_ref(q, k, v, *, causal: bool, q_offset=0, kv_len=None):
-    """q: (B,Sq,H,hd); k,v: (B,T,K,hd). GQA-aware, fp32 softmax.
-
-    q_offset: absolute position of q[0]; kv_len: optional valid KV length
-    (int or (B,) tensor) — masks t >= kv_len."""
+def attention_ref(q, k, v, *, causal: bool):
+    """q: (B,Sq,H,hd); k,v: (B,T,K,hd). GQA-aware, fp32 softmax, causal
+    mask top-left aligned (query i sees keys j <= i)."""
     B, Sq, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     qg = q.reshape(B, Sq, K, G, hd)
     logits = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
                           k.to(torch.float32)) / math.sqrt(hd)
-    dev = q.device
     if causal:
-        s_pos = torch.arange(Sq, device=dev)[:, None] + q_offset
-        t_pos = torch.arange(T, device=dev)[None, :]
+        s_pos = torch.arange(Sq, device=q.device)[:, None]
+        t_pos = torch.arange(T, device=q.device)[None, :]
         logits = logits.masked_fill(~(t_pos <= s_pos), NEG_INF)
-    if kv_len is not None:
-        kv_len = torch.as_tensor(kv_len, device=dev)
-        t = torch.arange(T, device=dev)
-        if kv_len.dim() == 0:
-            lm = (t < kv_len)[None, None, None, None, :]
-        else:
-            lm = (t[None, :] < kv_len[:, None])[:, None, None, None, :]
-        logits = logits.masked_fill(~lm, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype), v)
     return o.reshape(B, Sq, H, hd)
@@ -51,10 +41,13 @@ def attention_ref(q, k, v, *, causal: bool, q_offset=0, kv_len=None):
 
 def attention(q, k, v, *, causal: bool, backend: str = "auto", q_offset=0,
               kv_len=None):
-    if kv_len is None and isinstance(q_offset, int) and q_offset == 0:
-        return kops.flash_attention(q, k, v, causal=causal, backend=backend)
-    return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
-                         kv_len=kv_len)
+    if kv_len is not None or not (isinstance(q_offset, int)
+                                  and q_offset == 0):
+        raise NotImplementedError(
+            "attention with a query offset or a KV length (chunked prefill, "
+            "dense decode) is not ported yet (ROADMAP: deferred serve-engine "
+            "parts)")
+    return kops.flash_attention(q, k, v, causal=causal, backend=backend)
 
 
 def paged_decode_attention(q, k_pages, v_pages, tables, pos, *,

@@ -84,7 +84,7 @@ def _next_pow2(n: int) -> int:
 
 class ServeEngine:
     def __init__(self, run: RunConfig, params, *, device="cuda",
-                 slots: int = 4, max_len: int = 256, paged: bool = False,
+                 slots: int = 4, max_len: int = 256, paged: bool = True,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefill_chunk: int = 0, share_prefix: bool = False,
                  kv_dtype: Optional[str] = None,

@@ -6,9 +6,10 @@ installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: 2e-2 for the attention kernels, one bf16 step at the
-outputs' magnitude (kernel and plain version each round an fp32 result to
-bf16 once, after sums taken in other orders); sampling is bit-exact.
+Tolerances: the attention kernels within 1e-4 + 2**-6 * |plain|
+elementwise, two bf16 steps of the value (kernel and plain version each
+round an fp32 result to bf16 once, after sums taken in other orders, so
+they may differ by one step); sampling is bit-exact.
 """
 import numpy as np
 import pytest
@@ -44,8 +45,8 @@ def test_flash_attention_kernel_on_card(cuda, S, causal):
     v = torch.randn((2, S, 8, 128), generator=g, device=cuda).bfloat16()
     got = ops.flash_attention(q, k, v, causal=causal)
     want = ops.flash_attention(q, k, v, causal=causal, backend="ref")
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
-                               rtol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=2 ** -6)
 
 
 @pytest.mark.cuda
@@ -67,8 +68,8 @@ def test_paged_decode_kernel_on_card(cuda, quant):
                 torch.from_numpy(vp).bfloat16().to(cuda), t, p)
         fn = ops.paged_decode
     got, want = fn(*args), fn(*args, backend="ref")
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
-                               rtol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=2 ** -6)
     assert torch.all(got[1] == 0) and torch.all(got[6] == 0)
     assert torch.equal(got, fn(*args))     # no atomics: same bits again
 

@@ -77,6 +77,30 @@ def test_flash_attention_any_length_plain():
     _close(got, want, TOL["float32"])
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_model_attention_matches_jax(causal):
+    """The model-level entry points: the port's ``attention`` (which
+    dispatches to the flash kernel's plain version on the CPU) against
+    JAX's at ``backend="pallas"`` in interpret mode, and both
+    ``attention_ref``s (bf16 probabilities into PV) against each other.
+    A query offset or a KV length is refused, not run on plain torch."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    rng = np.random.default_rng(11)
+    qn, kn, vn = (rng.standard_normal((2, 16, n, 32), np.float32)
+                  for n in (4, 2, 2))
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, "bfloat16")
+                                    for a in (qn, kn, vn))
+    _close(tattn.attention(qt, kt, vt, causal=causal),
+           jattn.attention(qj, kj, vj, causal=causal, backend="pallas",
+                           interpret=True), TOL["bfloat16"])
+    _close(tattn.attention_ref(qt, kt, vt, causal=causal),
+           jattn.attention_ref(qj, kj, vj, causal=causal), TOL["bfloat16"])
+    for kw in ({"q_offset": 3}, {"kv_len": 8}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tattn.attention(qt, kt, vt, causal=causal, **kw)
+
+
 # ---------------------------------------------------------------------------
 # paged_decode / paged_decode_quant
 # ---------------------------------------------------------------------------

@@ -213,10 +213,11 @@ def test_device_defaults_to_cuda_and_raises_without_it(setup):
 def test_deferred_engine_parts_raise(setup):
     _, _, trun, tp = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(trun, tp, device="cpu")                 # dense layout
+        ServeEngine(trun, tp, device="cpu", paged=False)    # dense layout
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(trun, tp, device="cpu", paged=True, prefill_chunk=4)
-    eng = ServeEngine(trun, tp, device="cpu", paged=True)
+    eng = ServeEngine(trun, tp, device="cpu")           # paged by default
+    assert eng.alloc.page_size == 16
     with pytest.raises(NotImplementedError, match="migration"):
         eng.extract_request()
 
@@ -228,5 +229,8 @@ def test_launch_serve_bare_engine(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["completed"] == out["requests"] == 3
     assert out["generated_tokens"] == 12
-    with pytest.raises(NotImplementedError):
-        serve.main(["--smoke", "--paged", "--device", "cpu", "--fleet", "2"])
+    # options the port does not have yet are refused, not ignored
+    for extra in (["--fleet", "2"], ["--autoscale"], ["--spares", "1"],
+                  ["--slo-max-load", "64"], ["--prefill-chunk", "4"]):
+        with pytest.raises(NotImplementedError, match=extra[0]):
+            serve.main(["--smoke", "--device", "cpu"] + extra)
