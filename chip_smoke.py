@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
 GPU: build its CUDA kernels from this checkout, hold each against its
-plain PyTorch version at the serve path's full-width shapes, then serve
+plain PyTorch version at the main paths' full-width shapes, then serve
 qwen3-0.6b at full width (28 layers, d_model 1024, 16/8 heads of 128,
 vocab 151,936; random weights from ``--seed``) through the paged
-``ServeEngine`` with bf16 and with int8 KV pages.
+``ServeEngine`` with bf16 and with int8 KV pages, and through a
+``ServeFleet`` of two engine tenants under the SVFF manager, reconfigured
+mid-traffic (live pause, reconf through pause and through detach/attach,
+migrate) with the bit-exact staging engine and with the int8 one.
 
     python3 chip_smoke.py            # from the repository root
 
-Phases: card, build, one phase per kernel, serve (bf16, int8), kernels
-line, result line. Any failed check exits non-zero before the result
-line. Details go to ``chiprun_out/chip_smoke.json``. The script imports
-only torch, numpy and the port.
+Phases: card, build, one phase per kernel, serve (bf16, int8), SVFF
+(bit-exact staging, int8 staging), kernels line, result line. Any failed
+check exits non-zero before the result line. Details go to
+``chiprun_out/chip_smoke.json``. The script imports only torch, numpy and
+the port.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +52,26 @@ LOGITS_REL_TOL = 1.5e-2  # prefill logits, kernel path vs plain path, over
 # (mix: 10 integer ops; two portable logs of 18 float ops; 4 more)
 SAMPLE_OPS_PER_NOISY = 50
 SAMPLE_OPS_PER_GREEDY = 2
+
+# the staging kernels: the compressed pause's block (the page pools' last
+# dim is head_dim 128, so block 256 would pack none of them), and the
+# operations each does per element, counted at the fp32 CUDA-core rate
+# (pack: abs, max, divide, round, two clamps; unpack: convert, multiply;
+# digest: per byte, a quarter of two dp4a and the two weight products)
+QDMA_BLOCK = 128
+PACK_OPS, UNPACK_OPS, DIGEST_OPS_PER_BYTE = 6, 2, 1
+# the int8 staging bound: |x - unpack(pack(x))| <= scale * (1/2 + 2**-16)
+# (half a step, plus the roundings of x / scale and q * scale, each at
+# most 127 * scale * 2**-24), plus, for a bf16 leaf, the rounding of the
+# restored value to bf16 (8 significant bits: at most 2**-8 of the value
+# before rounding, which is at most (1 + 2**-7) times the value after)
+INT8_SLACK = 2 ** -16
+BF16_HALF_STEP = 2 ** -8 * (1 + 2 ** -7)
+
+
+SERVE_KERNELS = ("flash_attention", "paged_decode", "paged_decode_quant",
+                 "fused_sample")
+QDMA_KERNELS = ("qdma_pack", "qdma_pack_rows", "qdma_unpack", "qdma_digest")
 
 
 class SmokeFailure(RuntimeError):
@@ -232,17 +259,132 @@ def phase_fused_sample(torch, ops, timer, cfg):
             "library_ms": None}
 
 
+def bits_equal(torch, a, b) -> bool:
+    """Same dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(-1).view(torch.uint8),
+        b.contiguous().view(-1).view(torch.uint8)))
+
+
+def qdma_row(name, shape, ms, plain, nbytes, ops, **extra):
+    b_ms, b_by = bound(nbytes, ops, FP32_FLOP_PER_S)
+    log(f"{name} {shape}: bit-exact | kernel {ms:.4f} ms | plain "
+        f"{plain:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+    return dict({"shape": shape, "max_abs_err": 0.0, "ms": ms,
+                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None}, **extra)
+
+
+def phase_qdma_pack(torch, ops, timer, cfg):
+    """qdma_pack and qdma_unpack on a fp32 MLP leaf and a bf16 K pool,
+    qdma_pack_rows on one ~32 MiB descriptor of the MLP leaf at a nonzero
+    row offset; each output against the plain version bit for bit."""
+    from repro_torch.core.staging import StagingEngine
+    g = torch.Generator(device="cuda").manual_seed(21)
+    L, E, F = cfg.num_layers, cfg.d_model, cfg.d_ff
+    leaves = {
+        f"fp32 MLP ({L},{E},{F})": torch.randn((L, E, F), generator=g,
+                                               device="cuda") * 0.02,
+        f"bf16 K pool ({L},513,16,{cfg.num_kv_heads},{cfg.head_dim})":
+            torch.randn((L, 513, 16, cfg.num_kv_heads, cfg.head_dim),
+                        generator=g, device="cuda").bfloat16(),
+    }
+    out = {"qdma_pack": [], "qdma_unpack": [], "qdma_pack_rows": []}
+    B = QDMA_BLOCK
+    for shape, x in leaves.items():
+        q, s = ops.qdma_pack(x, block=B)
+        wq, ws = ops.qdma_pack(x, block=B, backend="ref")
+        torch.cuda.synchronize()
+        check(bits_equal(torch, q, wq) and bits_equal(torch, s, ws),
+              f"qdma_pack {shape}: differs from the plain version")
+        n = x.numel()
+        io = x.numel() * x.element_size() + q.numel() + s.numel() * 4
+        out["qdma_pack"].append(qdma_row(
+            "qdma_pack", shape, timer.ms(lambda: ops.qdma_pack(x, block=B)),
+            timer.ms(lambda: ops.qdma_pack(x, block=B, backend="ref"),
+                     reps=5), io, PACK_OPS * n))
+        u = ops.qdma_unpack(q, s, dtype=x.dtype)
+        wu = ops.qdma_unpack(q, s, dtype=x.dtype, backend="ref")
+        torch.cuda.synchronize()
+        check(bits_equal(torch, u, wu),
+              f"qdma_unpack {shape}: differs from the plain version")
+        out["qdma_unpack"].append(qdma_row(
+            "qdma_unpack", shape,
+            timer.ms(lambda: ops.qdma_unpack(q, s, dtype=x.dtype)),
+            timer.ms(lambda: ops.qdma_unpack(q, s, dtype=x.dtype,
+                                             backend="ref"), reps=5),
+            io, UNPACK_OPS * n))
+        del q, s, wq, ws, u, wu
+    # one descriptor of the pipelined save: the staging engine's own row
+    # chunking of the MLP leaf, the sixth chunk (lo > 0)
+    x = next(iter(leaves.values()))
+    R = x.numel() // x.shape[-1]
+    lo, hi = StagingEngine()._row_chunks(x.numel() * 4, R)[5]
+    q, s = ops.qdma_pack_rows(x, lo, rows=hi - lo, block=B)
+    wq, ws = ops.qdma_pack_rows(x, lo, rows=hi - lo, block=B, backend="ref")
+    torch.cuda.synchronize()
+    check(lo > 0 and bits_equal(torch, q, wq) and bits_equal(torch, s, ws),
+          f"qdma_pack_rows [{lo}, {hi}): differs from the plain version")
+    n = (hi - lo) * x.shape[-1]
+    shape = f"rows [{lo},{hi}) of the fp32 MLP leaf's ({R},{F}) view"
+    out["qdma_pack_rows"].append(qdma_row(
+        "qdma_pack_rows", shape,
+        timer.ms(lambda: ops.qdma_pack_rows(x, lo, rows=hi - lo, block=B)),
+        timer.ms(lambda: ops.qdma_pack_rows(x, lo, rows=hi - lo, block=B,
+                                            backend="ref"), reps=5),
+        n * 4 + n + s.numel() * 4, PACK_OPS * n))
+    return out
+
+
+def phase_qdma_digest(torch, ops, timer, cfg):
+    """qdma_digest of the fp32 embedding, of byte lengths that are not
+    multiples of 16 (or of the JAX kernel's 64 KiB tile), of a view at an
+    odd offset, and of bool and int32 leaves; each (2,) result against
+    the plain version word for word."""
+    g = torch.Generator(device="cuda").manual_seed(22)
+    emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=g,
+                      device="cuda")
+    u8 = emb.view(-1).view(torch.uint8)
+    cases = {
+        f"fp32 embedding ({cfg.vocab_size},{cfg.d_model})": emb,
+        f"{u8.numel() - 13} bytes (ragged tail)": u8[:-13],
+        f"{u8.numel() - 3} bytes at offset 3": u8[3:],
+        "bool (1048583,)": torch.rand(1 << 20 | 7, generator=g,
+                                      device="cuda") < 0.5,
+        "int32 (513,1001)": torch.randint(-2**31, 2**31 - 1, (513, 1001),
+                                          generator=g, device="cuda",
+                                          dtype=torch.int32),
+    }
+    rows = []
+    for shape, x in cases.items():
+        got, want = ops.qdma_digest(x), ops.qdma_digest(x, backend="ref")
+        check(torch.equal(got, want), f"qdma_digest {shape}: "
+                                      f"{got.tolist()} != {want.tolist()}")
+        check(torch.equal(got, ops.qdma_digest(x)),
+              f"qdma_digest {shape}: not deterministic")
+        if rows:
+            log(f"qdma_digest {shape}: {got.tolist()} == plain")
+            continue
+        nb = x.numel() * x.element_size()
+        rows.append(qdma_row(
+            "qdma_digest", shape, timer.ms(lambda: ops.qdma_digest(x)),
+            timer.ms(lambda: ops.qdma_digest(x, backend="ref"), reps=3),
+            nb + 8, DIGEST_OPS_PER_BYTE * nb))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # serve at full width
 # ---------------------------------------------------------------------------
-def make_requests(Request, vocab: int, seed: int):
+def make_requests(Request, vocab: int, seed: int, first_rid: int = 0):
     rng = np.random.default_rng(seed)
     lens = rng.integers(5, 601, 16)
     lens[:2] = (200, 384)
     reqs = []
     for i, n in enumerate(lens):
         reqs.append(Request(
-            rid=i, prompt=rng.integers(0, vocab, int(n)).astype(np.int32),
+            rid=first_rid + i,
+            prompt=rng.integers(0, vocab, int(n)).astype(np.int32),
             max_new_tokens=32, temperature=0.8 if i % 2 else 0.0,
             top_k=50 if i % 4 == 1 else 0, seed=seed + i))
     return reqs
@@ -300,6 +442,280 @@ def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
     del eng
     torch.cuda.empty_cache()
     return [list(r.out) for r in reqs], metrics, counts
+
+
+# ---------------------------------------------------------------------------
+# SVFF: engines as tenants of the manager, reconfigured under traffic
+# ---------------------------------------------------------------------------
+class StagingLog:
+    """Wraps a StagingEngine's save and restore to keep each call's
+    TransferStats (and, with ``keep``, the tree the last save was handed:
+    the state a pause exported)."""
+
+    def __init__(self, engine, keep: bool = False):
+        self.saves, self.restores, self.last_tree = [], [], None
+        save, restore = engine.save, engine.restore
+
+        def logged_save(tree, *a, **k):
+            out = save(tree, *a, **k)
+            self.saves.append(engine.last_stats)
+            if keep:
+                self.last_tree = tree
+            return out
+
+        def logged_restore(*a, **k):
+            out = restore(*a, **k)
+            self.restores.append(engine.last_stats)
+            return out
+        engine.save, engine.restore = logged_save, logged_restore
+
+
+def transfer_row(stats) -> dict:
+    moved = sum(s.bytes_moved for s in stats)
+    secs = sum(s.seconds for s in stats)
+    return {"calls": len(stats), "bytes_moved": moved,
+            "logical_bytes": sum(s.logical_bytes for s in stats),
+            "skipped_bytes": sum(s.skipped_bytes for s in stats),
+            "seconds": secs, "gb_per_s": moved / max(secs, 1e-9) / 1e9}
+
+
+def fleet_requests(Request, vocab: int, seed: int) -> list:
+    """Sixteen requests per engine of a two-engine fleet: two draws."""
+    return (make_requests(Request, vocab, seed)
+            + make_requests(Request, vocab, seed + 1, first_rid=16))
+
+
+def make_fleet(run, params, device, workdir):
+    """Two engine tenants of qwen3-0.6b (8 slots, max_len 1024, page 16,
+    bf16 KV, fused sampling) over a pool of four logical slots."""
+    from repro_torch.serve.fleet import ServeFleet
+    return ServeFleet(run, params, num_engines=2, num_devices=4, slots=8,
+                      max_len=1024, page_size=16, fused_sampling=True,
+                      device=device, workdir=workdir)
+
+
+def drive_fleet(fleet, reqs, schedule: dict, label: str) -> list:
+    """Submit every request, step the fleet, running ``schedule[k]()``
+    before fleet step k; drain, and check that every request completed.
+    Returns the token streams."""
+    for r in reqs:
+        fleet.submit(r)
+    for k in range(max(schedule, default=-1) + 1):
+        if k in schedule:
+            schedule[k]()
+        fleet.step()
+    res = fleet.drain()
+    check(res.drained and all(r.done and r.error is None for r in reqs),
+          f"{label}: not every request completed")
+    check(all(len(r.out) == 32 for r in reqs),
+          f"{label}: a request stopped short")
+    check(not fleet.mgr.journal.pending(), f"{label}: journal entries left "
+                                           "pending")
+    return [list(r.out) for r in reqs]
+
+
+def engine_bytes(torch, eng) -> int:
+    """Device bytes an engine holds: params, their compute-dtype copy and
+    the page pools, each storage counted once."""
+    from repro_torch.tree import tree_leaves
+    seen = {}
+    for t in (tree_leaves(eng.params) + tree_leaves(eng._cparams)
+              + tree_leaves(eng._cache)):
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def allocated(torch, device) -> int:
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(device)
+
+
+def release(torch):
+    """Return what the dropped objects held to the card."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def phase_svff(torch, run, params, seed, device, workdir):
+    """The paper-faithful path (the default staging engine: bit-exact, no
+    compression): a reference fleet serves 32 requests undisturbed; a
+    second fleet serves the same requests while it runs, mid-traffic, a
+    live pause of serve0 (two pre-copy rounds) and its unpause, the
+    reconf cycle to 3 VFs through pause, the same through detach/attach
+    (state parked on disk), and a migrate of serve1. Every token stream
+    must equal the reference's; the pause must free the paused engine's
+    device memory and the unpause bring it back."""
+    from repro_torch.serve.engine import Request
+    vocab = run.model.vocab_size
+    fleet = make_fleet(run, params, device, os.path.join(workdir, "ref"))
+    ref = drive_fleet(fleet, fleet_requests(Request, vocab, seed), {},
+                      "SVFF reference")
+    del fleet
+    release(torch)
+    fleet = make_fleet(run, params, device, os.path.join(workdir, "svff"))
+    slog = StagingLog(fleet.mgr.staging)
+    res = {}
+
+    def live():
+        eng = fleet.tenants["serve0"].engine
+        state = engine_bytes(torch, eng)
+        m0 = allocated(torch, device)
+        t = fleet.pause_live("serve0", rounds=2)
+        m1 = allocated(torch, device)
+        stop = fleet.mgr.snapshots["serve0"].stats
+        fleet.step()                          # serve1 serves on meanwhile
+        tu = fleet.unpause("serve0")
+        m2 = allocated(torch, device)
+        res["pause_live"] = {
+            "phases_ms": {k: v * 1e3 for k, v in t.phases.items()},
+            "stop_ms": t.stop_ms, "total_ms": t.total * 1e3,
+            "unpause_ms": {k: v * 1e3 for k, v in tu.phases.items()},
+            "stop_and_copy": transfer_row([stop]),
+            "precopy_and_stop": transfer_row(slog.saves[-3:]),
+            "restore": transfer_row(slog.restores[-1:]),
+            "engine_bytes": state, "freed_bytes": m0 - m1,
+            "back_bytes": m2 - m1}
+        if device.type == "cuda":
+            check(m0 - m1 >= 0.9 * state,
+                  f"pause freed {m0 - m1} of the engine's {state} device "
+                  "bytes (< 90%)")
+            check(m2 - m1 >= 0.9 * state,
+                  f"unpause brought back {m2 - m1} of {state} bytes")
+
+    def reconf(use_pause):
+        n0, r0 = len(slog.saves), len(slog.restores)
+        tim = fleet.mgr.reconf(3, use_pause=use_pause)
+        res["reconf_pause" if use_pause else "reconf_detach_attach"] = {
+            "table2_ms": {k: v * 1e3 for k, v in tim.items()},
+            "saves": transfer_row(slog.saves[n0:]),
+            "restores": transfer_row(slog.restores[r0:])}
+
+    def migrate():
+        n0 = len(slog.saves)
+        info = fleet.migrate("serve1")
+        res["migrate"] = {"migrate_ms": info["migrate_s"] * 1e3,
+                          "new_devices": info["new_devices"],
+                          "saves": transfer_row(slog.saves[n0:])}
+
+    out = drive_fleet(fleet, fleet_requests(Request, vocab, seed),
+                      {6: live, 14: lambda: reconf(True),
+                       20: lambda: reconf(False), 26: migrate}, "SVFF")
+    check(out == ref, "SVFF: a reconfiguration changed the tokens (I10)")
+    return res
+
+
+def int8_bound(torch, exported, eng, engine, label) -> float:
+    """The restored state against the state the pause exported: each
+    leaf the staging engine packed within its blocks' int8 bound, every
+    other leaf equal. Returns the largest share of the bound used."""
+    from repro_torch.kernels.ref import INV127
+    from repro_torch.tree import flatten
+    want = flatten({"params": exported["params"],
+                    "cache": exported["cache"]})[0]
+    got = flatten({"params": eng.params, "cache": eng._cache})[0]
+    check([p for p, _ in want] == [p for p, _ in got],
+          f"{label}: the restored state has another structure")
+    for key in ("pos", "last_token", "tables"):
+        check(np.array_equal(exported[key], getattr(eng, key)),
+              f"{label}: {key} changed")
+    worst = 0.0
+    for (path, x), (_, y) in zip(want, got):
+        if not engine._pack_eligible(x):
+            check(bits_equal(torch, x, y), f"{label} {path}: changed")
+            continue
+        xb = x.float().reshape(-1, QDMA_BLOCK)
+        yb = y.float().reshape(-1, QDMA_BLOCK)
+        lim = ((xb.abs().amax(-1, keepdim=True) * INV127).clamp_min(1e-12)
+               * (0.5 + INT8_SLACK))
+        if x.dtype == torch.bfloat16:
+            lim = lim + yb.abs() * BF16_HALF_STEP
+        share = float(((xb - yb).abs() / lim).max())
+        check(share <= 1, f"{label} {path}: restored value outside the int8 "
+                          f"bound ({share:.3g} of it)")
+        worst = max(worst, share)
+    return worst
+
+
+def phase_svff_int8(torch, run, params, seed, device, workdir):
+    """The compressed path: the same fleet and traffic with the int8
+    staging engine (block 128, digest dirty tracking, stream transport)
+    for a live pause of serve0 and its unpause, then one pause of serve1
+    through the PR-1 engine (``pipeline=False``). Int8 staging is lossy
+    by design, so tokens are not compared: every request must complete,
+    each restored leaf must lie within its int8 bound of the exported
+    one, and each save must move under 40% of the logical bytes."""
+    from repro_torch.core.staging import StagingEngine
+    from repro_torch.serve.engine import Request
+    fleet = make_fleet(run, params, device, os.path.join(workdir, "int8"))
+    res = {}
+
+    def pause_cycle(tid, engine, live):
+        fleet.mgr.staging = engine
+        slog = StagingLog(engine, keep=True)
+        tn = fleet.tenants[tid]
+        t = (fleet.pause_live(tid, rounds=2) if live
+             else fleet.mgr.pause(tn))
+        exported, slog.last_tree = slog.last_tree, None
+        fleet.step()
+        tu = fleet.unpause(tid)
+        share = int8_bound(torch, exported, tn.engine, engine, tid)
+        for s in slog.saves:
+            check(s.bytes_moved < 0.4 * s.logical_bytes,
+                  f"{tid}: an int8 save moved {s.bytes_moved} of "
+                  f"{s.logical_bytes} logical bytes (>= 40%)")
+        res["pause_live" if live else "pause_pipeline_false"] = {
+            "stop_ms": t.stop_ms, "total_ms": t.total * 1e3,
+            "unpause_ms": tu.total * 1e3,
+            "saves": [transfer_row([s]) for s in slog.saves],
+            "restores": transfer_row(slog.restores),
+            "int8_bound_share": share}
+
+    drive_fleet(fleet, fleet_requests(Request, run.model.vocab_size, seed),
+                {6: lambda: pause_cycle("serve0", StagingEngine(
+                    compression="int8", block=QDMA_BLOCK, incremental=True,
+                    dirty="digest", transport="stream"), True),
+                 12: lambda: pause_cycle("serve1", StagingEngine(
+                     compression="int8", block=QDMA_BLOCK, pipeline=False),
+                     False)}, "SVFF int8")
+    return res
+
+
+def log_svff(report, card):
+    """The SVFF phases' numbers, each line with the card's name and power
+    limit."""
+    sv, s8 = report["svff"], report["svff_int8"]
+    for key, what in (("reconf_pause", "pause/unpause"),
+                      ("reconf_detach_attach", "detach/attach")):
+        t = sv[key]["table2_ms"]
+        log(f"SVFF reconf to 3 VFs via {what}: " + ", ".join(
+            f"{k} {t[k]:.2f}" for k in ("rescan", "remove_vf",
+                                        "change_num_vf", "add_vf", "total"))
+            + f" ms | saves {sv[key]['saves']['bytes_moved']:,} B at "
+            f"{sv[key]['saves']['gb_per_s']:.2f} GB/s | {card}")
+    p = sv["pause_live"]
+    log(f"SVFF live pause (2 pre-copy rounds): stop {p['stop_ms']:.2f} ms of "
+        f"{p['total_ms']:.2f} ms total | stop-and-copy "
+        f"{p['stop_and_copy']['bytes_moved']:,} B at "
+        f"{p['stop_and_copy']['gb_per_s']:.2f} GB/s | restore "
+        f"{p['restore']['bytes_moved']:,} B at "
+        f"{p['restore']['gb_per_s']:.2f} GB/s | freed "
+        f"{p['freed_bytes']:,} of the engine's {p['engine_bytes']:,} device "
+        f"bytes, {p['back_bytes']:,} back | {card}")
+    log(f"SVFF migrate serve1: {sv['migrate']['migrate_ms']:.2f} ms | tokens "
+        f"equal the undisturbed fleet's | {card}")
+    for key in ("pause_live", "pause_pipeline_false"):
+        p = s8[key]
+        moved = [s["bytes_moved"] / max(s["logical_bytes"], 1)
+                 for s in p["saves"]]
+        log(f"SVFF int8 {key}: stop {p['stop_ms']:.2f} ms of "
+            f"{p['total_ms']:.2f} ms | saves moved "
+            + ", ".join(f"{m:.3f}" for m in moved)
+            + f" of logical | restore {p['restores']['gb_per_s']:.2f} GB/s |"
+            f" int8 bound share {p['int8_bound_share']:.3g} | {card}")
 
 
 def phase_prefill_logits(torch, run, params, seed):
@@ -423,7 +839,9 @@ def main(argv=None) -> int:
                                                quant=False),
             "paged_decode_quant": phase_paged_decode(torch, ops, timer, cfg,
                                                      quant=True),
-            "fused_sample": phase_fused_sample(torch, ops, timer, cfg)}
+            "fused_sample": phase_fused_sample(torch, ops, timer, cfg),
+            **phase_qdma_pack(torch, ops, timer, cfg),
+            "qdma_digest": phase_qdma_digest(torch, ops, timer, cfg)}
     del timer
     torch.cuda.empty_cache()
 
@@ -435,14 +853,14 @@ def main(argv=None) -> int:
     report["prefill_logits_rel_err"] = phase_prefill_logits(
         torch, run, params, args.seed)
 
-    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    launches = dict.fromkeys(SERVE_KERNELS, 0)
     report["serve"] = {}
     for kv in (None, "int8"):
         name = kv or "bf16"
         out, met, counts = serve(torch, ops, run, params, kv, args.seed,
                                  count=True)
-        for k, n in counts.items():
-            launches[k] += n
+        for k in SERVE_KERNELS:
+            launches[k] += counts[k]
         host, _, _ = serve(torch, ops, run, params, kv, args.seed,
                            fused=False)
         check(host == out, f"serve kv={name}: host sampling gives other "
@@ -459,8 +877,33 @@ def main(argv=None) -> int:
             f"{met['tokens_per_s']:.1f} tokens/s | {card} | fused == host "
             f"sampling, pause round trip token-identical | launches "
             f"{json.dumps(counts)}")
-    for k, n in launches.items():
-        check(n > 0, f"{k} was never launched on the serve path")
+    for k in SERVE_KERNELS:
+        check(launches[k] > 0, f"{k} was never launched on the serve path")
+
+    # the SVFF path, each run with the counts set to 0 just before it
+    workdir = tempfile.mkdtemp(prefix="svff_smoke_")
+    try:
+        ops.reset_launch_counts()
+        report["svff"] = phase_svff(torch, run, params, args.seed,
+                                    torch.device("cuda"), workdir)
+        counts = ops.launch_counts()
+        report["svff"]["launches"] = counts
+        for k in ("flash_attention", "paged_decode", "fused_sample"):
+            check(counts[k] > 0, f"{k} was never launched on the SVFF path")
+        release(torch)
+        ops.reset_launch_counts()
+        report["svff_int8"] = phase_svff_int8(torch, run, params, args.seed,
+                                              torch.device("cuda"), workdir)
+        counts = ops.launch_counts()
+        report["svff_int8"]["launches"] = counts
+        for k in QDMA_KERNELS:
+            check(counts[k] > 0, f"{k} was never launched on the int8 SVFF "
+                                 "path")
+            launches[k] = counts[k]
+        release(torch)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log_svff(report, card)
 
     sources = {"flash_attention": ("flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:77"),
@@ -469,11 +912,20 @@ def main(argv=None) -> int:
                "paged_decode_quant": ("paged_decode.cu",
                                       "src/repro/kernels/paged_decode.py:112"),
                "fused_sample": ("fused_sample.cu",
-                                "src/repro/kernels/sampling.py:221")}
+                                "src/repro/kernels/sampling.py:221"),
+               "qdma_pack": ("qdma_pack.cu",
+                             "src/repro/kernels/qdma_pack.py:53"),
+               "qdma_pack_rows": ("qdma_pack.cu",
+                                  "src/repro/kernels/qdma_pack.py:79"),
+               "qdma_unpack": ("qdma_pack.cu",
+                               "src/repro/kernels/qdma_pack.py:142"),
+               "qdma_digest": ("qdma_pack.cu",
+                               "src/repro/kernels/qdma_pack.py:117")}
     line = []
     for name, (src, replaces) in sources.items():
         rows = kern[name] if isinstance(kern[name], list) else [kern[name]]
-        main_row = rows[-1]                  # flash: the S=384 prompt
+        # flash: the S=384 prompt; qdma: the fp32 leaf or descriptor
+        main_row = rows[0] if name.startswith("qdma") else rows[-1]
         line.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",

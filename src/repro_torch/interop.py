@@ -1,4 +1,5 @@
-"""Carry weights between the JAX package and the port.
+"""Carry weights and staged snapshots between the JAX package and the
+port.
 
 The JAX package and the port name their parameter leaves alike and both
 stack each block's leaves over a leading ``nper`` (period) axis, so a
@@ -12,8 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.staging import QuantizedLeaf, _Opaque
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten, tree_map, unflatten
 
 
 def _to_torch(a, device):
@@ -44,3 +46,42 @@ def params_to_jax(tree) -> dict:
     """Inverse of ``params_from_jax``: torch tensors -> numpy arrays (which
     ``jnp.asarray`` takes as they are)."""
     return tree_map(_to_numpy, tree)
+
+
+def staged_from_jax(payload):
+    """A JAX ``StagingEngine.save`` payload -> the port's: every numpy
+    leaf becomes a CPU tensor of the same bytes (the JAX payload does not
+    tell device leaves from host ones, so all come over as tensors), and
+    each packed leaf a port ``QuantizedLeaf`` of CPU tensors."""
+    flat, treedef = flatten(payload, is_leaf=lambda x: hasattr(x, "leaf"))
+    out = []
+    for _, x in flat:
+        if hasattr(x, "leaf"):                       # the JAX _Opaque
+            ql = x.leaf
+            x = _Opaque(QuantizedLeaf(
+                q=_to_torch(ql.q, "cpu"), scale=_to_torch(ql.scale, "cpu"),
+                dtype=str(ql.dtype), block=int(ql.block)))
+        else:
+            x = _to_torch(x, "cpu")
+        out.append(x)
+    return unflatten(treedef, out)
+
+
+def staged_to_jax(payload, opaque_cls, quantized_cls):
+    """The port's payload -> a JAX one, for ``repro.core.staging``'s
+    ``_Opaque`` and ``QuantizedLeaf`` (passed in: the port does not
+    import the JAX package). Tensors become numpy arrays of the same
+    bytes (bfloat16 through ``ml_dtypes``); numpy leaves stay."""
+    flat, treedef = flatten(payload, is_leaf=lambda x: isinstance(
+        x, _Opaque))
+    out = []
+    for _, x in flat:
+        if isinstance(x, _Opaque):
+            ql = x.leaf
+            x = opaque_cls(quantized_cls(
+                q=_to_numpy(ql.q), scale=_to_numpy(ql.scale),
+                dtype=ql.dtype, block=ql.block))
+        elif isinstance(x, torch.Tensor):
+            x = _to_numpy(x)
+        out.append(x)
+    return unflatten(treedef, out)

@@ -29,6 +29,7 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 #: source stem -> (extra nvcc flags, {exported function: argtypes})
 KERNELS = {
@@ -43,6 +44,13 @@ KERNELS = {
     # division and square root
     "fused_sample": (("--fmad=false", "-prec-div=true", "-prec-sqrt=true"), {
         "launch_fused_sample": [_P, _P, _P, _I, _I, _P],
+    }),
+    # the staging kernels are bit-exact against the plain versions: the
+    # same flags as the sampler
+    "qdma_pack": (("--fmad=false", "-prec-div=true"), {
+        "launch_qdma_pack": [_P, _P, _P, _L, _I, _I, _P],
+        "launch_qdma_unpack": [_P, _P, _P, _L, _I, _I, _P],
+        "launch_qdma_digest": [_P, _L, _P, _P],
     }),
 }
 

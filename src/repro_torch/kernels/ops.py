@@ -26,7 +26,9 @@ from repro_torch.kernels.sampling import prepare_rows
 
 #: launches per kernel since the last ``reset_launch_counts``
 LAUNCHES = {"flash_attention": 0, "paged_decode": 0,
-            "paged_decode_quant": 0, "fused_sample": 0}
+            "paged_decode_quant": 0, "fused_sample": 0,
+            "qdma_pack": 0, "qdma_pack_rows": 0, "qdma_unpack": 0,
+            "qdma_digest": 0}
 
 
 def launch_counts() -> dict:
@@ -183,3 +185,123 @@ def fused_sample(logits, temp, top_k, keys, *, vocab_size: int,
     keys4 = torch.cat([keys.to(device=z.device, dtype=torch.int32),
                        noisy.to(torch.int32)[:, None]], dim=1).contiguous()
     return sample_rows(z.contiguous(), keys4, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# the staging engine's kernels (qdma_pack.cu)
+# ---------------------------------------------------------------------------
+#: dtypes the pack kernel reads and the unpack kernel writes (bf16 flag)
+_QDMA_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+_QDMA_MAX_GROUP_BYTES = 32 * 16 * 4     # 32 lanes x kMaxChunks 16-byte loads
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or its name ("float32",
+    "bfloat16"; the names the JAX package stores in a QuantizedLeaf)."""
+    return dtype if isinstance(dtype, torch.dtype) else getattr(torch, dtype)
+
+
+def _aligned(name: str, t: torch.Tensor):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _pack_launch(kernel: str, x, lo: int, rows: int, block: int):
+    """Launch the pack kernel on rows [lo, lo+rows) of x's row view:
+    the pointer is offset, nothing is sliced or copied."""
+    if x.dtype not in _QDMA_TYPES:
+        raise TypeError(f"{kernel} kernel takes float32 or bfloat16, "
+                        f"not {x.dtype}")
+    L = x.shape[-1] if x.dim() else 1
+    group = block * x.element_size()
+    if block < 1 or L % block or group % 16 or group > _QDMA_MAX_GROUP_BYTES:
+        raise ValueError(f"{kernel} kernel: block {block} over last dim {L} "
+                         f"of {x.dtype} (a block must divide the last dim "
+                         f"and span 16..{_QDMA_MAX_GROUP_BYTES} bytes in "
+                         "16-byte steps)")
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: x must be contiguous")
+    _aligned("x", x)
+    R = x.numel() // L
+    if lo < 0 or rows < 0 or lo + rows > R:
+        raise ValueError(f"{kernel}: rows [{lo}, {lo + rows}) outside "
+                         f"the {R} rows of x")
+    q = torch.empty((rows, L), dtype=torch.int8, device=x.device)
+    scale = torch.empty((rows, L // block), dtype=torch.float32,
+                        device=x.device)
+    if rows:
+        _launch(kernel, "qdma_pack", "launch_qdma_pack",
+                x.data_ptr() + lo * L * x.element_size(), q.data_ptr(),
+                scale.data_ptr(), rows * (L // block), block,
+                _QDMA_TYPES[x.dtype], _stream(x.device))
+    return q, scale
+
+
+def qdma_pack(x, *, block: int = 256, backend: str = "auto"):
+    """Blockwise symmetric int8 over the last dim: x (..., L) float32 or
+    bfloat16, L % block == 0 -> (q int8 (..., L), scale float32
+    (..., L/block))."""
+    if _plain(backend, x):
+        return _ref.qdma_pack_ref(x, block=block)
+    L = x.shape[-1]
+    q, scale = _pack_launch("qdma_pack", x, 0, x.numel() // L, block)
+    return q.reshape(x.shape), scale.reshape(x.shape[:-1] + (L // block,))
+
+
+def qdma_pack_rows(x, lo: int, *, rows: int, block: int = 256,
+                   backend: str = "auto"):
+    """Pack ONE descriptor: rows [lo, lo+rows) of the 2-D row view of x.
+    Returns (q (rows, L) int8, scale (rows, L/block) float32)."""
+    if _plain(backend, x):
+        return _ref.qdma_pack_rows_ref(x, lo, rows, block=block)
+    return _pack_launch("qdma_pack_rows", x, int(lo), int(rows), block)
+
+
+def qdma_unpack(q, scale, *, dtype=torch.float32, out=None,
+                backend: str = "auto"):
+    """Inverse of qdma_pack: ``q * scale`` per block, cast to ``dtype``
+    (float32 or bfloat16, or their names). ``out``, where given, is a
+    contiguous tensor of q's element count that receives the result."""
+    dtype = as_dtype(dtype)
+    if _plain(backend, q):
+        x = _ref.qdma_unpack_ref(q, scale, dtype=dtype)
+        return x if out is None else out.copy_(x.reshape(out.shape))
+    L, nb = q.shape[-1], scale.shape[-1]
+    block = L // max(nb, 1)
+    dev = q.device
+    if dtype not in _QDMA_TYPES:
+        raise TypeError(f"qdma_unpack kernel writes float32 or bfloat16, "
+                        f"not {dtype}")
+    if nb < 1 or L % nb or block % 16:
+        raise ValueError(f"qdma_unpack kernel: {nb} scales over last dim "
+                         f"{L} (the block must be a multiple of 16)")
+    _want("q", q, torch.int8, q.shape, dev)
+    _want("scale", scale, torch.float32, q.shape[:-1] + (nb,), dev)
+    if out is None:
+        out = torch.empty(q.shape, dtype=dtype, device=dev)
+    _want("out", out, dtype, out.shape, dev)
+    if out.numel() != q.numel():
+        raise ValueError(f"out holds {out.numel()} values, q {q.numel()}")
+    _aligned("q", q)
+    _aligned("out", out)
+    if q.numel():
+        _launch("qdma_unpack", "qdma_pack", "launch_qdma_unpack",
+                q.data_ptr(), scale.data_ptr(), out.data_ptr(), q.numel(),
+                block, _QDMA_TYPES[dtype], _stream(dev))
+    return out
+
+
+def qdma_digest(x, *, backend: str = "auto"):
+    """Content fingerprint of x's raw bytes (any dtype, any size): (2,)
+    int64 holding two uint32 words. Equal bytes give equal digests; the
+    weights depend on the byte's position, so permutations do not."""
+    if _plain(backend, x):
+        return _ref.qdma_digest_ref(x)
+    u = _ref.bytes_view(x)
+    if u.data_ptr() % 16:
+        u = u.clone()                 # a view at an odd offset: realign
+    out = torch.zeros((2,), dtype=torch.int32, device=x.device)
+    if u.numel():
+        _launch("qdma_digest", "qdma_pack", "launch_qdma_digest",
+                u.data_ptr(), u.numel(), out.data_ptr(), _stream(x.device))
+    return out.to(torch.int64) & 0xFFFFFFFF

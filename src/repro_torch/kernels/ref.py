@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.sampling import torch_gumbel
@@ -112,3 +113,87 @@ def sample_rows_ref(z, keys4):
     y = torch.where(keys4[:, 3:4] != 0, z + g, z)
     return torch.argmax(y, dim=-1).to(torch.int32)
 
+
+
+# ---------------------------------------------------------------------------
+# qdma_pack / qdma_unpack / qdma_digest (the staging engine's kernels)
+# ---------------------------------------------------------------------------
+#: float32(1/127). XLA on the CPU compiles the JAX kernels' ``max|x| /
+#: 127.0`` into a multiply by this reciprocal (a division by a constant
+#: becomes a multiply), which can differ from a true division in the last
+#: bit; the plain version and the CUDA kernel multiply by it too, so all
+#: three agree bit for bit. ``x / scale`` stays a true division there.
+INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def qdma_pack_ref(x, block: int = 256):
+    """Blockwise symmetric int8 quantization over the last dim.
+    Returns (q int8 same shape, scale fp32 shape[:-1]+(L/block,)), with
+    ``scale = max(max|x| * INV127, 1e-12)`` per block and
+    ``q = clip(round_half_even(x / scale), -127, 127)``."""
+    L = x.shape[-1]
+    if L % block:
+        raise ValueError(f"last dim {L} is not a multiple of block {block}")
+    xb = x.to(torch.float32).reshape(x.shape[:-1] + (L // block, block))
+    inv = torch.tensor(INV127, dtype=torch.float32, device=x.device)
+    scale = (xb.abs().amax(dim=-1) * inv).clamp_min(1e-12)
+    q = torch.round(xb / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8).reshape(x.shape), scale
+
+
+def qdma_unpack_ref(q, scale, dtype=torch.float32):
+    """Inverse of qdma_pack_ref: ``q * scale`` per block, cast to dtype."""
+    block = q.shape[-1] // scale.shape[-1]
+    qb = q.reshape(q.shape[:-1] + (scale.shape[-1], block))
+    x = qb.to(torch.float32) * scale[..., None]
+    return x.reshape(q.shape).to(dtype)
+
+
+def row_view(x):
+    """The (rows, L) view of x over its last dim (scalars: (1, 1))."""
+    return x.reshape(-1, x.shape[-1]) if x.dim() else x.reshape(1, 1)
+
+
+def qdma_pack_rows_ref(x, lo: int, rows: int, block: int = 256):
+    """Pack rows [lo, lo+rows) of the 2-D row view of x (one descriptor)."""
+    return qdma_pack_ref(row_view(x)[lo:lo + rows], block=block)
+
+
+def bytes_view(x):
+    """Raw little-endian bytes of x as a flat uint8 tensor (bool as 0/1)."""
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+_MASK32 = 0xFFFFFFFF
+#: (multiplier, offset) of the digest's two position weights
+DIGEST_WEIGHTS = ((2654435761, 0x9E3779B1), (0x85EBCA6B, 0xC2B2AE35))
+_DIGEST_CHUNK = 1 << 22
+
+
+def _mul32(i, c: int):
+    """(i * c) mod 2**32 for int64 i in [0, 2**32): split i in 16-bit
+    halves so no product leaves int64."""
+    lo, hi = i & 0xFFFF, i >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _MASK32
+
+
+def qdma_digest_ref(x):
+    """Position-weighted 2x32-bit fingerprint of x's raw bytes u:
+    ``sum u[i] * (i * m + a) mod 2**32`` for the two (m, a) of
+    ``DIGEST_WEIGHTS``, the byte index i taken mod 2**32. Returns (2,)
+    int64 holding the two uint32 words.
+
+    Torch has no wrapping uint32 product, so the words are carried in
+    int64 and masked; the bytes go in chunks of 4 Mi, so the int64
+    temporaries stay at 32 MiB whatever the leaf's size (a chunk's sum
+    stays below 2**62)."""
+    u8 = bytes_view(x)
+    out = torch.zeros((2,), dtype=torch.int64, device=u8.device)
+    for s in range(0, u8.numel(), _DIGEST_CHUNK):
+        v = u8[s:s + _DIGEST_CHUNK].to(torch.int64)
+        i = torch.arange(s, s + v.numel(), dtype=torch.int64,
+                         device=v.device) & _MASK32
+        for j, (m, a) in enumerate(DIGEST_WEIGHTS):
+            w = (_mul32(i, m) + a) & _MASK32
+            out[j] = (out[j] + (v * w).sum()) & _MASK32
+    return out

@@ -9,7 +9,9 @@ installed:
 Tolerances: the attention kernels within 1e-4 + 2**-6 * |plain|
 elementwise, two bf16 steps of the value (kernel and plain version each
 round an fp32 result to bf16 once, after sums taken in other orders, so
-they may differ by one step); sampling is bit-exact.
+they may differ by one step); sampling and the staging kernels
+(``qdma_pack``, ``qdma_pack_rows``, ``qdma_unpack``, ``qdma_digest``) are
+bit-exact.
 """
 import numpy as np
 import pytest
@@ -88,3 +90,71 @@ def test_fused_sample_kernel_bit_exact_on_card(cuda):
     want = ops.fused_sample(logits, temp, top_k, keys, vocab_size=V - 64,
                             backend="ref")
     assert torch.equal(got, want)
+
+
+def _scaled(cuda, shape, dtype, seed):
+    """Rows of very different magnitudes, so every block has its own
+    scale, plus one all-zero block (scale floor)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda)
+    x = x * torch.exp(4 * torch.randn(shape[:-1] + (1,), generator=g,
+                                      device=cuda))
+    x.view(-1, shape[-1])[0, :128] = 0
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [128, 256])
+def test_qdma_pack_unpack_bit_exact_on_card(cuda, dtype, block):
+    x = _scaled(cuda, (3, 37, 512), dtype, block)
+    q, s = ops.qdma_pack(x, block=block)
+    wq, ws = ops.qdma_pack(x, block=block, backend="ref")
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    rq, rs = ops.qdma_pack_rows(x, 29, rows=50, block=block)
+    assert torch.equal(rq, wq.view(-1, 512)[29:79])
+    assert torch.equal(rs, ws.view(-1, 512 // block)[29:79])
+    got = ops.qdma_unpack(q, s, dtype=dtype)
+    want = ops.qdma_unpack(q, s, dtype=dtype, backend="ref")
+    assert got.dtype == dtype and torch.equal(got.view(torch.uint8),
+                                              want.view(torch.uint8))
+    if dtype == torch.float32:
+        # |x - unpack(pack(x))| <= scale / 2, plus the roundings of x /
+        # scale and q * scale (each at most 127 * scale * 2**-24)
+        err = (got - x).view(3, 37, 512 // block, block).abs().amax(-1)
+        assert bool((err <= s * (0.5 + 2 ** -16)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bool", "int8", "int32", "bf16", "fp32",
+                                  "odd_view"])
+def test_qdma_digest_bit_exact_on_card(cuda, case):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n = 65_536 * 3 + 13                     # not a multiple of 16 or 64 Ki
+    x = {"bool": lambda: torch.rand(n, generator=g, device=cuda) < 0.3,
+         "int8": lambda: torch.randint(-128, 128, (n,), generator=g,
+                                       device=cuda, dtype=torch.int8),
+         "int32": lambda: torch.randint(-2**31, 2**31 - 1, (7, 1001),
+                                        generator=g, device=cuda,
+                                        dtype=torch.int32),
+         "bf16": lambda: torch.randn((n,), generator=g,
+                                     device=cuda).bfloat16(),
+         "fp32": lambda: torch.randn((33, 4099), generator=g, device=cuda),
+         "odd_view": lambda: torch.randint(0, 256, (n,), generator=g,
+                                           device=cuda,
+                                           dtype=torch.uint8)[3:]}[case]()
+    got = ops.qdma_digest(x)
+    assert torch.equal(got, ops.qdma_digest(x, backend="ref"))
+    assert torch.equal(got, ops.qdma_digest(x))      # order-free atomics
+
+
+@pytest.mark.cuda
+def test_qdma_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.ones((4, 256), device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        ops.qdma_pack(x, block=128)
+    with pytest.raises(ValueError):
+        ops.qdma_pack(torch.ones((4, 250), device=cuda), block=250)
+    before = dict(ops.LAUNCHES)
+    ops.qdma_digest(torch.ones(5, device=cuda))
+    assert ops.LAUNCHES["qdma_digest"] == before["qdma_digest"] + 1
