@@ -27,6 +27,7 @@ item 12) and the gang ops of pipeline-parallel engines (``attach_group``,
 from __future__ import annotations
 
 import os
+import tempfile
 import time
 from typing import Optional, Sequence
 
@@ -58,7 +59,7 @@ _GANG = ("gang ops of pipeline-parallel engines are not ported yet "
 class SVFFManager:
     def __init__(self, pool: DevicePool, *,
                  staging: Optional[StagingEngine] = None,
-                 workdir: str = "/tmp/svff",
+                 workdir: Optional[str] = None,
                  pause_enabled: bool = True,
                  scheduler: "Scheduler | str | None" = None,
                  records: Optional[RecordStore] = None,
@@ -66,6 +67,8 @@ class SVFFManager:
         self.pool = pool
         self.staging = staging or StagingEngine()
         self.pause_enabled = pause_enabled
+        # a fresh private directory unless the caller names one
+        workdir = workdir or tempfile.mkdtemp(prefix="svff_")
         self.workdir = workdir
         self.records = records or RecordStore(os.path.join(workdir,
                                                            "records"))

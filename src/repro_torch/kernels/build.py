@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -55,6 +56,9 @@ KERNELS = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# first uses from several threads (the staging engine's pool) build and
+# load a library once
+_load_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -115,13 +119,17 @@ def build(names=None) -> dict:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in KERNELS[name][1].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in KERNELS[name][1].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
     return lib

@@ -229,12 +229,16 @@ int grid_for(long long items_per_block_unit, long long units) {
 }  // namespace
 
 // x: (groups * block) fp32 or bf16 (bf16 != 0), 16-byte aligned; q: the
-// same count of int8; scale: (groups,) fp32. block * sizeof(x) must be a
-// multiple of 16 and at most 32 * 16 * kMaxChunks bytes (the wrapper
-// checks). Returns cudaGetLastError().
+// same count of int8; scale: (groups,) fp32. A group (block * sizeof(x)
+// bytes) must be a multiple of 16 bytes and fit the warp's registers, at
+// most 32 * 16 * kMaxChunks bytes: else cudaErrorInvalidValue and no
+// launch. Returns cudaGetLastError().
 extern "C" int launch_qdma_pack(const void* x, void* q, void* scale,
                                 long long groups, int block, int bf16,
                                 void* stream) {
+  const long long group_bytes = static_cast<long long>(block) * (bf16 ? 2 : 4);
+  if (block < 1 || group_bytes % 16 || group_bytes > 32 * 16 * kMaxChunks)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int grid = grid_for(kThreads / 32, groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {

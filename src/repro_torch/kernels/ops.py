@@ -18,6 +18,8 @@ shows through these counts which kernels it went through.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import build
@@ -29,6 +31,8 @@ LAUNCHES = {"flash_attention": 0, "paged_decode": 0,
             "paged_decode_quant": 0, "fused_sample": 0,
             "qdma_pack": 0, "qdma_pack_rows": 0, "qdma_unpack": 0,
             "qdma_digest": 0}
+# the staging engine launches from a thread pool (pipeline=False)
+_COUNT_LOCK = threading.Lock()
 
 
 def launch_counts() -> dict:
@@ -69,7 +73,8 @@ def _launch(kernel: str, lib_name: str, fn: str, *args):
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: "
                            f"{lib.kernel_error_string(rc).decode()}")
-    LAUNCHES[kernel] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def _stream(device) -> int:
@@ -192,7 +197,6 @@ def fused_sample(logits, temp, top_k, keys, *, vocab_size: int,
 # ---------------------------------------------------------------------------
 #: dtypes the pack kernel reads and the unpack kernel writes (bf16 flag)
 _QDMA_TYPES = {torch.float32: 0, torch.bfloat16: 1}
-_QDMA_MAX_GROUP_BYTES = 32 * 16 * 4     # 32 lanes x kMaxChunks 16-byte loads
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -213,12 +217,11 @@ def _pack_launch(kernel: str, x, lo: int, rows: int, block: int):
         raise TypeError(f"{kernel} kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
     L = x.shape[-1] if x.dim() else 1
-    group = block * x.element_size()
-    if block < 1 or L % block or group % 16 or group > _QDMA_MAX_GROUP_BYTES:
-        raise ValueError(f"{kernel} kernel: block {block} over last dim {L} "
-                         f"of {x.dtype} (a block must divide the last dim "
-                         f"and span 16..{_QDMA_MAX_GROUP_BYTES} bytes in "
-                         "16-byte steps)")
+    # the group's byte size is checked by launch_qdma_pack (invalid
+    # argument), which knows what fits the kernel's registers
+    if block < 1 or L % block:
+        raise ValueError(f"{kernel} kernel: block {block} does not divide "
+                         f"the last dim {L}")
     if not x.is_contiguous():
         raise ValueError(f"{kernel}: x must be contiguous")
     _aligned("x", x)

@@ -58,8 +58,9 @@ def main(argv=None):
     ap.add_argument("--spares", type=int, default=None,
                     help="fleet mode: parked standby engines (not ported "
                          "yet: refused)")
-    ap.add_argument("--slo-max-load", type=int, default=64,
-                    help="fleet mode: per-engine admission bound")
+    ap.add_argument("--slo-max-load", type=int, default=None,
+                    help="fleet mode: per-engine admission bound "
+                         "(default 64)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain versions)")
     args = ap.parse_args(argv)
@@ -70,6 +71,10 @@ def main(argv=None):
         raise NotImplementedError(
             f"{', '.join(elastic)}: the autoscaler and elastic fleet are "
             "not ported yet (ROADMAP Queue 1 item 11)")
+    if args.slo_max_load is not None and args.fleet <= 0:
+        raise NotImplementedError(
+            "--slo-max-load: the admission bound exists in fleet mode only "
+            "(give --fleet N)")
     if args.prefill_chunk:
         raise NotImplementedError(
             "--prefill-chunk: chunked prefill is not ported yet (ROADMAP "
@@ -119,7 +124,8 @@ def _serve_fleet(run, params, reqs, args, device) -> int:
             run, params, num_engines=args.fleet, device=device,
             num_devices=max(2 * args.fleet, 4), slots=args.slots,
             max_len=args.max_len, page_size=args.page_size,
-            slo_max_load=args.slo_max_load, workdir=workdir)
+            slo_max_load=(64 if args.slo_max_load is None
+                          else args.slo_max_load), workdir=workdir)
         t0 = time.perf_counter()
         pending = list(reqs)
         steps = 0

@@ -154,7 +154,13 @@ def test_qdma_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(TypeError):
         ops.qdma_pack(x, block=128)
     with pytest.raises(ValueError):
-        ops.qdma_pack(torch.ones((4, 250), device=cuda), block=250)
+        ops.qdma_pack(torch.ones((4, 256), device=cuda), block=200)
+    # groups the kernel cannot take (not 16-byte multiples, or more than a
+    # warp's registers hold) are refused by the launcher itself
     before = dict(ops.LAUNCHES)
+    for L, block in ((1000, 250), (1024, 1024)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            ops.qdma_pack(torch.ones((4, L), device=cuda), block=block)
+    assert ops.LAUNCHES == before
     ops.qdma_digest(torch.ones(5, device=cuda))
     assert ops.LAUNCHES["qdma_digest"] == before["qdma_digest"] + 1

@@ -232,6 +232,7 @@ def test_launch_serve_bare_engine(capsys):
     # options the port does not have yet are refused, not ignored
     for extra, name in ((["--fleet", "2", "--autoscale"], "--autoscale"),
                         (["--fleet", "2", "--spares", "1"], "--spares"),
+                        (["--slo-max-load", "64"], "--slo-max-load"),
                         (["--prefill-chunk", "4"], "--prefill-chunk")):
         with pytest.raises(NotImplementedError, match=name):
             serve.main(["--smoke", "--device", "cpu"] + extra)

@@ -219,6 +219,26 @@ def test_unported_fleet_paths_raise_naming_their_roadmap_item(setup,
                spare_engines=1)
 
 
+def test_manager_default_workdir_is_private():
+    """A manager built without a workdir keeps its journal, records and
+    detach store in a fresh directory of its own, never a shared path."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.core.pool import DevicePool
+    a = TManager(DevicePool([f"slot{i}" for i in range(2)]))
+    b = TManager(DevicePool([f"slot{i}" for i in range(2)]))
+    try:
+        assert a.workdir != b.workdir
+        for m in (a, b):
+            assert os.path.isdir(m.workdir)
+            assert os.path.dirname(m.workdir) == tempfile.gettempdir()
+            assert m.detach_store_dir.startswith(m.workdir + os.sep)
+    finally:
+        shutil.rmtree(a.workdir, ignore_errors=True)
+        shutil.rmtree(b.workdir, ignore_errors=True)
+
+
 def test_qmp_unix_socket_drives_the_port_manager(setup, tmp_path):
     """The control plane's newline-delimited JSON over a Unix socket:
     greeting, a query, a device_pause round trip, an unknown command."""
