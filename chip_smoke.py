@@ -7,13 +7,20 @@ vocab 151,936; random weights from ``--seed``) through the paged
 ``ServeEngine`` with bf16 and with int8 KV pages, and through a
 ``ServeFleet`` of two engine tenants under the SVFF manager, reconfigured
 mid-traffic (live pause, reconf through pause and through detach/attach,
-migrate) with the bit-exact staging engine and with the int8 one.
+migrate) with the bit-exact staging engine and with the int8 one. Then
+the hybrid Mamba-attention stack, jamba-1.5-large-398b-1p-dense (one
+period of Jamba-1.5-Large at every published width, 1 attention and 7
+mamba layers, dense FFNs, bf16 params, random weights from ``--seed``):
+prefill logits through the kernels against the plain versions, the paged
+``ServeEngine`` with bf16 and int8 KV pages, and the uniform-position
+generate path of ``make_serve_steps`` against the teacher-forced forward.
 
     python3 chip_smoke.py            # from the repository root
 
-Phases: card, build, one phase per kernel, serve (bf16, int8), SVFF
-(bit-exact staging, int8 staging), kernels line, result line. Any failed
-check exits non-zero before the result line. Details go to
+Phases: card, build, one phase per kernel, qwen serve (bf16, int8), SVFF
+(bit-exact staging, int8 staging), hybrid prefill, hybrid serve (bf16,
+int8), hybrid generate, kernels line, result line. Any failed check exits
+non-zero before the result line. Details go to
 ``chiprun_out/chip_smoke.json``. The script imports only torch, numpy and
 the port.
 """
@@ -46,7 +53,20 @@ ATTN_ATOL = 1e-4       # ATTN_ATOL + ATTN_RTOL * |plain|, two bf16 steps of
                        # fp32 result to bf16 once, after sums taken in other
                        # orders, so they may differ by one step
 LOGITS_REL_TOL = 1.5e-2  # prefill logits, kernel path vs plain path, over
-                         # 28 bf16 layers, relative to max |logit|
+                         # 28 (qwen) or 8 (hybrid) bf16 layers, relative
+                         # to max |logit|
+STATE_REL_TOL = 3e-2     # a mamba layer's final SSM state, kernel path vs
+                         # plain path, relative to its max |state|, twice
+                         # the logits' limit: the state integrates the
+                         # layer's bf16 inputs, and at bf16 any change of
+                         # rounding moves this stack by about 1% (the
+                         # readings are in PERF.md)
+SSM_REL_TOL = 1e-4       # ssm_scan y and state vs the plain version,
+                         # relative to max |plain|: both accumulate in
+                         # fp32, in other orders
+GEN_REL_TOL = 5e-2       # the generate path's logits vs one teacher-
+                         # forced forward, relative to max |logit| (the
+                         # JAX package's bound, tests/test_models.py)
 
 # fp32 operations per vocab entry of the fused sampler's noise + argmax
 # (mix: 10 integer ops; two portable logs of 18 float ops; 4 more)
@@ -71,6 +91,9 @@ BF16_HALF_STEP = 2 ** -8 * (1 + 2 ** -7)
 
 SERVE_KERNELS = ("flash_attention", "paged_decode", "paged_decode_quant",
                  "fused_sample")
+HYBRID = "jamba-1.5-large-398b-1p-dense"
+HYBRID_SERVE_KERNELS = SERVE_KERNELS + ("ssm_scan",)
+GENERATE_KERNELS = ("flash_attention", "ssm_scan", "flash_decode")
 QDMA_KERNELS = ("qdma_pack", "qdma_pack_rows", "qdma_unpack", "qdma_digest")
 
 
@@ -90,10 +113,16 @@ def log(msg: str):
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
+#: a spin of ~0.5 ms ahead of each timed call: longer than the host takes
+#: to enqueue one wrapper's launches
+SLEEP_CYCLES = 1_000_000
+
+
 class Timer:
     """Median device time of one call, by CUDA events around each call,
     with the 50 MB L2 cache flushed before every call (the serve path
-    reads each layer's weights and pages once per step, cold)."""
+    reads each layer's weights and pages once per step, cold) and the
+    card kept busy while the host enqueues the call."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -107,6 +136,9 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush_buf.zero_()
+            # keep the card busy while the host enqueues ``fn``'s work, so
+            # the events time the device and not the host's dispatch
+            torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -259,6 +291,112 @@ def phase_fused_sample(torch, ops, timer, cfg):
             "library_ms": None}
 
 
+def phase_flash_decode(torch, ops, timer, cfg):
+    """flash_decode at the generate path's shapes (B=4, T=1,024, hd 128,
+    8 KV heads) with 64 and 16 query heads, at pos 0, 511 and 1,023."""
+    import torch.nn.functional as F
+    K, hd, B, T = cfg.num_kv_heads, cfg.head_dim, 4, 1024
+    rows = []
+    for H in (cfg.num_heads, 16):
+        g = torch.Generator(device="cuda").manual_seed(14 + H)
+        q = torch.randn((B, 1, H, hd), generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn((B, T, K, hd), generator=g,
+                            device="cuda").bfloat16() for _ in "kv")
+        for pos in (0, 511, 1023):
+            got = ops.flash_decode(q, k, v, pos)
+            want = ops.flash_decode(q, k, v, pos, backend="ref")
+            torch.cuda.synchronize()
+            err, share = attn_err(got, want)
+            check(share <= 1, f"flash_decode H={H} pos={pos}: max_abs_err "
+                              f"{err}, {share:.3g} of the limit")
+            check(torch.equal(got, ops.flash_decode(q, k, v, pos)),
+                  f"flash_decode H={H} pos={pos}: not deterministic")
+            n = pos + 1
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (x[:, :n].transpose(1, 2).contiguous() for x in (k, v))
+            lib = timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True))
+            ms = timer.ms(lambda: ops.flash_decode(q, k, v, pos))
+            plain = timer.ms(lambda: ops.flash_decode(q, k, v, pos,
+                                                      backend="ref"))
+            nbytes = 2 * (2 * B * n * K * hd + 2 * B * H * hd) + 4
+            flops = 4 * B * H * hd * n
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            rows.append({"shape": f"q ({B},1,{H},{hd}), k/v ({B},{T},{K},"
+                                  f"{hd}) bf16, pos {pos}",
+                         "max_abs_err": err, "share_of_limit": share,
+                         "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": lib})
+            log(f"flash_decode H={H} pos={pos}: max_abs_err {err:.3g} "
+                f"({share:.3g} of the limit) | kernel {ms:.4f} ms | plain "
+                f"{plain:.4f} ms | sdpa {lib:.4f} ms | bound {b_ms:.4f} ms "
+                f"({b_by})")
+    return rows
+
+
+def ssm_scan_work(B, S, H, hd, N, Q, in_bytes):
+    """(bytes, flops) of one scan: x, B, C and log_a read once, y and the
+    state written once; per (batch, head, chunk) the products (M * C B^T)
+    x, C H^T and the state update, and C B^T once per (batch, chunk), as
+    the TPU kernel computes them (the masked triangle included)."""
+    nc = S // Q
+    flops = (B * H * nc * (2 * Q * Q * hd + 4 * Q * hd * N)
+             + B * nc * 2 * Q * Q * N)
+    nbytes = (in_bytes * (B * S * H * hd + 2 * B * S * N) + 4 * B * S * H
+              + 4 * B * S * H * hd + 4 * B * H * hd * N)
+    return nbytes, flops
+
+
+def phase_ssm_scan(torch, ops, timer, cfg):
+    """ssm_scan at the hybrid's widths (256 heads of 64, d_state 128,
+    chunk 128) over one short prompt (S=100, one chunk) and S=512 (four
+    chunks), B 1 and 2, bf16 inputs as the model gives them, and one case
+    with fp32 inputs."""
+    from repro_torch.models.params import mamba_dims
+    _, H, _, _ = mamba_dims(cfg)
+    hd, N, chunk = cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk
+    rows = []
+    for B, S, dt in ((1, 512, torch.bfloat16), (1, 100, torch.bfloat16),
+                     (2, 100, torch.bfloat16), (2, 512, torch.bfloat16),
+                     (1, 512, torch.float32)):
+        g = torch.Generator(device="cuda").manual_seed(15 + B * S)
+        x = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dt)
+        bv, cv = (torch.randn((B, S, N), generator=g, device="cuda").to(dt)
+                  for _ in "bc")
+        # decays of the model's range: dt * A with dt <~ 0.1, A in [-8, -1]
+        la = -0.1 * torch.nn.functional.softplus(
+            torch.randn((B, S, H), generator=g, device="cuda"))
+        y, st = ops.ssm_scan(x, bv, cv, la, chunk=chunk)
+        wy, wst = ops.ssm_scan(x, bv, cv, la, chunk=chunk, backend="ref")
+        torch.cuda.synchronize()
+        err, share = 0.0, 0.0
+        for name, got, want in (("y", y, wy), ("state", st, wst)):
+            e = float((got - want).abs().max())
+            lim = SSM_REL_TOL * float(want.abs().max())
+            check(e <= lim, f"ssm_scan B={B} S={S} {dt}: {name} max_abs_err "
+                            f"{e} over the limit {lim}")
+            err, share = max(err, e), max(share, e / lim)
+        y2, st2 = ops.ssm_scan(x, bv, cv, la, chunk=chunk)
+        check(torch.equal(y, y2) and torch.equal(st, st2),
+              f"ssm_scan B={B} S={S}: not deterministic")
+        ms = timer.ms(lambda: ops.ssm_scan(x, bv, cv, la, chunk=chunk))
+        plain = timer.ms(lambda: ops.ssm_scan(x, bv, cv, la, chunk=chunk,
+                                              backend="ref"), reps=5)
+        nbytes, flops = ssm_scan_work(B, S, H, hd, N, min(chunk, S),
+                                      x.element_size())
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        kind = "bf16" if dt == torch.bfloat16 else "fp32"
+        rows.append({"shape": f"xdt ({B},{S},{H},{hd}) {kind}, N {N}, "
+                              f"Q {min(chunk, S)}",
+                     "max_abs_err": err, "share_of_limit": share, "ms": ms,
+                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+        log(f"ssm_scan B={B} S={S} {kind}: max_abs_err {err:.3g} "
+            f"({share:.3g} of the limit) | kernel {ms:.4f} ms | plain "
+            f"{plain:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
 def bits_equal(torch, a, b) -> bool:
     """Same dtype, shape and bytes."""
     return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
@@ -399,8 +537,21 @@ def make_requests(Request, vocab: int, seed: int, first_rid: int = 0):
     return reqs
 
 
+def hybrid_requests(Request, vocab: int, seed: int):
+    """The serve traffic of ``make_requests`` with prompt lengths the SSM
+    chunk rule admits (at most 128 tokens, or a multiple of 128): a
+    seeded draw in 5-128, three of them set to 256, 384 and 512."""
+    reqs = make_requests(Request, vocab, seed)
+    rng = np.random.default_rng(seed + 50)
+    lens = rng.integers(5, 129, len(reqs))
+    lens[:3] = (256, 384, 512)
+    for r, n in zip(reqs, lens):
+        r.prompt = rng.integers(0, vocab, int(n)).astype(np.int32)
+    return reqs
+
+
 def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
-          pause_at=None, count=False):
+          pause_at=None, count=False, requests=make_requests):
     """Serve the 16 requests to completion; returns (token streams,
     metrics). With ``pause_at`` the engine is paused after that step, its
     device state staged to host memory and dropped, restored and
@@ -410,7 +561,7 @@ def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
     eng = ServeEngine(run, params, device="cuda", slots=8, max_len=1024,
                       paged=True, page_size=16, kv_dtype=kv_dtype,
                       fused_sampling=fused)
-    reqs = make_requests(Request, run.model.vocab_size, seed)
+    reqs = requests(Request, run.model.vocab_size, seed)
     for r in reqs:
         eng.submit(r)
     if count:
@@ -752,17 +903,122 @@ def phase_prefill_logits(torch, run, params, seed):
     return worst
 
 
-def phase_profile(torch, run, params, seed, out_dir):
+# ---------------------------------------------------------------------------
+# the hybrid Mamba-attention stack
+# ---------------------------------------------------------------------------
+def phase_hybrid_prefill(torch, run, params, seed):
+    """The hybrid's prefill through the kernels vs through the plain
+    versions on the same weights and prompts: the last logits, and each
+    mamba layer's final SSM state."""
+    from repro_torch.models.model import build_model
+    fast, plain = build_model(run), build_model(
+        run.replace(kernel_backend="reference"))
+    rng = np.random.default_rng(seed + 200)
+    res = {}
+    for S in (100, 384):
+        toks = torch.tensor(rng.integers(0, run.model.vocab_size, (1, S)),
+                            device="cuda")
+        ca, a = fast.prefill(params, {"tokens": toks})
+        cb, b = plain.prefill(params, {"tokens": toks})
+        check(bool(torch.isfinite(a).all()) and a.shape == b.shape,
+              f"hybrid prefill S={S}: non-finite or misshapen logits")
+        states = {blk: float((ca[blk]["ssm"] - node["ssm"]).abs().max()
+                             / node["ssm"].abs().max())
+                  for blk, node in cb.items() if "ssm" in node}
+        check(all(bool(torch.isfinite(ca[blk]["ssm"]).all())
+                  for blk in states), f"hybrid prefill S={S}: non-finite "
+                                      "SSM state")
+        res[S] = {"logits_rel_err": float((a - b).abs().max()
+                                          / b.abs().max()),
+                  "ssm_state_rel_err": states}
+        del ca, cb
+        log(f"hybrid prefill S={S}, kernel vs plain path: logits "
+            f"{res[S]['logits_rel_err']:.3g} of max |logit| (tolerance "
+            f"{LOGITS_REL_TOL}); final SSM states, of each layer's max: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in states.items())
+            + f" (tolerance {STATE_REL_TOL})")
+    for S, r in res.items():
+        check(r["logits_rel_err"] <= LOGITS_REL_TOL,
+              f"hybrid prefill S={S}: kernel vs plain logits differ by "
+              f"{r['logits_rel_err']:.3g} of max |logit|")
+        for blk, st in r["ssm_state_rel_err"].items():
+            check(st <= STATE_REL_TOL, f"hybrid prefill S={S} {blk}: SSM "
+                                       f"state differs by {st:.3g} of its "
+                                       "max")
+    return res
+
+
+def phase_generate(torch, ops, run, params, seed):
+    """``make_serve_steps``' generate path: prefill B=4 prompts of 384
+    tokens, widen the cache to a dense one of 1,024 positions, then 128
+    decode steps with one position for the batch (384 ... 511), each
+    step's logits against one teacher-forced forward at S=512. The launch
+    counts cover the prefill and the decode steps only."""
+    import dataclasses
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import make_serve_steps
+    B, S0, S, T = 4, 384, 512, 1024
+    model = build_model(run)
+    prefill, decode = make_serve_steps(run)
+    rng = np.random.default_rng(seed + 300)
+    toks = torch.tensor(rng.integers(0, run.model.vocab_size, (B, S)),
+                        device="cuda")
+    ops.reset_launch_counts()
+    cache, last = prefill(params, {"tokens": toks[:, :S0]})
+    dense = model.init_cache(dataclasses.replace(run.shape, seq_len=T,
+                                                 global_batch=B),
+                             device="cuda")
+    for blk, node in cache.items():
+        for name, leaf in node.items():
+            if name in ("k", "v"):
+                dense[blk][name][:, :, :S0] = leaf
+            else:
+                dense[blk][name].copy_(leaf)
+    del cache
+    logits, step_ms = [last], []
+    for t in range(S0, S):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        lg, dense = decode(params, dense, toks[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        logits.append(lg)
+    counts = ops.launch_counts()
+    del dense
+    full = model.forward(params, {"tokens": toks})[0]
+    scale = float(full.abs().max())
+    errs = [float((lg - full[:, S0 - 1 + i]).abs().max())
+            for i, lg in enumerate(logits)]
+    check(all(np.isfinite(errs)), "generate: non-finite logits")
+    check(max(errs) <= GEN_REL_TOL * scale,
+          f"generate: decode logits differ from the forward by "
+          f"{max(errs) / scale:.3g} of max |logit| (> {GEN_REL_TOL})")
+    for k in GENERATE_KERNELS:
+        check(counts[k] > 0, f"{k} was never launched on the generate path")
+    res = {"rel_err": max(errs) / scale, "steps": len(step_ms),
+           "decode_step_ms_median": float(np.median(step_ms)),
+           "launches": counts}
+    log(f"generate B={B} prefill {S0} + {len(step_ms)} uniform-pos decode "
+        f"steps (T={T}): max rel err vs forward {res['rel_err']:.3g} "
+        f"(tolerance {GEN_REL_TOL}) | decode step median "
+        f"{res['decode_step_ms_median']:.2f} ms | launches "
+        f"{json.dumps({k: counts[k] for k in GENERATE_KERNELS})}")
+    return res
+
+
+def phase_profile(torch, run, params, seed, name="decode",
+                  requests=make_requests):
     """``--profile``: where a decode step's time goes. Eight requests fill
     the eight slots; after their prefills and two warm steps, eight decode
     steps run under torch.profiler. Reports the wall time per step, the
     device's busy share (the sum of kernel times over the wall time) and
-    the kernels by device time."""
+    the kernels by device time; ``main`` writes it to
+    ``profile_<name>.json``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import Request, ServeEngine
     eng = ServeEngine(run, params, device="cuda", slots=8, max_len=1024,
                       paged=True, page_size=16, fused_sampling=True)
-    for r in make_requests(Request, run.model.vocab_size, seed)[:8]:
+    for r in requests(Request, run.model.vocab_size, seed)[:8]:
         eng.submit(r)
     for _ in range(3):
         eng.step()
@@ -790,9 +1046,8 @@ def phase_profile(torch, run, params, seed, out_dir):
     res = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
            "device_busy_ms_per_step": busy,
            "device_busy_share": busy / (wall_ms / steps), "kernels": rows}
-    with open(os.path.join(out_dir, "profile_decode.json"), "w") as f:
-        json.dump(res, f, indent=1)
-    log(f"profile: decode step {wall_ms / steps:.2f} ms wall, device busy "
+    log(f"profile {name}: decode step {wall_ms / steps:.2f} ms wall, "
+        f"device busy "
         f"{busy:.2f} ms ({100 * busy / (wall_ms / steps):.1f}%)")
     for r in rows[:12]:
         log(f"  {r['device_ms_per_step']:8.3f} ms/step "
@@ -800,12 +1055,76 @@ def phase_profile(torch, run, params, seed, out_dir):
     return res
 
 
+def run_hybrid(torch, ops, args, card, report, kern, launches):
+    """The hybrid stack's phases: its two kernels against their plain
+    versions, then at full width its prefill, its serve path (bf16 and
+    int8 KV) and its generate path. Fills ``report`` and ``kern``, and
+    adds each path's launch counts to ``launches``."""
+    from repro_torch.configs import make_run_config
+    from repro_torch.models.model import build_model
+    hrun = make_run_config(HYBRID, "decode_32k", seed=args.seed)
+    hcfg = hrun.model
+    timer = Timer(torch)
+    kern["flash_decode"] = phase_flash_decode(torch, ops, timer, hcfg)
+    kern["ssm_scan"] = phase_ssm_scan(torch, ops, timer, hcfg)
+    del timer
+    release(torch)
+    t0 = time.perf_counter()
+    params = build_model(hrun).init(seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    log(f"{HYBRID} params: {hcfg.param_count():,} bf16 on the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+    report["hybrid_prefill"] = phase_hybrid_prefill(torch, hrun, params,
+                                                    args.seed)
+    report["hybrid_serve"] = {}
+    hybrid_launches = dict.fromkeys(HYBRID_SERVE_KERNELS, 0)
+    for kv in (None, "int8"):
+        name = kv or "bf16"
+        out, met, counts = serve(torch, ops, hrun, params, kv, args.seed,
+                                 count=True, requests=hybrid_requests)
+        for k in HYBRID_SERVE_KERNELS:
+            hybrid_launches[k] += counts[k]
+        host, _, _ = serve(torch, ops, hrun, params, kv, args.seed,
+                           fused=False, requests=hybrid_requests)
+        check(host == out, f"hybrid serve kv={name}: host sampling gives "
+                           "other tokens than fused sampling (I10)")
+        what = "fused == host sampling"
+        if kv is None:
+            paused, _, _ = serve(torch, ops, hrun, params, kv, args.seed,
+                                 pause_at=10, requests=hybrid_requests)
+            check(paused == out, f"hybrid serve kv={name}: the pause round "
+                                 "trip changed the tokens (I10)")
+            what += ", pause round trip token-identical"
+        met["launches"] = counts
+        report["hybrid_serve"][name] = met
+        log(f"serve {HYBRID} kv={name}: 16 requests x 32 tokens in "
+            f"{met['steps']} steps, {met['wall_s']:.2f} s | decode step "
+            f"median {met['decode_step_ms_median']:.2f} ms | "
+            f"{met['tokens_per_s']:.1f} tokens/s | {card} | {what} | "
+            f"launches {json.dumps(counts)}")
+    for k in HYBRID_SERVE_KERNELS:
+        check(hybrid_launches[k] > 0,
+              f"{k} was never launched on the hybrid serve path")
+    report["generate"] = phase_generate(torch, ops, hrun, params, args.seed)
+    for k in HYBRID_SERVE_KERNELS:
+        launches[k] = launches.get(k, 0) + hybrid_launches[k]
+    for k in GENERATE_KERNELS:
+        launches[k] = launches.get(k, 0) + report["generate"]["launches"][k]
+    if args.profile:
+        report["profile_hybrid"] = phase_profile(
+            torch, hrun, params, args.seed, name="hybrid_decode",
+            requests=hybrid_requests)
+    del params
+    release(torch)
+
+
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile eight decode steps (torch.profiler)")
+                    help="also profile eight decode steps of each model "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
 
     import torch
@@ -913,9 +1232,19 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log_svff(report, card)
+    if args.profile:
+        report["profile"] = phase_profile(torch, run, params, args.seed)
+    del params
+    release(torch)
+
+    run_hybrid(torch, ops, args, card, report, kern, launches)
 
     sources = {"flash_attention": ("flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:77"),
+               "flash_decode": ("flash_decode.cu",
+                                "src/repro/kernels/flash_decode.py:60"),
+               "ssm_scan": ("ssm_scan.cu",
+                            "src/repro/kernels/ssm_scan.py:69"),
                "paged_decode": ("paged_decode.cu",
                                 "src/repro/kernels/paged_decode.py:161"),
                "paged_decode_quant": ("paged_decode.cu",
@@ -930,11 +1259,14 @@ def main(argv=None) -> int:
                                "src/repro/kernels/qdma_pack.py:142"),
                "qdma_digest": ("qdma_pack.cu",
                                "src/repro/kernels/qdma_pack.py:117")}
+    # the row of each kernel's main shape: flash_attention the S=384
+    # prompt, flash_decode H=64 at pos 511, ssm_scan B=1 S=512 bf16, qdma
+    # the fp32 leaf or descriptor
+    main_index = {"flash_attention": -1, "flash_decode": 1}
     line = []
     for name, (src, replaces) in sources.items():
         rows = kern[name] if isinstance(kern[name], list) else [kern[name]]
-        # flash: the S=384 prompt; qdma: the fp32 leaf or descriptor
-        main_row = rows[0] if name.startswith("qdma") else rows[-1]
+        main_row = rows[main_index.get(name, 0)]
         line.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -948,9 +1280,12 @@ def main(argv=None) -> int:
     report["kernels"] = kern
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    if args.profile:
-        report["profile"] = phase_profile(torch, run, params, args.seed,
-                                          out_dir)
+    for key, name in (("profile", "decode"), ("profile_hybrid",
+                                              "hybrid_decode")):
+        if key in report:
+            with open(os.path.join(out_dir, f"profile_{name}.json"),
+                      "w") as f:
+                json.dump(report[key], f, indent=1)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": line}), flush=True)

@@ -1,9 +1,13 @@
 """PyTorch/CUDA port of the SVFF reproduction (``repro``, written in JAX).
 
 The port grows slice by slice beside the JAX package, which stays the
-reference it is tested against. It never imports JAX or ``repro``. The
-first slice is the paged serve path: ``serve.engine.ServeEngine`` over
-the dense attention stack, with four hand-written CUDA kernels
-(``kernels/csrc``) for prefill attention, paged decode over bf16 and
-int8 pages, and fused sampling.
+reference it is tested against. It never imports JAX or ``repro``. Ported
+so far: the paged serve path (``serve.engine.ServeEngine``) over dense
+attention stacks and the hybrid Mamba-attention stack, the uniform-
+position generate path (``train.step.make_serve_steps``), and the SVFF
+core with ``serve.fleet.ServeFleet`` running engines as tenants. Every
+TPU kernel of the JAX package has a hand-written CUDA counterpart in
+``kernels/csrc``: prefill attention, dense and paged decode (bf16 and
+int8 pages), fused sampling, the chunked SSD scan, and the four staging
+kernels.
 """

@@ -37,6 +37,12 @@ KERNELS = {
     "flash_attention": ((), {
         "launch_flash_attention": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     }),
+    "flash_decode": ((), {
+        "launch_flash_decode": [_P] * 8 + [_I] * 6 + [_P],
+    }),
+    "ssm_scan": ((), {
+        "launch_ssm_scan": [_P] * 6 + [_I] * 7 + [_P],
+    }),
     "paged_decode": ((), {
         "launch_paged_decode": [_P] * 6 + [_I] * 6 + [_P],
         "launch_paged_decode_quant": [_P] * 8 + [_I] * 6 + [_P],

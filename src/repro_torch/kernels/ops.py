@@ -27,8 +27,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.sampling import prepare_rows
 
 #: launches per kernel since the last ``reset_launch_counts``
-LAUNCHES = {"flash_attention": 0, "paged_decode": 0,
-            "paged_decode_quant": 0, "fused_sample": 0,
+LAUNCHES = {"flash_attention": 0, "flash_decode": 0, "paged_decode": 0,
+            "paged_decode_quant": 0, "fused_sample": 0, "ssm_scan": 0,
             "qdma_pack": 0, "qdma_pack_rows": 0, "qdma_unpack": 0,
             "qdma_digest": 0}
 # the staging engine launches from a thread pool (pipeline=False)
@@ -67,6 +67,11 @@ def _want(name: str, t: torch.Tensor, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _aligned(name: str, t: torch.Tensor):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _launch(kernel: str, lib_name: str, fn: str, *args):
     lib = build.library(lib_name)
     rc = getattr(lib, fn)(*args)
@@ -101,6 +106,83 @@ def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, S, T, H, K, hd, int(causal), _stream(dev))
     return out
+
+
+#: cache rows per block of the flash_decode kernel (a 1,024-row cache is
+#: split over 16 blocks per (slot, KV head))
+FLASH_DECODE_SPLIT = 64
+
+
+def flash_decode(q, k, v, pos, *, block_k: int = 256, backend: str = "auto"):
+    """q: (B,1,H,hd); k,v: (B,T,K,hd); pos: scalar int or 0-d integer
+    tensor, one position for the whole batch — attend to indices <= pos.
+    T must be a multiple of min(block_k, T), the reference kernel's tile
+    rule. The kernel takes bf16 and hd % 8 == 0, H / K <= 8."""
+    B, _, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    bk = min(block_k, T)
+    if bk < 1 or T % bk:
+        raise ValueError(f"flash_decode: cache length {T} is not a multiple "
+                         f"of the tile min(block_k, T) = {bk}")
+    if isinstance(pos, torch.Tensor) and pos.dim() != 0:
+        raise ValueError(f"flash_decode: pos must be a scalar, got shape "
+                         f"{tuple(pos.shape)}")
+    if _plain(backend, q):
+        return _ref.flash_decode_ref(q, k, v, pos)
+    dev = q.device
+    if H % K or hd % 8:
+        raise ValueError(f"flash_decode kernel: H={H}, K={K}, hd={hd}")
+    _want("q", q, torch.bfloat16, (B, 1, H, hd), dev)
+    _want("k", k, torch.bfloat16, (B, T, K, hd), dev)
+    _want("v", v, torch.bfloat16, (B, T, K, hd), dev)
+    _aligned("k", k)                # the kernel reads rows 16 bytes at a time
+    _aligned("v", v)
+    if isinstance(pos, torch.Tensor):
+        pos_t = pos.to(device=dev, dtype=torch.int32)
+    else:
+        pos_t = torch.full((), int(pos), dtype=torch.int32, device=dev)
+    G, rows = H // K, FLASH_DECODE_SPLIT
+    nsplit = -(-T // rows)
+    part = torch.empty((B * K * nsplit * G * (hd + 2),), dtype=torch.float32,
+                       device=dev)
+    n = B * K * nsplit * G
+    out = torch.empty_like(q)
+    if B:
+        _launch("flash_decode", "flash_decode", "launch_flash_decode",
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_t.data_ptr(),
+                part.data_ptr(), part[n:].data_ptr(), part[2 * n:].data_ptr(),
+                out.data_ptr(), B, T, K, hd, G, rows, _stream(dev))
+    return out
+
+
+def ssm_scan(xdt, Bv, Cv, log_a, *, chunk: int = 128, backend: str = "auto"):
+    """The chunked SSD scan: xdt (B,S,H,hd), Bv/Cv (B,S,N), log_a (B,S,H)
+    fp32 -> (y (B,S,H,hd) fp32, final state (B,H,hd,N) fp32). S must be a
+    multiple of Q = min(chunk, S) (``ValueError`` otherwise). The kernel
+    takes xdt, Bv and Cv all bf16 or all fp32, Q <= 128, hd <= 64 and
+    N <= 128."""
+    B, S, H, hd = xdt.shape
+    N = Bv.shape[-1]
+    Q = _ref.check_ssm_chunk(S, chunk)
+    if _plain(backend, xdt):
+        return _ref.ssm_scan_ref(xdt, Bv, Cv, log_a, chunk=chunk)
+    dev = xdt.device
+    if xdt.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"ssm_scan kernel takes bf16 or fp32, not "
+                        f"{xdt.dtype}")
+    _want("xdt", xdt, xdt.dtype, (B, S, H, hd), dev)
+    _want("Bv", Bv, xdt.dtype, (B, S, N), dev)
+    _want("Cv", Cv, xdt.dtype, (B, S, N), dev)
+    _want("log_a", log_a, torch.float32, (B, S, H), dev)
+    y = torch.empty((B, S, H, hd), dtype=torch.float32, device=dev)
+    state = torch.empty((B, H, hd, N), dtype=torch.float32, device=dev)
+    if y.numel():
+        _launch("ssm_scan", "ssm_scan", "launch_ssm_scan",
+                xdt.data_ptr(), Bv.data_ptr(), Cv.data_ptr(),
+                log_a.data_ptr(), y.data_ptr(), state.data_ptr(),
+                B, S, H, hd, N, Q, int(xdt.dtype == torch.bfloat16),
+                _stream(dev))
+    return y, state
 
 
 def _check_paged(q, k_pages, v_pages, tables, pos, dtype):
@@ -203,11 +285,6 @@ def as_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch dtype or its name ("float32",
     "bfloat16"; the names the JAX package stores in a QuantizedLeaf)."""
     return dtype if isinstance(dtype, torch.dtype) else getattr(torch, dtype)
-
-
-def _aligned(name: str, t: torch.Tensor):
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def _pack_launch(kernel: str, x, lo: int, rows: int, block: int):

@@ -41,6 +41,26 @@ def flash_attention_ref(q, k, v, causal: bool = True):
 
 
 # ---------------------------------------------------------------------------
+# flash_decode (single-token decode over a dense cache, uniform position)
+# ---------------------------------------------------------------------------
+def flash_decode_ref(q, k, v, pos):
+    """q: (B,1,H,hd); k,v: (B,T,K,hd); pos: scalar (int or 0-d tensor) —
+    attend to indices <= pos. fp32 softmax, GQA, output in q's dtype."""
+    B, _, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, hd)
+    logits = torch.einsum("bkgh,btkh->bkgt", qg.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(hd)
+    valid = torch.arange(T, device=q.device) <= torch.as_tensor(
+        pos, device=q.device)
+    logits = logits.masked_fill(~valid, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgt,btkh->bkgh", p, v.to(torch.float32))
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # paged_decode (single-token decode over a block-table-indirected page pool)
 # ---------------------------------------------------------------------------
 def paged_decode_ref(q, k_pages, v_pages, tables, pos):
@@ -97,6 +117,74 @@ def paged_decode_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
     k = kv_dequant_ref(k_pages, k_scale)
     v = kv_dequant_ref(v_pages, v_scale)
     return paged_decode_ref(q, k, v, tables, pos)
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan (chunked Mamba-2 SSD scan, scalar decay per head)
+# ---------------------------------------------------------------------------
+def check_ssm_chunk(S: int, chunk: int) -> int:
+    """The chunk length Q = min(chunk, S); the scan (the Pallas kernel and
+    ``ssd_chunked`` alike) needs S % Q == 0. Padding the sequence instead
+    would integrate the pad tokens into the recurrent state."""
+    Q = min(chunk, S)
+    if Q < 1 or S % Q:
+        raise ValueError(
+            f"ssm_scan: sequence length {S} breaks the chunk rule "
+            f"S % min(chunk, S) == 0 (chunk {chunk}): a prompt must be at "
+            f"most {chunk} tokens or a multiple of {chunk}")
+    return Q
+
+
+def ssm_scan_ref(xdt, Bv, Cv, log_a, chunk: int = 128):
+    """What the Pallas kernel computes, in fp32 throughout, the state
+    carried chunk to chunk. Per chunk of Q = min(chunk, S) tokens:
+
+      cum   = cumsum(log_a)                                  (Q,)
+      y     = ((exp(cum_t - cum_s) * tril) * (C B^T)) @ xdt
+              + exp(cum) * (C H_prev^T)
+      H_new = exp(cum_Q) H_prev + (exp(cum_Q - cum) * xdt)^T B
+
+    xdt (B,S,H,hd), Bv/Cv (B,S,N), log_a (B,S,H). Returns y (B,S,H,hd)
+    fp32 and the final state (B,H,hd,N) fp32. Unlike the JAX package's
+    ``ssd_chunked``, nothing is rounded to the inputs' dtype."""
+    B, S, H, hd = xdt.shape
+    N = Bv.shape[-1]
+    Q = check_ssm_chunk(S, chunk)
+    f32 = torch.float32
+    x, Bf, Cf, la = (t.to(f32) for t in (xdt, Bv, Cv, log_a))
+    tril = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    h = torch.zeros((B, H, hd, N), dtype=f32, device=x.device)
+    ys = []
+    for c0 in range(0, S, Q):
+        xc, bc, cc = x[:, c0:c0 + Q], Bf[:, c0:c0 + Q], Cf[:, c0:c0 + Q]
+        cum = la[:, c0:c0 + Q].cumsum(dim=1)                      # (B,Q,H)
+        M = cum[:, :, None] - cum[:, None, :]                     # (B,t,s,H)
+        M = torch.where(tril[None, :, :, None], torch.exp(M),
+                        torch.zeros((), dtype=f32, device=x.device))
+        GB = torch.einsum("btn,bsn->bts", cc, bc)
+        y = torch.einsum("btsh,bshd->bthd", M * GB[..., None], xc)
+        y = y + torch.exp(cum)[..., None] * torch.einsum("btn,bhdn->bthd",
+                                                          cc, h)
+        w = torch.exp(cum[:, -1:] - cum)                          # (B,Q,H)
+        h = (torch.exp(cum[:, -1])[..., None, None] * h
+             + torch.einsum("bshd,bsn->bhdn", w[..., None] * xc, bc))
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def ssm_scan_sequential_ref(xdt, Bv, Cv, log_a):
+    """O(S) sequential oracle (slow, exact): H_t = a_t H_{t-1} + x_t B_t^T,
+    y_t = H_t C_t, in fp32."""
+    B, S, H, hd = xdt.shape
+    f32 = torch.float32
+    h = torch.zeros((B, H, hd, Bv.shape[-1]), dtype=f32, device=xdt.device)
+    ys = []
+    for t in range(S):
+        a = torch.exp(log_a[:, t].to(f32))
+        h = a[..., None, None] * h + torch.einsum(
+            "bhd,bn->bhdn", xdt[:, t].to(f32), Bv[:, t].to(f32))
+        ys.append(torch.einsum("bhdn,bn->bhd", h, Cv[:, t].to(f32)))
+    return torch.stack(ys, dim=1), h
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,10 @@ control plane).
 
     python -m repro_torch.launch.serve --paged
     python -m repro_torch.launch.serve --fleet 2 --slo-max-load 4
+    python -m repro_torch.launch.serve --arch jamba-1.5-large-398b-1p-dense
+
+The synthetic prompts are 4-11 tokens, inside the hybrid stack's SSM
+chunk rule (at most one chunk, or a multiple of it).
 """
 from __future__ import annotations
 

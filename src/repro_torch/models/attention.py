@@ -1,14 +1,15 @@
 """Attention: GQA reference implementation + kernel dispatch (mirrors
 ``repro.models.attention``).
 
-``attention`` and ``paged_decode_attention`` go through
-``repro_torch.kernels.ops``: the CUDA kernels for CUDA tensors, their
-plain versions for CPU tensors or with ``backend="ref"``. Both follow the
-Pallas kernels' numerics (fp32 probabilities into the PV product).
-``attention_ref`` is the JAX package's model-level reference, which casts
-the probabilities to v's dtype before PV; nothing on the serve path calls
-it. A query offset or a KV length (chunked prefill, dense decode) is not
-ported yet and is refused rather than run on plain torch.
+``attention``, ``decode_attention`` and ``paged_decode_attention`` go
+through ``repro_torch.kernels.ops``: the CUDA kernels for CUDA tensors,
+their plain versions for CPU tensors or with ``backend="ref"``. They
+follow the Pallas kernels' numerics (fp32 probabilities into the PV
+product). ``attention_ref`` is the JAX package's model-level reference,
+which casts the probabilities to v's dtype before PV; nothing on the
+serve path calls it. A query offset or a KV length (chunked prefill, the
+per-slot dense ring) is not ported yet and is refused rather than run on
+plain torch.
 """
 from __future__ import annotations
 
@@ -48,6 +49,15 @@ def attention(q, k, v, *, causal: bool, backend: str = "auto", q_offset=0,
             "dense decode) is not ported yet (ROADMAP: deferred serve-engine "
             "parts)")
     return kops.flash_attention(q, k, v, causal=causal, backend=backend)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, backend: str = "auto"):
+    """Single-token decode over a dense cache. q: (B,1,H,hd); caches:
+    (B,T,K,hd); pos: one position for the whole batch (an int or a 0-d
+    tensor), the index the current token was just written to (attend to
+    <= pos). Per-slot positions (the dense ring) are not ported yet:
+    ``Model.decode_step`` refuses them."""
+    return kops.flash_decode(q, k_cache, v_cache, pos, backend=backend)
 
 
 def paged_decode_attention(q, k_pages, v_pages, tables, pos, *,

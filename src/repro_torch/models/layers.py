@@ -57,3 +57,25 @@ def swiglu(x, wi, wg, wo, cdt):
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, cdt):
     return table[tokens.to(torch.int64)].to(cdt)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: torch.Tensor | None = None):
+    """Depthwise causal conv over time. x: (B, S, C); w: (W, C); b: (C,),
+    both read in fp32 whatever their storage dtype.
+
+    If ``state`` is given — (B, W-1, C), the tail of the previous segment —
+    it is prepended (decode), and the new tail returned. The taps are
+    summed in the JAX package's order, into an fp32 accumulator."""
+    B, S, C = x.shape
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((B, W - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)            # (B, S+W-1, C)
+    w32 = w.to(torch.float32)
+    out = torch.zeros((B, S, C), dtype=torch.float32, device=x.device)
+    for i in range(W):                                        # W is tiny (4)
+        out = out + xp[:, i:i + S].to(torch.float32) * w32[i]
+    out = out + b.to(torch.float32)
+    new_state = xp[:, S:] if W > 1 else state
+    return out.to(x.dtype), new_state

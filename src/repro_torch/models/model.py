@@ -1,15 +1,19 @@
-"""Model orchestration for the dense attention stack: the attention mixer,
-the FFN, a Python loop over the period-stacked layers, and the prefill
-and paged decode entry points (mirrors ``repro.models.model``).
+"""Model orchestration for stacks of attention and mamba blocks: the
+attention mixer, block dispatch by kind, the FFN, a Python loop over the
+period-stacked layers, and the prefill and decode entry points (mirrors
+``repro.models.model``). Decode runs over the paged KV pool with per-slot
+positions (the serve engine), or over a dense cache with one position
+for the whole batch (``make_serve_steps``'s generate path).
 
 Cache updates are in place. JAX writes the cache functionally
 (``cache["k"].at[pids, offs].set(...)``), which XLA turns into an
 in-place update inside ``jit``; done the same way in eager PyTorch it
 would copy the whole page pool for every layer of every step. Here the
-stack loop hands each layer a view (``pool[i]``) of the stacked pools,
-and the decode write lands through that view, so ``decode_step`` returns
-the very tensors it was given, updated. Anything that must not see later
-writes (a pause snapshot) takes a copy: see ``ServeEngine.export_state``.
+stack loop hands each layer a view (``pool[i]``) of the stacked cache
+leaves, and the decode writes (KV rows, and a mamba layer's conv and SSM
+state) land through those views, so ``decode_step`` returns the very
+tensors it was given, updated. Anything that must not see later writes
+(a pause snapshot) takes a copy: see ``ServeEngine.export_state``.
 
 Matrix products in float32 run in full float32 on the card: the port
 leaves ``torch.backends.cuda.matmul.allow_tf32`` at False, and its entry
@@ -21,12 +25,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
+from repro_torch.configs.base import (ATTN, MAMBA, ModelConfig, RunConfig,
+                                      ShapeConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import params as P
-from repro_torch.models.attention import attention, paged_decode_attention
+from repro_torch.models.attention import (attention, decode_attention,
+                                          paged_decode_attention)
 from repro_torch.models.layers import (apply_rope, embed_lookup, rms_norm,
                                        swiglu)
+from repro_torch.models.ssm import mamba_block
 from repro_torch.tree import tree_map
 
 ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
@@ -63,11 +70,15 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, cdt, mode, cache, positions,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if mode == "decode":
-        if tables is None:
-            raise NotImplementedError(
-                "dense (non-paged) decode layout is not ported yet "
-                "(ROADMAP: deferred serve-engine parts)")
+    if mode == "decode" and tables is None:
+        # dense cache, one position for the whole batch (``pos`` a 0-d
+        # tensor): the new row lands at index pos of this layer's view
+        # (B, T, K, hd), in place — JAX's dynamic_update_slice
+        at = pos.reshape(1).to(torch.int64)
+        cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
+        o = decode_attention(q, cache["k"], cache["v"], pos, backend=backend)
+    elif mode == "decode":
         # paged KV: the cache leaf is this layer's view of the shared page
         # pool (P, page, K, hd); slot b's new token lands in page
         # tables[b, pos//page] at offset pos%page, written in place.
@@ -121,13 +132,37 @@ def _apply_ffn(cfg: ModelConfig, p: dict, x, cdt):
     return x + y.to(x.dtype)
 
 
-def _apply_block(cfg, run: RunConfig, p, x, mode, cache_j, positions, pos,
-                 causal=True, tables=None, active=None):
-    """One attention block (the only kind ported: see check_supported)."""
+def _write_state(cache_j: dict, nc: dict, active):
+    """Land a recurrent block's new decode state in its cache views, in
+    place. An inactive slot (``active[b]`` False) keeps its old bytes, so
+    its state stays bit-untouched (its row would otherwise integrate the
+    garbage token)."""
+    for name, new in nc.items():
+        old = cache_j[name]
+        if active is not None:
+            keep = active.reshape(active.shape + (1,) * (new.dim() - 1))
+            new = torch.where(keep, new.to(old.dtype), old)
+        old.copy_(new)
+
+
+def _apply_block(cfg, run: RunConfig, kind: str, p, x, mode, cache_j,
+                 positions, pos, causal=True, tables=None, active=None):
+    """One block of ``kind`` (ATTN or MAMBA: see check_supported), then
+    its FFN. Returns (x, the block's new cache in prefill, else None)."""
     cdt = _dt(run.precision.compute)
-    out, nc = _attn_mixer(cfg, p, x, cdt, mode, cache_j, positions, pos,
-                          ops_backend(run), causal=causal, tables=tables,
-                          active=active)
+    backend = ops_backend(run)
+    if kind == ATTN:
+        out, nc = _attn_mixer(cfg, p, x, cdt, mode, cache_j, positions, pos,
+                              backend, causal=causal, tables=tables,
+                              active=active)
+    elif kind == MAMBA:
+        out, nc = mamba_block(cfg, p, x, cdt, mode=mode, cache=cache_j,
+                              backend=backend)
+        if mode == "decode":
+            _write_state(cache_j, nc, active)
+            nc = None
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     x = _apply_ffn(cfg, p, x + out, cdt)
     return x, nc
 
@@ -154,8 +189,9 @@ def run_stack(cfg: ModelConfig, run: RunConfig, layers: dict, x, mode,
             pp = tree_map(lambda leaf: leaf[i], layers[name])
             cj = (tree_map(lambda leaf: leaf[i], cache[name])
                   if cache is not None else None)
-            x, nc = _apply_block(cfg, run, pp, x, mode, cj, positions, pos,
-                                 tables=tables, active=active)
+            x, nc = _apply_block(cfg, run, pattern[j], pp, x, mode, cj,
+                                 positions, pos, tables=tables,
+                                 active=active)
             if nc is not None:
                 new[name].append(nc)
     if mode == "prefill":
@@ -192,10 +228,15 @@ class Model:
         inside ``jit``, where XLA hoists the cast); in eager PyTorch that
         is a copy of every weight on every call, while a matrix already
         in the compute dtype passes through untouched. Norm weights, the
-        embedding and the head keep their dtype: they are read in fp32."""
+        mamba conv weights and per-head vectors, the embedding and the
+        head keep their dtype: they are read in fp32."""
         cdt = _dt(self.run.precision.compute)
-        layers = tree_map(lambda w: w.to(cdt) if w.dim() >= 3 else w,
-                          params["decoder"]["layers"])
+
+        def cast(node):
+            return {k: (cast(w) if isinstance(w, dict) else
+                        w.to(cdt) if w.dim() >= 3 and k != "conv_w" else w)
+                    for k, w in node.items()}
+        layers = cast(params["decoder"]["layers"])
         return dict(params, decoder=dict(params["decoder"], layers=layers))
 
     # -- embedding / head ----------------------------------------------------
@@ -232,22 +273,37 @@ class Model:
 
     def decode_step(self, params, cache, tokens, pos, *, tables=None,
                     active=None):
-        """tokens: (B,1) int; pos: (B,) int32 per-slot position — the slot
-        the new token occupies (attends to <= pos). Returns (logits (B,V),
-        cache), the cache updated in place.
+        """tokens: (B,1) int; pos: the position the new token occupies
+        (attends to <= pos). Returns (logits (B,V), cache), the cache
+        updated in place.
 
-        active: optional (B,) bool — False rows are masked OUT of the
-        decode: their KV writes go to the garbage page 0 and their
-        attention reads zero tokens (pos[b] must be < 0 for them). Their
-        logits are garbage and must be discarded.
+        Two layouts. With ``tables`` ((B,NP) int32 paged-KV block
+        tables), attention-cache leaves are page pools (nper, P, page,
+        K, hd) — see ``repro_torch.serve.paged`` — and ``pos`` is (B,)
+        int32, per slot. Without, the cache is ``init_cache``'s dense one
+        and ``pos`` one position for the whole batch (an int or a 0-d
+        tensor); the per-slot dense ring is not ported yet.
 
-        tables: (B,NP) int32 paged-KV block tables; attention-cache
-        leaves are page pools (nper, P, page, K, hd) — see
-        ``repro_torch.serve.paged``."""
+        active: optional (B,) bool, paged layout — False rows are masked
+        OUT of the decode: their KV writes go to the garbage page 0,
+        their attention reads zero tokens (pos[b] must be < 0 for them)
+        and their recurrent state stays bit-untouched. Their logits are
+        garbage and must be discarded."""
         cfg, run = self.cfg, self.run
         x = self._embed(params, tokens, _dt(run.precision.compute))
-        # rope positions must be in-range even for inactive (-1) slots
-        positions = pos.to(torch.int64).clamp(min=0)[:, None]
+        if tables is None:
+            if isinstance(pos, torch.Tensor) and pos.dim() != 0:
+                raise NotImplementedError(
+                    "the dense cache with per-slot positions (the dense "
+                    "ring layout) is not ported yet (ROADMAP Queue 1 item "
+                    "5)")
+            pos = (pos.to(x.device) if isinstance(pos, torch.Tensor) else
+                   torch.full((), int(pos), dtype=torch.int32,
+                              device=x.device))
+            positions = pos.reshape(1).to(torch.int64)
+        else:
+            # rope positions must be in-range even for inactive (-1) slots
+            positions = pos.to(torch.int64).clamp(min=0)[:, None]
         x, _, cache = run_stack(cfg, run, params["decoder"]["layers"], x,
                                 "decode", cache=cache, positions=positions,
                                 pos=pos, tables=tables, active=active)
@@ -256,16 +312,31 @@ class Model:
 
     # -- caches --------------------------------------------------------------
     def cache_specs(self, shape: Optional[ShapeConfig] = None) -> dict:
-        """Dense decode-cache leaves as ShapeDtype: (periods, B, S, K, hd)
-        per attention block."""
+        """Dense decode-cache leaves as ShapeDtype, (periods, B, ...) per
+        block: k, v (.., S, K, hd) for attention; for mamba the conv tail
+        (.., conv-1, ch) in the compute dtype and the SSM state (.., heads,
+        hd, N) in fp32."""
         cfg = self.cfg
         shape = shape or self.run.shape
         B, S = shape.global_batch, shape.seq_len
         cdt = _dt(self.run.precision.compute)
         nper = cfg.num_layers // len(cfg.block_pattern)
-        kv = P.ShapeDtype((nper, B, S, cfg.num_kv_heads, cfg.head_dim), cdt)
-        return {f"block{j}": {"k": kv, "v": kv}
-                for j in range(len(cfg.block_pattern))}
+
+        def sd(shp, dt=cdt):
+            return P.ShapeDtype((nper,) + shp, dt)
+
+        tree = {}
+        for j, kind in enumerate(cfg.block_pattern):
+            if kind == ATTN:
+                kv = sd((B, S, cfg.num_kv_heads, cfg.head_dim))
+                tree[f"block{j}"] = {"k": kv, "v": kv}
+            else:                       # MAMBA (see check_supported)
+                _, nh, _, ch = P.mamba_dims(cfg)
+                tree[f"block{j}"] = {
+                    "conv": sd((B, cfg.ssm.conv_dim - 1, ch)),
+                    "ssm": sd((B, nh, cfg.ssm.head_dim, cfg.ssm.d_state),
+                              torch.float32)}
+        return tree
 
     def init_cache(self, shape: Optional[ShapeConfig] = None,
                    device="cuda") -> dict:

@@ -1,5 +1,5 @@
 """Parameter trees of the port (mirrors ``repro.models.params`` for the
-dense attention stack).
+attention and mamba blocks).
 
 ``param_shapes(cfg)`` builds the tree of ``ShapeDtype`` leaves,
 ``init_params`` materializes it on a device from a seed, and
@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
@@ -33,6 +33,16 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 def _sd(shape, dtype) -> ShapeDtype:
     return ShapeDtype(tuple(int(s) for s in shape), dtype)
+
+
+def mamba_dims(cfg: ModelConfig):
+    d_inner = cfg.ssm.expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm.head_dim
+    # in_proj emits [x (d_inner), z (d_inner), B (d_state), C (d_state),
+    #                dt (n_heads)]
+    d_in_proj = 2 * d_inner + 2 * cfg.ssm.d_state + n_heads
+    d_conv_ch = d_inner + 2 * cfg.ssm.d_state   # conv over x, B, C
+    return d_inner, n_heads, d_in_proj, d_conv_ch
 
 
 def ffn_shapes(cfg: ModelConfig, layer_idx: int, dtype) -> dict:
@@ -67,13 +77,39 @@ def attn_block_shapes(cfg: ModelConfig, layer_idx: int, dtype) -> dict:
     return p
 
 
+def mamba_block_shapes(cfg: ModelConfig, dtype) -> dict:
+    D = cfg.d_model
+    d_inner, n_heads, d_in_proj, d_conv_ch = mamba_dims(cfg)
+    return {
+        "ln": _sd((D,), dtype),
+        "in_proj": _sd((D, d_in_proj), dtype),
+        "conv_w": _sd((cfg.ssm.conv_dim, d_conv_ch), dtype),
+        "conv_b": _sd((d_conv_ch,), dtype),
+        "A_log": _sd((n_heads,), torch.float32),
+        "D": _sd((n_heads,), torch.float32),
+        "dt_bias": _sd((n_heads,), torch.float32),
+        "norm": _sd((d_inner,), dtype),
+        "out_proj": _sd((d_inner, D), dtype),
+    }
+
+
+def block_shapes(cfg: ModelConfig, layer_idx: int, dtype) -> dict:
+    kind = cfg.layer_kind(layer_idx)
+    if kind == ATTN:
+        return attn_block_shapes(cfg, layer_idx, dtype)
+    p = mamba_block_shapes(cfg, dtype)      # check_supported: ATTN, MAMBA
+    p.update(ffn_shapes(cfg, layer_idx, dtype))
+    return p
+
+
 def check_supported(cfg: ModelConfig):
-    """The port's model covers dense decoder-only attention stacks."""
+    """The port's model covers decoder-only stacks of attention and mamba
+    blocks (MoE FFNs are refused by ``ffn_shapes``)."""
     if (cfg.is_encoder_decoder or cfg.frontend.kind != "none"
-            or any(b != ATTN for b in cfg.block_pattern)):
+            or any(b not in (ATTN, MAMBA) for b in cfg.block_pattern)):
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention stacks are ported so far; "
-            "mamba, xLSTM, encoder-decoder and vision come with ROADMAP "
+            f"{cfg.name}: only attention and mamba stacks are ported so "
+            "far; xLSTM, encoder-decoder and vision come with ROADMAP "
             "Queue 1 item 7 (other model families)")
 
 
@@ -85,7 +121,7 @@ def param_shapes(cfg: ModelConfig, param_dtype=torch.float32) -> dict:
     periods = cfg.num_layers // plen
     layers = {f"block{j}": tree_map(lambda s: _sd((periods,) + s.shape,
                                                   s.dtype),
-                                    attn_block_shapes(cfg, j, dt))
+                                    block_shapes(cfg, j, dt))
               for j in range(plen)}
     tree = {"embed": {"tok": _sd((Vp, D), dt)},
             "decoder": {"layers": layers, "final_norm": _sd((D,), dt)}}
@@ -95,7 +131,7 @@ def param_shapes(cfg: ModelConfig, param_dtype=torch.float32) -> dict:
 
 
 def count_params_config(cfg: ModelConfig, active_only: bool = False) -> int:
-    # dense stacks only, so every parameter is active
+    # dense FFNs only, so every parameter is active
     return sum(int(np.prod(s.shape)) for s in tree_leaves(param_shapes(cfg)))
 
 
@@ -109,12 +145,32 @@ def _truncated_normal(shape, gen, device) -> torch.Tensor:
     return (x * math.sqrt(2.0)).clamp_(-2.0, 2.0)
 
 
+def _override(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The JAX init's fixed values for the mamba leaves, over the last
+    (head) axis and broadcast over the period axis: ``A_log`` spans
+    log(1..8), so A = -exp(A_log) in [-8, -1]; ``dt_bias`` is softplus^-1
+    of dt log-spaced in [1e-3, 1e-1]; ``D`` is ones. Other leaves pass."""
+    n = x.shape[-1] if x.dim() else 1
+    if name == "A_log":
+        v = torch.log(torch.linspace(1.0, 8.0, n, device=x.device))
+    elif name == "dt_bias":
+        dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), n,
+                                      device=x.device))
+        v = torch.log(torch.expm1(dt))
+    elif name == "D":
+        v = torch.ones(n, device=x.device)
+    else:
+        return x
+    return v.expand(x.shape).clone()
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, param_dtype=torch.float32,
                 device="cuda") -> dict:
     """Fan-in scaled truncated-normal init over the shape tree, drawn on
     ``device`` from a ``torch.Generator`` seeded with ``seed`` (matrices:
     ``N(0,1)`` truncated to [-2, 2] over sqrt(fan_in), with the period
-    axis counted in the fan-in as in JAX; vectors: ones). Same leaves,
+    axis counted in the fan-in as in JAX; vectors: ones), then the JAX
+    init's overrides of the mamba leaves (``_override``). Same leaves,
     shapes and distribution as the JAX init, not the same bits."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -126,6 +182,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, param_dtype=torch.float32,
             x = _truncated_normal(shp, gen, dev) / math.sqrt(max(fan_in, 1))
         else:
             x = torch.ones(shp, dtype=torch.float32, device=dev)
+        x = _override(path[-1], x)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})

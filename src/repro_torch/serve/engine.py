@@ -5,16 +5,21 @@ Requests are admitted into slots of a batched decode state and decoded
 together; finished slots are recycled without stopping the batch. Slots
 borrow fixed-size pages from a shared pool through a ``BlockAllocator``;
 decode is block-table-indirected (``kernels/csrc/paged_decode.cu``) and
-costs only the pages a request has written. Prefill is whole-prompt (B=1)
-through ``kernels/csrc/flash_attention.cu``; with ``fused_sampling`` the
-sampler runs on the device (``kernels/csrc/fused_sample.cu``) and only
-token ids come back. Sampling is per-request temperature / top-k with a
+costs only the pages a request has written. A hybrid stack's mamba
+layers keep their conv and SSM state dense per slot beside the pages.
+Prefill is whole-prompt (B=1) through ``kernels/csrc/flash_attention.cu``
+and, in mamba layers, ``kernels/csrc/ssm_scan.cu``, whose chunk rule
+rejects a prompt longer than the SSM chunk that is not a multiple of it
+(the engine never pads a prompt); with ``fused_sampling`` the sampler
+runs on the device (``kernels/csrc/fused_sample.cu``) and only token ids
+come back. Sampling is per-request temperature / top-k with a
 counter-seeded RNG — a request's tokens are a pure function of (request,
 logits), so a pause mid-request cannot change its output (invariant I10).
 
 Not ported yet (ROADMAP, deferred serve-engine parts): the dense
-per-slot ring layout, chunked prefill, and request migration; each
-raises ``NotImplementedError``.
+per-slot ring layout, chunked prefill of an all-attention stack (any
+other stack turns it off, as the JAX engine does), and request
+migration; each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,8 +32,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import ATTN, MAMBA, RunConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ref import check_ssm_chunk
 from repro_torch.kernels.sampling import host_gumbel
 from repro_torch.models.model import build_model
 from repro_torch.serve.paged import (BlockAllocator, CacheExhausted,
@@ -92,8 +98,13 @@ class ServeEngine:
         self.device = resolve_device(device)
         if not paged:
             raise NotImplementedError(f"the dense cache layout {_DEFERRED}")
-        if prefill_chunk:
+        # chunked prefill needs per-chunk attention continuation, which
+        # only an all-attention stack has; for any other stack the JAX
+        # engine turns it off (recurrent blocks would need their
+        # chunk-boundary state threaded through), and so does the port
+        if prefill_chunk and all(b == ATTN for b in run.model.block_pattern):
             raise NotImplementedError(f"chunked prefill {_DEFERRED}")
+        self.prefill_chunk = 0
         self.run = run
         self.model = build_model(run)
         self._set_params(params)
@@ -172,6 +183,13 @@ class ServeEngine:
         need = len(req.prompt) + req.max_new_tokens
         if len(req.prompt) < 1:
             raise RequestRejected(f"request {req.rid}: empty prompt")
+        if MAMBA in self.run.model.block_pattern:
+            # the SSD scan's chunk rule; the engine never pads a prompt,
+            # since pad tokens would enter the recurrent state
+            try:
+                check_ssm_chunk(len(req.prompt), self.run.model.ssm.chunk)
+            except ValueError as e:
+                raise RequestRejected(f"request {req.rid}: {e}") from e
         if need > self.max_len:
             raise RequestRejected(
                 f"request {req.rid}: prompt {len(req.prompt)} + "

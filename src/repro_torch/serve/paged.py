@@ -386,10 +386,18 @@ def paged_cache_supported(cfg) -> tuple[bool, str]:
     return True, ""
 
 
+def _paged(name: str) -> bool:
+    """A page-pool leaf (KV payload or its int8 scales), not dense
+    per-slot state."""
+    return name in _KV or name in _KV_SCALE
+
+
 def init_paged_cache(model, shape, num_pages: int, page_size: int,
                      kv_dtype: Optional[str] = None, device="cuda") -> dict:
     """Build the serve cache tree: attention k/v leaves become shared page
-    pools (nper, P, page, K, hd) in the compute dtype.
+    pools (nper, P, page, K, hd) in the compute dtype; every other leaf
+    (a mamba layer's conv and SSM state) stays dense per slot, (nper, B,
+    ...) zeros, as ``Model.init_cache`` makes it.
 
     ``kv_dtype='int8'`` stores the pools quantized, with per-(row,head)
     symmetric scales in fp32 ``k_scale``/``v_scale`` siblings of shape
@@ -405,6 +413,10 @@ def init_paged_cache(model, shape, num_pages: int, page_size: int,
     for blk, node in specs.items():
         tree[blk] = {}
         for name, sd in node.items():
+            if not _paged(name):
+                tree[blk][name] = torch.zeros(sd.shape, dtype=sd.dtype,
+                                              device=device)
+                continue
             nper, _, _, K, hd = sd.shape
             pool = (nper, num_pages, page_size, K, hd)
             if kv_dtype == "int8":
@@ -428,16 +440,19 @@ def admit_kv(cache: dict, req_cache: dict, page_ids, page_size: int,
 
     The pool may be int8 while the request cache is always the fp dense
     staging layout: quantization happens here, and the scale siblings are
-    filled from the same (zero-padded) rows. ``slot`` would place dense
-    per-slot state, which the dense attention stack does not have."""
+    filled from the same (zero-padded) rows. Dense per-slot state (a
+    mamba layer's conv and SSM state) is written into batch slot
+    ``slot``, also when the whole prompt was shared."""
     skip = int(skip_pages)
     ids = list(page_ids)[skip:]
     n = len(ids)
-    if n == 0:                    # whole prompt shared: nothing to copy
-        return cache
     for blk, node in cache.items():
-        some = next(iter(node.values()))
-        idx = torch.as_tensor(ids, dtype=torch.int64, device=some.device)
+        for name, leaf in node.items():
+            if not _paged(name):
+                leaf[:, slot] = req_cache[blk][name][:, 0].to(leaf.dtype)
+        if n == 0 or "k" not in node:   # whole prompt shared: no KV rows
+            continue
+        idx = torch.as_tensor(ids, dtype=torch.int64, device=node["k"].device)
         for name in _KV:
             r = req_cache[blk][name]
             nper, _, L, K, hd = r.shape
@@ -460,8 +475,9 @@ def copy_page(cache: dict, src: int, dst: int) -> dict:
     every KV pool (and its quantization scales), in place, so the writer's
     fresh private page starts bit-identical to the shared one."""
     for node in cache.values():
-        for leaf in node.values():
-            leaf[:, dst] = leaf[:, src]
+        for name, leaf in node.items():
+            if _paged(name):
+                leaf[:, dst] = leaf[:, src]
     return cache
 
 
@@ -472,7 +488,9 @@ def apply_page_moves(cache: dict, moves: dict[int, int]) -> dict:
     if not moves:
         return cache
     for node in cache.values():
-        for leaf in node.values():
+        for name, leaf in node.items():
+            if not _paged(name):
+                continue
             g = torch.as_tensor(permutation_of(moves, leaf.shape[1]),
                                 device=leaf.device)
             leaf.copy_(leaf[:, g])
@@ -480,8 +498,11 @@ def apply_page_moves(cache: dict, moves: dict[int, int]) -> dict:
 
 
 def reset_slot_state(cache: dict, slot: int) -> dict:
-    """Zero a finished slot's dense (non-KV) recurrent state. The dense
-    attention stack's cache is all paged KV, which needs no reset — its
-    pages simply return to the allocator — so this is the identity until
-    the recurrent families are ported."""
+    """Zero a finished slot's dense (non-KV) recurrent state, in place;
+    paged KV (and its scales) needs no reset — its pages simply return to
+    the allocator."""
+    for node in cache.values():
+        for name, leaf in node.items():
+            if not _paged(name):
+                leaf[:, slot] = 0
     return cache

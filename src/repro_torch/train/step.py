@@ -13,7 +13,10 @@ from repro_torch.models.model import build_model, ops_backend
 
 
 def make_serve_steps(run: RunConfig):
-    """Returns (prefill_fn, decode_fn)."""
+    """Returns (prefill_fn, decode_fn): the model's prefill, and its
+    decode over the dense cache with one position for the whole batch
+    (``decode(params, cache, tokens, pos)``, pos an int or a 0-d
+    tensor)."""
     model = build_model(run)
     return model.prefill, model.decode_step
 

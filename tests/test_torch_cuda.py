@@ -6,12 +6,14 @@ installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the attention kernels within 1e-4 + 2**-6 * |plain|
-elementwise, two bf16 steps of the value (kernel and plain version each
-round an fp32 result to bf16 once, after sums taken in other orders, so
-they may differ by one step); sampling and the staging kernels
-(``qdma_pack``, ``qdma_pack_rows``, ``qdma_unpack``, ``qdma_digest``) are
-bit-exact.
+Tolerances: the attention kernels (``flash_attention``, ``flash_decode``,
+the paged decodes) within 1e-4 + 2**-6 * |plain| elementwise, two bf16
+steps of the value (kernel and plain version each round an fp32 result
+to bf16 once, after sums taken in other orders, so they may differ by
+one step); ``ssm_scan`` within 1e-4 * max |plain| for y and for the
+state (both accumulate in fp32, in other orders); sampling and the
+staging kernels (``qdma_pack``, ``qdma_pack_rows``, ``qdma_unpack``,
+``qdma_digest``) are bit-exact.
 """
 import numpy as np
 import pytest
@@ -74,6 +76,50 @@ def test_paged_decode_kernel_on_card(cuda, quant):
                                rtol=2 ** -6)
     assert torch.all(got[1] == 0) and torch.all(got[6] == 0)
     assert torch.equal(got, fn(*args))     # no atomics: same bits again
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 16])
+@pytest.mark.parametrize("pos", [0, 511, 1023])
+def test_flash_decode_kernel_on_card(cuda, H, pos):
+    g = torch.Generator(device=cuda).manual_seed(pos + H)
+    q = torch.randn((4, 1, H, 128), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((4, 1024, 8, 128), generator=g,
+                        device=cuda).bfloat16() for _ in "kv")
+    want = ops.flash_decode(q, k, v, pos, backend="ref")
+    for p in (pos, torch.tensor(pos, device=cuda)):
+        got = ops.flash_decode(q, k, v, p)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                                   rtol=2 ** -6)
+    assert torch.equal(got, ops.flash_decode(q, k, v, pos))   # no atomics
+    # rows past pos are never read: poisoning them changes nothing
+    k[:, pos + 1:] = float("nan")
+    assert torch.equal(got, ops.flash_decode(q, k, v, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,hd,N,chunk", [
+    (1, 100, 8, 64, 128, 128),     # one chunk of 100 (a short prompt)
+    (2, 512, 8, 64, 128, 128),     # four chunks at the published widths
+    (2, 48, 4, 16, 16, 16),        # the smoke twin's widths
+    (1, 5, 2, 64, 128, 128)])      # Q = 5
+def test_ssm_scan_kernel_on_card(cuda, dtype, B, S, H, hd, N, chunk):
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    x = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+    b, c = (torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
+            for _ in "bc")
+    la = -torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=cuda))
+    y, st = ops.ssm_scan(x, b, c, la, chunk=chunk)
+    wy, wst = ops.ssm_scan(x, b, c, la, chunk=chunk, backend="ref")
+    for got, want in ((y, wy), (st, wst)):
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+    with pytest.raises(ValueError, match="chunk rule"):
+        ops.ssm_scan(x[:, :S - 1], b[:, :S - 1], c[:, :S - 1],
+                     la[:, :S - 1], chunk=min(chunk, S - 2))
 
 
 @pytest.mark.cuda

@@ -236,3 +236,174 @@ def test_launch_serve_bare_engine(capsys):
                         (["--prefill-chunk", "4"], "--prefill-chunk")):
         with pytest.raises(NotImplementedError, match=name):
             serve.main(["--smoke", "--device", "cpu"] + extra)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid Mamba-attention stack (smoke twin of jamba-1.5-large-398b-1p-
+# dense: one attention and three mamba layers, SSM chunk 16)
+# ---------------------------------------------------------------------------
+HYBRID = "jamba-1.5-large-398b-1p-dense"
+
+
+@pytest.fixture(scope="module")
+def hybrid():
+    import dataclasses
+    jrun = jax_run_config("jamba-1.5-large-398b", "decode_32k", smoke=True,
+                          precision=JPrecision(compute="float32"))
+    jrun = dataclasses.replace(
+        jrun, model=dataclasses.replace(jrun.model, moe=None))
+    trun = torch_run_config(HYBRID, "decode_32k", smoke=True,
+                            precision=TPrecision(compute="float32"))
+    jp = jax_model(jrun).init(jax.random.key(0))
+    tp = interop.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return jrun, jp, trun, tp
+
+
+def _hybrid_requests(cls, n=5, new=8, shared=None):
+    """As ``_requests``, with prompt lengths the SSM chunk rule admits (at
+    most 16 tokens, or 32: two chunks)."""
+    lens = (5, 9, 16, 32, 12, 7)
+    out = []
+    for i in range(n):
+        prompt = (np.arange(lens[i % len(lens)]) * (i + 2) + 1) % 500
+        if shared is not None:
+            prompt = np.concatenate([shared, [i % 2]])
+        out.append(cls(rid=i, prompt=prompt, max_new_tokens=new,
+                       temperature=0.8 if i % 2 else 0.0,
+                       top_k=16 if i % 4 == 1 else 0, seed=3 + i))
+    return out
+
+
+@pytest.mark.parametrize("kv_dtype,fused", [
+    (None, True), (None, False), ("int8", True), ("int8", False)])
+def test_hybrid_engine_streams_identical_to_jax(hybrid, kv_dtype, fused):
+    """Paged KV for the attention layer beside dense per-slot conv and SSM
+    state: the same tokens as the JAX engine, with slots recycled."""
+    jeng, teng = _engines(hybrid, kv_dtype=kv_dtype, fused_sampling=fused)
+    want = _serve(jeng, _hybrid_requests(JRequest))
+    got = _serve(teng, _hybrid_requests(Request))
+    _assert_streams_equal(got, want)
+    assert teng.alloc.num_free == teng.alloc.capacity
+    # every finished slot's recurrent state was zeroed
+    for node in teng._cache.values():
+        for name in ("conv", "ssm"):
+            if name in node:
+                assert torch.all(node[name] == 0), name
+
+
+def test_hybrid_prefix_sharing_streams_identical_to_jax(hybrid):
+    """Pairs of equal prompts share their whole prompt's pages; the
+    recurrent state is still written into the sharer's slot."""
+    shared = (np.arange(11) * 3) % 100
+    jeng, teng = _engines(hybrid, slots=4, share_prefix=True,
+                          fused_sampling=True)
+    want = _serve(jeng, _hybrid_requests(JRequest, n=4, shared=shared))
+    got = _serve(teng, _hybrid_requests(Request, n=4, shared=shared))
+    _assert_streams_equal(got, want)
+    assert teng.stats == jeng.stats
+    assert teng.stats["shared_page_hits"] > 0
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_hybrid_pause_round_trip_token_identical(hybrid, kv_dtype):
+    """The staged state carries the recurrent leaves: a pause mid-run,
+    with the device state dropped and restored, changes no token."""
+    _, _, trun, tp = hybrid
+    kw = dict(device="cpu", slots=2, max_len=48, paged=True, page_size=8,
+              kv_dtype=kv_dtype, fused_sampling=True)
+    want = _run_with_pause(ServeEngine(trun, tp, **kw),
+                           _hybrid_requests(Request), pause_at=None)
+    eng = ServeEngine(trun, tp, **kw)
+    got = _run_with_pause(eng, _hybrid_requests(Request), pause_at=3)
+    _assert_streams_equal(got, want)
+
+
+def test_hybrid_export_state_copies_recurrent_state(hybrid):
+    _, _, trun, tp = hybrid
+    eng = ServeEngine(trun, tp, device="cpu", slots=2, max_len=48,
+                      page_size=8)
+    for r in _hybrid_requests(Request, n=2):
+        eng.submit(r)
+    eng.step()
+    st = eng.export_state()
+    ssm = st["cache"]["block1"]["ssm"]
+    assert ssm is not eng._cache["block1"]["ssm"]
+    before = ssm.clone()
+    eng.step()
+    assert torch.equal(ssm, before)
+    assert not torch.equal(eng._cache["block1"]["ssm"], before)
+    eng.import_state(st)
+    assert torch.equal(eng._cache["block1"]["ssm"], before)
+    assert eng._cache["block1"]["ssm"] is not ssm
+
+
+def test_hybrid_inactive_slot_state_bit_untouched(hybrid):
+    """A decode step with one slot masked out leaves that slot's conv and
+    SSM state bytes exactly as they were (JAX's masked write-back)."""
+    _, _, trun, tp = hybrid
+    eng = ServeEngine(trun, tp, device="cpu", slots=3, max_len=48,
+                      page_size=8)
+    for r in _hybrid_requests(Request, n=3, new=12):
+        eng.submit(r)
+    eng.step()
+    cache = eng._cache
+    rng = np.random.default_rng(0)
+    for node in cache.values():
+        for name in ("conv", "ssm"):
+            if name in node:
+                node[name][:, 1] = torch.from_numpy(rng.standard_normal(
+                    tuple(node[name][:, 1].shape)).astype(np.float32))
+    before = {(b, n): t.clone() for b, node in cache.items()
+              for n, t in node.items()}
+    act = torch.tensor([True, False, True])
+    pos = torch.tensor(np.where(act.numpy(), eng.pos + 1, -1),
+                       dtype=torch.int32)
+    eng._decode(eng._cparams, cache,
+                torch.tensor([[3], [0], [5]]), pos,
+                torch.tensor(eng.tables[:, :4]), act)
+    for (b, n), old in before.items():
+        if n in ("conv", "ssm"):
+            new = cache[b][n]
+            assert torch.equal(new[:, 1].view(torch.uint8),
+                               old[:, 1].view(torch.uint8)), (b, n)
+            assert not torch.equal(new[:, 0], old[:, 0]), (b, n)
+
+
+def test_hybrid_prefill_chunk_is_turned_off(hybrid, setup):
+    """As in the JAX engine, a stack that is not all attention serves with
+    chunked prefill off; an all-attention stack still refuses it."""
+    _, _, trun, tp = hybrid
+    eng = ServeEngine(trun, tp, device="cpu", slots=2, max_len=48,
+                      page_size=8, prefill_chunk=8)
+    assert eng.prefill_chunk == 0
+    _serve(eng, _hybrid_requests(Request, n=2, new=2))
+    _, _, qrun, qp = setup
+    with pytest.raises(NotImplementedError, match="chunked prefill"):
+        ServeEngine(qrun, qp, device="cpu", prefill_chunk=8)
+
+
+def test_hybrid_engine_rejects_a_prompt_breaking_the_chunk_rule(hybrid):
+    """A 20-token prompt (chunk 16) cannot be scanned and is never padded:
+    the request is rejected, the engine serves the others."""
+    _, _, trun, tp = hybrid
+    eng = ServeEngine(trun, tp, device="cpu", slots=2, max_len=48,
+                      page_size=8)
+    bad = Request(rid=0, prompt=np.arange(20) % 100, max_new_tokens=2)
+    good = Request(rid=1, prompt=np.arange(32) % 100, max_new_tokens=2)
+    eng.submit(bad)
+    eng.submit(good)
+    res = eng.run_until_idle()
+    assert res.drained and "chunk rule" in bad.error
+    assert good.error is None and len(good.out) == 2
+    assert eng.alloc.num_free == eng.alloc.capacity
+
+
+@pytest.mark.parametrize("fleet", [[], ["--fleet", "2", "--slo-max-load",
+                                        "4"]], ids=["bare", "fleet"])
+def test_launch_serve_hybrid_smoke(capsys, fleet):
+    from repro_torch.launch import serve
+    rc = serve.main(["--smoke", "--device", "cpu", "--arch", HYBRID,
+                     "--requests", "3", "--new-tokens", "4"] + fleet)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["completed"] == out["requests"] == 3
+    assert out["generated_tokens"] == 12

@@ -359,3 +359,60 @@ def test_crash_point_recovers_like_jax(setup, tmp_path, point):
     assert got[1] == want[1]          # VF table
     assert got[2] == want[2]          # journal, with each resolution
     assert got[3] == want[3]          # tokens served after recovery
+
+
+def test_hybrid_fleet_matches_jax(tmp_path):
+    """A fleet of two hybrid engines (the smoke twin of
+    jamba-1.5-large-398b-1p-dense: paged KV beside dense per-slot conv
+    and SSM state) under the port's SVFFManager, through pause_live,
+    arrivals while paused, unpause and migrate: the JAX fleet's token
+    streams. The staged payload carries every recurrent leaf."""
+    import dataclasses
+    from repro_torch.tree import flatten
+    jrun = jax_run_config("jamba-1.5-large-398b", "decode_32k", smoke=True,
+                          precision=JPrecision(compute="float32"))
+    jrun = dataclasses.replace(
+        jrun, model=dataclasses.replace(jrun.model, moe=None))
+    trun = torch_run_config("jamba-1.5-large-398b-1p-dense", "decode_32k",
+                            smoke=True,
+                            precision=TPrecision(compute="float32"))
+    jp = jax_model(jrun).init(jax.random.key(0))
+    tp = interop.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    common = dict(num_engines=2, num_devices=4, slots=2, max_len=48,
+                  page_size=8)
+
+    def script(side, fleet):
+        cls = side["Request"]
+        reqs = [cls(rid=i, prompt=(np.arange((5, 16, 32, 9)[i % 4])
+                                   * (i + 2) + 1) % 500, max_new_tokens=6,
+                    temperature=0.8 if i % 2 else 0.0,
+                    top_k=16 if i % 4 == 1 else 0, seed=3 + i)
+                for i in range(6)]
+        for r in reqs[:4]:
+            fleet.submit(r)
+        _steps(fleet, 2)
+        fleet.pause_live("serve0", rounds=2)
+        payload = fleet.mgr.snapshots["serve0"].payload
+        for r in reqs[4:]:                   # arrivals while paused
+            fleet.submit(r)
+        _steps(fleet, 2)
+        fleet.unpause("serve0")
+        _steps(fleet, 1)
+        fleet.migrate("serve1")
+        assert fleet.drain().drained
+        return reqs, payload
+
+    jreqs, _ = script(JAX_SIDE, JFleet(jrun, jp, workdir=str(tmp_path / "j"),
+                                       **common))
+    tf = TFleet(trun, tp, device="cpu", workdir=str(tmp_path / "t"),
+                **common)
+    treqs, payload = script(PORT_SIDE, tf)
+    assert all(r.done and not r.error for r in treqs)
+    assert [r.out for r in treqs] == [r.out for r in jreqs]
+    paths = [p for p, _ in flatten(payload)[0]]
+    for j in (1, 2, 3):
+        for name in ("conv", "ssm"):
+            assert any(f"['block{j}']['{name}']" in p for p in paths), \
+                (j, name)
+    assert _journal(tf.mgr) and all(e[3] == "committed"
+                                    for e in _journal(tf.mgr))
