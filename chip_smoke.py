@@ -52,15 +52,19 @@ ATTN_ATOL = 1e-4       # ATTN_ATOL + ATTN_RTOL * |plain|, two bf16 steps of
                        # the value. Kernel and plain version each round an
                        # fp32 result to bf16 once, after sums taken in other
                        # orders, so they may differ by one step
-LOGITS_REL_TOL = 1.5e-2  # prefill logits, kernel path vs plain path, over
-                         # 28 (qwen) or 8 (hybrid) bf16 layers, relative
-                         # to max |logit|
-STATE_REL_TOL = 3e-2     # a mamba layer's final SSM state, kernel path vs
-                         # plain path, relative to its max |state|, twice
-                         # the logits' limit: the state integrates the
-                         # layer's bf16 inputs, and at bf16 any change of
-                         # rounding moves this stack by about 1% (the
-                         # readings are in PERF.md)
+LOGITS_REL_TOL = 1.5e-2  # qwen's prefill logits, kernel path vs plain
+                         # path, over 28 bf16 layers, relative to max
+                         # |logit|
+HYBRID_MARGIN = 1.5      # the hybrid's prefill: the kernel path's distance
+                         # from the plain path with fp32 compute, at most
+                         # this many times the plain bf16 path's own, for
+                         # the logits (of max |logit|) and for the mean
+                         # over mamba layers of the final SSM state's (of
+                         # its max). Both paths round the same bf16 stack
+                         # in other orders, so they lie about as far from
+                         # fp32: 0.83-1.13 times over seeds 0-3 (the
+                         # readings, and what the limit rejects, are in
+                         # PERF.md)
 SSM_REL_TOL = 1e-4       # ssm_scan y and state vs the plain version,
                          # relative to max |plain|: both accumulate in
                          # fp32, in other orders
@@ -336,12 +340,13 @@ def phase_flash_decode(torch, ops, timer, cfg):
 
 def ssm_scan_work(B, S, H, hd, N, Q, in_bytes):
     """(bytes, flops) of one scan: x, B, C and log_a read once, y and the
-    state written once; per (batch, head, chunk) the products (M * C B^T)
-    x, C H^T and the state update, and C B^T once per (batch, chunk), as
-    the TPU kernel computes them (the masked triangle included)."""
+    state written once; per (batch, head, chunk) the causal half of
+    (M * C B^T) x (row t sums over the t + 1 columns s <= t: Q(Q+1)/2
+    products per column of x), and C H^T and the state update in full; the
+    causal half of C B^T once per (batch, chunk)."""
     nc = S // Q
-    flops = (B * H * nc * (2 * Q * Q * hd + 4 * Q * hd * N)
-             + B * nc * 2 * Q * Q * N)
+    flops = (B * H * nc * (Q * (Q + 1) * hd + 4 * Q * hd * N)
+             + B * nc * Q * (Q + 1) * N)
     nbytes = (in_bytes * (B * S * H * hd + 2 * B * S * N) + 4 * B * S * H
               + 4 * B * S * H * hd + 4 * B * H * hd * N)
     return nbytes, flops
@@ -350,15 +355,15 @@ def ssm_scan_work(B, S, H, hd, N, Q, in_bytes):
 def phase_ssm_scan(torch, ops, timer, cfg):
     """ssm_scan at the hybrid's widths (256 heads of 64, d_state 128,
     chunk 128) over one short prompt (S=100, one chunk) and S=512 (four
-    chunks), B 1 and 2, bf16 inputs as the model gives them, and one case
-    with fp32 inputs."""
+    chunks), B 1 and 2, the generate path's prefill (B=4, S=384), bf16
+    inputs as the model gives them, and one case with fp32 inputs."""
     from repro_torch.models.params import mamba_dims
     _, H, _, _ = mamba_dims(cfg)
     hd, N, chunk = cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk
     rows = []
     for B, S, dt in ((1, 512, torch.bfloat16), (1, 100, torch.bfloat16),
                      (2, 100, torch.bfloat16), (2, 512, torch.bfloat16),
-                     (1, 512, torch.float32)):
+                     (4, 384, torch.bfloat16), (1, 512, torch.float32)):
         g = torch.Generator(device="cuda").manual_seed(15 + B * S)
         x = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dt)
         bv, cv = (torch.randn((B, S, N), generator=g, device="cuda").to(dt)
@@ -907,44 +912,72 @@ def phase_prefill_logits(torch, run, params, seed):
 # the hybrid Mamba-attention stack
 # ---------------------------------------------------------------------------
 def phase_hybrid_prefill(torch, run, params, seed):
-    """The hybrid's prefill through the kernels vs through the plain
-    versions on the same weights and prompts: the last logits, and each
-    mamba layer's final SSM state."""
+    """The hybrid's prefill through the kernels and through the plain
+    versions, both with bf16 compute, each held against the plain
+    versions with fp32 compute on the same weights and prompts: the last
+    logits and each mamba layer's final SSM state. At bf16 any change of
+    rounding moves this stack by 1-2% of max |logit|, so a fixed limit on
+    kernel vs plain cannot tell a kernel error from rounding; the kernel
+    path is held to ``HYBRID_MARGIN`` times the plain bf16 path's own
+    distance from fp32 compute (one layer's state alone is too noisy to
+    hold: the mean over layers is held)."""
+    import dataclasses
     from repro_torch.models.model import build_model
-    fast, plain = build_model(run), build_model(
-        run.replace(kernel_backend="reference"))
+    plain_run = run.replace(kernel_backend="reference")
+    paths = {"kernel": build_model(run), "plain": build_model(plain_run)}
+    exact = build_model(plain_run.replace(precision=dataclasses.replace(
+        run.precision, compute="float32")))
     rng = np.random.default_rng(seed + 200)
     res = {}
     for S in (100, 384):
         toks = torch.tensor(rng.integers(0, run.model.vocab_size, (1, S)),
                             device="cuda")
-        ca, a = fast.prefill(params, {"tokens": toks})
-        cb, b = plain.prefill(params, {"tokens": toks})
-        check(bool(torch.isfinite(a).all()) and a.shape == b.shape,
-              f"hybrid prefill S={S}: non-finite or misshapen logits")
-        states = {blk: float((ca[blk]["ssm"] - node["ssm"]).abs().max()
-                             / node["ssm"].abs().max())
-                  for blk, node in cb.items() if "ssm" in node}
-        check(all(bool(torch.isfinite(ca[blk]["ssm"]).all())
-                  for blk in states), f"hybrid prefill S={S}: non-finite "
-                                      "SSM state")
-        res[S] = {"logits_rel_err": float((a - b).abs().max()
-                                          / b.abs().max()),
-                  "ssm_state_rel_err": states}
-        del ca, cb
-        log(f"hybrid prefill S={S}, kernel vs plain path: logits "
-            f"{res[S]['logits_rel_err']:.3g} of max |logit| (tolerance "
-            f"{LOGITS_REL_TOL}); final SSM states, of each layer's max: "
-            + ", ".join(f"{k} {v:.3g}" for k, v in states.items())
-            + f" (tolerance {STATE_REL_TOL})")
+        ref_cache, ref = exact.prefill(params, {"tokens": toks})
+        ref_states = {blk: node["ssm"] for blk, node in ref_cache.items()
+                      if "ssm" in node}
+        del ref_cache
+        r, out = {}, {}
+        for name, model in paths.items():
+            cache, out[name] = model.prefill(params, {"tokens": toks})
+            check(bool(torch.isfinite(out[name]).all())
+                  and out[name].shape == ref.shape,
+                  f"hybrid prefill S={S} {name}: non-finite or misshapen "
+                  "logits")
+            check(all(bool(torch.isfinite(cache[blk]["ssm"]).all())
+                      for blk in ref_states),
+                  f"hybrid prefill S={S} {name}: non-finite SSM state")
+            ssm = {blk: float((cache[blk]["ssm"] - st).abs().max()
+                              / st.abs().max())
+                   for blk, st in ref_states.items()}
+            r[name] = {"logits": float((out[name] - ref).abs().max()
+                                       / ref.abs().max()),
+                       "ssm": ssm,
+                       "ssm_mean": float(np.mean(list(ssm.values())))}
+            del cache
+        r["kernel_vs_plain"] = float((out["kernel"] - out["plain"]).abs()
+                                     .max() / out["plain"].abs().max())
+        res[S] = r
+        log(f"hybrid prefill S={S}, from the fp32-compute plain path "
+            f"(of max |logit|; of each layer's max |state|): kernel path "
+            f"logits {r['kernel']['logits']:.4g}, states "
+            + ", ".join(f"{v:.4g}" for v in r["kernel"]["ssm"].values())
+            + f" (mean {r['kernel']['ssm_mean']:.4g}) | plain bf16 path "
+            f"logits {r['plain']['logits']:.4g}, states "
+            + ", ".join(f"{v:.4g}" for v in r["plain"]["ssm"].values())
+            + f" (mean {r['plain']['ssm_mean']:.4g}) | limits "
+            f"{HYBRID_MARGIN} x the plain path's | kernel vs plain path "
+            f"logits {r['kernel_vs_plain']:.4g}")
     for S, r in res.items():
-        check(r["logits_rel_err"] <= LOGITS_REL_TOL,
-              f"hybrid prefill S={S}: kernel vs plain logits differ by "
-              f"{r['logits_rel_err']:.3g} of max |logit|")
-        for blk, st in r["ssm_state_rel_err"].items():
-            check(st <= STATE_REL_TOL, f"hybrid prefill S={S} {blk}: SSM "
-                                       f"state differs by {st:.3g} of its "
-                                       "max")
+        k, p = r["kernel"], r["plain"]
+        check(k["logits"] <= HYBRID_MARGIN * p["logits"],
+              f"hybrid prefill S={S}: the kernel path's logits are "
+              f"{k['logits']:.4g} of max |logit| from fp32 compute, over "
+              f"{HYBRID_MARGIN} x the plain bf16 path's {p['logits']:.4g}")
+        check(k["ssm_mean"] <= HYBRID_MARGIN * p["ssm_mean"],
+              f"hybrid prefill S={S}: the kernel path's SSM states are "
+              f"{k['ssm_mean']:.4g} of their max from fp32 compute (mean "
+              f"over layers), over {HYBRID_MARGIN} x the plain bf16 "
+              f"path's {p['ssm_mean']:.4g}")
     return res
 
 

@@ -111,19 +111,22 @@ def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
 #: cache rows per block of the flash_decode kernel (a 1,024-row cache is
 #: split over 16 blocks per (slot, KV head))
 FLASH_DECODE_SPLIT = 64
+#: the Pallas flash_decode's default tile: the reference asserts
+#: T % min(FLASH_DECODE_TILE, T) == 0, and the port keeps that contract
+FLASH_DECODE_TILE = 256
 
 
-def flash_decode(q, k, v, pos, *, block_k: int = 256, backend: str = "auto"):
+def flash_decode(q, k, v, pos, *, backend: str = "auto"):
     """q: (B,1,H,hd); k,v: (B,T,K,hd); pos: scalar int or 0-d integer
     tensor, one position for the whole batch — attend to indices <= pos.
-    T must be a multiple of min(block_k, T), the reference kernel's tile
-    rule. The kernel takes bf16 and hd % 8 == 0, H / K <= 8."""
+    T must be a multiple of min(FLASH_DECODE_TILE, T), the reference
+    kernel's tile rule. The kernel takes bf16 and hd % 8 == 0, H / K <= 8."""
     B, _, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    bk = min(block_k, T)
+    bk = min(FLASH_DECODE_TILE, T)
     if bk < 1 or T % bk:
         raise ValueError(f"flash_decode: cache length {T} is not a multiple "
-                         f"of the tile min(block_k, T) = {bk}")
+                         f"of the tile min({FLASH_DECODE_TILE}, T) = {bk}")
     if isinstance(pos, torch.Tensor) and pos.dim() != 0:
         raise ValueError(f"flash_decode: pos must be a scalar, got shape "
                          f"{tuple(pos.shape)}")
@@ -155,6 +158,19 @@ def flash_decode(q, k, v, pos, *, block_k: int = 256, backend: str = "auto"):
     return out
 
 
+def check_ssm_chunk(S: int, chunk: int) -> int:
+    """The chunk length Q = min(chunk, S); the scan (the Pallas kernel and
+    ``ssd_chunked`` alike) needs S % Q == 0. Padding the sequence instead
+    would integrate the pad tokens into the recurrent state."""
+    Q = min(chunk, S)
+    if Q < 1 or S % Q:
+        raise ValueError(
+            f"ssm_scan: sequence length {S} breaks the chunk rule "
+            f"S % min(chunk, S) == 0 (chunk {chunk}): a prompt must be at "
+            f"most {chunk} tokens or a multiple of {chunk}")
+    return Q
+
+
 def ssm_scan(xdt, Bv, Cv, log_a, *, chunk: int = 128, backend: str = "auto"):
     """The chunked SSD scan: xdt (B,S,H,hd), Bv/Cv (B,S,N), log_a (B,S,H)
     fp32 -> (y (B,S,H,hd) fp32, final state (B,H,hd,N) fp32). S must be a
@@ -163,7 +179,7 @@ def ssm_scan(xdt, Bv, Cv, log_a, *, chunk: int = 128, backend: str = "auto"):
     N <= 128."""
     B, S, H, hd = xdt.shape
     N = Bv.shape[-1]
-    Q = _ref.check_ssm_chunk(S, chunk)
+    Q = check_ssm_chunk(S, chunk)
     if _plain(backend, xdt):
         return _ref.ssm_scan_ref(xdt, Bv, Cv, log_a, chunk=chunk)
     dev = xdt.device

@@ -122,19 +122,6 @@ def paged_decode_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
 # ---------------------------------------------------------------------------
 # ssm_scan (chunked Mamba-2 SSD scan, scalar decay per head)
 # ---------------------------------------------------------------------------
-def check_ssm_chunk(S: int, chunk: int) -> int:
-    """The chunk length Q = min(chunk, S); the scan (the Pallas kernel and
-    ``ssd_chunked`` alike) needs S % Q == 0. Padding the sequence instead
-    would integrate the pad tokens into the recurrent state."""
-    Q = min(chunk, S)
-    if Q < 1 or S % Q:
-        raise ValueError(
-            f"ssm_scan: sequence length {S} breaks the chunk rule "
-            f"S % min(chunk, S) == 0 (chunk {chunk}): a prompt must be at "
-            f"most {chunk} tokens or a multiple of {chunk}")
-    return Q
-
-
 def ssm_scan_ref(xdt, Bv, Cv, log_a, chunk: int = 128):
     """What the Pallas kernel computes, in fp32 throughout, the state
     carried chunk to chunk. Per chunk of Q = min(chunk, S) tokens:
@@ -149,6 +136,7 @@ def ssm_scan_ref(xdt, Bv, Cv, log_a, chunk: int = 128):
     ``ssd_chunked``, nothing is rounded to the inputs' dtype."""
     B, S, H, hd = xdt.shape
     N = Bv.shape[-1]
+    from repro_torch.kernels.ops import check_ssm_chunk  # ops imports ref
     Q = check_ssm_chunk(S, chunk)
     f32 = torch.float32
     x, Bf, Cf, la = (t.to(f32) for t in (xdt, Bv, Cv, log_a))

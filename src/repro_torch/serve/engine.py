@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.configs.base import ATTN, MAMBA, RunConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ref import check_ssm_chunk
+from repro_torch.kernels.ops import check_ssm_chunk
 from repro_torch.kernels.sampling import host_gumbel
 from repro_torch.models.model import build_model
 from repro_torch.serve.paged import (BlockAllocator, CacheExhausted,
