@@ -170,22 +170,28 @@ def bound(nbytes: float, ops: float, rate: float):
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
-def phase_flash_attention(torch, ops, timer, cfg):
+def phase_flash_attention(torch, ops, timer, cfg, hcfg):
+    """flash_attention at qwen3-0.6b's prompt lengths (S 7, 200, 384 and
+    its longest, 600; 16/8 heads of 128) and at the hybrid's prefill
+    shape (S 512, 64/8 heads of 128)."""
     import torch.nn.functional as F
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(11)
     rows = []
-    for S in (7, 200, 384):
+    shapes = [(S, cfg.num_heads, cfg.num_kv_heads) for S in (7, 200, 384, 600)]
+    shapes.append((512, hcfg.num_heads, hcfg.num_kv_heads))
+    for S, H, K in shapes:
         q, k, v = (torch.randn((1, S, n, hd), generator=g, device="cuda")
                    .to(torch.bfloat16) for n in (H, K, K))
         got = ops.flash_attention(q, k, v, causal=True)
         want = ops.flash_attention(q, k, v, causal=True, backend="ref")
         torch.cuda.synchronize()
         err, share = attn_err(got, want)
-        check(share <= 1, f"flash_attention S={S}: max_abs_err {err}, "
+        label = f"q (1,{S},{H},{hd}) k/v {K} heads"
+        check(share <= 1, f"flash_attention {label}: max_abs_err {err}, "
                           f"{share:.3g} of the limit")
         check(torch.equal(got, ops.flash_attention(q, k, v)),
-              f"flash_attention S={S}: not deterministic")
+              f"flash_attention {label}: not deterministic")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib = timer.ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
@@ -195,11 +201,11 @@ def phase_flash_attention(torch, ops, timer, cfg):
         nbytes = 2 * (2 * S * H * hd + 2 * S * K * hd)   # q, o, k, v bf16
         flops = 4 * H * hd * S * (S + 1) / 2             # causal QK^T + PV
         b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-        rows.append({"shape": f"q (1,{S},{H},{hd}) bf16, causal",
+        rows.append({"shape": f"{label} bf16, causal",
                      "max_abs_err": err, "share_of_limit": share,
                      "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
-        log(f"flash_attention S={S}: max_abs_err {err:.3g} ({share:.3g} "
+        log(f"flash_attention {label}: max_abs_err {err:.3g} ({share:.3g} "
             f"of the limit) | kernel {ms:.4f}"
             f" ms | plain {plain:.4f} ms | sdpa {lib:.4f} ms | bound "
             f"{b_ms:.4f} ms ({b_by})")
@@ -295,9 +301,37 @@ def phase_fused_sample(torch, ops, timer, cfg):
             "library_ms": None}
 
 
+def device_kernels(torch, calls) -> list:
+    """The names of what the calls put on the card, kernels, copies and
+    memsets alike, in one torch.profiler session (warm calls first). The
+    profiler records no device work now and then in a process that has
+    profiled before, so ``main`` runs this before any other profiling,
+    and an empty record is taken once more."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
 def phase_flash_decode(torch, ops, timer, cfg):
     """flash_decode at the generate path's shapes (B=4, T=1,024, hd 128,
-    8 KV heads) with 64 and 16 query heads, at pos 0, 511 and 1,023."""
+    8 KV heads) with 64 and 16 query heads, at pos 0, 511 and 1,023, the
+    position an int (as the generate path passes it) and a 0-d int32
+    tensor on the card. Each call of either form must put exactly one
+    kernel on the card: no merge launch, and no fill or copy for the
+    position (one profiler session over a call of each form at each
+    position)."""
     import torch.nn.functional as F
     K, hd, B, T = cfg.num_kv_heads, cfg.head_dim, 4, 1024
     rows = []
@@ -307,34 +341,49 @@ def phase_flash_decode(torch, ops, timer, cfg):
         k, v = (torch.randn((B, T, K, hd), generator=g,
                             device="cuda").bfloat16() for _ in "kv")
         for pos in (0, 511, 1023):
-            got = ops.flash_decode(q, k, v, pos)
             want = ops.flash_decode(q, k, v, pos, backend="ref")
-            torch.cuda.synchronize()
-            err, share = attn_err(got, want)
-            check(share <= 1, f"flash_decode H={H} pos={pos}: max_abs_err "
-                              f"{err}, {share:.3g} of the limit")
-            check(torch.equal(got, ops.flash_decode(q, k, v, pos)),
-                  f"flash_decode H={H} pos={pos}: not deterministic")
             n = pos + 1
             qt = q.transpose(1, 2).contiguous()
             kt, vt = (x[:, :n].transpose(1, 2).contiguous() for x in (k, v))
             lib = timer.ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True))
-            ms = timer.ms(lambda: ops.flash_decode(q, k, v, pos))
-            plain = timer.ms(lambda: ops.flash_decode(q, k, v, pos,
-                                                      backend="ref"))
             nbytes = 2 * (2 * B * n * K * hd + 2 * B * H * hd) + 4
             flops = 4 * B * H * hd * n
             b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-            rows.append({"shape": f"q ({B},1,{H},{hd}), k/v ({B},{T},{K},"
-                                  f"{hd}) bf16, pos {pos}",
-                         "max_abs_err": err, "share_of_limit": share,
-                         "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                         "bound_by": b_by, "library_ms": lib})
-            log(f"flash_decode H={H} pos={pos}: max_abs_err {err:.3g} "
-                f"({share:.3g} of the limit) | kernel {ms:.4f} ms | plain "
-                f"{plain:.4f} ms | sdpa {lib:.4f} ms | bound {b_ms:.4f} ms "
-                f"({b_by})")
+            pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            for form, p in (("int", pos), ("tensor", pos_t)):
+                label = f"H={H} pos={pos} ({form})"
+                got = ops.flash_decode(q, k, v, p)
+                torch.cuda.synchronize()
+                err, share = attn_err(got, want)
+                check(share <= 1, f"flash_decode {label}: max_abs_err "
+                                  f"{err}, {share:.3g} of the limit")
+                check(torch.equal(got, ops.flash_decode(q, k, v, p)),
+                      f"flash_decode {label}: not deterministic")
+                ms = timer.ms(lambda: ops.flash_decode(q, k, v, p))
+                plain = timer.ms(lambda: ops.flash_decode(q, k, v, p,
+                                                          backend="ref"))
+                rows.append({"shape": f"q ({B},1,{H},{hd}), k/v ({B},{T},"
+                                      f"{K},{hd}) bf16, pos {pos} ({form})",
+                             "max_abs_err": err, "share_of_limit": share,
+                             "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": lib})
+                log(f"flash_decode {label}: max_abs_err {err:.3g} "
+                    f"({share:.3g} of the limit) | kernel {ms:.4f} ms | "
+                    f"plain {plain:.4f} ms | sdpa {lib:.4f} ms | bound "
+                    f"{b_ms:.4f} ms ({b_by})")
+        calls = [lambda p=p: ops.flash_decode(q, k, v, p)
+                 for pos in (0, 511, 1023)
+                 for p in (pos, torch.tensor(pos, dtype=torch.int32,
+                                             device="cuda"))]
+        names = device_kernels(torch, calls)
+        check(len(names) == len(calls) and
+              all("flash_decode" in n for n in names),
+              f"flash_decode H={H}: {len(calls)} calls put {names} on the "
+              "card, not one kernel each")
+        log(f"flash_decode H={H}: {len(calls)} calls (int and tensor "
+            f"positions) put {len(names)} kernels on the card, all "
+            f"flash_decode")
     return rows
 
 
@@ -1009,13 +1058,23 @@ def phase_generate(torch, ops, run, params, seed):
                 dense[blk][name].copy_(leaf)
     del cache
     logits, step_ms = [last], []
-    for t in range(S0, S):
+    for t in range(S0, S - 1):
         torch.cuda.synchronize()
         ts = time.perf_counter()
         lg, dense = decode(params, dense, toks[:, t:t + 1], t)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - ts) * 1e3)
         logits.append(lg)
+    # the last step under the profiler: the kernels one step puts on the
+    # card, by name
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lg, dense = decode(params, dense, toks[:, S - 1:S], S - 1)
+        torch.cuda.synchronize()
+    logits.append(lg)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
     counts = ops.launch_counts()
     del dense
     full = model.forward(params, {"tokens": toks})[0]
@@ -1028,13 +1087,26 @@ def phase_generate(torch, ops, run, params, seed):
           f"{max(errs) / scale:.3g} of max |logit| (> {GEN_REL_TOL})")
     for k in GENERATE_KERNELS:
         check(counts[k] > 0, f"{k} was never launched on the generate path")
-    res = {"rel_err": max(errs) / scale, "steps": len(step_ms),
+    n_attn = sum(1 for n in names if "flash_decode" in n)
+    if names:       # the profiler saw the step's device work
+        check(n_attn == counts["flash_decode"] // (S - S0),
+              f"generate: the profiled step ran {n_attn} flash_decode "
+              f"kernels, not one per attention layer")
+    else:
+        log("generate: the profiler recorded no device work for the last "
+            "step")
+    res = {"rel_err": max(errs) / scale, "steps": len(step_ms) + 1,
            "decode_step_ms_median": float(np.median(step_ms)),
-           "launches": counts}
-    log(f"generate B={B} prefill {S0} + {len(step_ms)} uniform-pos decode "
+           "launches": counts, "kernels_per_step": len(names),
+           "fill_kernels_per_step": sum(1 for n in names
+                                        if "fill" in n.lower()),
+           "step_kernels": {n: names.count(n) for n in sorted(set(names))}}
+    log(f"generate B={B} prefill {S0} + {res['steps']} uniform-pos decode "
         f"steps (T={T}): max rel err vs forward {res['rel_err']:.3g} "
         f"(tolerance {GEN_REL_TOL}) | decode step median "
-        f"{res['decode_step_ms_median']:.2f} ms | launches "
+        f"{res['decode_step_ms_median']:.2f} ms | a step: "
+        f"{res['kernels_per_step']} kernels, "
+        f"{res['fill_kernels_per_step']} fills | launches "
         f"{json.dumps({k: counts[k] for k in GENERATE_KERNELS})}")
     return res
 
@@ -1089,16 +1161,16 @@ def phase_profile(torch, run, params, seed, name="decode",
 
 
 def run_hybrid(torch, ops, args, card, report, kern, launches):
-    """The hybrid stack's phases: its two kernels against their plain
-    versions, then at full width its prefill, its serve path (bf16 and
-    int8 KV) and its generate path. Fills ``report`` and ``kern``, and
-    adds each path's launch counts to ``launches``."""
+    """The hybrid stack's phases: ``ssm_scan`` against its plain version
+    (``flash_decode``'s phase runs with the other kernel phases, first),
+    then at full width its prefill, its serve path (bf16 and int8 KV) and
+    its generate path. Fills ``report`` and ``kern``, and adds each path's
+    launch counts to ``launches``."""
     from repro_torch.configs import make_run_config
     from repro_torch.models.model import build_model
     hrun = make_run_config(HYBRID, "decode_32k", seed=args.seed)
     hcfg = hrun.model
     timer = Timer(torch)
-    kern["flash_decode"] = phase_flash_decode(torch, ops, timer, hcfg)
     kern["ssm_scan"] = phase_ssm_scan(torch, ops, timer, hcfg)
     del timer
     release(torch)
@@ -1195,7 +1267,11 @@ def main(argv=None) -> int:
     run = make_run_config("qwen3-0.6b", "decode_32k", seed=args.seed)
     cfg = run.model
     timer = Timer(torch)
-    kern = {"flash_attention": phase_flash_attention(torch, ops, timer, cfg),
+    hcfg = make_run_config(HYBRID, "decode_32k").model
+    # flash_decode first: its launch check is the process's first profiling
+    kern = {"flash_decode": phase_flash_decode(torch, ops, timer, hcfg),
+            "flash_attention": phase_flash_attention(torch, ops, timer, cfg,
+                                                     hcfg),
             "paged_decode": phase_paged_decode(torch, ops, timer, cfg,
                                                quant=False),
             "paged_decode_quant": phase_paged_decode(torch, ops, timer, cfg,
@@ -1293,9 +1369,9 @@ def main(argv=None) -> int:
                "qdma_digest": ("qdma_pack.cu",
                                "src/repro/kernels/qdma_pack.py:117")}
     # the row of each kernel's main shape: flash_attention the S=384
-    # prompt, flash_decode H=64 at pos 511, ssm_scan B=1 S=512 bf16, qdma
-    # the fp32 leaf or descriptor
-    main_index = {"flash_attention": -1, "flash_decode": 1}
+    # prompt, flash_decode H=64 at an int pos 511, ssm_scan B=1 S=512
+    # bf16, qdma the fp32 leaf or descriptor
+    main_index = {"flash_attention": 2, "flash_decode": 2}
     line = []
     for name, (src, replaces) in sources.items():
         rows = kern[name] if isinstance(kern[name], list) else [kern[name]]

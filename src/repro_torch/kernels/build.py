@@ -35,10 +35,10 @@ _L = ctypes.c_longlong
 #: source stem -> (extra nvcc flags, {exported function: argtypes})
 KERNELS = {
     "flash_attention": ((), {
-        "launch_flash_attention": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+        "launch_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     }),
     "flash_decode": ((), {
-        "launch_flash_decode": [_P] * 8 + [_I] * 6 + [_P],
+        "launch_flash_decode": [_P] * 5 + [_I] * 8 + [_P],
     }),
     "ssm_scan": ((), {
         "launch_ssm_scan": [_P] * 6 + [_I] * 7 + [_P],

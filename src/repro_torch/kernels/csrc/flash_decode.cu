@@ -6,253 +6,384 @@
 // block_k) whose cache axis is walked in order on one TPU core, with the
 // online-softmax state in VMEM scratch, the position prefetched as a
 // scalar and the tiles past it skipped. Here the cache axis is split
-// across blocks instead: a first kernel gives each (slot b, KV head, split
-// of split_rows rows) one block, which serves all G query heads that read
-// that KV head, walks its rows up to pos in tiles of 64 with an fp32
-// online softmax, and writes its unnormalised partial state (running max,
-// denominator, G x hd accumulator) to a scratch the wrapper allocates; a
-// second kernel merges the splits of each (b, KV head). Blocks whose rows
-// all lie past pos read nothing. No atomics: the same inputs give the same
-// bits.
+// across blocks instead: each (slot b, KV head, split of split_rows rows)
+// gets one block of four warps, which serves all G <= 8 query heads that
+// read that KV head and walks its rows up to pos in tiles of 64, 16 rows
+// per warp, each warp with its own online softmax; the warps merge in
+// shared memory into the block's unnormalised partial state (running max,
+// denominator, G x hd accumulator). The splits of one (b, KV head) form a
+// thread block cluster (at most 8 blocks), and after a cluster barrier
+// each block merges one slice of the outputs from all the splits' partial
+// states, read from their shared memory (distributed shared memory), in
+// split order. One launch, no scratch in device memory, no atomics: the
+// same inputs give the same bits. Blocks whose rows all lie past pos read
+// nothing and add nothing (for an int position they are not launched);
+// rows past pos are never read.
 //
-// Bound on the H100: bytes. Decode reads every cache row up to pos once
-// for its G query heads and does 4*G flops per element read, far below
-// the card's ridge point; at B = 4, T = 1,024, pos = 511 that is 8.4 MB,
-// 2.5 us. One block per (b, KV head) would leave 32 blocks for the whole
-// card; splits of 64 rows give 16 per 1,024-row slot. The position is read
-// from device memory, so a step never waits on the host. The score and PV
-// products run on the fp32 CUDA cores from shared memory, over the valid
-// rows of a tile only; a score is one thread's dot product, read 16 bytes
-// at a time from K rows padded against bank conflicts.
+// What bounds it on the H100: bytes. Decode reads every cache row up to
+// pos once for its G query heads and does 4*G flops per element read, far
+// below the card's ridge point; at B = 4, T = 1,024, pos = 511 that is
+// 8.4 MB, 2.5 us. So the design keeps enough rows in flight and little
+// else in the way:
+//   - Splits of 128 rows (two tiles, both in flight from the start by
+//     cp.async, double-buffered beyond that; longer caches get longer
+//     splits, at most 8 a cluster): 128 blocks at pos 511 for 132 SMs,
+//     256 at pos 1023. K and V stay bf16 in shared memory, rows padded by
+//     16 bytes against bank conflicts: 68 KB per block at hd 128, so three
+//     blocks fit on an SM.
+//   - Both products on the tensor cores, mma.sync.m16n8k16 bf16 with fp32
+//     accumulation. Scores: S^T = K Q^T with 16 cache rows as M and the 8
+//     query heads of a KV head as N (K by ldmatrix, q held in registers).
+//     P V as O^T = V^T P^T: V^T by ldmatrix.trans is the A operand, and
+//     P^T, the B operand, is the score tile's C fragment transposed in
+//     registers by movmatrix. The softmax runs over M, so its max and sum
+//     reduce across the eight lanes of a column with shuffles.
+//   - One launch a call: the splits merge through distributed shared
+//     memory, not through device memory and a second kernel. The position
+//     is an int argument, or read from a 32- or 64-bit integer in device
+//     memory, so a step never waits on the host and nothing is launched
+//     for it.
+//
+// Numerics: q and k stay bf16, the scores are exact products summed in
+// fp32 and scaled by 1/sqrt(hd) in fp32 (in the exp2 domain), the softmax
+// is fp32 (2^x by ex2.approx), and P enters P V as a bf16 pair P_hi + P_lo
+// (two mma), which
+// holds it to about 2^-16 of its value; bf16 P alone would read 3-6 times
+// the elementwise limit (tests/test_torch_kernels.py). Output acc /
+// max(l, 1e-30) in bf16; no valid row (pos < 0) gives zeros.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileRows = 64;   // KV rows per step of a block's loop
-constexpr int kMaxG = 8;        // query heads per KV head
+constexpr int kThreads = 128;  // four warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileRows = 64;  // cache rows per tile: 16 per warp
+constexpr int kMaxG = 8;       // query heads per KV head: the mma's N
 constexpr int kMaxHd = 256;
-constexpr int kMaxOut = kMaxG * kMaxHd / kThreads;  // outputs per thread
+constexpr int kMaxSplits = 8;  // blocks of a cluster (the portable limit)
 
-// q: (B,1,H,hd); k, v: (B,T,K,hd), bf16; pos: one int32 in device memory.
-// Partial states of block (bk = b*K + kh, split) at index bk*nsplit+split:
-// part_m, part_l (..., G), part_acc (..., G, hd), fp32.
-__global__ void __launch_bounds__(kThreads)
-flash_decode_split(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const int* __restrict__ pos, float* __restrict__ part_m,
-                   float* __restrict__ part_l, float* __restrict__ part_acc,
-                   int T, int K, int hd, int G, int split_rows, float scale) {
-  constexpr int kVec = 8;  // bf16 values per 16-byte load
-  const int bk = blockIdx.x, split = blockIdx.y;
-  const int b = bk / K, kh = bk % K, H = G * K;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int nwarps = kThreads / 32, rows = kTileRows;
-  const int kp = hd + 4;         // padded K row: conflict-free float4 reads
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;              // G * hd, pre-scaled by 1/sqrt(hd)
-  float* kt = qs + G * hd;       // rows * kp
-  float* vt = kt + rows * kp;    // rows * hd
-  float* pr = vt + rows * hd;    // G * rows: scores, then probabilities
-  float* run_m = pr + G * rows;  // G: running max
-  float* run_l = run_m + G;      // G: running denominator
-  float* alpha = run_l + G;      // G: this step's rescale of acc and l
+template <int HDP>
+struct Tile {
+  static constexpr int kStride = HDP + 8;  // padded row, bf16 elements
+  static constexpr int kElems = kTileRows * kStride;
+  // two stages of K and V; the merges reuse them
+  static constexpr int kSmemBytes = 4 * kElems * 2;
+  // floats of the merges: the warps' (m, l, acc), then the block's
+  static constexpr int kMergeFloats =
+      (kWarps + 1) * kMaxG * HDP + (3 * kWarps + 2) * kMaxG;
+  static_assert(kMergeFloats * 4 <= kSmemBytes, "merges fit the tiles");
+};
 
-  for (int i = tid; i < G * hd; i += kThreads)
-    qs[i] = __bfloat162float(q[(static_cast<size_t>(b) * H + kh * G) * hd + i]) * scale;
-  if (tid < G) {
-    run_m[tid] = -1e30f;
-    run_l[tid] = 0.f;
-  }
-  float acc[kMaxOut];
-#pragma unroll
-  for (int j = 0; j < kMaxOut; ++j) acc[j] = 0.f;
-
-  const int p = *pos;
-  const int r_begin = split * split_rows;
-  const int r_end = min(min(r_begin + split_rows, T), p + 1);  // exclusive
-  for (int start = r_begin; start < r_end; start += rows) {
-    __syncthreads();  // the previous step's tiles are consumed (qs loaded)
-    const int vecs = hd / kVec;
-    for (int i = tid; i < rows * vecs; i += kThreads) {
-      const int r = i / vecs, d0 = (i % vecs) * kVec;
-      float kf[kVec], vf[kVec];
-      if (start + r < r_end) {
-        const size_t off =
-            ((static_cast<size_t>(b) * T + start + r) * K + kh) * hd + d0;
-        const uint4 ku = *reinterpret_cast<const uint4*>(k + off);
-        const uint4 vu = *reinterpret_cast<const uint4*>(v + off);
-        const __nv_bfloat162* kh2 = reinterpret_cast<const __nv_bfloat162*>(&ku);
-        const __nv_bfloat162* vh2 = reinterpret_cast<const __nv_bfloat162*>(&vu);
-#pragma unroll
-        for (int e = 0; e < kVec / 2; ++e) {
-          const float2 a = __bfloat1622float2(kh2[e]);
-          const float2 c = __bfloat1622float2(vh2[e]);
-          kf[2 * e] = a.x;
-          kf[2 * e + 1] = a.y;
-          vf[2 * e] = c.x;
-          vf[2 * e + 1] = c.y;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) kf[e] = vf[e] = 0.f;
-      }
-      float4* kd = reinterpret_cast<float4*>(kt + r * kp + d0);
-      float4* vd = reinterpret_cast<float4*>(vt + r * hd + d0);
-      kd[0] = make_float4(kf[0], kf[1], kf[2], kf[3]);
-      kd[1] = make_float4(kf[4], kf[5], kf[6], kf[7]);
-      vd[0] = make_float4(vf[0], vf[1], vf[2], vf[3]);
-      vd[1] = make_float4(vf[4], vf[5], vf[6], vf[7]);
-    }
-    __syncthreads();
-    const int valid = min(rows, r_end - start);
-    // scores: one thread per (g, r) pair, 16 bytes of q and of k a step;
-    // a warp's lanes take consecutive rows of one head, so q is a
-    // broadcast and the padded k rows fall in distinct banks
-    for (int pair = tid; pair < G * rows; pair += kThreads) {
-      const int g = pair / rows, r = pair % rows;
-      float s = -1e30f;
-      if (r < valid) {
-        const float4* qq = reinterpret_cast<const float4*>(qs + g * hd);
-        const float4* kk = reinterpret_cast<const float4*>(kt + r * kp);
-        s = 0.f;
-        for (int i = 0; i < hd / 4; ++i) {
-          const float4 a = qq[i], c = kk[i];
-          s += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
-        }
-      }
-      pr[pair] = s;
-    }
-    __syncthreads();
-    // online softmax: warp g turns head g's scores into probabilities and
-    // advances head g's running (max, denominator)
-    for (int g = warp; g < G; g += nwarps) {
-      float mc = -1e30f;
-      for (int r = lane; r < rows; r += 32) mc = fmaxf(mc, pr[g * rows + r]);
-      mc = warp_max(mc);
-      const float mp = run_m[g], mn = fmaxf(mp, mc);
-      float ps = 0.f;
-      for (int r = lane; r < rows; r += 32) {
-        const float e = r < valid ? expf(pr[g * rows + r] - mn) : 0.f;
-        pr[g * rows + r] = e;
-        ps += e;
-      }
-      ps = warp_sum(ps);
-      __syncwarp();
-      if (lane == 0) {
-        const float a = expf(mp - mn);
-        alpha[g] = a;
-        run_l[g] = a * run_l[g] + ps;
-        run_m[g] = mn;
-      }
-    }
-    __syncthreads();
-    // acc = acc * alpha + p @ v; thread tid owns outputs tid + j*kThreads
-    // of the G*hd (head, column) pairs
-#pragma unroll
-    for (int j = 0; j < kMaxOut; ++j) {
-      const int o = tid + j * kThreads;
-      if (o < G * hd) {
-        const int g = o / hd, d = o % hd;
-        float sum = 0.f;
-        for (int r = 0; r < valid; ++r) sum += pr[g * rows + r] * vt[r * hd + d];
-        acc[j] = acc[j] * alpha[g] + sum;
-      }
-    }
-  }
-  __syncthreads();  // run_m and run_l are final (initialised if no rows)
-
-  const size_t idx = static_cast<size_t>(bk) * gridDim.y + split;
-  if (tid < G) {
-    part_m[idx * G + tid] = run_m[tid];
-    part_l[idx * G + tid] = run_l[tid];
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxOut; ++j) {
-    const int o = tid + j * kThreads;
-    if (o < G * hd) part_acc[idx * G * hd + o] = acc[j];
-  }
+__device__ __forceinline__ int last_row(const void* pos_ptr, int pos_is64,
+                                        int pos_val, int T) {
+  long long p = pos_val;
+  if (pos_ptr != nullptr)
+    p = pos_is64 ? *static_cast<const long long*>(pos_ptr)
+                 : *static_cast<const int*>(pos_ptr);
+  return static_cast<int>(p < -1 ? -1 : (p > T - 1 ? T - 1 : p));
 }
 
-// One block per (b, KV head): out = sum_s e^(m_s - M) acc_s /
-// max(sum_s e^(m_s - M) l_s, 1e-30), M = max_s m_s. A split that read no
-// rows has m = -1e30 and l = acc = 0, and adds nothing. The splits'
-// weights e^(m_s - M) and the denominators are made once in shared memory.
+// q: (B,1,H,hd); k, v: (B,T,K,hd), bf16; hd <= HDP, columns hd..HDP are
+// zero in shared memory and in q's fragments. Block (bk = b*K + kh,
+// split); the gridDim.y splits of a bk are one cluster.
+template <int HDP>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_merge(const float* __restrict__ part_m,
-                   const float* __restrict__ part_l,
-                   const float* __restrict__ part_acc,
-                   __nv_bfloat16* __restrict__ out, int K, int hd, int G,
-                   int nsplit) {
-  const int bk = blockIdx.x, b = bk / K, kh = bk % K, H = G * K;
-  const int tid = threadIdx.x;
-  const size_t first = static_cast<size_t>(bk) * nsplit;
-  extern __shared__ float msm[];
-  float* w = msm;                // nsplit * G: m_s, then e^(m_s - M)
-  float* lsum = w + nsplit * G;  // nsplit * G: l_s
-  float* den = lsum + nsplit * G;  // G
-  for (int i = tid; i < nsplit * G; i += kThreads) {
-    w[i] = part_m[first * G + i];
-    lsum[i] = part_l[first * G + i];
-  }
-  __syncthreads();
-  for (int g = tid; g < G; g += kThreads) {
-    float M = -1e30f;
-    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, w[s * G + g]);
-    float L = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float e = expf(w[s * G + g] - M);
-      w[s * G + g] = e;
-      L += e * lsum[s * G + g];
+flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const void* __restrict__ pos_ptr, int pos_is64,
+                    int pos_val, __nv_bfloat16* __restrict__ out, int T,
+                    int K, int hd, int G, int split_rows, float scale_log2) {
+  constexpr int kStride = Tile<HDP>::kStride;
+  constexpr int kKSteps = HDP / 16;  // k-steps of the scores, m-tiles of O^T
+  constexpr int kChunks = HDP / 8;   // 16-byte chunks of a padded row
+  const int bk = blockIdx.x, split = blockIdx.y;
+  const int b = bk / K, kh = bk % K, H = G * K;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  const int last = last_row(pos_ptr, pos_is64, pos_val, T);
+  const int r_begin = split * split_rows;
+  const int r_end = min(r_begin + split_rows, last + 1);  // exclusive
+
+  extern __shared__ __align__(16) __nv_bfloat16 smem[];
+  __nv_bfloat16* ks = smem;                         // two stages
+  __nv_bfloat16* vs = smem + 2 * Tile<HDP>::kElems;  // two stages
+
+  auto stage = [&](int st, int r0) {
+    __nv_bfloat16* kd = ks + st * Tile<HDP>::kElems;
+    __nv_bfloat16* vd = vs + st * Tile<HDP>::kElems;
+    for (int i = threadIdx.x; i < kTileRows * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const bool ok = r0 + r < r_end && c * 8 < hd;
+      const size_t off =
+          ok ? ((static_cast<size_t>(b) * T + r0 + r) * K + kh) * hd + c * 8
+             : 0;
+      cp_async16(kd + r * kStride + c * 8, k + off, ok ? 16 : 0);
+      cp_async16(vd + r * kStride + c * 8, v + off, ok ? 16 : 0);
     }
-    den[g] = fmaxf(L, 1e-30f);
+  };
+
+  // a block past pos has no tiles, but stays for the cluster's merge
+  const int ntiles =
+      max(0, (r_end - r_begin + kTileRows - 1) / kTileRows);
+  if (ntiles > 0) stage(0, r_begin);
+  cp_async_commit();
+  if (ntiles > 1) stage(1, r_begin + kTileRows);
+  cp_async_commit();
+
+  // q as the B operand of S^T = K Q^T: head g, columns 2t.. of each step
+  uint32_t qf[kKSteps][2];
+  {
+    const __nv_bfloat16* qh = q + (static_cast<size_t>(b) * H + kh * G + g) * hd;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int d = kk * 16 + half * 8 + 2 * t;
+        qf[kk][half] = g < G && d < hd
+                           ? *reinterpret_cast<const uint32_t*>(qh + d)
+                           : 0u;
+      }
+  }
+
+  // acc[mt]: O^T rows (columns of the output) mt*16 + g and + 8, heads
+  // 2t and 2t + 1; m and l of heads 2t, 2t + 1 (l: this thread's rows)
+  float acc[kKSteps][4];
+#pragma unroll
+  for (int mt = 0; mt < kKSteps; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1;
+    cp_async_wait<1>();  // tile j has landed; tile j + 1 may still fly
+    __syncthreads();
+    const int r0 = r_begin + j * kTileRows + warp * 16;  // warp's first row
+    if (r0 < r_end) {
+      const __nv_bfloat16* kt = ks + st * Tile<HDP>::kElems + warp * 16 * kStride;
+      const __nv_bfloat16* vt = vs + st * Tile<HDP>::kElems + warp * 16 * kStride;
+      // s: rows g, g + 8 (of the warp's 16) x heads 2t, 2t + 1
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, kt + (lane & 15) * kStride + kk * 16 + (lane >> 4) * 8);
+        mma_bf16(s, a, qf[kk][0], qf[kk][1]);
+      }
+      const bool ok_a = r0 + g < r_end, ok_b = r0 + g + 8 < r_end;
+      s[0] = ok_a ? s[0] * scale_log2 : -INFINITY;
+      s[1] = ok_a ? s[1] * scale_log2 : -INFINITY;
+      s[2] = ok_b ? s[2] * scale_log2 : -INFINITY;
+      s[3] = ok_b ? s[3] * scale_log2 : -INFINITY;
+      // max over the 16 rows: the eight lanes sharing t
+      float mx0 = fmaxf(m0, fmaxf(s[0], s[2]));
+      float mx1 = fmaxf(m1, fmaxf(s[1], s[3]));
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // row r0 is valid, so both maxima are finite
+      const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      s[0] = fast_exp2(s[0] - mx0);
+      s[1] = fast_exp2(s[1] - mx1);
+      s[2] = fast_exp2(s[2] - mx0);
+      s[3] = fast_exp2(s[3] - mx1);
+      l0 = l0 * alpha0 + s[0] + s[2];
+      l1 = l1 * alpha1 + s[1] + s[3];
+#pragma unroll
+      for (int mt = 0; mt < kKSteps; ++mt) {
+        acc[mt][0] *= alpha0;
+        acc[mt][1] *= alpha1;
+        acc[mt][2] *= alpha0;
+        acc[mt][3] *= alpha1;
+      }
+      // P^T as the B operand: rows 2t, 2t + 1 (and + 8) of head g
+      uint32_t hi_a, lo_a, hi_b, lo_b;
+      split_bf16x2(s[0], s[1], hi_a, lo_a);
+      split_bf16x2(s[2], s[3], hi_b, lo_b);
+      const uint32_t bh0 = movmatrix_trans(hi_a), bh1 = movmatrix_trans(hi_b);
+      const uint32_t bl0 = movmatrix_trans(lo_a), bl1 = movmatrix_trans(lo_b);
+#pragma unroll
+      for (int mt = 0; mt < kKSteps; ++mt) {
+        uint32_t a[4];  // V^T rows mt*16.., the warp's 16 cache rows
+        ldmatrix_x4_trans(a, vt + ((lane & 7) + (lane >> 4) * 8) * kStride +
+                                 mt * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(acc[mt], a, bh0, bh1);
+        mma_bf16(acc[mt], a, bl0, bl1);
+      }
+    }
+    __syncthreads();  // stage st is consumed before it is refilled
+    if (j + 2 < ntiles) stage(st, r_begin + (j + 2) * kTileRows);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // merge the four warps in shared memory (the tiles are consumed)
+  float* wm = reinterpret_cast<float*>(smem);  // kWarps x kMaxG
+  float* wl = wm + kWarps * kMaxG;             // kWarps x kMaxG
+  float* wacc = wl + kWarps * kMaxG;           // kWarps x kMaxG x HDP
+  if (g == 0) {
+    wm[warp * kMaxG + 2 * t] = m0;
+    wm[warp * kMaxG + 2 * t + 1] = m1;
+    wl[warp * kMaxG + 2 * t] = l0;
+    wl[warp * kMaxG + 2 * t + 1] = l1;
+  }
+  float* wa = wacc + warp * kMaxG * HDP;
+#pragma unroll
+  for (int mt = 0; mt < kKSteps; ++mt) {
+    const int d = mt * 16 + g;
+    wa[(2 * t) * HDP + d] = acc[mt][0];
+    wa[(2 * t + 1) * HDP + d] = acc[mt][1];
+    wa[(2 * t) * HDP + d + 8] = acc[mt][2];
+    wa[(2 * t + 1) * HDP + d + 8] = acc[mt][3];
   }
   __syncthreads();
-  for (int o = tid; o < G * hd; o += kThreads) {
-    const int g = o / hd;
-    float A = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < nsplit; ++s)
-      A += w[s * G + g] * part_acc[(first + s) * G * hd + o];
-    out[(static_cast<size_t>(b) * H + kh * G) * hd + o] =
-        __float2bfloat16(A / den[g]);
+  // the block's partial state: per head the warps' weights e^(m_w - M),
+  // M (bm) and the denominator (bl), then bacc (kMaxG x HDP); the pad
+  // columns of wacc hold zeros
+  float* we = wacc + kWarps * kMaxG * HDP;  // kWarps x kMaxG
+  float* bm = we + kWarps * kMaxG;
+  float* bl = bm + kMaxG;
+  float* bacc = bl + kMaxG;
+  if (threadIdx.x < G) {
+    const int hq = threadIdx.x;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * kMaxG + hq]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = wm[w * kMaxG + hq];
+      // a warp with no rows (m = -inf) adds nothing
+      const float e = mw > -INFINITY ? fast_exp2(mw - M) : 0.f;
+      we[w * kMaxG + hq] = e;
+      L += e * wl[w * kMaxG + hq];
+    }
+    bm[hq] = M;
+    bl[hq] = L;
   }
+  __syncthreads();
+  for (int o = threadIdx.x; o < G * HDP; o += kThreads) {
+    const int hq = o / HDP;
+    float A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      A += we[w * kMaxG + hq] * wacc[w * kMaxG * HDP + o];
+    bacc[o] = A;
+  }
+
+  // Each block of the cluster merges a slice of the G*hd outputs from
+  // every split's state: out = sum_s e^(m_s - M) acc_s / max(sum_s
+  // e^(m_s - M) l_s, 1e-30), M = max_s m_s, in split order; no valid
+  // row at all (pos < 0) gives zeros.
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's state is written
+  const int nsplit = static_cast<int>(gridDim.y);
+  const int per = (G * HDP + nsplit - 1) / nsplit;
+  const int o_end = min(G * HDP, (split + 1) * per);
+  for (int o = split * per + static_cast<int>(threadIdx.x); o < o_end;
+       o += kThreads) {
+    const int hq = o / HDP, d = o % HDP;
+    if (d >= hd) continue;  // a pad column
+    float ms[kMaxSplits], ls[kMaxSplits], as[kMaxSplits];
+    float M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) {
+      ms[r] = -INFINITY;
+      if (r < nsplit) {
+        const float* rm = cluster.map_shared_rank(bm, r);
+        ms[r] = rm[hq];
+        ls[r] = rm[kMaxG + hq];               // bl
+        as[r] = rm[2 * kMaxG + o];             // bacc
+        M = fmaxf(M, ms[r]);
+      }
+    }
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) {
+      if (ms[r] > -INFINITY) {
+        const float e = fast_exp2(ms[r] - M);
+        L += e * ls[r];
+        A += e * as[r];
+      }
+    }
+    out[(static_cast<size_t>(b) * H + kh * G + hq) * hd + d] =
+        __float2bfloat16(A / fmaxf(L, 1e-30f));
+  }
+  cluster.sync();  // the other blocks have read this block's state
+}
+
+template <int HDP>
+int launch(const void* q, const void* k, const void* v, const void* pos_ptr,
+           int pos_is64, int pos_val, void* out, int B, int T, int K, int hd,
+           int G, int split_rows, int nsplit, cudaStream_t st) {
+  constexpr int smem = Tile<HDP>::kSmemBytes;
+  auto kernel = flash_decode_kernel<HDP>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 =
+      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(hd)));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * K, nsplit);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = nsplit;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel,
+                           static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const __nv_bfloat16*>(k),
+                           static_cast<const __nv_bfloat16*>(v), pos_ptr,
+                           pos_is64, pos_val, static_cast<__nv_bfloat16*>(out),
+                           T, K, hd, G, split_rows, scale_log2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Scratch: part_m and part_l hold B*K*nsplit*G floats, part_acc that
-// times hd, nsplit = ceil(T / split_rows).
+// pos: pos_ptr, a 32-bit (pos_is64 = 0) or 64-bit integer in device
+// memory, or pos_val when pos_ptr is null. The cache splits into
+// ceil(T / split_rows) <= 8 blocks per (slot, KV head), one cluster; for
+// an int position only the blocks with rows <= pos are launched.
 extern "C" int launch_flash_decode(const void* q, const void* k, const void* v,
-                                   const void* pos, void* part_m, void* part_l,
-                                   void* part_acc, void* out, int B, int T,
+                                   const void* pos_ptr, void* out,
+                                   int pos_val, int pos_is64, int B, int T,
                                    int K, int hd, int G, int split_rows,
                                    void* stream) {
-  if (G < 1 || G > kMaxG || hd > kMaxHd || hd % 8 != 0 || T < 1 ||
-      split_rows < 1)
+  if (G < 1 || G > kMaxG || hd < 8 || hd > kMaxHd || hd % 8 != 0 || T < 1 ||
+      K < 1 || split_rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  int nsplit = (T + split_rows - 1) / split_rows;
+  if (nsplit > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  // an int position: only the splits that hold rows <= pos
+  if (pos_ptr == nullptr)
+    nsplit = pos_val < 0 ? 1 : min(nsplit, pos_val / split_rows + 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nsplit = (T + split_rows - 1) / split_rows;
-  const int smem = (G * hd + kTileRows * (2 * hd + 4) + G * kTileRows +
-                    3 * G) *
-                   static_cast<int>(sizeof(float));
-  cudaError_t err = allow_smem(flash_decode_split, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
-  flash_decode_split<<<dim3(B * K, nsplit), kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(pos),
-      static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), T, K, hd, G, split_rows, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int merge_smem = (2 * nsplit + 1) * G * static_cast<int>(sizeof(float));
-  err = allow_smem(flash_decode_merge, merge_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_merge<<<B * K, kThreads, merge_smem, st>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out), K,
-      hd, G, nsplit);
-  return static_cast<int>(cudaGetLastError());
+#define FLASH_DECODE_LAUNCH(HDP)                                             \
+  launch<HDP>(q, k, v, pos_ptr, pos_is64, pos_val, out, B, T, K, hd, G,     \
+              split_rows, nsplit, st)
+  if (hd <= 32) return FLASH_DECODE_LAUNCH(32);
+  if (hd <= 64) return FLASH_DECODE_LAUNCH(64);
+  if (hd <= 128) return FLASH_DECODE_LAUNCH(128);
+  return FLASH_DECODE_LAUNCH(256);
+#undef FLASH_DECODE_LAUNCH
 }

@@ -100,17 +100,23 @@ def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
     _want("q", q, torch.bfloat16, (B, S, H, hd), dev)
     _want("k", k, torch.bfloat16, (B, T, K, hd), dev)
     _want("v", v, torch.bfloat16, (B, T, K, hd), dev)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _aligned(name, t)           # the kernel copies rows 16 bytes at a time
     out = torch.empty_like(q)
     if out.numel():
         _launch("flash_attention", "flash_attention", "launch_flash_attention",
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, T, H, K, hd, int(causal), _stream(dev))
+                B, S, T, H, K, hd, int(causal), 0, _stream(dev))
     return out
 
 
-#: cache rows per block of the flash_decode kernel (a 1,024-row cache is
-#: split over 16 blocks per (slot, KV head))
-FLASH_DECODE_SPLIT = 64
+#: cache rows per block of the flash_decode kernel: two 64-row tiles in
+#: flight at once; 128 blocks at pos 511 of a 1,024-row cache for B=4 and
+#: 8 KV heads. A (slot, KV head)'s splits form one thread block cluster of
+#: at most FLASH_DECODE_MAX_SPLITS blocks, so a longer cache gets longer
+#: splits.
+FLASH_DECODE_SPLIT = 128
+FLASH_DECODE_MAX_SPLITS = 8
 #: the Pallas flash_decode's default tile: the reference asserts
 #: T % min(FLASH_DECODE_TILE, T) == 0, and the port keeps that contract
 FLASH_DECODE_TILE = 256
@@ -120,7 +126,10 @@ def flash_decode(q, k, v, pos, *, backend: str = "auto"):
     """q: (B,1,H,hd); k,v: (B,T,K,hd); pos: scalar int or 0-d integer
     tensor, one position for the whole batch — attend to indices <= pos.
     T must be a multiple of min(FLASH_DECODE_TILE, T), the reference
-    kernel's tile rule. The kernel takes bf16 and hd % 8 == 0, H / K <= 8."""
+    kernel's tile rule. The kernel takes bf16 and hd % 8 == 0 (at most
+    256), H / K <= 8. An int position is a kernel argument; a tensor one
+    (int32 or int64 on the device) is read by the kernel: a call launches
+    the one kernel and nothing else."""
     B, _, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     bk = min(FLASH_DECODE_TILE, T)
@@ -138,23 +147,24 @@ def flash_decode(q, k, v, pos, *, backend: str = "auto"):
     _want("q", q, torch.bfloat16, (B, 1, H, hd), dev)
     _want("k", k, torch.bfloat16, (B, T, K, hd), dev)
     _want("v", v, torch.bfloat16, (B, T, K, hd), dev)
-    _aligned("k", k)                # the kernel reads rows 16 bytes at a time
-    _aligned("v", v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _aligned(name, t)           # the kernel copies rows 16 bytes at a time
     if isinstance(pos, torch.Tensor):
-        pos_t = pos.to(device=dev, dtype=torch.int32)
+        pos_t = pos.to(device=dev)
+        if pos_t.dtype not in (torch.int32, torch.int64):
+            pos_t = pos_t.to(torch.int32)
+        pos_ptr, pos_val = pos_t.data_ptr(), 0
+        pos_is64 = int(pos_t.dtype == torch.int64)
     else:
-        pos_t = torch.full((), int(pos), dtype=torch.int32, device=dev)
-    G, rows = H // K, FLASH_DECODE_SPLIT
-    nsplit = -(-T // rows)
-    part = torch.empty((B * K * nsplit * G * (hd + 2),), dtype=torch.float32,
-                       device=dev)
-    n = B * K * nsplit * G
+        # clamped to [-1, T-1] here, as the kernel clamps a read position
+        pos_ptr, pos_val, pos_is64 = None, max(-1, min(int(pos), T - 1)), 0
+    rows = max(FLASH_DECODE_SPLIT, -(-T // FLASH_DECODE_MAX_SPLITS))
     out = torch.empty_like(q)
     if B:
         _launch("flash_decode", "flash_decode", "launch_flash_decode",
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_t.data_ptr(),
-                part.data_ptr(), part[n:].data_ptr(), part[2 * n:].data_ptr(),
-                out.data_ptr(), B, T, K, hd, G, rows, _stream(dev))
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_ptr,
+                out.data_ptr(), pos_val, pos_is64, B, T, K, hd, H // K, rows,
+                _stream(dev))
     return out
 
 

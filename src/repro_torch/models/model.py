@@ -71,12 +71,16 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, cdt, mode, cache, positions,
 
     new_cache = None
     if mode == "decode" and tables is None:
-        # dense cache, one position for the whole batch (``pos`` a 0-d
-        # tensor): the new row lands at index pos of this layer's view
-        # (B, T, K, hd), in place — JAX's dynamic_update_slice
-        at = pos.reshape(1).to(torch.int64)
-        cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
+        # dense cache, one position for the whole batch: the new row lands
+        # at index pos of this layer's view (B, T, K, hd), in place — JAX's
+        # dynamic_update_slice. An int pos slices; a 0-d tensor indexes.
+        if isinstance(pos, torch.Tensor):
+            at = pos.reshape(1).to(torch.int64)
+            cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
+            cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
+        else:
+            cache["k"][:, pos:pos + 1] = k
+            cache["v"][:, pos:pos + 1] = v
         o = decode_attention(q, cache["k"], cache["v"], pos, backend=backend)
     elif mode == "decode":
         # paged KV: the cache leaf is this layer's view of the shared page
@@ -212,6 +216,7 @@ class Model:
         self.cfg = run.model
         P.check_supported(self.cfg)
         ops_backend(run)                  # reject an unknown backend early
+        self._pos_tables = {}             # device -> arange, see _positions
 
     # -- params -------------------------------------------------------------
     def init(self, seed: int = 0, device="cuda") -> dict:
@@ -297,10 +302,14 @@ class Model:
                     "the dense cache with per-slot positions (the dense "
                     "ring layout) is not ported yet (ROADMAP Queue 1 item "
                     "5)")
-            pos = (pos.to(x.device) if isinstance(pos, torch.Tensor) else
-                   torch.full((), int(pos), dtype=torch.int32,
-                              device=x.device))
-            positions = pos.reshape(1).to(torch.int64)
+            if isinstance(pos, torch.Tensor):
+                pos = pos.to(x.device)
+                positions = pos.reshape(1).to(torch.int64)
+            else:
+                # an int stays an int down to the cache write and the
+                # kernel (an argument, not a tensor)
+                pos = int(pos)
+                positions = self._positions(pos, x.device)
         else:
             # rope positions must be in-range even for inactive (-1) slots
             positions = pos.to(torch.int64).clamp(min=0)[:, None]
@@ -309,6 +318,18 @@ class Model:
                                 pos=pos, tables=tables, active=active)
         x = rms_norm(x, params["decoder"]["final_norm"], cfg.norm_eps)
         return self._logits(params, x)[:, 0], cache
+
+    def _positions(self, pos: int, device) -> torch.Tensor:
+        """The rope position (1,) int64 of an int ``pos``: a view of an
+        arange made once per device (grown by doubling), so a decode step
+        launches no kernel to make it."""
+        if pos < 0:
+            raise ValueError(f"decode position {pos} < 0")
+        table = self._pos_tables.get(device)
+        if table is None or table.numel() <= pos:
+            table = torch.arange(max(1024, 2 * (pos + 1)), device=device)
+            self._pos_tables[device] = table
+        return table[pos:pos + 1]
 
     # -- caches --------------------------------------------------------------
     def cache_specs(self, shape: Optional[ShapeConfig] = None) -> dict:

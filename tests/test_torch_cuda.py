@@ -53,6 +53,62 @@ def test_flash_attention_kernel_on_card(cuda, S, causal):
                                rtol=2 ** -6)
 
 
+def _attn_inputs(cuda, seed, B, S, T, H, K, hd):
+    """bf16 q (B,S,H,hd), k and v (B,T,K,hd) on the card, from numpy."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape, np.float32))
+                 .to(cuda).bfloat16()
+                 for shape in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,H,K,hd,causal", [
+    (1, 1, 64, 8, 128, True),        # GQA 64/8: one row, one key
+    (63, 63, 64, 8, 128, True),      # one ragged query and kv tile
+    (65, 65, 64, 8, 128, True),      # a full tile and one row
+    (600, 600, 64, 8, 128, True),    # qwen's longest prompt, hybrid heads
+    (600, 600, 16, 8, 64, True),     # hd 64
+    (65, 65, 8, 8, 64, True),        # MHA at hd 64
+    (100, 300, 16, 8, 128, False),   # S < T, not causal
+    (300, 77, 64, 8, 64, False),     # S > T, not causal, hd 64
+])
+def test_flash_attention_tensor_core_shapes(cuda, S, T, H, K, hd, causal):
+    """The tensor-core kernel at the edges of its tiles, GQA 64/8 and hd
+    64: within two bf16 steps of the plain version, and bit-identical on
+    a second call (no atomics)."""
+    q, k, v = _attn_inputs(cuda, S + T + H + hd, 1, S, T, H, K, hd)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention(q, k, v, causal=causal, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=2 ** -6)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,hd", [(1, 128), (2, 128), (8, 128), (8, 64),
+                                  (4, 72)])
+@pytest.mark.parametrize("pos", [0, 63, 64, 1023])
+def test_flash_decode_tensor_core_shapes(cuda, G, hd, pos):
+    """flash_decode with G query heads per KV head (the mma's N of 8, part
+    unused for G < 8) and hd padded to the mma's 16 (72): the position as
+    an int, an int32 and an int64 device tensor gives the same bits
+    within the limit, a second call the same bits, and NaN in the rows
+    past pos changes nothing (they are never read)."""
+    B, T, K = 2, 1024, 4
+    q, k, v = _attn_inputs(cuda, pos + G + hd, B, 1, T, G * K, K, hd)
+    want = ops.flash_decode(q, k, v, pos, backend="ref")
+    got = ops.flash_decode(q, k, v, pos)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=2 ** -6)
+    for dtype in (torch.int32, torch.int64):
+        p = torch.tensor(pos, dtype=dtype, device=cuda)
+        assert torch.equal(got, ops.flash_decode(q, k, v, p))
+    assert torch.equal(got, ops.flash_decode(q, k, v, pos))
+    k[:, pos + 1:] = float("nan")
+    v[:, pos + 1:] = float("nan")
+    assert torch.equal(got, ops.flash_decode(q, k, v, pos))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True])
 def test_paged_decode_kernel_on_card(cuda, quant):

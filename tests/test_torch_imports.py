@@ -1,5 +1,5 @@
 """The port stands on its own: nothing under ``src/repro_torch/`` and
-nothing in ``chip_smoke.py`` or the tool beside it imports JAX or the JAX package, its entry
+nothing in ``chip_smoke.py`` or the tools beside it imports JAX or the JAX package, its entry
 points default to the card, and ``chip_smoke.py`` refuses to run without
 one."""
 import ast
@@ -19,7 +19,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "hybrid_prefill_margin.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "hybrid_prefill_margin.py",
+        ROOT / "tools" / "attn_same_call.py"]
 
 
 def _imported_roots(path):

@@ -102,6 +102,103 @@ def test_model_attention_matches_jax(causal):
 
 
 # ---------------------------------------------------------------------------
+# the attention kernels' P V numerics, emulated on the CPU
+# ---------------------------------------------------------------------------
+#: chip_smoke.py's elementwise limit for the attention kernels:
+#: |kernel - plain| <= ATTN_ATOL + ATTN_RTOL * |plain|
+ATTN_ATOL, ATTN_RTOL = 1e-4, 2 ** -6
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _emulate_kernel(q, k, v, causal, p_form, tile):
+    """The CUDA attention kernels' arithmetic in torch: fp32 scores of
+    bf16 q and k scaled by 1/sqrt(hd), an online softmax over ``tile``
+    keys at a time with fp32 max and sum, and P into P V as the kernel
+    rounds it — ``p_form`` "bf16" (one bf16 P) or "pair" (P_hi + P_lo,
+    two bf16 products) — against bf16 V with fp32 accumulation; the
+    output acc / l in bf16. q (B,S,H,hd), k and v (B,T,K,hd)."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    s = torch.einsum("bskgh,btkh->bkgst", q.float().reshape(B, S, K, H // K, hd),
+                     k.float()) / np.sqrt(hd)
+    if causal:
+        s = s.masked_fill(~torch.ones(S, T, dtype=torch.bool).tril(),
+                          float("-inf"))
+    m = torch.full(s.shape[:-1], float("-inf"))
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(s.shape[:-1] + (hd,))
+    for t0 in range(0, T, tile):
+        st = s[..., t0:t0 + tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        p = torch.exp(st - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        hi = _bf16(p)
+        pp = hi if p_form == "bf16" else hi + _bf16(p - hi)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgst,btkh->bkgsh", pp, v[:, t0:t0 + tile].float())
+        m = m_new
+    o = acc / l.clamp(min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(torch.bfloat16)
+
+
+def _share(got, want):
+    """The largest share of the elementwise limit any element uses."""
+    d = (got.float() - want.float()).abs()
+    return float((d / (ATTN_ATOL + ATTN_RTOL * want.float().abs())).max())
+
+
+@pytest.mark.parametrize("case", ["qwen_prefill", "hybrid_prefill",
+                                  "generate_pos63", "generate_pos511"])
+def test_attention_pv_numerics(case):
+    """Why both attention kernels feed P V a bf16 pair P_hi + P_lo: a
+    CPU emulation of their rounding of P at the main paths' shapes
+    (numpy standard-normal inputs, seed 0, rounded to bf16), against
+    the plain versions ``flash_attention_ref`` / ``flash_decode_ref``.
+    The share of the limit ATTN_ATOL + ATTN_RTOL * |plain| that the
+    worst element uses:
+
+        shape                                     bf16 P   P_hi + P_lo
+        qwen prefill q (1,384,16,128), causal      11.3      0.484
+        hybrid prefill q (1,512,64,128), 8 KV      21.4      0.484
+        generate q (4,1,64,128), T 1024, pos 63     6.01      0.422
+        generate, pos 511                           3.37      0.444
+
+    A bf16 P alone rounds each probability by up to 2**-9 of its value;
+    an output near zero (a short causal row, or a weighted mean of
+    random values) cannot absorb that within the 1e-4 floor. The pair
+    holds P to about 2**-16 of its value, and lands where fp32 P does
+    (the output's own bf16 rounding)."""
+    rng = np.random.default_rng(0)
+    if case.startswith("generate"):
+        pos = int(case[len("generate_pos"):])
+        qn = rng.standard_normal((4, 1, 64, 128), np.float32)
+        kn, vn = (rng.standard_normal((4, 1024, 8, 128), np.float32)
+                  for _ in "kv")
+        q, k, v = (torch.from_numpy(a).bfloat16() for a in (qn, kn, vn))
+        want = tref.flash_decode_ref(q, k, v, pos)
+        # a warp's online step covers 16 cache rows
+        args = (q, k[:, :pos + 1], v[:, :pos + 1], False)
+        tile = 16
+    else:
+        S, H = (384, 16) if case == "qwen_prefill" else (512, 64)
+        q, k, v = (torch.from_numpy(rng.standard_normal((1, S, n, 128),
+                                                        np.float32))
+                   .bfloat16() for n in (H, 8, 8))
+        want = tref.flash_attention_ref(q, k, v, causal=True)
+        args = (q, k, v, True)
+        tile = 64                   # the kernel's KV tile
+    pair = _share(_emulate_kernel(*args, "pair", tile), want)
+    single = _share(_emulate_kernel(*args, "bf16", tile), want)
+    print(f"{case}: bf16 P {single:.3g}, P_hi + P_lo {pair:.3g}")
+    assert pair <= 1            # what the kernels use: inside the limit
+    assert single > 1           # bf16 P alone would not be
+
+
+# ---------------------------------------------------------------------------
 # paged_decode / paged_decode_quant
 # ---------------------------------------------------------------------------
 def _paged_inputs(seed, B=4, H=4, K=2, hd=32, page=8, NP=4, P=11,

@@ -1,0 +1,244 @@
+#!/usr/bin/env python3
+"""The attention kernels against an earlier version of their sources, in
+one call on one NVIDIA GPU, in turns.
+
+    mkdir -p build/old_csrc
+    for f in flash_attention.cu flash_decode.cu common.cuh; do
+        git show <rev>:src/repro_torch/kernels/csrc/$f > build/old_csrc/$f
+    done
+    python3 tools/attn_same_call.py --old build/old_csrc
+
+Builds the old ``flash_attention.cu`` and ``flash_decode.cu`` with nvcc
+beside the current ones (into ``build/attn_same_call/``), holds both
+versions against the plain versions, and times them old, new, new, old
+with ``chip_smoke.py``'s ``Timer`` (CUDA events, L2 flushed before each
+call, the card kept busy while the host enqueues), with SDPA and the
+bound beside them, at ``chip_smoke.py``'s shapes: ``flash_attention`` at
+qwen3-0.6b's prompts (S 7, 200, 384, 600; 16/8 heads of 128) and the
+hybrid's prefill (S 512, 64/8 heads); ``flash_decode`` at the generate
+path's cache (B 4, T 1,024, 8 KV heads of 128; 64 and 16 query heads;
+pos 0, 511, 1,023), with the position an int and a 0-d int32 tensor on
+the card. The old ``flash_decode`` runs as its wrapper ran it: an int
+position became a tensor by ``torch.full`` inside the call, splits of 64
+rows. Prints one line per shape and writes
+``chiprun_out/attn_same_call.json``. Imports only torch, numpy,
+``chip_smoke`` and the port.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OLD_SOURCES = ("flash_attention.cu", "flash_decode.cu", "common.cuh")
+P, I = ctypes.c_void_p, ctypes.c_int
+#: the earlier launchers' C signatures
+OLD_ARGTYPES = {"launch_flash_attention": [P] * 4 + [I] * 7 + [P],
+                "launch_flash_decode": [P] * 8 + [I] * 6 + [P]}
+OLD_DECODE_SPLIT = 64
+
+
+def build_old(old_dir: str) -> dict:
+    """nvcc each old source into a library of its own, with the port's
+    flags; returns {stem: ctypes library} and prints ptxas's lines."""
+    from repro_torch.kernels import build
+    out_dir = os.path.join(ROOT, "build", "attn_same_call")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    for f in OLD_SOURCES:
+        shutil.copy(os.path.join(old_dir, f), out_dir)
+    procs = {}
+    for stem in ("flash_attention", "flash_decode"):
+        lib = os.path.join(out_dir, f"old_{stem}.so")
+        procs[stem] = (lib, subprocess.Popen(
+            [build.nvcc(), *build.BASE_FLAGS, "-o", lib,
+             os.path.join(out_dir, f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for stem, (lib, proc) in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"old {stem}: nvcc exit {proc.returncode}\n"
+                               + text[-4000:])
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"old {stem} ptxas: {line.strip()}", flush=True)
+        cdll = ctypes.CDLL(lib)
+        fn = getattr(cdll, f"launch_{stem}")
+        fn.argtypes, fn.restype = OLD_ARGTYPES[f"launch_{stem}"], I
+        cdll.kernel_error_string.argtypes = [I]
+        cdll.kernel_error_string.restype = ctypes.c_char_p
+        libs[stem] = cdll
+    return libs
+
+
+def new_ptxas():
+    from repro_torch.kernels import build
+    for stem in ("flash_attention", "flash_decode"):
+        log = build.library_path(stem).with_suffix(".log")
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"new {stem} ptxas: {line.strip()}", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", required=True,
+                    help="directory holding the earlier " +
+                         ", ".join(OLD_SOURCES))
+    ap.add_argument("--reps", type=int, default=25)
+    args = ap.parse_args(argv)
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("attn_same_call: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import chip_smoke as cs
+    from repro_torch.configs import make_run_config
+    from repro_torch.kernels import build, ops
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    build.build(["flash_attention", "flash_decode"])
+    new_ptxas()
+    old = build_old(args.old)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def old_attention(q, k, v):
+        B, S, H, hd = q.shape
+        T, K = k.shape[1], k.shape[2]
+        out = torch.empty_like(q)
+        rc = old["flash_attention"].launch_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            T, H, K, hd, 1, stream)
+        if rc:
+            raise RuntimeError(old["flash_attention"].kernel_error_string(rc))
+        return out
+
+    def old_decode(q, k, v, pos):
+        B, _, H, hd = q.shape
+        T, K = k.shape[1], k.shape[2]
+        pos_t = (pos if isinstance(pos, torch.Tensor) else
+                 torch.full((), int(pos), dtype=torch.int32, device="cuda"))
+        G, nsplit = H // K, -(-T // OLD_DECODE_SPLIT)
+        n = B * K * nsplit * G
+        part = torch.empty((n * (hd + 2),), dtype=torch.float32,
+                           device="cuda")
+        out = torch.empty_like(q)
+        rc = old["flash_decode"].launch_flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_t.data_ptr(),
+            part.data_ptr(), part[n:].data_ptr(), part[2 * n:].data_ptr(),
+            out.data_ptr(), B, T, K, hd, G, OLD_DECODE_SPLIT, stream)
+        if rc:
+            raise RuntimeError(old["flash_decode"].kernel_error_string(rc))
+        return out
+
+    def new_attention(q, k, v, heads):
+        """The current kernel with its query heads per block forced (1 or
+        2; the wrapper passes 0, the launcher's choice)."""
+        B, S, H, hd = q.shape
+        T, K = k.shape[1], k.shape[2]
+        out = torch.empty_like(q)
+        lib = build.library("flash_attention")
+        rc = lib.launch_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            T, H, K, hd, 1, heads, stream)
+        if rc:
+            raise RuntimeError(lib.kernel_error_string(rc))
+        return out
+
+    timer = cs.Timer(torch)
+    rows = []
+
+    def turns(label, fn_old, fn_new, fn_lib, want, nbytes, flops, **extra):
+        err = {}
+        for name, fn in (("old", fn_old), ("new", fn_new)):
+            got = fn()
+            torch.cuda.synchronize()
+            err[name] = cs.attn_err(got, want)[1]
+            cs.check(err[name] <= 1, f"{label} {name}: {err[name]:.3g} of "
+                                     "the limit")
+            cs.check(torch.equal(got, fn()), f"{label} {name}: not "
+                                             "deterministic")
+        times = {"old": [], "new": []}
+        for name in ("old", "new", "new", "old"):
+            times[name].append(timer.ms(fn_old if name == "old" else fn_new,
+                                        reps=args.reps))
+        lib = timer.ms(fn_lib, reps=args.reps)
+        b_ms, b_by = cs.bound(nbytes, flops, cs.BF16_FLOP_PER_S)
+        row = {"shape": label, "old_ms": times["old"], "new_ms": times["new"],
+               "sdpa_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+               "share_of_limit": err, **extra}
+        rows.append(row)
+        print(f"{label}: old {times['old'][0]:.4f} / {times['old'][1]:.4f} "
+              f"ms | new {times['new'][0]:.4f} / {times['new'][1]:.4f} ms | "
+              f"sdpa {lib:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | share "
+              f"of limit old {err['old']:.3g} new {err['new']:.3g}",
+              flush=True)
+
+    qwen = make_run_config("qwen3-0.6b", "decode_32k").model
+    hyb = make_run_config(cs.HYBRID, "decode_32k").model
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for S, H, K in [(S, qwen.num_heads, qwen.num_kv_heads)
+                    for S in (7, 200, 384, 600)] + \
+            [(512, hyb.num_heads, hyb.num_kv_heads)]:
+        hd = qwen.head_dim
+        q, k, v = (torch.randn((1, S, n, hd), generator=g, device="cuda")
+                   .to(torch.bfloat16) for n in (H, K, K))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        want = ops.flash_attention(q, k, v, backend="ref")
+        forced = {}
+        for heads in (1, 2):
+            got = new_attention(q, k, v, heads)
+            cs.check(cs.attn_err(got, want)[1] <= 1,
+                     f"flash_attention S={S} heads={heads}: off the limit")
+            forced[heads] = timer.ms(lambda: new_attention(q, k, v, heads),
+                                     reps=args.reps)
+        print(f"flash_attention S={S} H={H}: query heads per block 1 "
+              f"{forced[1]:.4f} ms, 2 {forced[2]:.4f} ms", flush=True)
+        turns(f"flash_attention q (1,{S},{H},{hd}) k/v {K} heads, causal",
+              lambda: old_attention(q, k, v),
+              lambda: ops.flash_attention(q, k, v),
+              lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True, enable_gqa=True),
+              want, 2 * (2 * S * H * hd + 2 * S * K * hd),
+              4 * H * hd * S * (S + 1) / 2,
+              new_ms_by_heads_per_block=forced)
+    K, hd, B, T = hyb.num_kv_heads, hyb.head_dim, 4, 1024
+    for H in (hyb.num_heads, 16):
+        g = torch.Generator(device="cuda").manual_seed(14 + H)
+        q = torch.randn((B, 1, H, hd), generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn((B, T, K, hd), generator=g,
+                            device="cuda").bfloat16() for _ in "kv")
+        for pos in (0, 511, 1023):
+            n = pos + 1
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (x[:, :n].transpose(1, 2).contiguous() for x in (k, v))
+            want = ops.flash_decode(q, k, v, pos, backend="ref")
+            pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            for form, p in (("int", pos), ("tensor", pos_t)):
+                turns(f"flash_decode q ({B},1,{H},{hd}) k/v ({B},{T},{K},"
+                      f"{hd}) pos {pos} ({form})",
+                      lambda: old_decode(q, k, v, p),
+                      lambda: ops.flash_decode(q, k, v, p),
+                      lambda: F.scaled_dot_product_attention(
+                          qt, kt, vt, enable_gqa=True),
+                      want, 2 * (2 * B * n * K * hd + 2 * B * H * hd) + 4,
+                      4 * B * H * hd * n)
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "attn_same_call.json"), "w") as f:
+        json.dump({"card": card, "torch": torch.__version__, "rows": rows},
+                  f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
