@@ -212,10 +212,36 @@ def phase_flash_attention(torch, ops, timer, cfg, hcfg):
     return rows
 
 
-def _paged_inputs(torch, cfg, seed):
+#: the paged phase's positions: the full view, inactive, mid-page, a page
+#: edge, the first token, ... (the timed shape)
+PAGED_POS = (1023, -1, 600, 15, 0, 384, 200, -1)
+
+
+def paged_serve_positions(seed: int) -> list:
+    """Every slot active: the first eight prompts of the qwen serve draw
+    (``make_requests``), each 16 tokens into its decode."""
+    lens = np.random.default_rng(seed).integers(5, 601, 16)
+    lens[:2] = (200, 384)
+    return [int(n) - 1 + 16 for n in lens[:8]]
+
+
+def paged_cases(cfg, hcfg, seed: int) -> list:
+    """(label, query heads, positions) of the paged phase: qwen3-0.6b's
+    heads at PAGED_POS (the main row), the hybrid's 64 query heads on the
+    same 8 KV heads, and qwen's with every slot active."""
+    return [("qwen heads", cfg.num_heads, PAGED_POS),
+            ("hybrid heads", hcfg.num_heads, PAGED_POS),
+            ("all slots", cfg.num_heads, paged_serve_positions(seed))]
+
+
+def paged_inputs(torch, H, K, hd, positions, seed, quant: bool):
+    """The serve engine's pool at B=8, page 16, NP 64 (max_len 1,024) and
+    one page of garbage: q (8,1,H,hd) bf16, pages (513,16,K,hd), each
+    slot's table a distinct run of a seeded permutation. Returns the
+    kernel's arguments (int8 pages with their scales when ``quant``)."""
+    from repro_torch.kernels.ref import kv_quant_ref
     B, page, NP = 8, 16, 64
     P = 1 + B * NP
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, 1, H, hd), generator=g, device="cuda").bfloat16()
     kp = torch.randn((P, page, K, hd), generator=g, device="cuda")
@@ -223,50 +249,77 @@ def _paged_inputs(torch, cfg, seed):
     perm = np.random.default_rng(seed).permutation(np.arange(1, P))
     tables = torch.tensor(perm.reshape(B, NP).astype(np.int32),
                           device="cuda")
-    # full view, inactive, mid-page, page edge, first token, ...
-    pos = torch.tensor([1023, -1, 600, 15, 0, 384, 200, -1],
-                       dtype=torch.int32, device="cuda")
-    return q, kp, vp, tables, pos
-
-
-def phase_paged_decode(torch, ops, timer, cfg, quant: bool):
-    from repro_torch.kernels.ref import kv_quant_ref
-    q, kp, vp, tables, pos = _paged_inputs(torch, cfg, 12 + quant)
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     if quant:
         kq, ks = kv_quant_ref(kp)
         vq, vs = kv_quant_ref(vp)
-        args = (q, kq, vq, ks, vs, tables, pos)
-        fn, name = ops.paged_decode_quant, "paged_decode_quant"
-        row_bytes = 2 * (1 + 4 / cfg.head_dim)      # k+v int8 + fp32 scales
-    else:
-        args = (q, kp.bfloat16(), vp.bfloat16(), tables, pos)
-        fn, name = ops.paged_decode, "paged_decode"
-        row_bytes = 2 * 2                           # k+v bf16
-    got, want = fn(*args), fn(*args, backend="ref")
-    torch.cuda.synchronize()
-    err, share = attn_err(got, want)
-    check(share <= 1, f"{name}: max_abs_err {err}, {share:.3g} of the limit")
-    inactive = (pos < 0).nonzero().flatten()
-    check(bool(torch.all(got[inactive] == 0)),
-          f"{name}: an inactive slot's row is not exactly zero")
-    check(torch.equal(got, fn(*args)), f"{name}: not deterministic")
-    ms = timer.ms(lambda: fn(*args))
-    plain = timer.ms(lambda: fn(*args, backend="ref"))
+        return q, kq, vq, ks, vs, tables, pos
+    return q, kp.bfloat16(), vp.bfloat16(), tables, pos
+
+
+def paged_work(q, kp, tables, pos, quant: bool):
+    """(bytes, flops) of one call: q, the rows up to pos[b] of K and V
+    (with their fp32 scales for int8 pages), tables and pos read once,
+    the output written once; 4 flops per query head and element read."""
     B, _, H, hd = q.shape
-    K = cfg.num_kv_heads
-    rows_read = int((pos + 1).clamp(min=0).sum())
-    nbytes = (rows_read * K * hd * row_bytes + 2 * 2 * B * H * hd
+    K = kp.shape[2]
+    rows = int((pos + 1).clamp(min=0).sum())
+    row_bytes = 2 * (hd + 4) if quant else 2 * 2 * hd
+    nbytes = (rows * K * row_bytes + 2 * 2 * B * H * hd
               + tables.numel() * 4 + pos.numel() * 4)
-    flops = 4 * H * hd * rows_read
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    log(f"{name} B=8 page=16 NP=64: max_abs_err {err:.3g} ({share:.3g} of "
-        f"the limit) | kernel "
-        f"{ms:.4f} ms | plain {plain:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
-    return {"shape": f"q ({B},1,{H},{hd}), pages (513,16,{K},{hd}) "
-                     f"{'int8' if quant else 'bf16'}, NP=64",
-            "max_abs_err": err, "share_of_limit": share, "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+    return nbytes, 4 * H * hd * rows
+
+
+def phase_paged_decode(torch, ops, timer, cfg, hcfg, seed):
+    """Both paged kernels at each of ``paged_cases``, bf16 and int8 pages:
+    within the limit of the plain version, inactive rows exactly zero,
+    the same bits on a second call. One call of each puts exactly one
+    kernel on the card (one profiler session)."""
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    out = {"paged_decode": [], "paged_decode_quant": []}
+    first = {}
+    for label, H, positions in paged_cases(cfg, hcfg, seed):
+        for quant in (False, True):
+            name = "paged_decode_quant" if quant else "paged_decode"
+            fn = getattr(ops, name)
+            args = paged_inputs(torch, H, K, hd, positions, 12 + quant,
+                                quant)
+            q, kp, tables, pos = args[0], args[1], args[-2], args[-1]
+            got, want = fn(*args), fn(*args, backend="ref")
+            torch.cuda.synchronize()
+            err, share = attn_err(got, want)
+            where = f"{name} {label}"
+            check(share <= 1, f"{where}: max_abs_err {err}, {share:.3g} of "
+                              "the limit")
+            inactive = (pos < 0).nonzero().flatten()
+            check(bool(torch.all(got[inactive] == 0)),
+                  f"{where}: an inactive slot's row is not exactly zero")
+            check(torch.equal(got, fn(*args)), f"{where}: not deterministic")
+            ms = timer.ms(lambda: fn(*args))
+            plain = timer.ms(lambda: fn(*args, backend="ref"))
+            nbytes, flops = paged_work(q, kp, tables, pos, quant)
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            log(f"{where} q {tuple(q.shape)}: max_abs_err {err:.3g} "
+                f"({share:.3g} of the limit) | kernel {ms:.4f} ms | plain "
+                f"{plain:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+            out[name].append({
+                "shape": f"{label}: q {tuple(q.shape)}, pages (513,16,{K},"
+                         f"{hd}) {'int8' if quant else 'bf16'}, NP=64, pos "
+                         f"{list(positions)}",
+                "max_abs_err": err, "share_of_limit": share, "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None})
+            first.setdefault(name, (fn, args))
+    calls = [lambda fn=fn, args=args: fn(*args)
+             for fn, args in first.values()]
+    names = device_kernels(torch, calls)
+    check(len(names) == len(calls) and
+          all("paged_decode" in n for n in names),
+          f"paged decode: {len(calls)} calls put {names} on the card, not "
+          "one kernel each")
+    log(f"paged decode: one call of each kernel put {len(names)} kernels "
+        "on the card, all paged_decode")
+    return out
 
 
 def phase_fused_sample(torch, ops, timer, cfg):
@@ -1272,10 +1325,7 @@ def main(argv=None) -> int:
     kern = {"flash_decode": phase_flash_decode(torch, ops, timer, hcfg),
             "flash_attention": phase_flash_attention(torch, ops, timer, cfg,
                                                      hcfg),
-            "paged_decode": phase_paged_decode(torch, ops, timer, cfg,
-                                               quant=False),
-            "paged_decode_quant": phase_paged_decode(torch, ops, timer, cfg,
-                                                     quant=True),
+            **phase_paged_decode(torch, ops, timer, cfg, hcfg, args.seed),
             "fused_sample": phase_fused_sample(torch, ops, timer, cfg),
             **phase_qdma_pack(torch, ops, timer, cfg),
             "qdma_digest": phase_qdma_digest(torch, ops, timer, cfg)}

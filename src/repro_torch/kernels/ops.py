@@ -230,10 +230,26 @@ def _check_paged(q, k_pages, v_pages, tables, pos, dtype):
     return B, tables.shape[1], page, K, hd, H // K
 
 
+#: cache rows per block of the paged kernels, at least: whole pages, two
+#: 64-row tiles in flight at once. A (slot, KV head)'s splits form one
+#: thread block cluster of at most PAGED_DECODE_MAX_SPLITS blocks, so a
+#: longer table gets longer splits.
+PAGED_DECODE_SPLIT = 128
+PAGED_DECODE_MAX_SPLITS = 8
+
+
+def paged_split_pages(NP: int, page: int) -> int:
+    """Pages per block of the paged kernels for a (B, NP) table."""
+    return max(-(-PAGED_DECODE_SPLIT // page),
+               -(-NP // PAGED_DECODE_MAX_SPLITS))
+
+
 def paged_decode(q, k_pages, v_pages, tables, pos, *, backend: str = "auto"):
     """q: (B,1,H,hd); k_pages,v_pages: (P,page,K,hd); tables: (B,NP) int32;
     pos: (B,) int32 — attend to logical indices <= pos[b] (< 0: none,
-    exactly-zero output row). The kernel takes bf16 pages."""
+    exactly-zero output row). The kernel takes bf16 pages, H / K <= 8 and
+    hd <= 256, and reads tables and pos on the card: a call launches the
+    one kernel and never waits on the host."""
     if _plain(backend, q):
         return _ref.paged_decode_ref(q, k_pages, v_pages, tables, pos)
     B, NP, page, K, hd, G = _check_paged(q, k_pages, v_pages, tables, pos,
@@ -243,14 +259,17 @@ def paged_decode(q, k_pages, v_pages, tables, pos, *, backend: str = "auto"):
         _launch("paged_decode", "paged_decode", "launch_paged_decode",
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                B, NP, page, K, hd, G, _stream(q.device))
+                B, NP, page, K, hd, G, paged_split_pages(NP, page),
+                _stream(q.device))
     return out
 
 
 def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, tables, pos,
                        *, backend: str = "auto"):
     """paged_decode over an int8 page pool with per-(row,head) fp32 scales
-    (P,page,K), dequantized in the kernel's shared memory."""
+    (P,page,K). The kernel reads the pages at int8 width, widens them to
+    bf16 (exactly) for the products and applies the scales in fp32: the k
+    scale to the score, the v scale to the probability."""
     if _plain(backend, q):
         return _ref.paged_decode_quant_ref(q, k_pages, v_pages, k_scale,
                                            v_scale, tables, pos)
@@ -266,7 +285,8 @@ def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, tables, pos,
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
                 pos.data_ptr(), out.data_ptr(),
-                B, NP, page, K, hd, G, _stream(q.device))
+                B, NP, page, K, hd, G, paged_split_pages(NP, page),
+                _stream(q.device))
     return out
 
 

@@ -112,26 +112,106 @@ def test_flash_decode_tensor_core_shapes(cuda, G, hd, pos):
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True])
 def test_paged_decode_kernel_on_card(cuda, quant):
-    q, kp, vp, tables, pos = _paged_inputs(5, B=8, H=16, K=8, hd=128,
-                                           page=16, NP=8, P=40,
-                                           positions=(0, -1, 15, 16, 127,
-                                                      70, -1, 33))
-    q = torch.from_numpy(q).bfloat16().to(cuda)
-    t, p = torch.from_numpy(tables).to(cuda), torch.from_numpy(pos).to(cuda)
-    if quant:
-        kq, ks = tref.kv_quant_ref(torch.from_numpy(kp).to(cuda))
-        vq, vs = tref.kv_quant_ref(torch.from_numpy(vp).to(cuda))
-        args = (q, kq, vq, ks, vs, t, p)
-        fn = ops.paged_decode_quant
-    else:
-        args = (q, torch.from_numpy(kp).bfloat16().to(cuda),
-                torch.from_numpy(vp).bfloat16().to(cuda), t, p)
-        fn = ops.paged_decode
+    args = _paged_args(cuda, quant, 5, B=8, G=2, K=8, hd=128, page=16, NP=8,
+                       positions=(0, -1, 15, 16, 127, 70, -1, 33), P=40)
+    fn = ops.paged_decode_quant if quant else ops.paged_decode
     got, want = fn(*args), fn(*args, backend="ref")
     torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
                                rtol=2 ** -6)
     assert torch.all(got[1] == 0) and torch.all(got[6] == 0)
     assert torch.equal(got, fn(*args))     # no atomics: same bits again
+
+
+def _paged_args(cuda, quant, seed, B, G, K, hd, page, NP, positions,
+                P=None, distinct=False):
+    """The wrapper's arguments on the card from ``_paged_inputs``: a pool
+    of P pages (B * NP + 1 by default), table ids drawn with repeats
+    across and within slots, or with ``distinct`` each slot's table a
+    run of a permutation; int8 pages with their scales when ``quant``."""
+    P = P or B * NP + 1
+    q, kp, vp, tables, pos = _paged_inputs(seed, B, G * K, K, hd, page, NP,
+                                           P, positions)
+    if distinct:
+        tables = np.random.default_rng(seed).permutation(
+            np.arange(1, P))[:B * NP].reshape(B, NP).astype(np.int32)
+    q = torch.from_numpy(q).bfloat16().to(cuda)
+    t, p = torch.from_numpy(tables).to(cuda), torch.from_numpy(pos).to(cuda)
+    kp, vp = torch.from_numpy(kp).to(cuda), torch.from_numpy(vp).to(cuda)
+    if quant:
+        (kq, ks), (vq, vs) = tref.kv_quant_ref(kp), tref.kv_quant_ref(vp)
+        return (q, kq, vq, ks, vs, t, p)
+    return (q, kp.bfloat16(), vp.bfloat16(), t, p)
+
+
+def _poison_unread(args, quant):
+    """NaN (int8 pages: NaN scales and garbage bytes) in every pool row
+    that no slot reads: rows past pos[b] of a slot's last page and the
+    pages its table names past pos[b], unless another slot reads them."""
+    tables, pos = args[-2].cpu(), args[-1].cpu()
+    P, page = args[1].shape[:2]
+    read = torch.zeros((P, page), dtype=torch.bool)
+    for b in range(tables.shape[0]):
+        rows = torch.arange(max(0, min(int(pos[b]) + 1,
+                                       tables.shape[1] * page)))
+        read[tables[b, rows // page].long(), rows % page] = True
+    unread = (~read).to(args[1].device)
+    if quant:
+        args[1][unread] = 127
+        args[2][unread] = -127
+        args[3][unread] = float("nan")
+        args[4][unread] = float("nan")
+    else:
+        args[1][unread] = float("nan")
+        args[2][unread] = float("nan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("case", [
+    # split edges at NP 64, page 16 (8 pages = 128 rows a block)
+    dict(G=2, hd=128, page=16, NP=64, positions=(0, 127, 128, 1023)),
+    dict(G=2, hd=128, page=16, NP=64, positions=(129, -1, 255, 256, 1000,
+                                                 -5, 511, 64)),
+    # NP 128: 16 pages = 256 rows a block, four tiles double-buffered
+    dict(G=2, hd=128, page=16, NP=128, positions=(2047, 1024, 300, -1)),
+    # pages of 8 and 32 rows
+    dict(G=2, hd=128, page=8, NP=64, positions=(511, 7, 8, 200)),
+    dict(G=2, hd=128, page=32, NP=64, positions=(2047, 31, 32, 1500)),
+    # G 1 and 8, hd 64
+    dict(G=1, hd=128, page=16, NP=64, positions=(1023, 600, 0, -1)),
+    dict(G=8, hd=128, page=16, NP=64, positions=(1023, 600, 15, -1)),
+    dict(G=8, hd=64, page=16, NP=64, positions=(1023, 77, 128, 0)),
+    dict(G=2, hd=64, page=16, NP=32, positions=(511, 300, 16, -1)),
+    # page ids repeated across and within slots
+    dict(G=2, hd=128, page=16, NP=64, positions=(1023, 700, 64, -1),
+         distinct=False),
+    # pages longer than a 64-row tile, one-row pages, hd 256 and 32
+    dict(G=2, hd=128, page=128, NP=8, positions=(1023, 130, 127, 64)),
+    dict(G=4, hd=64, page=1, NP=256, positions=(255, 128, 127, 0)),
+    dict(G=2, hd=256, page=16, NP=32, positions=(511, 200, -1, 16)),
+    dict(G=4, hd=32, page=16, NP=32, positions=(511, 129, 5, -1)),
+], ids=["edges", "edges2", "np128", "page8", "page32", "g1", "g8",
+        "g8_hd64", "hd64", "repeat", "page128", "page1", "hd256", "hd32"])
+def test_paged_decode_split_shapes(cuda, quant, case):
+    """The page-split kernels at the edges of their splits and tiles, pages
+    of 1 to 128 rows, G 1/2/4/8 and hd 32 to 256: within two bf16 steps of
+    the plain version, inactive rows exactly zero, the same bits on a
+    second call, and the same bits with NaN (int8: NaN scales) in every
+    row no slot reads (rows past pos[b] are zero-filled, never read)."""
+    args = _paged_args(cuda, quant, 7 + case["NP"] + case["G"],
+                       len(case["positions"]), case["G"], 4, case["hd"],
+                       case["page"], case["NP"], case["positions"],
+                       distinct=case.get("distinct", True))
+    fn = ops.paged_decode_quant if quant else ops.paged_decode
+    got, want = fn(*args), fn(*args, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=2 ** -6)
+    for b, p in enumerate(case["positions"]):
+        if p < 0:
+            assert torch.all(got[b] == 0)
+    assert torch.equal(got, fn(*args))
+    _poison_unread(args, quant)
+    assert torch.equal(got, fn(*args))
 
 
 @pytest.mark.cuda

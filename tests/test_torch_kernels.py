@@ -255,6 +255,147 @@ def test_paged_decode_quant_plain_matches_jax():
     assert torch.all(got[1] == 0)
 
 
+@pytest.mark.parametrize("NP,page,want", [
+    (64, 16, 8),       # the serve pool: 8 pages = 128 rows a block
+    (128, 16, 16),     # a longer table: 8 splits of 256 rows
+    (64, 8, 16),       # small pages: 128 rows a block, 4 splits
+    (64, 32, 8),       # 256 rows a block
+    (3, 16, 8),        # a table shorter than one split
+    (1000, 16, 125),   # 8 splits of 125 pages
+])
+def test_paged_split_pages(NP, page, want):
+    """The paged kernels' splits: runs of whole pages, at least
+    PAGED_DECODE_SPLIT rows, and at most PAGED_DECODE_MAX_SPLITS of them
+    (one thread block cluster per slot and KV head)."""
+    sp = ops.paged_split_pages(NP, page)
+    assert sp == want
+    assert sp * page >= ops.PAGED_DECODE_SPLIT
+    assert -(-NP // sp) <= ops.PAGED_DECODE_MAX_SPLITS
+
+
+#: chip_smoke.py's paged phase: the timed positions (full view, inactive,
+#: mid-page, page edge, first token, ...) over the serve pool's B=8,
+#: page 16, NP 64
+PAGED_POS = (1023, -1, 600, 15, 0, 384, 200, -1)
+
+
+def _emulate_paged(q, k, v, pos, p_form, ks=None, vs=None, split_rows=128):
+    """The paged kernels' arithmetic in torch, on logical views k, v
+    (B,T,K,hd) (bf16 values, or int8 values with fp32 scales ks, vs
+    (B,T,K)): per split of ``split_rows`` rows, four warps, each with an
+    online softmax over its 16 rows of each 64-row tile in turn (fp32
+    scores of bf16 q and k, times ks[r] for int8, times log2(e)/sqrt(hd),
+    2^x); P into P V as one bf16 or the pair P_hi + P_lo, after the v
+    scale is folded in (int8); the warps merge into the block's state,
+    the splits in order into the output acc / max(l, 1e-30) in bf16."""
+    B, _, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    c = float(np.float32(1.4426950408889634 / np.sqrt(hd)))
+    qg = q.float().reshape(B, K, G, hd)
+    out = torch.zeros(B, K, G, hd)
+
+    def merge(states):
+        live = [st for st in states if st is not None]
+        if not live:
+            return None
+        M = torch.stack([m for m, _, _ in live]).amax(0)
+        L, A = torch.zeros_like(M), torch.zeros(M.shape + (hd,))
+        for m, l, a in live:
+            e = torch.exp2(m - M)
+            L, A = L + e * l, A + e[..., None] * a
+        return M, L, A
+
+    for b in range(B):
+        n = max(0, min(int(pos[b]) + 1, k.shape[1]))
+        splits = []
+        for r_begin in range(0, n, split_rows):
+            r_end = min(r_begin + split_rows, n)
+            warps = []
+            for w in range(4):
+                m = torch.full((K, G), float("-inf"))
+                l, acc = torch.zeros(K, G), torch.zeros(K, G, hd)
+                ran = False
+                for r0 in range(r_begin + 16 * w, r_end, 64):
+                    ran = True
+                    rows = slice(r0, min(r0 + 16, r_end))
+                    sc = torch.einsum("kgh,tkh->kgt", qg[b],
+                                      k[b, rows].float())
+                    if ks is None:
+                        sc = sc * c
+                    else:
+                        sc = sc * (ks[b, rows].T[:, None, :] * c)
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    p = torch.exp2(sc - m_new[..., None])
+                    alpha = torch.exp2(m - m_new)
+                    l = l * alpha + p.sum(-1)
+                    if vs is not None:
+                        p = p * vs[b, rows].T[:, None, :]
+                    hi = _bf16(p)
+                    pp = hi if p_form == "bf16" else hi + _bf16(p - hi)
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "kgt,tkh->kgh", pp, v[b, rows].float())
+                    m = m_new
+                warps.append((m, l, acc) if ran else None)
+            splits.append(merge(warps))
+        state = merge(splits)
+        if state is not None:
+            _, L, A = state
+            out[b] = A / L.clamp(min=1e-30)[..., None]
+    return out.reshape(B, 1, H, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("heads", ["qwen", "hybrid"])
+def test_paged_decode_numerics(heads, kv):
+    """The paged kernels' rounding, emulated on the CPU at the serve
+    pool's shape (B=8, page 16, NP 64, 8 KV heads of 128, PAGED_POS;
+    qwen3-0.6b's 16 query heads and the hybrid's 64; numpy
+    standard-normal inputs, seed 0, q in bf16, pages in bf16 or
+    quantized to int8 with ``kv_quant_ref``), against the plain versions
+    ``paged_decode_ref`` / ``paged_decode_quant_ref``. The share of the
+    limit ATTN_ATOL + ATTN_RTOL * |plain| that the worst element uses:
+
+        shape                          bf16 P   P_hi + P_lo
+        qwen q (8,1,16,128), bf16       7.37      0.454
+        qwen, int8                      9.08      0.410
+        hybrid q (8,1,64,128), bf16     6.15      0.359
+        hybrid, int8                    9.95      0.456
+
+    So the kernels feed P V the pair, with the v scale folded into P
+    before the split (int8); the k scale on the fp32 score keeps the
+    int8 kernel within fp32 rounding of dequantize-then-dot."""
+    rng = np.random.default_rng(0)
+    B, page, NP, K, hd = 8, 16, 64, 8, 128
+    H = 16 if heads == "qwen" else 64
+    P = 1 + B * NP
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, hd),
+                                             np.float32)).bfloat16()
+    kp, vp = (torch.from_numpy(rng.standard_normal((P, page, K, hd),
+                                                   np.float32)) for _ in "kv")
+    tables = torch.from_numpy(rng.permutation(np.arange(1, P))
+                              .reshape(B, NP).astype(np.int32))
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32)
+    tbl = tables.long()
+
+    def view(x):            # the logical (B, T, ...) view of a pool
+        return x[tbl].reshape((B, NP * page) + x.shape[2:])
+
+    if kv == "int8":
+        (kq, ksc), (vq, vsc) = tref.kv_quant_ref(kp), tref.kv_quant_ref(vp)
+        want = tref.paged_decode_quant_ref(q, kq, vq, ksc, vsc, tables, pos)
+        args = (q, view(kq), view(vq), pos)
+        kw = {"ks": view(ksc), "vs": view(vsc)}
+    else:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+        want = tref.paged_decode_ref(q, kp, vp, tables, pos)
+        args, kw = (q, view(kp), view(vp), pos), {}
+    pair = _share(_emulate_paged(*args, "pair", **kw), want)
+    single = _share(_emulate_paged(*args, "bf16", **kw), want)
+    print(f"{heads} {kv}: bf16 P {single:.3g}, P_hi + P_lo {pair:.3g}")
+    assert pair <= 1            # what the kernels use: inside the limit
+
+
 # ---------------------------------------------------------------------------
 # fused_sample: bit-exact
 # ---------------------------------------------------------------------------
