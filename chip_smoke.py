@@ -217,12 +217,12 @@ def phase_flash_attention(torch, ops, timer, cfg, hcfg):
 PAGED_POS = (1023, -1, 600, 15, 0, 384, 200, -1)
 
 
-def paged_serve_positions(seed: int) -> list:
+def paged_serve_positions(vocab: int, seed: int) -> list:
     """Every slot active: the first eight prompts of the qwen serve draw
     (``make_requests``), each 16 tokens into its decode."""
-    lens = np.random.default_rng(seed).integers(5, 601, 16)
-    lens[:2] = (200, 384)
-    return [int(n) - 1 + 16 for n in lens[:8]]
+    from repro_torch.serve.engine import Request
+    return [len(r.prompt) - 1 + 16
+            for r in make_requests(Request, vocab, seed)[:8]]
 
 
 def paged_cases(cfg, hcfg, seed: int) -> list:
@@ -231,7 +231,8 @@ def paged_cases(cfg, hcfg, seed: int) -> list:
     same 8 KV heads, and qwen's with every slot active."""
     return [("qwen heads", cfg.num_heads, PAGED_POS),
             ("hybrid heads", hcfg.num_heads, PAGED_POS),
-            ("all slots", cfg.num_heads, paged_serve_positions(seed))]
+            ("all slots", cfg.num_heads,
+             paged_serve_positions(cfg.vocab_size, seed))]
 
 
 def paged_inputs(torch, H, K, hd, positions, seed, quant: bool):
@@ -358,8 +359,9 @@ def device_kernels(torch, calls) -> list:
     """The names of what the calls put on the card, kernels, copies and
     memsets alike, in one torch.profiler session (warm calls first). The
     profiler records no device work now and then in a process that has
-    profiled before, so ``main`` runs this before any other profiling,
-    and an empty record is taken once more."""
+    profiled before, so ``main`` runs these sessions (flash_decode's and
+    the paged kernels') before any other profiling, and an empty record
+    is taken once more."""
     from torch.profiler import ProfilerActivity, profile
     for fn in calls:
         fn()

@@ -44,8 +44,8 @@ KERNELS = {
         "launch_ssm_scan": [_P] * 6 + [_I] * 7 + [_P],
     }),
     "paged_decode": ((), {
-        "launch_paged_decode": [_P] * 6 + [_I] * 7 + [_P],
-        "launch_paged_decode_quant": [_P] * 8 + [_I] * 7 + [_P],
+        "launch_paged_decode": [_P] * 6 + [_I] * 6 + [_P],
+        "launch_paged_decode_quant": [_P] * 8 + [_I] * 6 + [_P],
     }),
     # the sampler is bit-exact against numpy: no FMA contraction, IEEE
     # division and square root

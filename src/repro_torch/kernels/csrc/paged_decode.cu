@@ -10,9 +10,9 @@
 // positions prefetched as scalars, and the pages past pos[b] skipped.
 // Here a slot's pages are split across blocks instead: each (slot b, KV
 // head, split) gets one block of four warps, where a split is a run of
-// whole pages (split_pages of them, at least 128 rows; more where the
-// table needs more than 8 splits). The block serves all G <= 8 query
-// heads that read that KV head, reads its split's page ids from
+// whole pages (at least 128 rows; more where the table needs more than
+// 8 splits). The block serves all G <= 8 query heads that read that KV
+// head, reads its split's page ids from
 // tables[b, .] and pos[b] from device memory (the host reads neither, so
 // a call never waits on it), and walks its rows up to pos[b] in tiles of
 // 64, 16 rows per warp, each warp with its own online softmax; the warps
@@ -79,6 +79,7 @@ constexpr int kTileRows = 64;  // cache rows per tile: 16 per warp
 constexpr int kMaxG = 8;       // query heads per KV head: the mma's N
 constexpr int kMaxHd = 256;
 constexpr int kMaxSplits = 8;  // blocks of a cluster (the portable limit)
+constexpr int kSplitRows = 128;  // rows of a split, at least: two tiles
 
 // Shared memory of a block, bytes: two stages of K and V tiles as the
 // pages hold them (rows padded by 16 bytes), then for int8 pages each
@@ -508,14 +509,16 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
 template <typename T>
 int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
              const void* vs, const void* tables, const void* pos, void* out,
-             int B, int NP, int page, int K, int hd, int G, int split_pages,
-             void* stream) {
+             int B, int NP, int page, int K, int hd, int G, void* stream) {
   constexpr int kVals = 16 / sizeof(T);
   if (G < 1 || G > kMaxG || hd < kVals || hd > kMaxHd || hd % kVals != 0 ||
-      page < 1 || NP < 1 || K < 1 || split_pages < 1)
+      page < 1 || NP < 1 || K < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  // runs of whole pages, at least kSplitRows rows, at most kMaxSplits
+  const int by_rows = (kSplitRows + page - 1) / page;
+  const int by_count = (NP + kMaxSplits - 1) / kMaxSplits;
+  const int split_pages = by_rows > by_count ? by_rows : by_count;
   const int nsplit = (NP + split_pages - 1) / split_pages;
-  if (nsplit > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PAGED_DECODE_LAUNCH(HDP)                                            \
   launch<T, HDP>(q, kp, vp, ks, vs, tables, pos, out, B, NP, page, K, hd,  \
@@ -529,15 +532,14 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
 
 }  // namespace
 
-// A slot's NP table entries split into ceil(NP / split_pages) <= 8 runs of
-// whole pages, one block each, one cluster per (slot, KV head).
+// A slot's NP table entries split into at most 8 runs of whole pages, one
+// block each, one cluster per (slot, KV head).
 extern "C" int launch_paged_decode(const void* q, const void* kp, const void* vp,
                                    const void* tables, const void* pos, void* out,
                                    int B, int NP, int page, int K, int hd, int G,
-                                   int split_pages, void* stream) {
+                                   void* stream) {
   return dispatch<__nv_bfloat16>(q, kp, vp, nullptr, nullptr, tables, pos,
-                                 out, B, NP, page, K, hd, G, split_pages,
-                                 stream);
+                                 out, B, NP, page, K, hd, G, stream);
 }
 
 extern "C" int launch_paged_decode_quant(const void* q, const void* kp,
@@ -545,8 +547,7 @@ extern "C" int launch_paged_decode_quant(const void* q, const void* kp,
                                          const void* vs, const void* tables,
                                          const void* pos, void* out, int B,
                                          int NP, int page, int K, int hd,
-                                         int G, int split_pages,
-                                         void* stream) {
+                                         int G, void* stream) {
   return dispatch<int8_t>(q, kp, vp, ks, vs, tables, pos, out, B, NP, page,
-                          K, hd, G, split_pages, stream);
+                          K, hd, G, stream);
 }

@@ -222,26 +222,13 @@ def _check_paged(q, k_pages, v_pages, tables, pos, dtype):
     _want("v_pages", v_pages, dtype, (P, page, K, hd), dev)
     _want("tables", tables, torch.int32, (B, tables.shape[1]), dev)
     _want("pos", pos, torch.int32, (B,), dev)
-    # the kernel reads pages 16 bytes at a time
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16 or \
-            (hd * k_pages.element_size()) % 16:
+    # the kernel reads pages 16 bytes at a time, q 4 bytes at a time
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        _aligned(name, t)
+    if (hd * k_pages.element_size()) % 16:
         raise ValueError("paged_decode kernel: page rows must be 16-byte "
                          "aligned")
     return B, tables.shape[1], page, K, hd, H // K
-
-
-#: cache rows per block of the paged kernels, at least: whole pages, two
-#: 64-row tiles in flight at once. A (slot, KV head)'s splits form one
-#: thread block cluster of at most PAGED_DECODE_MAX_SPLITS blocks, so a
-#: longer table gets longer splits.
-PAGED_DECODE_SPLIT = 128
-PAGED_DECODE_MAX_SPLITS = 8
-
-
-def paged_split_pages(NP: int, page: int) -> int:
-    """Pages per block of the paged kernels for a (B, NP) table."""
-    return max(-(-PAGED_DECODE_SPLIT // page),
-               -(-NP // PAGED_DECODE_MAX_SPLITS))
 
 
 def paged_decode(q, k_pages, v_pages, tables, pos, *, backend: str = "auto"):
@@ -259,8 +246,7 @@ def paged_decode(q, k_pages, v_pages, tables, pos, *, backend: str = "auto"):
         _launch("paged_decode", "paged_decode", "launch_paged_decode",
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                B, NP, page, K, hd, G, paged_split_pages(NP, page),
-                _stream(q.device))
+                B, NP, page, K, hd, G, _stream(q.device))
     return out
 
 
@@ -285,8 +271,7 @@ def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, tables, pos,
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
                 pos.data_ptr(), out.data_ptr(),
-                B, NP, page, K, hd, G, paged_split_pages(NP, page),
-                _stream(q.device))
+                B, NP, page, K, hd, G, _stream(q.device))
     return out
 
 

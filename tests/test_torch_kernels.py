@@ -9,6 +9,9 @@ orders); bf16 inputs to 2e-2, one bf16 step at the outputs' magnitude,
 since both sides round their fp32 result to bf16 once. Sampling is
 bit-exact.
 """
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -255,28 +258,53 @@ def test_paged_decode_quant_plain_matches_jax():
     assert torch.all(got[1] == 0)
 
 
-@pytest.mark.parametrize("NP,page,want", [
-    (64, 16, 8),       # the serve pool: 8 pages = 128 rows a block
-    (128, 16, 16),     # a longer table: 8 splits of 256 rows
-    (64, 8, 16),       # small pages: 128 rows a block, 4 splits
-    (64, 32, 8),       # 256 rows a block
-    (3, 16, 8),        # a table shorter than one split
-    (1000, 16, 125),   # 8 splits of 125 pages
-])
-def test_paged_split_pages(NP, page, want):
-    """The paged kernels' splits: runs of whole pages, at least
-    PAGED_DECODE_SPLIT rows, and at most PAGED_DECODE_MAX_SPLITS of them
-    (one thread block cluster per slot and KV head)."""
-    sp = ops.paged_split_pages(NP, page)
-    assert sp == want
-    assert sp * page >= ops.PAGED_DECODE_SPLIT
-    assert -(-NP // sp) <= ops.PAGED_DECODE_MAX_SPLITS
+def _offset(shape, dtype, nbytes: int):
+    """A contiguous zero tensor that starts ``nbytes`` past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    step = torch.empty((), dtype=dtype).element_size()
+    base = torch.zeros(n + 32, dtype=dtype)
+    lead = (-base.data_ptr() % 16 + nbytes) // step
+    return base[lead:lead + n].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("name", ["q", "k_pages", "v_pages"])
+def test_paged_check_refuses_misaligned(name, dtype):
+    """The paged kernels read the pages 16 bytes and q 4 bytes at a time:
+    a contiguous tensor that starts off a 16-byte boundary is refused with
+    ValueError before a launch (a misaligned read would fault on the card
+    and leave the error on the CUDA context)."""
+    B, NP, P, page, K, hd, H = 2, 4, 9, 16, 2, 64, 4
+    shapes = {"q": ((B, 1, H, hd), torch.bfloat16),
+              "k_pages": ((P, page, K, hd), dtype),
+              "v_pages": ((P, page, K, hd), dtype)}
+    tables = torch.zeros((B, NP), dtype=torch.int32)
+    pos = torch.zeros((B,), dtype=torch.int32)
+    args = {n: _offset(shape, dt, 0) for n, (shape, dt) in shapes.items()}
+    assert ops._check_paged(*args.values(), tables, pos, dtype) == \
+        (B, NP, page, K, hd, H // K)
+    shape, dt = shapes[name]
+    args[name] = _offset(shape, dt, 4)
+    assert args[name].is_contiguous()
+    with pytest.raises(ValueError, match=name):
+        ops._check_paged(*args.values(), tables, pos, dtype)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports only numpy and the
+    standard library at the top)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 #: chip_smoke.py's paged phase: the timed positions (full view, inactive,
 #: mid-page, page edge, first token, ...) over the serve pool's B=8,
 #: page 16, NP 64
-PAGED_POS = (1023, -1, 600, 15, 0, 384, 200, -1)
+PAGED_POS = _chip_smoke().PAGED_POS
 
 
 def _emulate_paged(q, k, v, pos, p_form, ks=None, vs=None, split_rows=128):
@@ -343,6 +371,27 @@ def _emulate_paged(q, k, v, pos, p_form, ks=None, vs=None, split_rows=128):
             _, L, A = state
             out[b] = A / L.clamp(min=1e-30)[..., None]
     return out.reshape(B, 1, H, hd).to(torch.bfloat16)
+
+
+def test_paged_cases_are_serve_shapes():
+    """chip_smoke.py's paged phase at full width: qwen3-0.6b's 16 and the
+    hybrid's 64 query heads on 8 KV heads (G <= 8, what the kernels
+    take), and the all-slots case at the first eight prompts of the qwen
+    serve draw, each 16 tokens into its decode, every slot active and
+    inside the pool's 1,024 rows."""
+    from repro_torch.configs import make_run_config
+    from repro_torch.serve.engine import Request
+    cs = _chip_smoke()
+    qwen = make_run_config("qwen3-0.6b", "decode_32k").model
+    hyb = make_run_config(cs.HYBRID, "decode_32k").model
+    cases = cs.paged_cases(qwen, hyb, 0)
+    assert [(label, H) for label, H, _ in cases] == [
+        ("qwen heads", 16), ("hybrid heads", 64), ("all slots", 16)]
+    assert qwen.num_kv_heads == hyb.num_kv_heads == 8
+    assert cases[0][2] == cases[1][2] == PAGED_POS
+    reqs = cs.make_requests(Request, qwen.vocab_size, 0)[:8]
+    assert cases[2][2] == [len(r.prompt) + 15 for r in reqs]
+    assert all(0 <= p < 1024 for p in cases[2][2])
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])

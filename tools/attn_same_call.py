@@ -3,26 +3,40 @@
 one call on one NVIDIA GPU, in turns.
 
     mkdir -p build/old_csrc
-    for f in flash_attention.cu flash_decode.cu common.cuh; do
+    for f in flash_attention.cu flash_decode.cu paged_decode.cu common.cuh; do
         git show <rev>:src/repro_torch/kernels/csrc/$f > build/old_csrc/$f
     done
-    python3 tools/attn_same_call.py --old build/old_csrc
+    python3 tools/attn_same_call.py --old build/old_csrc \\
+        [--kernels attention paged]
 
-Builds the old ``flash_attention.cu`` and ``flash_decode.cu`` with nvcc
-beside the current ones (into ``build/attn_same_call/``), holds both
-versions against the plain versions, and times them old, new, new, old
-with ``chip_smoke.py``'s ``Timer`` (CUDA events, L2 flushed before each
-call, the card kept busy while the host enqueues), with SDPA and the
-bound beside them, at ``chip_smoke.py``'s shapes: ``flash_attention`` at
-qwen3-0.6b's prompts (S 7, 200, 384, 600; 16/8 heads of 128) and the
-hybrid's prefill (S 512, 64/8 heads); ``flash_decode`` at the generate
-path's cache (B 4, T 1,024, 8 KV heads of 128; 64 and 16 query heads;
-pos 0, 511, 1,023), with the position an int and a 0-d int32 tensor on
-the card. The old ``flash_decode`` runs as its wrapper ran it: an int
-position became a tensor by ``torch.full`` inside the call, splits of 64
-rows. Prints one line per shape and writes
-``chiprun_out/attn_same_call.json``. Imports only torch, numpy,
-``chip_smoke`` and the port.
+Builds the chosen kernels' old sources with nvcc beside the current ones
+(into ``build/attn_same_call/``; the old sources share the old
+``common.cuh``, so kernels compared against different revisions take one
+run each), holds both versions against the plain
+versions, and times them old, new, new, old with ``chip_smoke.py``'s
+``Timer`` (CUDA events, L2 flushed before each call, the card kept busy
+while the host enqueues), with the bound beside them, and prints the
+timer's floor (a fill of one float). The old launchers must have the C
+signatures of ``OLD_ARGTYPES``. The kernels, and their shapes:
+
+``attention``: ``flash_attention`` and ``flash_decode``, with SDPA
+beside them. ``flash_attention`` at qwen3-0.6b's prompts (S 7, 200, 384,
+600; 16/8 heads of 128) and the hybrid's prefill (S 512, 64/8 heads),
+the new kernel also with one and with two query heads a block;
+``flash_decode`` at the generate path's cache (B 4, T 1,024, 8 KV heads
+of 128; 64 and 16 query heads; pos 0, 511, 1,023), with the position an
+int and a 0-d int32 tensor on the card. The old ``flash_decode`` runs as
+its wrapper ran it: an int position became a tensor by ``torch.full``
+inside the call, splits of 64 rows.
+
+``paged``: ``paged_decode`` and ``paged_decode_quant`` at
+``chip_smoke.py``'s paged shapes (``paged_cases``: qwen3-0.6b's 16/8
+heads at the timed positions, the hybrid's 64/8 heads, every slot
+active), and at two more with qwen's heads: no slot active (what a call
+costs beside its rows) and every slot at 1,023.
+
+Prints one line per shape and writes ``chiprun_out/attn_same_call.json``.
+Imports only torch, numpy, ``chip_smoke`` and the port.
 """
 from __future__ import annotations
 
@@ -35,25 +49,37 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OLD_SOURCES = ("flash_attention.cu", "flash_decode.cu", "common.cuh")
 P, I = ctypes.c_void_p, ctypes.c_int
-#: the earlier launchers' C signatures
-OLD_ARGTYPES = {"launch_flash_attention": [P] * 4 + [I] * 7 + [P],
-                "launch_flash_decode": [P] * 8 + [I] * 6 + [P]}
+#: the sources each kernel group builds
+GROUPS = {"attention": ("flash_attention", "flash_decode"),
+          "paged": ("paged_decode",)}
+#: the earlier launchers' C signatures, by source
+OLD_ARGTYPES = {
+    "flash_attention": {"launch_flash_attention": [P] * 4 + [I] * 7 + [P]},
+    "flash_decode": {"launch_flash_decode": [P] * 8 + [I] * 6 + [P]},
+    "paged_decode": {"launch_paged_decode": [P] * 6 + [I] * 6 + [P],
+                     "launch_paged_decode_quant": [P] * 8 + [I] * 6 + [P]}}
 OLD_DECODE_SPLIT = 64
 
 
-def build_old(old_dir: str) -> dict:
+def ptxas(text: str, label: str):
+    for line in text.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"{label} ptxas: {line.strip()}", flush=True)
+
+
+def build_old(old_dir: str, stems) -> dict:
     """nvcc each old source into a library of its own, with the port's
-    flags; returns {stem: ctypes library} and prints ptxas's lines."""
+    flags, all at once; returns {stem: ctypes library} and prints
+    ptxas's lines."""
     from repro_torch.kernels import build
     out_dir = os.path.join(ROOT, "build", "attn_same_call")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    for f in OLD_SOURCES:
+    for f in [f"{stem}.cu" for stem in stems] + ["common.cuh"]:
         shutil.copy(os.path.join(old_dir, f), out_dir)
     procs = {}
-    for stem in ("flash_attention", "flash_decode"):
+    for stem in stems:
         lib = os.path.join(out_dir, f"old_{stem}.so")
         procs[stem] = (lib, subprocess.Popen(
             [build.nvcc(), *build.BASE_FLAGS, "-o", lib,
@@ -65,51 +91,61 @@ def build_old(old_dir: str) -> dict:
         if proc.returncode:
             raise RuntimeError(f"old {stem}: nvcc exit {proc.returncode}\n"
                                + text[-4000:])
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"old {stem} ptxas: {line.strip()}", flush=True)
+        ptxas(text, f"old {stem}")
         cdll = ctypes.CDLL(lib)
-        fn = getattr(cdll, f"launch_{stem}")
-        fn.argtypes, fn.restype = OLD_ARGTYPES[f"launch_{stem}"], I
+        for name, argtypes in OLD_ARGTYPES[stem].items():
+            fn = getattr(cdll, name)
+            fn.argtypes, fn.restype = argtypes, I
         cdll.kernel_error_string.argtypes = [I]
         cdll.kernel_error_string.restype = ctypes.c_char_p
         libs[stem] = cdll
     return libs
 
 
-def new_ptxas():
-    from repro_torch.kernels import build
-    for stem in ("flash_attention", "flash_decode"):
-        log = build.library_path(stem).with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"new {stem} ptxas: {line.strip()}", flush=True)
+class Turns:
+    """Times an old and a new version old, new, new, old after holding
+    both against the plain version; collects the rows."""
+
+    def __init__(self, torch, cs, reps: int):
+        self.torch, self.cs, self.reps = torch, cs, reps
+        self.timer = cs.Timer(torch)
+        self.rows = []
+
+    def __call__(self, label, fns, want, nbytes, flops, *, lib=None,
+                 **extra):
+        """``fns``: {"old": fn, "new": fn}; ``lib``: the library call
+        timed beside them."""
+        torch, cs = self.torch, self.cs
+        share = {}
+        for name, fn in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            share[name] = cs.attn_err(got, want)[1]
+            cs.check(share[name] <= 1, f"{label} {name}: "
+                                       f"{share[name]:.3g} of the limit")
+            cs.check(torch.equal(got, fn()), f"{label} {name}: not "
+                                             "deterministic")
+        times = {"old": [], "new": []}
+        for name in ("old", "new", "new", "old"):
+            times[name].append(self.timer.ms(fns[name], reps=self.reps))
+        lib_ms = self.timer.ms(lib, reps=self.reps) if lib else None
+        b_ms, b_by = cs.bound(nbytes, flops, cs.BF16_FLOP_PER_S)
+        self.rows.append({"shape": label, "old_ms": times["old"],
+                          "new_ms": times["new"],
+                          "library_ms": lib_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "share_of_limit": share,
+                          **extra})
+        more = "" if lib_ms is None else f" | library {lib_ms:.4f} ms"
+        print(f"{label}: old {times['old'][0]:.4f} / {times['old'][1]:.4f} "
+              f"ms | new {times['new'][0]:.4f} / {times['new'][1]:.4f} ms"
+              f"{more} | bound {b_ms:.4f} ms ({b_by}) | share of limit old "
+              f"{share['old']:.3g} new {share['new']:.3g}", flush=True)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", required=True,
-                    help="directory holding the earlier " +
-                         ", ".join(OLD_SOURCES))
-    ap.add_argument("--reps", type=int, default=25)
-    args = ap.parse_args(argv)
-    import torch
+def time_attention(torch, cs, old, turns, stream):
     import torch.nn.functional as F
-    if not torch.cuda.is_available():
-        print("attn_same_call: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
-    import chip_smoke as cs
     from repro_torch.configs import make_run_config
     from repro_torch.kernels import build, ops
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
-    build.build(["flash_attention", "flash_decode"])
-    new_ptxas()
-    old = build_old(args.old)
-    stream = torch.cuda.current_stream().cuda_stream
 
     def old_attention(q, k, v):
         B, S, H, hd = q.shape
@@ -154,35 +190,6 @@ def main(argv=None) -> int:
             raise RuntimeError(lib.kernel_error_string(rc))
         return out
 
-    timer = cs.Timer(torch)
-    rows = []
-
-    def turns(label, fn_old, fn_new, fn_lib, want, nbytes, flops, **extra):
-        err = {}
-        for name, fn in (("old", fn_old), ("new", fn_new)):
-            got = fn()
-            torch.cuda.synchronize()
-            err[name] = cs.attn_err(got, want)[1]
-            cs.check(err[name] <= 1, f"{label} {name}: {err[name]:.3g} of "
-                                     "the limit")
-            cs.check(torch.equal(got, fn()), f"{label} {name}: not "
-                                             "deterministic")
-        times = {"old": [], "new": []}
-        for name in ("old", "new", "new", "old"):
-            times[name].append(timer.ms(fn_old if name == "old" else fn_new,
-                                        reps=args.reps))
-        lib = timer.ms(fn_lib, reps=args.reps)
-        b_ms, b_by = cs.bound(nbytes, flops, cs.BF16_FLOP_PER_S)
-        row = {"shape": label, "old_ms": times["old"], "new_ms": times["new"],
-               "sdpa_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-               "share_of_limit": err, **extra}
-        rows.append(row)
-        print(f"{label}: old {times['old'][0]:.4f} / {times['old'][1]:.4f} "
-              f"ms | new {times['new'][0]:.4f} / {times['new'][1]:.4f} ms | "
-              f"sdpa {lib:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | share "
-              f"of limit old {err['old']:.3g} new {err['new']:.3g}",
-              flush=True)
-
     qwen = make_run_config("qwen3-0.6b", "decode_32k").model
     hyb = make_run_config(cs.HYBRID, "decode_32k").model
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -199,18 +206,18 @@ def main(argv=None) -> int:
             got = new_attention(q, k, v, heads)
             cs.check(cs.attn_err(got, want)[1] <= 1,
                      f"flash_attention S={S} heads={heads}: off the limit")
-            forced[heads] = timer.ms(lambda: new_attention(q, k, v, heads),
-                                     reps=args.reps)
+            forced[heads] = turns.timer.ms(
+                lambda: new_attention(q, k, v, heads), reps=turns.reps)
         print(f"flash_attention S={S} H={H}: query heads per block 1 "
               f"{forced[1]:.4f} ms, 2 {forced[2]:.4f} ms", flush=True)
         turns(f"flash_attention q (1,{S},{H},{hd}) k/v {K} heads, causal",
-              lambda: old_attention(q, k, v),
-              lambda: ops.flash_attention(q, k, v),
-              lambda: F.scaled_dot_product_attention(
-                  qt, kt, vt, is_causal=True, enable_gqa=True),
+              {"old": lambda: old_attention(q, k, v),
+               "new": lambda: ops.flash_attention(q, k, v)},
               want, 2 * (2 * S * H * hd + 2 * S * K * hd),
               4 * H * hd * S * (S + 1) / 2,
-              new_ms_by_heads_per_block=forced)
+              lib=lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True, enable_gqa=True),
+              kernel="flash_attention", new_ms_by_heads_per_block=forced)
     K, hd, B, T = hyb.num_kv_heads, hyb.head_dim, 4, 1024
     for H in (hyb.num_heads, 16):
         g = torch.Generator(device="cuda").manual_seed(14 + H)
@@ -226,17 +233,95 @@ def main(argv=None) -> int:
             for form, p in (("int", pos), ("tensor", pos_t)):
                 turns(f"flash_decode q ({B},1,{H},{hd}) k/v ({B},{T},{K},"
                       f"{hd}) pos {pos} ({form})",
-                      lambda: old_decode(q, k, v, p),
-                      lambda: ops.flash_decode(q, k, v, p),
-                      lambda: F.scaled_dot_product_attention(
-                          qt, kt, vt, enable_gqa=True),
+                      {"old": lambda: old_decode(q, k, v, p),
+                       "new": lambda: ops.flash_decode(q, k, v, p)},
                       want, 2 * (2 * B * n * K * hd + 2 * B * H * hd) + 4,
-                      4 * B * H * hd * n)
+                      4 * B * H * hd * n,
+                      lib=lambda: F.scaled_dot_product_attention(
+                          qt, kt, vt, enable_gqa=True),
+                      kernel="flash_decode")
+
+
+def time_paged(torch, cs, old, turns, stream, seed):
+    from repro_torch.configs import make_run_config
+    from repro_torch.kernels import ops
+    lib = old["paged_decode"]
+
+    def old_paged(quant, a):
+        q, kp, tables, pos = a[0], a[1], a[-2], a[-1]
+        B, _, H, hd = q.shape
+        page, K = kp.shape[1], kp.shape[2]
+        out = torch.empty_like(q)
+        fn = (lib.launch_paged_decode_quant if quant
+              else lib.launch_paged_decode)
+        rc = fn(*[x.data_ptr() for x in a], out.data_ptr(), B,
+                tables.shape[1], page, K, hd, H // K, stream)
+        if rc:
+            raise RuntimeError(lib.kernel_error_string(rc).decode())
+        return out
+
+    qwen = make_run_config("qwen3-0.6b", "decode_32k").model
+    hyb = make_run_config(cs.HYBRID, "decode_32k").model
+    K, hd = qwen.num_kv_heads, qwen.head_dim
+    cases = cs.paged_cases(qwen, hyb, seed) + [
+        ("no slot active", qwen.num_heads, [-1] * 8),
+        ("every slot at 1023", qwen.num_heads, [1023] * 8)]
+    for label, H, positions in cases:
+        for quant in (False, True):
+            name = "paged_decode_quant" if quant else "paged_decode"
+            a = cs.paged_inputs(torch, H, K, hd, positions, 12 + quant,
+                                quant)
+            NP, page = a[-2].shape[1], a[1].shape[1]
+            turns(f"{name} {label}: q {tuple(a[0].shape)}, NP {NP}, page "
+                  f"{page}, pos {list(positions)}",
+                  {"old": lambda: old_paged(quant, a),
+                   "new": lambda: getattr(ops, name)(*a)},
+                  getattr(ops, name)(*a, backend="ref"),
+                  *cs.paged_work(a[0], a[1], a[-2], a[-1], quant),
+                  kernel=name)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", required=True,
+                    help="directory holding the earlier sources of the "
+                         "chosen kernels and common.cuh")
+    ap.add_argument("--kernels", nargs="+", choices=sorted(GROUPS),
+                    default=sorted(GROUPS))
+    ap.add_argument("--reps", type=int, default=25)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("attn_same_call: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    stems = [s for g in args.kernels for s in GROUPS[g]]
+    build.build(stems)
+    for stem in stems:
+        ptxas(build.library_path(stem).with_suffix(".log").read_text(),
+              f"new {stem}")
+    old = build_old(args.old, stems)
+    stream = torch.cuda.current_stream().cuda_stream
+    turns = Turns(torch, cs, args.reps)
+    one = torch.zeros(1, device="cuda")
+    floor = turns.timer.ms(lambda: one.zero_(), reps=args.reps)
+    print(f"the timer's floor, a one-float fill: {floor:.4f} ms", flush=True)
+    if "attention" in args.kernels:
+        time_attention(torch, cs, old, turns, stream)
+    if "paged" in args.kernels:
+        time_paged(torch, cs, old, turns, stream, args.seed)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "attn_same_call.json"), "w") as f:
-        json.dump({"card": card, "torch": torch.__version__, "rows": rows},
-                  f, indent=1)
+        json.dump({"card": card, "torch": torch.__version__,
+                   "floor_ms": floor, "rows": turns.rows}, f, indent=1)
     return 0
 
 
