@@ -355,18 +355,23 @@ def phase_fused_sample(torch, ops, timer, cfg):
             "library_ms": None}
 
 
-def device_kernels(torch, calls) -> list:
+def device_kernels(torch, calls, tries: int = 4) -> list:
     """The names of what the calls put on the card, kernels, copies and
-    memsets alike, in one torch.profiler session (warm calls first). The
-    profiler records no device work now and then in a process that has
-    profiled before, so ``main`` runs these sessions (flash_decode's and
-    the paged kernels') before any other profiling, and an empty record
-    is taken once more."""
+    memsets alike, in one torch.profiler session (warm calls first).
+    torch.profiler loses device work now and then: a session records
+    nothing in a process that has profiled before, or misses one call's
+    kernel (an H100 run recorded 5 kernels for 6 flash_decode calls). A
+    record with fewer device events than calls is incomplete and the
+    session is taken again, up to ``tries`` times; a record with as many
+    or more is returned for the caller's check, so a call that puts no
+    kernel, two kernels or a fill on the card still fails it. ``main``
+    runs these sessions (flash_decode's, then the paged kernels') before
+    any other profiling."""
     from torch.profiler import ProfilerActivity, profile
     for fn in calls:
         fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for fn in calls:
@@ -374,8 +379,10 @@ def device_kernels(torch, calls) -> list:
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        if len(names) >= len(calls):
             break
+        log(f"profiler session {attempt + 1}: {len(names)} device events "
+            f"for {len(calls)} calls, an incomplete record; taken again")
     return names
 
 
