@@ -66,8 +66,12 @@ HYBRID_MARGIN = 1.5      # the hybrid's prefill: the kernel path's distance
                          # readings, and what the limit rejects, are in
                          # PERF.md)
 SSM_REL_TOL = 1e-4       # ssm_scan y and state vs the plain version,
-                         # relative to max |plain|: both accumulate in
-                         # fp32, in other orders
+                         # relative to max |plain|. The plain version
+                         # computes in fp32; the kernel's tensor-core
+                         # products take each fp32 operand as a bf16 pair
+                         # (about 2**-16 of its value) and sum in fp32 in
+                         # other orders: 0.03-0.08 of the limit, emulated
+                         # (tests/test_torch_ssm.py::test_ssm_scan_numerics)
 GEN_REL_TOL = 5e-2       # the generate path's logits vs one teacher-
                          # forced forward, relative to max |logit| (the
                          # JAX package's bound, tests/test_models.py)
@@ -311,48 +315,73 @@ def phase_paged_decode(torch, ops, timer, cfg, hcfg, seed):
                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None})
             first.setdefault(name, (fn, args))
-    calls = [lambda fn=fn, args=args: fn(*args)
-             for fn, args in first.values()]
-    names = device_kernels(torch, calls)
-    check(len(names) == len(calls) and
-          all("paged_decode" in n for n in names),
-          f"paged decode: {len(calls)} calls put {names} on the card, not "
-          "one kernel each")
-    log(f"paged decode: one call of each kernel put {len(names)} kernels "
-        "on the card, all paged_decode")
+    one_kernel_each(torch, [lambda fn=fn, args=args: fn(*args)
+                            for fn, args in first.values()], "paged_decode")
     return out
 
 
-def phase_fused_sample(torch, ops, timer, cfg):
-    from repro_torch.kernels.sampling import prepare_rows
+def sample_inputs(torch, cfg):
+    """The sampler phase's batch at ``cfg``'s padded vocabulary: logits
+    (8, Vp) fp32, temperatures, top-k and keys (seed, rid, counter) of
+    greedy, temperature and top-k rows."""
     from repro_torch.models.params import padded_vocab
-    V, Vp, B = cfg.vocab_size, padded_vocab(cfg), 8
     g = torch.Generator(device="cuda").manual_seed(13)
-    logits = torch.randn((B, Vp), generator=g, device="cuda") * 3
+    logits = torch.randn((8, padded_vocab(cfg)), generator=g,
+                         device="cuda") * 3
     temp = torch.tensor([0, .8, .8, 1.5, 0, .8, .3, 1.], device="cuda")
     top_k = torch.tensor([0, 0, 50, 0, 0, 1, 50, 100], dtype=torch.int32,
                          device="cuda")
-    keys = torch.randint(0, 2**31 - 1, (B, 3), generator=g, device="cuda",
+    keys = torch.randint(0, 2**31 - 1, (8, 3), generator=g, device="cuda",
                          dtype=torch.int32)
-    got = ops.fused_sample(logits, temp, top_k, keys, vocab_size=V)
-    want = ops.fused_sample(logits, temp, top_k, keys, vocab_size=V,
-                            backend="ref")
-    check(torch.equal(got, want), f"fused_sample: {got.tolist()} != "
-                                  f"{want.tolist()} (must be bit-exact)")
-    z, noisy = prepare_rows(logits, temp, top_k, vocab_size=V)
-    keys4 = torch.cat([keys, noisy.int()[:, None]], 1).contiguous()
-    ms = timer.ms(lambda: ops.sample_rows(z, keys4))
-    plain = timer.ms(lambda: ops.sample_rows(z, keys4, backend="ref"))
-    n_noisy = int(noisy.sum())
-    nbytes = B * Vp * 4 + keys4.numel() * 4 + B * 4
-    flops = Vp * (n_noisy * SAMPLE_OPS_PER_NOISY
-                  + (B - n_noisy) * SAMPLE_OPS_PER_GREEDY)
-    b_ms, b_by = bound(nbytes, flops, FP32_FLOP_PER_S)
-    log(f"fused_sample B={B} Vp={Vp}: bit-exact | kernel {ms:.4f} ms | "
-        f"plain {plain:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
-    return {"shape": f"z ({B},{Vp}) fp32", "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+    return logits, temp, top_k, keys
+
+
+def phase_fused_sample(torch, ops, timer, cfg, hcfg):
+    """The sampler at qwen3-0.6b's padded vocabulary (the main row) and
+    the hybrid's, B = 8 (greedy, temperature, top-k rows): bit-exact
+    against the plain version, and one call puts one kernel on the card
+    (one profiler session)."""
+    from repro_torch.kernels.sampling import prepare_rows
+    rows, calls = [], []
+    for c in (cfg, hcfg):
+        logits, temp, top_k, keys = sample_inputs(torch, c)
+        V, (B, Vp) = c.vocab_size, logits.shape
+        got = ops.fused_sample(logits, temp, top_k, keys, vocab_size=V)
+        want = ops.fused_sample(logits, temp, top_k, keys, vocab_size=V,
+                                backend="ref")
+        check(torch.equal(got, want), f"fused_sample Vp={Vp}: {got.tolist()}"
+                                      f" != {want.tolist()} (must be "
+                                      "bit-exact)")
+        z, noisy = prepare_rows(logits, temp, top_k, vocab_size=V)
+        keys4 = torch.cat([keys, noisy.int()[:, None]], 1).contiguous()
+        check(torch.equal(ops.sample_rows(z, keys4), got),
+              f"fused_sample Vp={Vp}: not deterministic")
+        ms = timer.ms(lambda: ops.sample_rows(z, keys4))
+        plain = timer.ms(lambda: ops.sample_rows(z, keys4, backend="ref"))
+        n_noisy = int(noisy.sum())
+        nbytes = B * Vp * 4 + keys4.numel() * 4 + B * 4
+        flops = Vp * (n_noisy * SAMPLE_OPS_PER_NOISY
+                      + (B - n_noisy) * SAMPLE_OPS_PER_GREEDY)
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        log(f"fused_sample B={B} Vp={Vp}: bit-exact | kernel {ms:.4f} ms | "
+            f"plain {plain:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+        rows.append({"shape": f"z ({B},{Vp}) fp32", "max_abs_err": 0.0,
+                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
+        calls.append(lambda z=z, keys4=keys4: ops.sample_rows(z, keys4))
+    one_kernel_each(torch, calls, "fused_sample")
+    return rows
+
+
+def one_kernel_each(torch, calls, name):
+    """Check, in one profiler session, that each call puts exactly one
+    kernel on the card, one of ``name``'s."""
+    names = device_kernels(torch, calls)
+    check(len(names) == len(calls) and all(name in n for n in names),
+          f"{name}: {len(calls)} calls put {names} on the card, not one "
+          "kernel each")
+    log(f"{name}: {len(calls)} calls put {len(names)} kernels on the card, "
+        f"all {name}")
 
 
 def device_kernels(torch, calls, tries: int = 4) -> list:
@@ -365,7 +394,7 @@ def device_kernels(torch, calls, tries: int = 4) -> list:
     session is taken again, up to ``tries`` times; a record with as many
     or more is returned for the caller's check, so a call that puts no
     kernel, two kernels or a fill on the card still fails it. ``main``
-    runs these sessions (flash_decode's, then the paged kernels') before
+    runs these sessions (every kernel phase's, flash_decode's first) before
     any other profiling."""
     from torch.profiler import ProfilerActivity, profile
     for fn in calls:
@@ -438,50 +467,68 @@ def phase_flash_decode(torch, ops, timer, cfg):
                  for pos in (0, 511, 1023)
                  for p in (pos, torch.tensor(pos, dtype=torch.int32,
                                              device="cuda"))]
-        names = device_kernels(torch, calls)
-        check(len(names) == len(calls) and
-              all("flash_decode" in n for n in names),
-              f"flash_decode H={H}: {len(calls)} calls put {names} on the "
-              "card, not one kernel each")
-        log(f"flash_decode H={H}: {len(calls)} calls (int and tensor "
-            f"positions) put {len(names)} kernels on the card, all "
-            f"flash_decode")
+        one_kernel_each(torch, calls, "flash_decode")
     return rows
 
 
 def ssm_scan_work(B, S, H, hd, N, Q, in_bytes):
-    """(bytes, flops) of one scan: x, B, C and log_a read once, y and the
-    state written once; per (batch, head, chunk) the causal half of
-    (M * C B^T) x (row t sums over the t + 1 columns s <= t: Q(Q+1)/2
-    products per column of x), and C H^T and the state update in full; the
-    causal half of C B^T once per (batch, chunk)."""
+    """(bytes, flops, tensor-core flops) of one scan: x, B, C and log_a
+    read once, y and the state written once; per (batch, head, chunk) the
+    causal half of (M * C B^T) x (row t sums over the t + 1 columns
+    s <= t: Q(Q+1)/2 products per column of x), C H^T (every chunk but the
+    first, where H is zero) and the state update in full; the causal half
+    of C B^T once per (batch, chunk). The tensor-core count is what the
+    kernel issues for that work: a product with one fp32 operand taken as
+    a bf16 pair twice, and with fp32 inputs (x, B and C pairs too) every
+    product three times."""
     nc = S // Q
-    flops = (B * H * nc * (Q * (Q + 1) * hd + 4 * Q * hd * N)
-             + B * nc * Q * (Q + 1) * N)
+    intra = B * H * nc * Q * (Q + 1) * hd
+    inter = B * H * (nc - 1) * 2 * Q * hd * N
+    upd = B * H * nc * 2 * Q * hd * N
+    cbt = B * nc * Q * (Q + 1) * N
+    flops = intra + inter + upd + cbt
+    pair = 2 if in_bytes == 2 else 3
+    tc = (intra + inter + upd) * pair + cbt * (1 if in_bytes == 2 else 3)
     nbytes = (in_bytes * (B * S * H * hd + 2 * B * S * N) + 4 * B * S * H
               + 4 * B * S * H * hd + 4 * B * H * hd * N)
-    return nbytes, flops
+    return nbytes, flops, tc
+
+
+#: the ssm_scan phase's (B, S, input dtype) at the hybrid's widths
+SSM_SHAPES = ((1, 512, "bfloat16"), (1, 100, "bfloat16"),
+              (2, 100, "bfloat16"), (2, 512, "bfloat16"),
+              (4, 384, "bfloat16"), (1, 512, "float32"))
+
+
+def ssm_inputs(torch, B, S, H, hd, N, dt):
+    """x (B,S,H,hd), B and C (B,S,N) standard normal in ``dt``, and log_a
+    (B,S,H) fp32 at the model's decays (dt * A with dt <~ 0.1, A in
+    [-8, -1]), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(15 + B * S)
+    x = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dt)
+    bv, cv = (torch.randn((B, S, N), generator=g, device="cuda").to(dt)
+              for _ in "bc")
+    la = -0.1 * torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device="cuda"))
+    return x, bv, cv, la
 
 
 def phase_ssm_scan(torch, ops, timer, cfg):
     """ssm_scan at the hybrid's widths (256 heads of 64, d_state 128,
-    chunk 128) over one short prompt (S=100, one chunk) and S=512 (four
-    chunks), B 1 and 2, the generate path's prefill (B=4, S=384), bf16
-    inputs as the model gives them, and one case with fp32 inputs."""
+    chunk 128) over S=512 (four chunks, the main row), one short prompt
+    (S=100, one chunk), B 1 and 2, the generate path's prefill (B=4,
+    S=384), bf16 inputs as the model gives them, and one case with fp32
+    inputs; one call of each shape puts one kernel on the card (one
+    profiler session). The bound counts the products at the bf16
+    tensor-core rate as the kernel issues them (``ssm_scan_work``);
+    ``bound_fp32_ms`` is the exact flops at the fp32 CUDA-core rate."""
     from repro_torch.models.params import mamba_dims
     _, H, _, _ = mamba_dims(cfg)
     hd, N, chunk = cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk
-    rows = []
-    for B, S, dt in ((1, 512, torch.bfloat16), (1, 100, torch.bfloat16),
-                     (2, 100, torch.bfloat16), (2, 512, torch.bfloat16),
-                     (4, 384, torch.bfloat16), (1, 512, torch.float32)):
-        g = torch.Generator(device="cuda").manual_seed(15 + B * S)
-        x = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dt)
-        bv, cv = (torch.randn((B, S, N), generator=g, device="cuda").to(dt)
-                  for _ in "bc")
-        # decays of the model's range: dt * A with dt <~ 0.1, A in [-8, -1]
-        la = -0.1 * torch.nn.functional.softplus(
-            torch.randn((B, S, H), generator=g, device="cuda"))
+    rows, calls = [], []
+    for B, S, dtype in SSM_SHAPES:
+        dt = getattr(torch, dtype)
+        x, bv, cv, la = ssm_inputs(torch, B, S, H, hd, N, dt)
         y, st = ops.ssm_scan(x, bv, cv, la, chunk=chunk)
         wy, wst = ops.ssm_scan(x, bv, cv, la, chunk=chunk, backend="ref")
         torch.cuda.synchronize()
@@ -498,18 +545,23 @@ def phase_ssm_scan(torch, ops, timer, cfg):
         ms = timer.ms(lambda: ops.ssm_scan(x, bv, cv, la, chunk=chunk))
         plain = timer.ms(lambda: ops.ssm_scan(x, bv, cv, la, chunk=chunk,
                                               backend="ref"), reps=5)
-        nbytes, flops = ssm_scan_work(B, S, H, hd, N, min(chunk, S),
-                                      x.element_size())
-        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        nbytes, flops, tc = ssm_scan_work(B, S, H, hd, N, min(chunk, S),
+                                          x.element_size())
+        b_ms, b_by = bound(nbytes, tc, BF16_FLOP_PER_S)
+        b32_ms = bound(nbytes, flops, FP32_FLOP_PER_S)[0]
         kind = "bf16" if dt == torch.bfloat16 else "fp32"
         rows.append({"shape": f"xdt ({B},{S},{H},{hd}) {kind}, N {N}, "
                               f"Q {min(chunk, S)}",
                      "max_abs_err": err, "share_of_limit": share, "ms": ms,
                      "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "bound_fp32_ms": b32_ms, "library_ms": None})
         log(f"ssm_scan B={B} S={S} {kind}: max_abs_err {err:.3g} "
             f"({share:.3g} of the limit) | kernel {ms:.4f} ms | plain "
-            f"{plain:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+            f"{plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}; fp32 rate "
+            f"{b32_ms:.4f})")
+        calls.append(lambda x=x, bv=bv, cv=cv, la=la: ops.ssm_scan(
+            x, bv, cv, la, chunk=chunk))
+    one_kernel_each(torch, calls, "ssm_scan")
     return rows
 
 
@@ -1067,6 +1119,14 @@ def phase_hybrid_prefill(torch, run, params, seed):
             del cache
         r["kernel_vs_plain"] = float((out["kernel"] - out["plain"]).abs()
                                      .max() / out["plain"].abs().max())
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths["kernel"].prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        r["kernel_prefill_ms"] = float(np.median(walls))
         res[S] = r
         log(f"hybrid prefill S={S}, from the fp32-compute plain path "
             f"(of max |logit|; of each layer's max |state|): kernel path "
@@ -1077,7 +1137,8 @@ def phase_hybrid_prefill(torch, run, params, seed):
             + ", ".join(f"{v:.4g}" for v in r["plain"]["ssm"].values())
             + f" (mean {r['plain']['ssm_mean']:.4g}) | limits "
             f"{HYBRID_MARGIN} x the plain path's | kernel vs plain path "
-            f"logits {r['kernel_vs_plain']:.4g}")
+            f"logits {r['kernel_vs_plain']:.4g} | kernel path prefill "
+            f"{r['kernel_prefill_ms']:.2f} ms (wall, median of 3)")
     for S, r in res.items():
         k, p = r["kernel"], r["plain"]
         check(k["logits"] <= HYBRID_MARGIN * p["logits"],
@@ -1222,20 +1283,16 @@ def phase_profile(torch, run, params, seed, name="decode",
     return res
 
 
-def run_hybrid(torch, ops, args, card, report, kern, launches):
-    """The hybrid stack's phases: ``ssm_scan`` against its plain version
-    (``flash_decode``'s phase runs with the other kernel phases, first),
-    then at full width its prefill, its serve path (bf16 and int8 KV) and
-    its generate path. Fills ``report`` and ``kern``, and adds each path's
-    launch counts to ``launches``."""
+def run_hybrid(torch, ops, args, card, report, launches):
+    """The hybrid stack's phases at full width: its prefill, its serve
+    path (bf16 and int8 KV) and its generate path (its kernels,
+    ``ssm_scan`` and ``flash_decode``, are checked with the other kernel
+    phases). Fills ``report``, and adds each path's launch counts to
+    ``launches``."""
     from repro_torch.configs import make_run_config
     from repro_torch.models.model import build_model
     hrun = make_run_config(HYBRID, "decode_32k", seed=args.seed)
     hcfg = hrun.model
-    timer = Timer(torch)
-    kern["ssm_scan"] = phase_ssm_scan(torch, ops, timer, hcfg)
-    del timer
-    release(torch)
     t0 = time.perf_counter()
     params = build_model(hrun).init(seed=args.seed, device="cuda")
     torch.cuda.synchronize()
@@ -1335,7 +1392,9 @@ def main(argv=None) -> int:
             "flash_attention": phase_flash_attention(torch, ops, timer, cfg,
                                                      hcfg),
             **phase_paged_decode(torch, ops, timer, cfg, hcfg, args.seed),
-            "fused_sample": phase_fused_sample(torch, ops, timer, cfg),
+            "fused_sample": phase_fused_sample(torch, ops, timer, cfg,
+                                               hcfg),
+            "ssm_scan": phase_ssm_scan(torch, ops, timer, hcfg),
             **phase_qdma_pack(torch, ops, timer, cfg),
             "qdma_digest": phase_qdma_digest(torch, ops, timer, cfg)}
     del timer
@@ -1405,7 +1464,7 @@ def main(argv=None) -> int:
     del params
     release(torch)
 
-    run_hybrid(torch, ops, args, card, report, kern, launches)
+    run_hybrid(torch, ops, args, card, report, launches)
 
     sources = {"flash_attention": ("flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:77"),

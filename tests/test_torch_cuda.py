@@ -11,9 +11,11 @@ the paged decodes) within 1e-4 + 2**-6 * |plain| elementwise, two bf16
 steps of the value (kernel and plain version each round an fp32 result
 to bf16 once, after sums taken in other orders, so they may differ by
 one step); ``ssm_scan`` within 1e-4 * max |plain| for y and for the
-state (both accumulate in fp32, in other orders); sampling and the
-staging kernels (``qdma_pack``, ``qdma_pack_rows``, ``qdma_unpack``,
-``qdma_digest``) are bit-exact.
+state (the plain version computes in fp32; the kernel's tensor-core
+products take each fp32 operand as a bf16 pair and sum in fp32 in other
+orders, 0.03-0.08 of the limit in ``test_ssm_scan_numerics``); sampling
+and the staging kernels (``qdma_pack``, ``qdma_pack_rows``,
+``qdma_unpack``, ``qdma_digest``) are bit-exact.
 """
 import numpy as np
 import pytest
@@ -272,6 +274,125 @@ def test_fused_sample_kernel_bit_exact_on_card(cuda):
     want = ops.fused_sample(logits, temp, top_k, keys, vocab_size=V - 64,
                             backend="ref")
     assert torch.equal(got, want)
+
+
+def _scan_case(cuda, seed, B, S, H, hd, N, dtype):
+    """x, B and C standard normal in ``dtype``, log_a = -softplus(N(0,1))
+    (the steepest decays the model gives), on the card from numpy."""
+    rng = np.random.default_rng(seed)
+    x, b, c = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(cuda).to(dtype)
+               for shape in ((B, S, H, hd), (B, S, N), (B, S, N)))
+    la = -torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, S, H), np.float32)).to(cuda))
+    return x, b, c, la
+
+
+def _check_scan(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,N,chunk,dtype", [
+    (1, 1024, 8, 64, 128, 128, torch.bfloat16),  # a cluster of 8 chunks
+    (1, 2048, 4, 64, 128, 128, torch.bfloat16),  # 2 chunks a block
+    (1, 1280, 2, 64, 128, 128, torch.bfloat16),  # 10 chunks: 5 runs of 2
+    (1, 1152, 2, 64, 128, 128, torch.float32),   # 9: the last run 1 chunk
+    (4, 384, 8, 64, 128, 128, torch.bfloat16),   # the generate prefill
+    (1, 5, 8, 64, 128, 128, torch.bfloat16),     # Q = 5: one padded tile
+    (3, 10, 6, 64, 128, 5, torch.bfloat16),      # Q = 5 over a cluster
+    (2, 48, 4, 16, 16, 16, torch.bfloat16),      # the smoke twin's widths
+    (2, 48, 4, 16, 16, 16, torch.float32),
+    (1, 512, 8, 64, 128, 128, torch.float32),    # fp32 inputs, 4 chunks
+    (2, 100, 8, 64, 128, 128, torch.float32),    # fp32, one chunk
+    (1, 60, 3, 20, 36, 20, torch.bfloat16),      # widths off 16-byte runs
+])
+def test_ssm_scan_tensor_core_shapes(cuda, B, S, H, hd, N, chunk, dtype):
+    """The tensor-core scan at its edges: clusters of up to 8 chunk runs,
+    several chunks a block, padded tiles; within 1e-4 * max |plain| for
+    y and the state, and the same bits on a second call."""
+    args = _scan_case(cuda, S + H + hd, B, S, H, hd, N, dtype)
+    got = ops.ssm_scan(*args, chunk=chunk)
+    _check_scan(got, ops.ssm_scan(*args, chunk=chunk, backend="ref"))
+    again = ops.ssm_scan(*args, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [100, 512])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_ssm_scan_head_groups(cuda, S, group):
+    """Every number of heads a block (the launcher's forced choice) gives
+    the plain version's result: C B^T is shared by the group's heads."""
+    from repro_torch.kernels import build
+    B, H, hd, N = 1, 16, 64, 128
+    x, b, c, la = _scan_case(cuda, S + group, B, S, H, hd, N, torch.bfloat16)
+    y = torch.empty((B, S, H, hd), dtype=torch.float32, device=cuda)
+    st = torch.empty((B, H, hd, N), dtype=torch.float32, device=cuda)
+    rc = build.library("ssm_scan").launch_ssm_scan_group(
+        x.data_ptr(), b.data_ptr(), c.data_ptr(), la.data_ptr(),
+        y.data_ptr(), st.data_ptr(), B, S, H, hd, N, min(S, 128), 1, group,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    _check_scan((y, st), ops.ssm_scan(x, b, c, la, backend="ref"))
+
+
+def _split_edges(V):
+    """The first index of each vocab range after the first, as
+    fused_sample.cu's launcher splits an aligned row: at most 16 ranges
+    of at least 4,096 entries, in runs of whole float4s."""
+    nsplit = min(16, max(1, -(-V // 4096)))
+    per4 = -(-(V // 4) // nsplit) + 1
+    return [4 * per4 * r for r in range(1, nsplit) if 4 * per4 * r < V]
+
+
+def _sample_case(cuda, B, V, seed, noisy=True):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    z = torch.randn((B, V), generator=g, device=cuda) * 3
+    keys = torch.randint(0, 2**31 - 1, (B, 4), generator=g, device=cuda,
+                         dtype=torch.int32)
+    keys[:, 3] = (torch.arange(B, device=cuda) % 2 == 1) & noisy
+    return z, keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8, 64])
+@pytest.mark.parametrize("V", [65_536, 151_936, 50_257, 7])
+def test_fused_sample_split_rows(cuda, B, V):
+    """Rows split over a cluster: bit-exact against the plain version at
+    the hybrid's and qwen's vocabularies and at odd ones (rows that start
+    off a 16-byte boundary), greedy and noisy rows alike."""
+    z, keys = _sample_case(cuda, B, V, B * V)
+    want = ops.sample_rows(z, keys, backend="ref")
+    got = ops.sample_rows(z, keys)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ops.sample_rows(z, keys))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [65_536, 151_936, 50_257])
+def test_fused_sample_ties_and_edges(cuda, V):
+    """Greedy rows whose maximum sits at a range boundary: tied on both
+    sides of every split edge (the lower index must win), at index 0, at
+    the last index, tied at both ends; an all-NaN row and an all--inf row
+    give index 0. Bit-exact against the plain version."""
+    edges = _split_edges(V)
+    z, keys = _sample_case(cuda, 8, V, V, noisy=False)
+    for e in edges:
+        z[0, e - 1] = z[0, e] = 100.0        # tie across each edge
+    z[1, edges[-1]] = z[1, edges[-1] + 1] = 100.0
+    z[2, 0] = 100.0
+    z[3, V - 1] = 100.0
+    z[4, 0] = z[4, V - 1] = 100.0
+    z[5] = float("nan")
+    z[6] = float("-inf")
+    z[7, edges[0]] = 100.0                   # the first entry of range 1
+    want = ops.sample_rows(z, keys, backend="ref")
+    got = ops.sample_rows(z, keys)
+    assert torch.equal(got, want)
+    assert got[:7].tolist() == [edges[0] - 1, edges[-1], 0, V - 1, 0, 0, 0]
 
 
 def _scaled(cuda, shape, dtype, seed):

@@ -137,6 +137,96 @@ def test_ssm_scan_plain_matches_pallas(B, S, H, hd, N, chunk, dtype):
         _close(got, want, 5e-4)
 
 
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+def _pair(t):
+    hi = _bf16(t)
+    return hi, _bf16(t - hi)
+
+
+def _mm(a, b, eq, form):
+    """einsum(eq, a, b) as the tensor-core kernel forms it from fp32
+    operands: each as a bf16 pair (hi hi + hi lo + lo hi, fp32 sums;
+    "pair") or rounded to bf16 once ("bf16"). A bf16 operand's lo part is
+    zero, so a product of two bf16 values stays exact."""
+    if form == "bf16":
+        return torch.einsum(eq, _bf16(a), _bf16(b))
+    (ah, al), (bh, bl) = _pair(a), _pair(b)
+    return (torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, al, bh))
+
+
+def _emulate_scan(xdt, Bv, Cv, log_a, chunk, form):
+    """ssm_scan_ref's chunk recurrence with the kernel's rounding of every
+    product's operands (``_mm``), accumulated in fp32."""
+    B, S, H, hd = xdt.shape
+    Q = min(chunk, S)
+    x, Bf, Cf, la = (t.float() for t in (xdt, Bv, Cv, log_a))
+    tril = torch.ones((Q, Q), dtype=torch.bool).tril()
+    h = torch.zeros((B, H, hd, Bv.shape[-1]))
+    ys = []
+    for c0 in range(0, S, Q):
+        xc, bc, cc = x[:, c0:c0 + Q], Bf[:, c0:c0 + Q], Cf[:, c0:c0 + Q]
+        cum = la[:, c0:c0 + Q].cumsum(dim=1)                      # (B,Q,H)
+        M = torch.where(tril[None, :, :, None],
+                        torch.exp(cum[:, :, None] - cum[:, None, :]),
+                        torch.zeros(()))
+        W = M * _mm(cc, bc, "btn,bsn->bts", form)[..., None]       # (B,t,s,H)
+        y = _mm(W, xc, "btsh,bshd->bthd", form)
+        y = y + torch.exp(cum)[..., None] * _mm(cc, h, "btn,bhdn->bthd",
+                                                 form)
+        w = torch.exp(cum[:, -1:] - cum)[..., None] * xc           # (B,Q,H,hd)
+        h = (torch.exp(cum[:, -1])[..., None, None] * h
+             + _mm(w, bc, "bshd,bsn->bhdn", form))
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,dtype", [
+    (1, 100, 8, 64, 128, "bfloat16"),
+    (1, 512, 8, 64, 128, "bfloat16"),
+    (1, 1024, 4, 64, 128, "bfloat16"),
+    (1, 512, 8, 64, 128, "float32")])
+def test_ssm_scan_numerics(B, S, H, hd, N, dtype):
+    """Why the tensor-core ssm_scan feeds every product's fp32 operand as
+    a bf16 pair hi + lo: a CPU emulation of its rounding at the hybrid's
+    widths (numpy standard-normal x, B and C in ``dtype``, log_a =
+    -0.1 softplus(N(0, 1)) as in chip_smoke.py, seed 0; chunk 128)
+    against ``ssm_scan_ref``. The largest share of the limit 1e-4 *
+    max |plain| over y and the final state:
+
+        shape (B,S,H,hd,N)       inputs   bf16 operands   bf16 pairs
+        1,100,8,64,128           bf16         32.3          0.0394
+        1,512,8,64,128           bf16         18.2          0.0330
+        1,1024,4,64,128          bf16         20.7          0.0337
+        1,512,8,64,128           fp32         32.5          0.0841
+
+    With bf16 inputs C B^T is exact on the tensor cores (a product of two
+    bf16 values is exact in fp32); the decay-weighted C B^T, the carried
+    state and the weighted x of the state update are fp32, and one bf16
+    rounding of them misses the limit by 18-33x. With fp32 inputs x,
+    B and C are pairs too (hi hi + hi lo + lo hi)."""
+    rng = np.random.default_rng(0)
+    x, b, c = (rng.standard_normal(shape, np.float32)
+               for shape in ((B, S, H, hd), (B, S, N), (B, S, N)))
+    la = (-0.1 * np.log1p(np.exp(rng.standard_normal((B, S, H)))))
+    x, b, c = (torch.from_numpy(a).to(TDT[dtype]) for a in (x, b, c))
+    la = torch.from_numpy(la.astype(np.float32))
+    want = tref.ssm_scan_ref(x, b, c, la, chunk=128)
+    share = {}
+    for form in ("pair", "bf16"):
+        got = _emulate_scan(x, b, c, la, 128, form)
+        share[form] = max(float((g - w).abs().max())
+                          / (1e-4 * float(w.abs().max()))
+                          for g, w in zip(got, want))
+    print(f"{(B, S, H, hd, N)} {dtype}: bf16 operands {share['bf16']:.3g}, "
+          f"bf16 pairs {share['pair']:.3g}")
+    assert share["pair"] <= 0.1     # what the kernel uses: well inside
+    assert share["bf16"] > 10       # one bf16 rounding: far outside
+
+
 @pytest.mark.parametrize("S,chunk", [(20, 16), (17, 16), (100, 64)])
 def test_ssm_scan_chunk_rule_raises(S, chunk):
     """S must be at most the chunk or a multiple of it; the plain version

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""The attention kernels against an earlier version of their sources, in
+"""The port's kernels against an earlier version of their sources, in
 one call on one NVIDIA GPU, in turns.
 
     mkdir -p build/old_csrc
-    for f in flash_attention.cu flash_decode.cu paged_decode.cu common.cuh; do
+    for f in flash_attention.cu flash_decode.cu paged_decode.cu ssm_scan.cu \\
+             fused_sample.cu common.cuh; do
         git show <rev>:src/repro_torch/kernels/csrc/$f > build/old_csrc/$f
     done
     python3 tools/attn_same_call.py --old build/old_csrc \\
-        [--kernels attention paged]
+        [--kernels attention paged ssm sample]
 
 Builds the chosen kernels' old sources with nvcc beside the current ones
 (into ``build/attn_same_call/``; the old sources share the old
@@ -35,6 +36,16 @@ heads at the timed positions, the hybrid's 64/8 heads, every slot
 active), and at two more with qwen's heads: no slot active (what a call
 costs beside its rows) and every slot at 1,023.
 
+``ssm``: ``ssm_scan`` at ``chip_smoke.py``'s shapes (``phase_ssm_scan``:
+the hybrid's 256 heads of 64, d_state 128, chunk 128; B 1 and 2 at S 100
+and 512, B 4 at S 384, bf16 inputs, and fp32 at (1, 512)), and the new
+kernel at S 100 and 512 (B 1, bf16) with 1, 2, 4 and 8 heads a block
+(``launch_ssm_scan_group``). Checked within 1e-4 * max |plain|.
+
+``sample``: ``fused_sample``'s kernel (``sample_rows``) at qwen3-0.6b's
+padded vocabulary (151,936) and the hybrid's (65,536), B 8 and 1, rows
+from ``prepare_rows`` (greedy, temperature and top-k); bit-exact.
+
 Prints one line per shape and writes ``chiprun_out/attn_same_call.json``.
 Imports only torch, numpy, ``chip_smoke`` and the port.
 """
@@ -52,13 +63,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P, I = ctypes.c_void_p, ctypes.c_int
 #: the sources each kernel group builds
 GROUPS = {"attention": ("flash_attention", "flash_decode"),
-          "paged": ("paged_decode",)}
+          "paged": ("paged_decode",), "ssm": ("ssm_scan",),
+          "sample": ("fused_sample",)}
 #: the earlier launchers' C signatures, by source
 OLD_ARGTYPES = {
     "flash_attention": {"launch_flash_attention": [P] * 4 + [I] * 7 + [P]},
     "flash_decode": {"launch_flash_decode": [P] * 8 + [I] * 6 + [P]},
     "paged_decode": {"launch_paged_decode": [P] * 6 + [I] * 6 + [P],
-                     "launch_paged_decode_quant": [P] * 8 + [I] * 6 + [P]}}
+                     "launch_paged_decode_quant": [P] * 8 + [I] * 6 + [P]},
+    "ssm_scan": {"launch_ssm_scan": [P] * 6 + [I] * 7 + [P]},
+    "fused_sample": {"launch_fused_sample": [P, P, P, I, I, P]}}
 OLD_DECODE_SPLIT = 64
 
 
@@ -70,8 +84,8 @@ def ptxas(text: str, label: str):
 
 def build_old(old_dir: str, stems) -> dict:
     """nvcc each old source into a library of its own, with the port's
-    flags, all at once; returns {stem: ctypes library} and prints
-    ptxas's lines."""
+    flags (the sampler's bit-exact ones too), all at once; returns {stem:
+    ctypes library} and prints ptxas's lines."""
     from repro_torch.kernels import build
     out_dir = os.path.join(ROOT, "build", "attn_same_call")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -82,7 +96,8 @@ def build_old(old_dir: str, stems) -> dict:
     for stem in stems:
         lib = os.path.join(out_dir, f"old_{stem}.so")
         procs[stem] = (lib, subprocess.Popen(
-            [build.nvcc(), *build.BASE_FLAGS, "-o", lib,
+            [build.nvcc(), *build.BASE_FLAGS, *build.KERNELS[stem][0], "-o",
+             lib,
              os.path.join(out_dir, f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -112,24 +127,32 @@ class Turns:
         self.rows = []
 
     def __call__(self, label, fns, want, nbytes, flops, *, lib=None,
-                 **extra):
-        """``fns``: {"old": fn, "new": fn}; ``lib``: the library call
-        timed beside them."""
+                 share_fn=None, rate=None, **extra):
+        """``fns``: {"old": fn, "new": fn}, each returning a tensor or a
+        tuple of tensors; ``share_fn(got, want)``: the share of the limit
+        (the attention kernels' by default); ``flops`` count at ``rate``
+        (bf16 tensor cores by default); ``lib``: the library call timed
+        beside them."""
         torch, cs = self.torch, self.cs
+        share_fn = share_fn or (lambda got, want: cs.attn_err(got, want)[1])
+
+        def same(a, b):
+            a, b = ((a,), (b,)) if torch.is_tensor(a) else (a, b)
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+
         share = {}
         for name, fn in fns.items():
             got = fn()
             torch.cuda.synchronize()
-            share[name] = cs.attn_err(got, want)[1]
+            share[name] = share_fn(got, want)
             cs.check(share[name] <= 1, f"{label} {name}: "
                                        f"{share[name]:.3g} of the limit")
-            cs.check(torch.equal(got, fn()), f"{label} {name}: not "
-                                             "deterministic")
+            cs.check(same(got, fn()), f"{label} {name}: not deterministic")
         times = {"old": [], "new": []}
         for name in ("old", "new", "new", "old"):
             times[name].append(self.timer.ms(fns[name], reps=self.reps))
         lib_ms = self.timer.ms(lib, reps=self.reps) if lib else None
-        b_ms, b_by = cs.bound(nbytes, flops, cs.BF16_FLOP_PER_S)
+        b_ms, b_by = cs.bound(nbytes, flops, rate or cs.BF16_FLOP_PER_S)
         self.rows.append({"shape": label, "old_ms": times["old"],
                           "new_ms": times["new"],
                           "library_ms": lib_ms, "bound_ms": b_ms,
@@ -281,6 +304,100 @@ def time_paged(torch, cs, old, turns, stream, seed):
                   kernel=name)
 
 
+def time_ssm(torch, cs, old, turns, stream):
+    from repro_torch.configs import make_run_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.models.params import mamba_dims
+    hyb = make_run_config(cs.HYBRID, "decode_32k").model
+    _, H, _, _ = mamba_dims(hyb)
+    hd, N, chunk = hyb.ssm.head_dim, hyb.ssm.d_state, hyb.ssm.chunk
+
+    def run(lib, fn, a, group=None):
+        x, bv, cv, la = a
+        B, S = x.shape[:2]
+        y = torch.empty((B, S, H, hd), dtype=torch.float32, device="cuda")
+        st = torch.empty((B, H, hd, N), dtype=torch.float32, device="cuda")
+        extra = () if group is None else (group,)
+        rc = getattr(lib, fn)(
+            x.data_ptr(), bv.data_ptr(), cv.data_ptr(), la.data_ptr(),
+            y.data_ptr(), st.data_ptr(), B, S, H, hd, N, min(chunk, S),
+            int(x.dtype == torch.bfloat16), *extra, stream)
+        if rc:
+            raise RuntimeError(lib.kernel_error_string(rc).decode())
+        return y, st
+
+    def share(got, want):
+        return max(float((g - w).abs().max())
+                   / (cs.SSM_REL_TOL * float(w.abs().max()))
+                   for g, w in zip(got, want))
+
+    new = build.library("ssm_scan")
+    for B, S, dtype in cs.SSM_SHAPES:
+        dt = getattr(torch, dtype)
+        a = cs.ssm_inputs(torch, B, S, H, hd, N, dt)
+        want = ops.ssm_scan(*a, chunk=chunk, backend="ref")
+        kind = "bf16" if dt == torch.bfloat16 else "fp32"
+        groups = {}
+        if B == 1 and dt == torch.bfloat16:
+            for group in (1, 2, 4, 8):
+                cs.check(share(run(new, "launch_ssm_scan_group", a, group),
+                               want) <= 1,
+                         f"ssm_scan S={S} group {group}: off the limit")
+                groups[group] = turns.timer.ms(
+                    lambda: run(new, "launch_ssm_scan_group", a, group),
+                    reps=turns.reps)
+            print(f"ssm_scan ({B},{S}) {kind}: heads a block "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in groups.items()),
+                  flush=True)
+        nbytes, _, tc = cs.ssm_scan_work(B, S, H, hd, N, min(chunk, S),
+                                         a[0].element_size())
+        turns(f"ssm_scan xdt ({B},{S},{H},{hd}) {kind}, N {N}, Q "
+              f"{min(chunk, S)}",
+              {"old": lambda: run(old["ssm_scan"], "launch_ssm_scan", a),
+               "new": lambda: ops.ssm_scan(*a, chunk=chunk)},
+              want, nbytes, tc, share_fn=share, kernel="ssm_scan",
+              new_ms_by_heads_per_block=groups)
+
+
+def time_sample(torch, cs, old, turns, stream):
+    from repro_torch.configs import make_run_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sampling import prepare_rows
+
+    def old_rows(z, keys4):
+        out = torch.empty((z.shape[0],), dtype=torch.int32, device="cuda")
+        lib = old["fused_sample"]
+        rc = lib.launch_fused_sample(z.data_ptr(), keys4.data_ptr(),
+                                     out.data_ptr(), z.shape[0], z.shape[1],
+                                     stream)
+        if rc:
+            raise RuntimeError(lib.kernel_error_string(rc).decode())
+        return out
+
+    for arch in ("qwen3-0.6b", cs.HYBRID):
+        c = make_run_config(arch, "decode_32k").model
+        logits, temp, top_k, keys = cs.sample_inputs(torch, c)
+        V, Vp = c.vocab_size, logits.shape[1]
+        for B in (8, 1):
+            # B = 1: the temperature row
+            sel = slice(1, 2) if B == 1 else slice(None)
+            z, noisy = prepare_rows(logits[sel], temp[sel], top_k[sel],
+                                    vocab_size=V)
+            keys4 = torch.cat([keys[sel], noisy.int()[:, None]],
+                              1).contiguous()
+            n_noisy = int(noisy.sum())
+            turns(f"fused_sample z ({B},{Vp}) fp32",
+                  {"old": lambda: old_rows(z, keys4),
+                   "new": lambda: ops.sample_rows(z, keys4)},
+                  ops.sample_rows(z, keys4, backend="ref"),
+                  B * Vp * 4 + keys4.numel() * 4 + B * 4,
+                  Vp * (n_noisy * cs.SAMPLE_OPS_PER_NOISY
+                        + (B - n_noisy) * cs.SAMPLE_OPS_PER_GREEDY),
+                  share_fn=lambda got, want: 0.0 if torch.equal(got, want)
+                  else float("inf"),
+                  rate=cs.FP32_FLOP_PER_S, kernel="fused_sample")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", required=True,
@@ -317,6 +434,10 @@ def main(argv=None) -> int:
         time_attention(torch, cs, old, turns, stream)
     if "paged" in args.kernels:
         time_paged(torch, cs, old, turns, stream, args.seed)
+    if "ssm" in args.kernels:
+        time_ssm(torch, cs, old, turns, stream)
+    if "sample" in args.kernels:
+        time_sample(torch, cs, old, turns, stream)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "attn_same_call.json"), "w") as f:
