@@ -42,7 +42,6 @@ KERNELS = {
     }),
     "ssm_scan": ((), {
         "launch_ssm_scan": [_P] * 6 + [_I] * 7 + [_P],
-        "launch_ssm_scan_group": [_P] * 6 + [_I] * 8 + [_P],
     }),
     "paged_decode": ((), {
         "launch_paged_decode": [_P] * 6 + [_I] * 6 + [_P],

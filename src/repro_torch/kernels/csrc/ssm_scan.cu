@@ -79,7 +79,7 @@ constexpr int kMaxQ = 128;     // chunk length: 8 row tiles of 16
 constexpr int kMaxHd = 64;     // head width: 4 tiles of 16
 constexpr int kMaxN = 128;     // state width: 8 tiles of 16
 constexpr int kMaxCluster = 8; // chunk runs of a (batch, head group)
-constexpr int kMaxG = 8;       // heads a block: one cumsum warp each
+constexpr int kMaxG = 2;       // heads a block, where they fit
 constexpr int kSmemLimit = 232448;
 
 // element counts of the shared-memory tiles; bf16 tiles have rows of
@@ -898,17 +898,18 @@ int smem_bytes(bool pair, int cs, int g) {
   return 2 * bf + 4 * ((cs > 1 ? kTileS : 0) + gtiles + g * kMaxQ + 1);
 }
 
-// The default heads a block: two (C B^T shared by a pair of heads) where
-// they fit in shared memory and H is even, else one.
-int default_group(bool pair, int cs, int H) {
-  if (H % 2 == 0 && smem_bytes(pair, cs, 2) <= kSmemLimit) return 2;
+// The heads a block: kMaxG (C B^T shared by a pair of heads) where they
+// fit in shared memory and divide H, else one.
+int heads_a_block(bool pair, int cs, int H) {
+  if (H % kMaxG == 0 && smem_bytes(pair, cs, kMaxG) <= kSmemLimit)
+    return kMaxG;
   return 1;
 }
 
 template <typename T>
 int launch(const void* x, const void* bv, const void* cv, const void* la,
            void* y, void* hout, int B, int S, int H, int hd, int N, int Q,
-           int g, cudaStream_t stream) {
+           cudaStream_t stream) {
   constexpr bool kPair = std::is_same<T, float>::value;
   if (Q < 1 || Q > kMaxQ || S < Q || S % Q != 0 || hd < 1 || hd > kMaxHd ||
       N < 1 || N > kMaxN || B < 1 || H < 1)
@@ -916,9 +917,9 @@ int launch(const void* x, const void* bv, const void* cv, const void* la,
   const int nc = S / Q;
   const int m = (nc + kMaxCluster - 1) / kMaxCluster;  // chunks a block
   const int cs = (nc + m - 1) / m;                     // blocks a cluster
-  if (g <= 0) g = default_group(kPair, cs, H);
+  const int g = heads_a_block(kPair, cs, H);
   const int smem = smem_bytes(kPair, cs, g);
-  if (g > kMaxG || H % g != 0 || smem > kSmemLimit || H / g > 65535 ||
+  if (smem > kSmemLimit || H / g > 65535 ||
       B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* p) {
@@ -954,25 +955,14 @@ int launch(const void* x, const void* bv, const void* cv, const void* la,
 }  // namespace
 
 // bf16 != 0: x, bv and cv are bf16, else fp32. Takes Q <= 128, hd <= 64,
-// N <= 128 (cudaErrorInvalidValue otherwise, with no launch). `group`
-// heads share a block (0: the launcher's choice); it must divide H, at
-// most 8, and fit in shared memory.
-extern "C" int launch_ssm_scan_group(const void* x, const void* bv,
-                                     const void* cv, const void* la, void* y,
-                                     void* hout, int B, int S, int H, int hd,
-                                     int N, int Q, int bf16, int group,
-                                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(x, bv, cv, la, y, hout, B, S, H, hd, N, Q,
-                                 group, st);
-  return launch<float>(x, bv, cv, la, y, hout, B, S, H, hd, N, Q, group, st);
-}
-
+// N <= 128 (cudaErrorInvalidValue otherwise, with no launch).
 extern "C" int launch_ssm_scan(const void* x, const void* bv, const void* cv,
                                const void* la, void* y, void* hout, int B,
                                int S, int H, int hd, int N, int Q, int bf16,
                                void* stream) {
-  return launch_ssm_scan_group(x, bv, cv, la, y, hout, B, S, H, hd, N, Q,
-                               bf16, 0, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16>(x, bv, cv, la, y, hout, B, S, H, hd, N, Q,
+                                 st);
+  return launch<float>(x, bv, cv, la, y, hout, B, S, H, hd, N, Q, st);
 }

@@ -320,32 +320,17 @@ def test_ssm_scan_tensor_core_shapes(cuda, B, S, H, hd, N, chunk, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("S", [100, 512])
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
-def test_ssm_scan_head_groups(cuda, S, group):
-    """Every number of heads a block (the launcher's forced choice) gives
-    the plain version's result: C B^T is shared by the group's heads."""
-    from repro_torch.kernels import build
-    B, H, hd, N = 1, 16, 64, 128
-    x, b, c, la = _scan_case(cuda, S + group, B, S, H, hd, N, torch.bfloat16)
-    y = torch.empty((B, S, H, hd), dtype=torch.float32, device=cuda)
-    st = torch.empty((B, H, hd, N), dtype=torch.float32, device=cuda)
-    rc = build.library("ssm_scan").launch_ssm_scan_group(
-        x.data_ptr(), b.data_ptr(), c.data_ptr(), la.data_ptr(),
-        y.data_ptr(), st.data_ptr(), B, S, H, hd, N, min(S, 128), 1, group,
-        torch.cuda.current_stream().cuda_stream)
-    assert rc == 0
-    _check_scan((y, st), ops.ssm_scan(x, b, c, la, backend="ref"))
-
-
-def _split_edges(V):
-    """The first index of each vocab range after the first, as
-    fused_sample.cu's launcher splits an aligned row: at most 16 ranges
-    of at least 4,096 entries, in runs of whole float4s."""
+def _split_edges(V, row):
+    """The first index of each vocab range after the first in row ``row``
+    of a contiguous (B, V) fp32 tensor that starts on a 16-byte boundary,
+    as fused_sample.cu's launcher splits it: at most 16 ranges of at
+    least 4,096 entries, in runs of whole float4s from the row's first
+    16-byte boundary, ``head`` entries in."""
+    head = (4 - row * V % 4) % 4
     nsplit = min(16, max(1, -(-V // 4096)))
     per4 = -(-(V // 4) // nsplit) + 1
-    return [4 * per4 * r for r in range(1, nsplit) if 4 * per4 * r < V]
+    return [head + 4 * per4 * r for r in range(1, nsplit)
+            if head + 4 * per4 * r < V]
 
 
 def _sample_case(cuda, B, V, seed, noisy=True):
@@ -378,21 +363,22 @@ def test_fused_sample_ties_and_edges(cuda, V):
     sides of every split edge (the lower index must win), at index 0, at
     the last index, tied at both ends; an all-NaN row and an all--inf row
     give index 0. Bit-exact against the plain version."""
-    edges = _split_edges(V)
     z, keys = _sample_case(cuda, 8, V, V, noisy=False)
-    for e in edges:
+    assert z.data_ptr() % 16 == 0
+    e0, e1, e7 = (_split_edges(V, row) for row in (0, 1, 7))
+    for e in e0:
         z[0, e - 1] = z[0, e] = 100.0        # tie across each edge
-    z[1, edges[-1]] = z[1, edges[-1] + 1] = 100.0
+    z[1, e1[-1]] = z[1, e1[-1] + 1] = 100.0  # tie at the last edge
     z[2, 0] = 100.0
     z[3, V - 1] = 100.0
     z[4, 0] = z[4, V - 1] = 100.0
     z[5] = float("nan")
     z[6] = float("-inf")
-    z[7, edges[0]] = 100.0                   # the first entry of range 1
+    z[7, e7[0]] = 100.0                      # the first entry of range 1
     want = ops.sample_rows(z, keys, backend="ref")
     got = ops.sample_rows(z, keys)
     assert torch.equal(got, want)
-    assert got[:7].tolist() == [edges[0] - 1, edges[-1], 0, V - 1, 0, 0, 0]
+    assert got.tolist() == [e0[0] - 1, e1[-1], 0, V - 1, 0, 0, 0, e7[0]]
 
 
 def _scaled(cuda, shape, dtype, seed):

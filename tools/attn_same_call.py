@@ -38,9 +38,8 @@ costs beside its rows) and every slot at 1,023.
 
 ``ssm``: ``ssm_scan`` at ``chip_smoke.py``'s shapes (``phase_ssm_scan``:
 the hybrid's 256 heads of 64, d_state 128, chunk 128; B 1 and 2 at S 100
-and 512, B 4 at S 384, bf16 inputs, and fp32 at (1, 512)), and the new
-kernel at S 100 and 512 (B 1, bf16) with 1, 2, 4 and 8 heads a block
-(``launch_ssm_scan_group``). Checked within 1e-4 * max |plain|.
+and 512, B 4 at S 384, bf16 inputs, and fp32 at (1, 512)). Checked
+within 1e-4 * max |plain|.
 
 ``sample``: ``fused_sample``'s kernel (``sample_rows``) at qwen3-0.6b's
 padded vocabulary (151,936) and the hybrid's (65,536), B 8 and 1, rows
@@ -306,22 +305,22 @@ def time_paged(torch, cs, old, turns, stream, seed):
 
 def time_ssm(torch, cs, old, turns, stream):
     from repro_torch.configs import make_run_config
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     from repro_torch.models.params import mamba_dims
     hyb = make_run_config(cs.HYBRID, "decode_32k").model
     _, H, _, _ = mamba_dims(hyb)
     hd, N, chunk = hyb.ssm.head_dim, hyb.ssm.d_state, hyb.ssm.chunk
 
-    def run(lib, fn, a, group=None):
+    def old_scan(a):
         x, bv, cv, la = a
         B, S = x.shape[:2]
         y = torch.empty((B, S, H, hd), dtype=torch.float32, device="cuda")
         st = torch.empty((B, H, hd, N), dtype=torch.float32, device="cuda")
-        extra = () if group is None else (group,)
-        rc = getattr(lib, fn)(
+        lib = old["ssm_scan"]
+        rc = lib.launch_ssm_scan(
             x.data_ptr(), bv.data_ptr(), cv.data_ptr(), la.data_ptr(),
             y.data_ptr(), st.data_ptr(), B, S, H, hd, N, min(chunk, S),
-            int(x.dtype == torch.bfloat16), *extra, stream)
+            int(x.dtype == torch.bfloat16), stream)
         if rc:
             raise RuntimeError(lib.kernel_error_string(rc).decode())
         return y, st
@@ -331,32 +330,18 @@ def time_ssm(torch, cs, old, turns, stream):
                    / (cs.SSM_REL_TOL * float(w.abs().max()))
                    for g, w in zip(got, want))
 
-    new = build.library("ssm_scan")
     for B, S, dtype in cs.SSM_SHAPES:
         dt = getattr(torch, dtype)
         a = cs.ssm_inputs(torch, B, S, H, hd, N, dt)
         want = ops.ssm_scan(*a, chunk=chunk, backend="ref")
         kind = "bf16" if dt == torch.bfloat16 else "fp32"
-        groups = {}
-        if B == 1 and dt == torch.bfloat16:
-            for group in (1, 2, 4, 8):
-                cs.check(share(run(new, "launch_ssm_scan_group", a, group),
-                               want) <= 1,
-                         f"ssm_scan S={S} group {group}: off the limit")
-                groups[group] = turns.timer.ms(
-                    lambda: run(new, "launch_ssm_scan_group", a, group),
-                    reps=turns.reps)
-            print(f"ssm_scan ({B},{S}) {kind}: heads a block "
-                  + ", ".join(f"{k} {v:.4f} ms" for k, v in groups.items()),
-                  flush=True)
-        nbytes, _, tc = cs.ssm_scan_work(B, S, H, hd, N, min(chunk, S),
-                                         a[0].element_size())
+        nbytes, flops, _ = cs.ssm_scan_work(B, S, H, hd, N, min(chunk, S),
+                                            a[0].element_size())
         turns(f"ssm_scan xdt ({B},{S},{H},{hd}) {kind}, N {N}, Q "
               f"{min(chunk, S)}",
-              {"old": lambda: run(old["ssm_scan"], "launch_ssm_scan", a),
+              {"old": lambda: old_scan(a),
                "new": lambda: ops.ssm_scan(*a, chunk=chunk)},
-              want, nbytes, tc, share_fn=share, kernel="ssm_scan",
-              new_ms_by_heads_per_block=groups)
+              want, nbytes, flops, share_fn=share, kernel="ssm_scan")
 
 
 def time_sample(torch, cs, old, turns, stream):
