@@ -584,73 +584,157 @@ def qdma_row(name, shape, ms, plain, nbytes, ops, library=None):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
 
 
-def phase_qdma_pack(torch, ops, timer, cfg):
-    """qdma_pack and qdma_unpack on a fp32 MLP leaf and a bf16 K pool,
-    qdma_pack_rows on one ~32 MiB descriptor of the MLP leaf at a nonzero
-    row offset; each output against the plain version bit for bit."""
-    from repro_torch.core.staging import StagingEngine
+def qdma_leaves(torch, cfg) -> dict:
+    """The staging kernels' timed leaves of qwen3-0.6b, from a seed: the
+    stacked fp32 MLP weight and a bf16 K pool of the serve engine."""
     g = torch.Generator(device="cuda").manual_seed(21)
     L, E, F = cfg.num_layers, cfg.d_model, cfg.d_ff
-    leaves = {
+    return {
         f"fp32 MLP ({L},{E},{F})": torch.randn((L, E, F), generator=g,
                                                device="cuda") * 0.02,
         f"bf16 K pool ({L},513,16,{cfg.num_kv_heads},{cfg.head_dim})":
             torch.randn((L, 513, 16, cfg.num_kv_heads, cfg.head_dim),
                         generator=g, device="cuda").bfloat16(),
     }
-    out = {"qdma_pack": [], "qdma_unpack": [], "qdma_pack_rows": []}
+
+
+def qdma_descriptors(x) -> tuple:
+    """The staging engine's own row chunks of leaf x (32 MiB each): the
+    sixth descriptor of a pipelined save (of x's fp32 bytes) and the
+    second of a restore (of its int8 bytes), both at a nonzero row."""
+    from repro_torch.core.staging import StagingEngine
+    R = x.numel() // x.shape[-1]
+    eng = StagingEngine()
+    return (eng._row_chunks(x.numel() * x.element_size(), R)[5],
+            eng._row_chunks(x.numel(), R)[1])
+
+
+def qdma_special(torch, dtype, block: int):
+    """(2, 3 * block) on the card: blocks holding a NaN, a +inf, a -inf, a
+    NaN and an inf, all zeros, and ordinary values."""
+    x = np.random.default_rng(block).standard_normal((6, block))
+    x[0, 3] = np.nan
+    x[1, 5] = np.inf
+    x[2, block - 1] = -np.inf
+    x[3, 0], x[3, 7] = np.nan, np.inf
+    x[4] = 0
+    return torch.from_numpy(x.astype(np.float32).reshape(2, 3 * block)).to(
+        "cuda").to(dtype)
+
+
+def phase_qdma_pack(torch, ops, timer, cfg):
+    """qdma_pack and qdma_unpack on a fp32 MLP leaf and a bf16 K pool at
+    the int8 pause's block 128, the pack of the MLP leaf also at the
+    staging engine's default block 256, qdma_pack_rows on one save
+    descriptor of the MLP leaf (at both blocks), qdma_unpack on one
+    restore descriptor into its rows of the leaf; each output against the
+    plain version bit for bit, and so on small leaves with NaN, inf and
+    zero blocks."""
+    from repro_torch.kernels.ref import row_view
     B = QDMA_BLOCK
+    for dtype in (torch.float32, torch.bfloat16):
+        for block in (B, 256):
+            x = qdma_special(torch, dtype, block)
+            q, s = ops.qdma_pack(x, block=block)
+            wq, ws = ops.qdma_pack(x, block=block, backend="ref")
+            rq, rs = ops.qdma_pack_rows(x, 1, rows=1, block=block)
+            ok = (bits_equal(torch, q, wq) and bits_equal(torch, s, ws)
+                  and bits_equal(torch, rq, wq[1:])
+                  and bits_equal(torch, rs, ws[1:]))
+            for out in (torch.float32, torch.bfloat16):
+                ok = ok and bits_equal(
+                    torch, ops.qdma_unpack(q, s, dtype=out),
+                    ops.qdma_unpack(q, s, dtype=out, backend="ref"))
+            torch.cuda.synchronize()
+            check(ok, f"qdma NaN/inf/zero blocks {dtype} block {block}: the "
+                      "kernels differ from the plain versions")
+    log("qdma_pack / qdma_pack_rows / qdma_unpack: NaN, inf and zero blocks "
+        "(fp32 and bf16, blocks 128 and 256) bit-exact")
+    leaves = qdma_leaves(torch, cfg)
+    out = {"qdma_pack": [], "qdma_unpack": [], "qdma_pack_rows": []}
     for shape, x in leaves.items():
+        for block in (B, 256) if x.shape[-1] % 256 == 0 else (B,):
+            q, s = ops.qdma_pack(x, block=block)
+            wq, ws = ops.qdma_pack(x, block=block, backend="ref")
+            torch.cuda.synchronize()
+            check(bits_equal(torch, q, wq) and bits_equal(torch, s, ws),
+                  f"qdma_pack {shape} block {block}: differs from the plain "
+                  "version")
+            n = x.numel()
+            io = n * x.element_size() + n + s.numel() * 4
+            out["qdma_pack"].append(qdma_row(
+                "qdma_pack", f"{shape}, block {block}",
+                timer.ms(lambda: ops.qdma_pack(x, block=block)),
+                timer.ms(lambda: ops.qdma_pack(x, block=block, backend="ref"),
+                         reps=5), io, PACK_OPS * n))
         q, s = ops.qdma_pack(x, block=B)
-        wq, ws = ops.qdma_pack(x, block=B, backend="ref")
-        torch.cuda.synchronize()
-        check(bits_equal(torch, q, wq) and bits_equal(torch, s, ws),
-              f"qdma_pack {shape}: differs from the plain version")
-        n = x.numel()
-        io = x.numel() * x.element_size() + q.numel() + s.numel() * 4
-        out["qdma_pack"].append(qdma_row(
-            "qdma_pack", shape, timer.ms(lambda: ops.qdma_pack(x, block=B)),
-            timer.ms(lambda: ops.qdma_pack(x, block=B, backend="ref"),
-                     reps=5), io, PACK_OPS * n))
         u = ops.qdma_unpack(q, s, dtype=x.dtype)
         wu = ops.qdma_unpack(q, s, dtype=x.dtype, backend="ref")
         torch.cuda.synchronize()
         check(bits_equal(torch, u, wu),
               f"qdma_unpack {shape}: differs from the plain version")
-        lib = qb = sb = None
-        if x.dtype == torch.float32:
-            # one library call computes the fp32 unpack: int8 promotes to
-            # fp32 exactly, then one IEEE multiply per element
-            qb = q.view(*s.shape, B)
-            sb = s.unsqueeze(-1)
-            check(bits_equal(torch, torch.mul(qb, sb).view(x.shape), u),
-                  f"qdma_unpack {shape}: differs from torch.mul")
-            lib = timer.ms(lambda: torch.mul(qb, sb))
+        # one library call computes the unpack: int8 promotes to fp32
+        # exactly, one IEEE multiply per element, then the cast to out's
+        # dtype. For fp32 it must give the kernel's bits; for bf16 it is a
+        # yardstick only where it does
+        qb, sb = q.view(*s.shape, B), s.unsqueeze(-1)
+        lib_out = torch.empty(qb.shape, dtype=x.dtype, device="cuda")
+        torch.mul(qb, sb, out=lib_out)
+        same = bits_equal(torch, lib_out.view(x.shape), u)
+        check(same or x.dtype != torch.float32,
+              f"qdma_unpack {shape}: differs from torch.mul")
+        lib = None
+        if same:
+            lib = timer.ms(lambda: torch.mul(qb, sb, out=lib_out))
+        else:
+            log(f"qdma_unpack {shape}: torch.mul differs from the kernel in "
+                "some bits, so no library time")
+        n = x.numel()
         out["qdma_unpack"].append(qdma_row(
             "qdma_unpack", shape,
             timer.ms(lambda: ops.qdma_unpack(q, s, dtype=x.dtype)),
             timer.ms(lambda: ops.qdma_unpack(q, s, dtype=x.dtype,
                                              backend="ref"), reps=5),
-            io, UNPACK_OPS * n, library=lib))
-        del q, s, wq, ws, u, wu, qb, sb
-    # one descriptor of the pipelined save: the staging engine's own row
-    # chunking of the MLP leaf, the sixth chunk (lo > 0)
+            n * x.element_size() + n + s.numel() * 4, UNPACK_OPS * n,
+            library=lib))
+        del q, s, wq, ws, u, wu, qb, sb, lib_out
     x = next(iter(leaves.values()))
-    R = x.numel() // x.shape[-1]
-    lo, hi = StagingEngine()._row_chunks(x.numel() * 4, R)[5]
-    q, s = ops.qdma_pack_rows(x, lo, rows=hi - lo, block=B)
-    wq, ws = ops.qdma_pack_rows(x, lo, rows=hi - lo, block=B, backend="ref")
+    R, F = x.numel() // x.shape[-1], x.shape[-1]
+    (lo, hi), (rlo, rhi) = qdma_descriptors(x)
+    for block in (B, 256):
+        q, s = ops.qdma_pack_rows(x, lo, rows=hi - lo, block=block)
+        wq, ws = ops.qdma_pack_rows(x, lo, rows=hi - lo, block=block,
+                                    backend="ref")
+        torch.cuda.synchronize()
+        check(lo > 0 and bits_equal(torch, q, wq) and bits_equal(torch, s, ws),
+              f"qdma_pack_rows [{lo}, {hi}) block {block}: differs from the "
+              "plain version")
+        n = (hi - lo) * F
+        out["qdma_pack_rows"].append(qdma_row(
+            "qdma_pack_rows", f"rows [{lo},{hi}) of the fp32 MLP leaf's "
+                              f"({R},{F}) view, block {block}",
+            timer.ms(lambda: ops.qdma_pack_rows(x, lo, rows=hi - lo,
+                                                block=block)),
+            timer.ms(lambda: ops.qdma_pack_rows(x, lo, rows=hi - lo,
+                                                block=block, backend="ref"),
+                     reps=5),
+            n * 4 + n + s.numel() * 4, PACK_OPS * n))
+    # one restore descriptor: the unpack of its rows into the leaf
+    q, s = (row_view(t)[rlo:rhi] for t in ops.qdma_pack(x, block=B))
+    dst = row_view(torch.empty_like(x))[rlo:rhi]
+    want = ops.qdma_unpack(q, s, backend="ref")
+    ops.qdma_unpack(q, s, out=dst)
     torch.cuda.synchronize()
-    check(lo > 0 and bits_equal(torch, q, wq) and bits_equal(torch, s, ws),
-          f"qdma_pack_rows [{lo}, {hi}): differs from the plain version")
-    n = (hi - lo) * x.shape[-1]
-    shape = f"rows [{lo},{hi}) of the fp32 MLP leaf's ({R},{F}) view"
-    out["qdma_pack_rows"].append(qdma_row(
-        "qdma_pack_rows", shape,
-        timer.ms(lambda: ops.qdma_pack_rows(x, lo, rows=hi - lo, block=B)),
-        timer.ms(lambda: ops.qdma_pack_rows(x, lo, rows=hi - lo, block=B,
-                                            backend="ref"), reps=5),
-        n * 4 + n + s.numel() * 4, PACK_OPS * n))
+    check(rlo > 0 and bits_equal(torch, dst, want),
+          f"qdma_unpack restore rows [{rlo}, {rhi}): differs from the plain "
+          "version")
+    n = q.numel()
+    out["qdma_unpack"].append(qdma_row(
+        "qdma_unpack", f"restore rows [{rlo},{rhi}) of the fp32 MLP leaf's "
+                       f"({R},{F}) view -> fp32",
+        timer.ms(lambda: ops.qdma_unpack(q, s, out=dst)),
+        timer.ms(lambda: ops.qdma_unpack(q, s, backend="ref"), reps=5),
+        n + s.numel() * 4 + n * 4, UNPACK_OPS * n))
     return out
 
 
@@ -1043,7 +1127,8 @@ def log_svff(report, card):
         moved = [s["bytes_moved"] / max(s["logical_bytes"], 1)
                  for s in p["saves"]]
         log(f"SVFF int8 {key}: stop {p['stop_ms']:.2f} ms of "
-            f"{p['total_ms']:.2f} ms | saves moved "
+            f"{p['total_ms']:.2f} ms | unpause {p['unpause_ms']:.2f} ms | "
+            f"saves moved "
             + ", ".join(f"{m:.3f}" for m in moved)
             + f" of logical | restore {p['restores']['gb_per_s']:.2f} GB/s |"
             f" int8 bound share {p['int8_bound_share']:.3g} | {card}")

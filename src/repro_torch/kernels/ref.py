@@ -206,23 +206,38 @@ def qdma_pack_ref(x, block: int = 256):
     """Blockwise symmetric int8 quantization over the last dim.
     Returns (q int8 same shape, scale fp32 shape[:-1]+(L/block,)), with
     ``scale = max(max|x| * INV127, 1e-12)`` per block and
-    ``q = clip(round_half_even(x / scale), -127, 127)``."""
+    ``q = clip(round_half_even(x / scale), -127, 127)``. As in the JAX
+    kernel, a NaN in a block makes its scale NaN and an inf makes it inf;
+    either way ``x / scale`` is 0 or NaN there, and NaN converts to q 0
+    (explicitly: torch leaves a NaN's conversion to int8 to the device)."""
     L = x.shape[-1]
     if L % block:
         raise ValueError(f"last dim {L} is not a multiple of block {block}")
     xb = x.to(torch.float32).reshape(x.shape[:-1] + (L // block, block))
     inv = torch.tensor(INV127, dtype=torch.float32, device=x.device)
     scale = (xb.abs().amax(dim=-1) * inv).clamp_min(1e-12)
-    q = torch.round(xb / scale[..., None]).clamp(-127, 127)
+    q = torch.round(xb / scale[..., None]).clamp(-127, 127).nan_to_num(0.0)
     return q.to(torch.int8).reshape(x.shape), scale
 
 
+#: XLA's bfloat16 NaN bits, sign clear (0x7FC0) and set (0xFFC0) as int16
+_BF16_NAN, _BF16_NEG_NAN = 0x7FC0, 0xFFC0 - 0x10000
+
+
 def qdma_unpack_ref(q, scale, dtype=torch.float32):
-    """Inverse of qdma_pack_ref: ``q * scale`` per block, cast to dtype."""
+    """Inverse of qdma_pack_ref: ``q * scale`` per block, cast to dtype.
+    A NaN cast to bfloat16 becomes 0x7FC0 with its sign bit, as XLA casts
+    it (torch's own cast gives other NaN bits, and not the same on the CPU
+    and on the card)."""
     block = q.shape[-1] // scale.shape[-1]
     qb = q.reshape(q.shape[:-1] + (scale.shape[-1], block))
-    x = qb.to(torch.float32) * scale[..., None]
-    return x.reshape(q.shape).to(dtype)
+    x = (qb.to(torch.float32) * scale[..., None]).reshape(q.shape)
+    y = x.to(dtype)
+    if dtype == torch.bfloat16:
+        nan = torch.where(torch.signbit(x), _BF16_NEG_NAN,
+                          _BF16_NAN).to(torch.int16)
+        y = torch.where(torch.isnan(x), nan, y.view(torch.int16)).view(dtype)
+    return y
 
 
 def row_view(x):

@@ -414,6 +414,90 @@ def test_qdma_pack_unpack_bit_exact_on_card(cuda, dtype, block):
         assert bool((err <= s * (0.5 + 2 ** -16)).all())
 
 
+def _bits_equal(a, b):
+    """Same dtype, shape and bytes (a NaN equals a NaN of the same bits)."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(-1).view(torch.uint8),
+        b.contiguous().view(-1).view(torch.uint8)))
+
+
+def _pack_all_ways(x, block, lo, rows):
+    """Kernel against plain version: qdma_pack, qdma_pack_rows on rows
+    [lo, lo + rows) of the row view, and qdma_unpack to fp32 and bf16.
+    Returns the plain (q, scale)."""
+    q, s = ops.qdma_pack(x, block=block)
+    wq, ws = ops.qdma_pack(x, block=block, backend="ref")
+    assert _bits_equal(q, wq) and _bits_equal(s, ws)
+    rq, rs = ops.qdma_pack_rows(x, lo, rows=rows, block=block)
+    L = x.shape[-1]
+    assert _bits_equal(rq, wq.view(-1, L)[lo:lo + rows])
+    assert _bits_equal(rs, ws.view(-1, L // block)[lo:lo + rows])
+    for dtype in (torch.float32, torch.bfloat16):
+        if block % 16 == 0:
+            assert _bits_equal(
+                ops.qdma_unpack(q, s, dtype=dtype),
+                ops.qdma_unpack(q, s, dtype=dtype, backend="ref"))
+    return wq, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [128, 256])
+def test_qdma_nan_inf_blocks_on_card(cuda, dtype, block):
+    """Blocks holding a NaN, a +inf, a -inf, a NaN and an inf, and all
+    zeros: scale NaN / inf / 1e-12 and q 0 throughout the first four, as
+    in the JAX kernel; the unpack NaN across them (in bf16 XLA's 0x7FC0).
+    Kernel and plain version bit for bit."""
+    rng = np.random.default_rng(block)
+    x = rng.standard_normal((6, block)).astype(np.float32)
+    x[0, 3] = np.nan
+    x[1, 5] = np.inf
+    x[2, block - 1] = -np.inf
+    x[3, 0], x[3, 7] = np.nan, np.inf
+    x[4] = 0
+    x = torch.from_numpy(x.reshape(2, 3 * block)).to(cuda).to(dtype)
+    q, s = _pack_all_ways(x, block, 1, 1)
+    s = s.view(-1)
+    assert bool(s[[0, 3]].isnan().all()) and bool((s[[1, 2]] == np.inf).all())
+    assert float(s[4]) == float(np.float32(1e-12))
+    assert not bool(q.view(6, block)[:4].any())
+    u = ops.qdma_unpack(q, s.view(2, 3), dtype=torch.bfloat16)
+    assert bool((u.view(6, block)[:4].view(torch.int16) == 0x7FC0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,block", [
+    (torch.float32, 4), (torch.float32, 48), (torch.float32, 80),
+    (torch.float32, 256), (torch.float32, 508), (torch.float32, 512),
+    (torch.bfloat16, 8), (torch.bfloat16, 16), (torch.bfloat16, 24),
+    (torch.bfloat16, 128), (torch.bfloat16, 1024)])
+def test_qdma_pack_every_group_size_on_card(cuda, dtype, block):
+    """Groups of 16 bytes to 2 KB, with 16-byte chunk counts that are and
+    are not powers of two (a lane group of 1 to 32 lanes, one to four
+    chunks a lane, or the two-pass kernel), an odd count of groups, and
+    the unpack at blocks whose 16-byte pieces a block are not a power of
+    two: kernel and plain version bit for bit."""
+    x = _scaled(cuda, (7, 11, 3 * block), dtype, block)
+    _pack_all_ways(x, block, 5, 61)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qdma_many_steps_on_card(cuda, dtype):
+    """More work than the card holds at once (every warp loops) and a
+    ragged last step: 65,537 rows of 1,024 values at block 128, and an
+    unpack of 349,525 blocks of 48 (its block index carried across
+    pieces and steps)."""
+    x = _scaled(cuda, (65_537, 1024), dtype, 7)
+    _pack_all_ways(x, 128, 4_097, 60_000)
+    q = torch.randint(-127, 128, (16_777_232 // 48, 48), device=cuda,
+                      dtype=torch.int8)
+    sc = torch.rand((q.shape[0], 1), device=cuda) + 0.5
+    for out in (torch.float32, torch.bfloat16):
+        assert _bits_equal(ops.qdma_unpack(q, sc, dtype=out),
+                           ops.qdma_unpack(q, sc, dtype=out, backend="ref"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bool", "int8", "int32", "bf16", "fp32",
                                   "odd_view"])

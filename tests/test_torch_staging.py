@@ -82,6 +82,92 @@ def test_pack_rows_plain_matches_jax_interpret(dtype, block):
         _same(ts, s)
 
 
+def _special(dtype, block):
+    """(2, 3 * block): blocks holding a NaN, a +inf, a -inf, a NaN and an
+    inf, all zeros (the 1e-12 scale floor), and ordinary values."""
+    x = np.random.default_rng(block).standard_normal((6, block))
+    x[0, 3] = np.nan
+    x[1, 5] = np.inf
+    x[2, block - 1] = -np.inf
+    x[3, 0], x[3, 7] = np.nan, np.inf
+    x[4] = 0
+    return x.astype(np.float32).reshape(2, 3 * block).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("block", [128, 256])
+def test_pack_unpack_nan_inf_blocks_match_jax_interpret(dtype, block):
+    """A NaN in a block makes its scale NaN, an inf makes it inf, and the
+    block packs to q 0 throughout (x / NaN and inf / inf are NaN, which
+    converts to 0); the unpack gives NaN across such a block, in bfloat16
+    XLA's NaN (0x7FC0 with the sign). Plain version and Pallas kernel
+    agree bit for bit, scales, q and unpacked values alike."""
+    x = _special(dtype, block)
+    q, s = jqp.qdma_pack(jnp.asarray(x), block=block, interpret=True)
+    tq, ts = ops.qdma_pack(interop._to_torch(x, "cpu"), block=block)
+    _same(tq, q)
+    _same(ts, s)
+    rq, rs = ops.qdma_pack_rows(interop._to_torch(x, "cpu"), 1, rows=1,
+                                block=block)
+    _same(rq, np.asarray(q)[1:])
+    _same(rs, np.asarray(s)[1:])
+    s = np.asarray(s).reshape(-1)
+    assert np.isnan(s[[0, 3]]).all() and (s[[1, 2]] == np.inf).all()
+    assert s[4] == np.float32(1e-12)
+    assert not np.asarray(q).reshape(6, block)[:4].any()
+    for name in ("float32", "bfloat16"):
+        u = jqp.qdma_unpack(q, jnp.asarray(s.reshape(2, 3)), dtype=name,
+                            interpret=True)
+        tu = ops.qdma_unpack(tq, ts, dtype=name)
+        _same(tu, u)
+        assert np.isnan(np.asarray(u, np.float32).reshape(6, block)[:4]).all()
+
+
+#: qdma_pack.cu's rounding: c = clip(x / s, +-127) (an IEEE division);
+#: c + MAGIC rounds c to an integer, ties to even, whose bits' low byte is
+#: the int8
+MAGIC = np.float32(1.5 * 2 ** 23)
+INV127 = np.float32(1) / np.float32(127)    # ref.INV127 as float32
+
+
+def _group_scale(x):
+    """The kernel's scale of each row of x: max |x| * INV127, floored."""
+    s = np.abs(x).max(axis=-1, keepdims=True) * INV127
+    return np.maximum(s, np.float32(1e-12))
+
+
+def test_quantize_rounding_rule_matches_rint():
+    """Emulated in numpy float32: the kernel's int8, the low byte of
+    clip(x / s) + MAGIC, equals clip(rint(x / s)) at every value: 2**20
+    random values in blocks of 128 whose magnitudes run from subnormal
+    (under the scale floor) to near the fp32 maximum, and blocks of
+    quotients at n + 0.5 (exact ties among them) and a few ulp either
+    side, at the +-127 edges."""
+    rng = np.random.default_rng(0)
+    with np.errstate(over="ignore", under="ignore"):
+        mag = np.exp2(rng.uniform(-149, 124, (8192, 1)))
+        rand = (rng.standard_normal((8192, 128)) * mag).astype(np.float32)
+        rand[:16] = rng.standard_normal((16, 128)) * 2.0 ** -140
+    assert np.isfinite(rand).all()
+    assert (_group_scale(rand)[:16] == np.float32(1e-12)).all()
+    # row max M fixes s; x = (n + 0.5) * s, nudged by k ulp
+    M = np.exp2(rng.uniform(-40, 120, (4096, 1))).astype(np.float32)
+    s = _group_scale(M)
+    n = rng.integers(-127, 127, (4096, 13)).astype(np.float32)
+    half = ((n + np.float32(0.5)) * s).view(np.int32)
+    adv = (half + np.arange(-3, 4, dtype=np.int32)[:, None, None]).view(
+        np.float32).transpose(1, 0, 2).reshape(4096, -1)
+    edges = s * np.array([127, -127, 126.5, -126.5], np.float32)
+    adv = np.clip(np.concatenate([M, adv, edges], axis=1), -M, M)
+    for x in (rand, adv):
+        q = np.clip(x / _group_scale(x), -127, 127)
+        got = ((q + MAGIC).view(np.uint32) & 0xFF).astype(np.uint8)
+        want = np.rint(q).astype(np.int8)
+        assert np.array_equal(got.view(np.int8), want)
+    assert (np.abs(q - np.floor(q)) == 0.5).sum() > 1000   # ties, both ways
+    assert rand.size >= 10 ** 6
+
+
 @pytest.mark.parametrize("kind", ["bool", "int8", "int32", "bf16", "fp32",
                                   "scalar"])
 def test_digest_plain_matches_jax_interpret(kind):

@@ -4,11 +4,11 @@ one call on one NVIDIA GPU, in turns.
 
     mkdir -p build/old_csrc
     for f in flash_attention.cu flash_decode.cu paged_decode.cu ssm_scan.cu \\
-             fused_sample.cu common.cuh; do
+             fused_sample.cu qdma_pack.cu common.cuh; do
         git show <rev>:src/repro_torch/kernels/csrc/$f > build/old_csrc/$f
     done
     python3 tools/attn_same_call.py --old build/old_csrc \\
-        [--kernels attention paged ssm sample]
+        [--kernels attention paged ssm sample qdma]
 
 Builds the chosen kernels' old sources with nvcc beside the current ones
 (into ``build/attn_same_call/``; the old sources share the old
@@ -45,6 +45,13 @@ within 1e-4 * max |plain|.
 padded vocabulary (151,936) and the hybrid's (65,536), B 8 and 1, rows
 from ``prepare_rows`` (greedy, temperature and top-k); bit-exact.
 
+``qdma``: the staging kernels at ``chip_smoke.py``'s shapes
+(``phase_qdma_pack``): ``qdma_pack`` of qwen3-0.6b's fp32 MLP leaf at
+blocks 128 and 256 and of a bf16 K pool at 128, ``qdma_pack_rows`` on one
+save descriptor at both blocks, ``qdma_unpack`` of both leaves and of one
+restore descriptor into its rows, and ``qdma_digest`` of the fp32
+embedding; bit-exact.
+
 Prints one line per shape and writes ``chiprun_out/attn_same_call.json``.
 Imports only torch, numpy, ``chip_smoke`` and the port.
 """
@@ -59,11 +66,11 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the sources each kernel group builds
 GROUPS = {"attention": ("flash_attention", "flash_decode"),
           "paged": ("paged_decode",), "ssm": ("ssm_scan",),
-          "sample": ("fused_sample",)}
+          "sample": ("fused_sample",), "qdma": ("qdma_pack",)}
 #: the earlier launchers' C signatures, by source
 OLD_ARGTYPES = {
     "flash_attention": {"launch_flash_attention": [P] * 4 + [I] * 7 + [P]},
@@ -71,14 +78,21 @@ OLD_ARGTYPES = {
     "paged_decode": {"launch_paged_decode": [P] * 6 + [I] * 6 + [P],
                      "launch_paged_decode_quant": [P] * 8 + [I] * 6 + [P]},
     "ssm_scan": {"launch_ssm_scan": [P] * 6 + [I] * 7 + [P]},
-    "fused_sample": {"launch_fused_sample": [P, P, P, I, I, P]}}
+    "fused_sample": {"launch_fused_sample": [P, P, P, I, I, P]},
+    "qdma_pack": {"launch_qdma_pack": [P, P, P, LL, I, I, P],
+                  "launch_qdma_unpack": [P, P, P, LL, I, I, P],
+                  "launch_qdma_digest": [P, LL, P, P]}}
 OLD_DECODE_SPLIT = 64
 
 
 def ptxas(text: str, label: str):
+    """Print each kernel's registers and spills from ptxas -v's output."""
+    name = "?"
     for line in text.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"{label} ptxas: {line.strip()}", flush=True)
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            print(f"{label} ptxas {name}: {line.strip()}", flush=True)
 
 
 def build_old(old_dir: str, stems) -> dict:
@@ -383,6 +397,99 @@ def time_sample(torch, cs, old, turns, stream):
                   rate=cs.FP32_FLOP_PER_S, kernel="fused_sample")
 
 
+def time_qdma(torch, cs, old, turns, stream):
+    from repro_torch.configs import make_run_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import bytes_view, row_view
+    lib = old["qdma_pack"]
+
+    def call(fn, *args):
+        rc = fn(*args, stream)
+        if rc:
+            raise RuntimeError(lib.kernel_error_string(rc).decode())
+
+    def old_pack(x, lo, rows, block, shape=None):
+        L = x.shape[-1]
+        q = torch.empty((rows, L), dtype=torch.int8, device="cuda")
+        s = torch.empty((rows, L // block), dtype=torch.float32,
+                        device="cuda")
+        call(lib.launch_qdma_pack, x.data_ptr() + lo * L * x.element_size(),
+             q.data_ptr(), s.data_ptr(), rows * (L // block), block,
+             int(x.dtype == torch.bfloat16))
+        if shape is None:
+            return q, s
+        return q.view(shape), s.view(shape[:-1] + (L // block,))
+
+    def old_unpack(q, s, out):
+        call(lib.launch_qdma_unpack, q.data_ptr(), s.data_ptr(),
+             out.data_ptr(), q.numel(), q.shape[-1] // s.shape[-1],
+             int(out.dtype == torch.bfloat16))
+        return out
+
+    def old_digest(x):
+        u = bytes_view(x)
+        out = torch.zeros((2,), dtype=torch.int32, device="cuda")
+        call(lib.launch_qdma_digest, u.data_ptr(), u.numel(), out.data_ptr())
+        return out.to(torch.int64) & 0xFFFFFFFF
+
+    def exact(got, want):
+        got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+        return 0.0 if all(cs.bits_equal(torch, a, b)
+                          for a, b in zip(got, want)) else float("inf")
+
+    def row(label, fns, want, nbytes, ops_per):
+        turns(label, fns, want, nbytes, ops_per, share_fn=exact,
+              rate=cs.FP32_FLOP_PER_S, kernel=label.split()[0])
+
+    qwen = make_run_config("qwen3-0.6b", "decode_32k").model
+    leaves = cs.qdma_leaves(torch, qwen)
+    B = cs.QDMA_BLOCK
+    for shape, x in leaves.items():
+        n, R = x.numel(), x.numel() // x.shape[-1]
+        for block in (B, 256) if x.shape[-1] % 256 == 0 else (B,):
+            row(f"qdma_pack {shape}, block {block}",
+                {"old": lambda: old_pack(x, 0, R, block, x.shape),
+                 "new": lambda: ops.qdma_pack(x, block=block)},
+                ops.qdma_pack(x, block=block, backend="ref"),
+                n * x.element_size() + n + n // block * 4, cs.PACK_OPS * n)
+        q, s = ops.qdma_pack(x, block=B)
+        outs = [torch.empty_like(x) for _ in "on"]
+        row(f"qdma_unpack {shape} -> {str(x.dtype)[6:]}",
+            {"old": lambda: old_unpack(q, s, outs[0]),
+             "new": lambda: ops.qdma_unpack(q, s, dtype=x.dtype,
+                                            out=outs[1])},
+            ops.qdma_unpack(q, s, dtype=x.dtype, backend="ref"),
+            n * x.element_size() + n + s.numel() * 4, cs.UNPACK_OPS * n)
+        del q, s, outs
+    x = next(iter(leaves.values()))
+    (lo, hi), (rlo, rhi) = cs.qdma_descriptors(x)
+    n = (hi - lo) * x.shape[-1]
+    for block in (B, 256):
+        row(f"qdma_pack_rows [{lo},{hi}) of the fp32 MLP leaf, block {block}",
+            {"old": lambda: old_pack(x, lo, hi - lo, block),
+             "new": lambda: ops.qdma_pack_rows(x, lo, rows=hi - lo,
+                                               block=block)},
+            ops.qdma_pack_rows(x, lo, rows=hi - lo, block=block,
+                               backend="ref"),
+            n * 5 + n // block * 4, cs.PACK_OPS * n)
+    q, s = (row_view(t)[rlo:rhi] for t in ops.qdma_pack(x, block=B))
+    dst = [row_view(torch.empty_like(x))[rlo:rhi] for _ in "on"]
+    row(f"qdma_unpack restore rows [{rlo},{rhi}) of the fp32 MLP leaf",
+        {"old": lambda: old_unpack(q, s, dst[0]),
+         "new": lambda: ops.qdma_unpack(q, s, out=dst[1])},
+        ops.qdma_unpack(q, s, backend="ref"),
+        q.numel() * 5 + s.numel() * 4, cs.UNPACK_OPS * q.numel())
+    del leaves, x, q, s, dst
+    g = torch.Generator(device="cuda").manual_seed(22)
+    emb = torch.randn((qwen.vocab_size, qwen.d_model), generator=g,
+                      device="cuda")
+    nb = emb.numel() * 4
+    row(f"qdma_digest fp32 embedding ({qwen.vocab_size},{qwen.d_model})",
+        {"old": lambda: old_digest(emb), "new": lambda: ops.qdma_digest(emb)},
+        ops.qdma_digest(emb, backend="ref"), nb + 8,
+        cs.DIGEST_OPS_PER_BYTE * nb)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", required=True,
@@ -423,6 +530,8 @@ def main(argv=None) -> int:
         time_ssm(torch, cs, old, turns, stream)
     if "sample" in args.kernels:
         time_sample(torch, cs, old, turns, stream)
+    if "qdma" in args.kernels:
+        time_qdma(torch, cs, old, turns, stream)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "attn_same_call.json"), "w") as f:
