@@ -609,17 +609,32 @@ def qdma_descriptors(x) -> tuple:
             eng._row_chunks(x.numel(), R)[1])
 
 
-def qdma_special(torch, dtype, block: int):
-    """(2, 3 * block) on the card: blocks holding a NaN, a +inf, a -inf, a
-    NaN and an inf, all zeros, and ordinary values."""
+def qdma_special(block: int) -> np.ndarray:
+    """(2, 3 * block) fp32: blocks holding a NaN, a +inf, a -inf, a NaN
+    and an inf, all zeros (the 1e-12 scale floor), and ordinary values."""
     x = np.random.default_rng(block).standard_normal((6, block))
     x[0, 3] = np.nan
     x[1, 5] = np.inf
     x[2, block - 1] = -np.inf
     x[3, 0], x[3, 7] = np.nan, np.inf
     x[4] = 0
-    return torch.from_numpy(x.astype(np.float32).reshape(2, 3 * block)).to(
-        "cuda").to(dtype)
+    return x.astype(np.float32).reshape(2, 3 * block)
+
+
+def qdma_ties(block: int, groups: int = 512) -> np.ndarray:
+    """(groups, block) fp32 whose quotients x / scale lie at n + 0.5 and
+    a few ulp either side (exact ties among them) and at the +-127 edges:
+    each group's max M, at column 0, fixes its scale max(M / 127, 1e-12),
+    with M from 2**-140 (subnormal, under the floor) to 2**120."""
+    rng = np.random.default_rng(block)
+    M = np.exp2(rng.uniform(-40, 120, (groups, 1))).astype(np.float32)
+    M[:4] = np.float32(2.0 ** -140)
+    s = np.maximum(M * (np.float32(1) / np.float32(127)), np.float32(1e-12))
+    n = rng.integers(-127, 127, (groups, block - 5)).astype(np.float32)
+    ulp = rng.integers(-3, 4, n.shape).astype(np.int32)
+    half = (((n + np.float32(0.5)) * s).view(np.int32) + ulp).view(np.float32)
+    edges = s * np.array([127, -127, 126.5, -126.5], np.float32)
+    return np.clip(np.concatenate([M, edges, half], axis=1), -M, M)
 
 
 def phase_qdma_pack(torch, ops, timer, cfg):
@@ -628,16 +643,19 @@ def phase_qdma_pack(torch, ops, timer, cfg):
     staging engine's default block 256, qdma_pack_rows on one save
     descriptor of the MLP leaf (at both blocks), qdma_unpack on one
     restore descriptor into its rows of the leaf; each output against the
-    plain version bit for bit, and so on small leaves with NaN, inf and
-    zero blocks."""
+    plain version bit for bit, and each unpack against torch.mul, which
+    is timed beside it. First the same checks on small leaves with NaN,
+    inf and zero blocks (qdma_special) and with quotients at ties and at
+    +-127 (qdma_ties)."""
     from repro_torch.kernels.ref import row_view
     B = QDMA_BLOCK
     for dtype in (torch.float32, torch.bfloat16):
-        for block in (B, 256):
-            x = qdma_special(torch, dtype, block)
+        for block, x in ((b, torch.from_numpy(f(b)).to("cuda").to(dtype))
+                         for b in (B, 256) for f in (qdma_special,
+                                                     qdma_ties)):
             q, s = ops.qdma_pack(x, block=block)
             wq, ws = ops.qdma_pack(x, block=block, backend="ref")
-            rq, rs = ops.qdma_pack_rows(x, 1, rows=1, block=block)
+            rq, rs = ops.qdma_pack_rows(x, 1, rows=len(x) - 1, block=block)
             ok = (bits_equal(torch, q, wq) and bits_equal(torch, s, ws)
                   and bits_equal(torch, rq, wq[1:])
                   and bits_equal(torch, rs, ws[1:]))
@@ -646,10 +664,11 @@ def phase_qdma_pack(torch, ops, timer, cfg):
                     torch, ops.qdma_unpack(q, s, dtype=out),
                     ops.qdma_unpack(q, s, dtype=out, backend="ref"))
             torch.cuda.synchronize()
-            check(ok, f"qdma NaN/inf/zero blocks {dtype} block {block}: the "
-                      "kernels differ from the plain versions")
-    log("qdma_pack / qdma_pack_rows / qdma_unpack: NaN, inf and zero blocks "
-        "(fp32 and bf16, blocks 128 and 256) bit-exact")
+            check(ok, f"qdma NaN/inf/zero or tie blocks {dtype} block "
+                      f"{block}: the kernels differ from the plain versions")
+    log("qdma_pack / qdma_pack_rows / qdma_unpack: NaN, inf and zero blocks, "
+        "quotients at and beside n + 0.5 and at +-127 (fp32 and bf16, blocks "
+        "128 and 256) bit-exact")
     leaves = qdma_leaves(torch, cfg)
     out = {"qdma_pack": [], "qdma_unpack": [], "qdma_pack_rows": []}
     for shape, x in leaves.items():
@@ -675,20 +694,13 @@ def phase_qdma_pack(torch, ops, timer, cfg):
               f"qdma_unpack {shape}: differs from the plain version")
         # one library call computes the unpack: int8 promotes to fp32
         # exactly, one IEEE multiply per element, then the cast to out's
-        # dtype. For fp32 it must give the kernel's bits; for bf16 it is a
-        # yardstick only where it does
+        # dtype (round to nearest even), so it gives the kernel's bits
         qb, sb = q.view(*s.shape, B), s.unsqueeze(-1)
         lib_out = torch.empty(qb.shape, dtype=x.dtype, device="cuda")
         torch.mul(qb, sb, out=lib_out)
-        same = bits_equal(torch, lib_out.view(x.shape), u)
-        check(same or x.dtype != torch.float32,
+        check(bits_equal(torch, lib_out.view(x.shape), u),
               f"qdma_unpack {shape}: differs from torch.mul")
-        lib = None
-        if same:
-            lib = timer.ms(lambda: torch.mul(qb, sb, out=lib_out))
-        else:
-            log(f"qdma_unpack {shape}: torch.mul differs from the kernel in "
-                "some bits, so no library time")
+        lib = timer.ms(lambda: torch.mul(qb, sb, out=lib_out))
         n = x.numel()
         out["qdma_unpack"].append(qdma_row(
             "qdma_unpack", shape,
@@ -724,17 +736,24 @@ def phase_qdma_pack(torch, ops, timer, cfg):
     dst = row_view(torch.empty_like(x))[rlo:rhi]
     want = ops.qdma_unpack(q, s, backend="ref")
     ops.qdma_unpack(q, s, out=dst)
+    qb, sb = q.view(*s.shape, B), s.unsqueeze(-1)
+    lib_out = torch.empty_like(dst)
+    torch.mul(qb, sb, out=lib_out.view(qb.shape))
     torch.cuda.synchronize()
     check(rlo > 0 and bits_equal(torch, dst, want),
           f"qdma_unpack restore rows [{rlo}, {rhi}): differs from the plain "
           "version")
+    check(bits_equal(torch, lib_out, dst),
+          f"qdma_unpack restore rows [{rlo}, {rhi}): differs from torch.mul")
     n = q.numel()
     out["qdma_unpack"].append(qdma_row(
         "qdma_unpack", f"restore rows [{rlo},{rhi}) of the fp32 MLP leaf's "
                        f"({R},{F}) view -> fp32",
         timer.ms(lambda: ops.qdma_unpack(q, s, out=dst)),
         timer.ms(lambda: ops.qdma_unpack(q, s, backend="ref"), reps=5),
-        n + s.numel() * 4 + n * 4, UNPACK_OPS * n))
+        n + s.numel() * 4 + n * 4, UNPACK_OPS * n,
+        library=timer.ms(lambda: torch.mul(qb, sb,
+                                           out=lib_out.view(qb.shape)))))
     return out
 
 

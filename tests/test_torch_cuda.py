@@ -17,12 +17,29 @@ orders, 0.03-0.08 of the limit in ``test_ssm_scan_numerics``); sampling
 and the staging kernels (``qdma_pack``, ``qdma_pack_rows``,
 ``qdma_unpack``, ``qdma_digest``) are bit-exact.
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports only numpy and the
+    standard library at the top): its staging test leaves and
+    ``bits_equal``."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
 
 
 @pytest.fixture
@@ -392,33 +409,9 @@ def _scaled(cuda, shape, dtype, seed):
     return x.to(dtype)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block", [128, 256])
-def test_qdma_pack_unpack_bit_exact_on_card(cuda, dtype, block):
-    x = _scaled(cuda, (3, 37, 512), dtype, block)
-    q, s = ops.qdma_pack(x, block=block)
-    wq, ws = ops.qdma_pack(x, block=block, backend="ref")
-    assert torch.equal(q, wq) and torch.equal(s, ws)
-    rq, rs = ops.qdma_pack_rows(x, 29, rows=50, block=block)
-    assert torch.equal(rq, wq.view(-1, 512)[29:79])
-    assert torch.equal(rs, ws.view(-1, 512 // block)[29:79])
-    got = ops.qdma_unpack(q, s, dtype=dtype)
-    want = ops.qdma_unpack(q, s, dtype=dtype, backend="ref")
-    assert got.dtype == dtype and torch.equal(got.view(torch.uint8),
-                                              want.view(torch.uint8))
-    if dtype == torch.float32:
-        # |x - unpack(pack(x))| <= scale / 2, plus the roundings of x /
-        # scale and q * scale (each at most 127 * scale * 2**-24)
-        err = (got - x).view(3, 37, 512 // block, block).abs().amax(-1)
-        assert bool((err <= s * (0.5 + 2 ** -16)).all())
-
-
 def _bits_equal(a, b):
     """Same dtype, shape and bytes (a NaN equals a NaN of the same bits)."""
-    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.contiguous().view(-1).view(torch.uint8),
-        b.contiguous().view(-1).view(torch.uint8)))
+    return CS.bits_equal(torch, a, b)
 
 
 def _pack_all_ways(x, block, lo, rows):
@@ -443,19 +436,33 @@ def _pack_all_ways(x, block, lo, rows):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block", [128, 256])
+def test_qdma_pack_unpack_bit_exact_on_card(cuda, dtype, block):
+    """Blocks of very different magnitudes, and blocks whose quotients
+    x / scale lie at n + 0.5 (exact ties), a few ulp either side and at
+    +-127 (``chip_smoke.qdma_ties``): kernel and plain version bit for
+    bit; the fp32 round trip within half a step of its block."""
+    x = _scaled(cuda, (3, 37, 512), dtype, block)
+    q, s = _pack_all_ways(x, block, 29, 50)
+    _pack_all_ways(torch.from_numpy(CS.qdma_ties(block)).to(cuda).to(dtype),
+                   block, 5, 300)
+    got = ops.qdma_unpack(q, s, dtype=dtype)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        # |x - unpack(pack(x))| <= scale / 2, plus the roundings of x /
+        # scale and q * scale (each at most 127 * scale * 2**-24)
+        err = (got - x).view(3, 37, 512 // block, block).abs().amax(-1)
+        assert bool((err <= s * (0.5 + 2 ** -16)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [128, 256])
 def test_qdma_nan_inf_blocks_on_card(cuda, dtype, block):
     """Blocks holding a NaN, a +inf, a -inf, a NaN and an inf, and all
     zeros: scale NaN / inf / 1e-12 and q 0 throughout the first four, as
     in the JAX kernel; the unpack NaN across them (in bf16 XLA's 0x7FC0).
     Kernel and plain version bit for bit."""
-    rng = np.random.default_rng(block)
-    x = rng.standard_normal((6, block)).astype(np.float32)
-    x[0, 3] = np.nan
-    x[1, 5] = np.inf
-    x[2, block - 1] = -np.inf
-    x[3, 0], x[3, 7] = np.nan, np.inf
-    x[4] = 0
-    x = torch.from_numpy(x.reshape(2, 3 * block)).to(cuda).to(dtype)
+    x = torch.from_numpy(CS.qdma_special(block)).to(cuda).to(dtype)
     q, s = _pack_all_ways(x, block, 1, 1)
     s = s.view(-1)
     assert bool(s[[0, 3]].isnan().all()) and bool((s[[1, 2]] == np.inf).all())

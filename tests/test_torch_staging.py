@@ -9,6 +9,9 @@ payloads, restored values and ``TransferStats`` counts, for both engines
 (pipelined and ``pipeline=False``), both transports, both dirty modes,
 with and without int8 compression. Inputs are numpy arrays from a seed.
 """
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -82,16 +85,17 @@ def test_pack_rows_plain_matches_jax_interpret(dtype, block):
         _same(ts, s)
 
 
-def _special(dtype, block):
-    """(2, 3 * block): blocks holding a NaN, a +inf, a -inf, a NaN and an
-    inf, all zeros (the 1e-12 scale floor), and ordinary values."""
-    x = np.random.default_rng(block).standard_normal((6, block))
-    x[0, 3] = np.nan
-    x[1, 5] = np.inf
-    x[2, block - 1] = -np.inf
-    x[3, 0], x[3, 7] = np.nan, np.inf
-    x[4] = 0
-    return x.astype(np.float32).reshape(2, 3 * block).astype(dtype)
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports only numpy and the
+    standard library at the top): its staging test leaves."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
 
 
 @pytest.mark.parametrize("dtype", [np.float32, BF16], ids=["fp32", "bf16"])
@@ -102,7 +106,7 @@ def test_pack_unpack_nan_inf_blocks_match_jax_interpret(dtype, block):
     converts to 0); the unpack gives NaN across such a block, in bfloat16
     XLA's NaN (0x7FC0 with the sign). Plain version and Pallas kernel
     agree bit for bit, scales, q and unpacked values alike."""
-    x = _special(dtype, block)
+    x = CS.qdma_special(block).astype(dtype)
     q, s = jqp.qdma_pack(jnp.asarray(x), block=block, interpret=True)
     tq, ts = ops.qdma_pack(interop._to_torch(x, "cpu"), block=block)
     _same(tq, q)
@@ -123,49 +127,31 @@ def test_pack_unpack_nan_inf_blocks_match_jax_interpret(dtype, block):
         assert np.isnan(np.asarray(u, np.float32).reshape(6, block)[:4]).all()
 
 
-#: qdma_pack.cu's rounding: c = clip(x / s, +-127) (an IEEE division);
-#: c + MAGIC rounds c to an integer, ties to even, whose bits' low byte is
-#: the int8
-MAGIC = np.float32(1.5 * 2 ** 23)
-INV127 = np.float32(1) / np.float32(127)    # ref.INV127 as float32
-
-
-def _group_scale(x):
-    """The kernel's scale of each row of x: max |x| * INV127, floored."""
-    s = np.abs(x).max(axis=-1, keepdims=True) * INV127
-    return np.maximum(s, np.float32(1e-12))
-
-
-def test_quantize_rounding_rule_matches_rint():
-    """Emulated in numpy float32: the kernel's int8, the low byte of
-    clip(x / s) + MAGIC, equals clip(rint(x / s)) at every value: 2**20
-    random values in blocks of 128 whose magnitudes run from subnormal
-    (under the scale floor) to near the fp32 maximum, and blocks of
-    quotients at n + 0.5 (exact ties among them) and a few ulp either
-    side, at the +-127 edges."""
-    rng = np.random.default_rng(0)
-    with np.errstate(over="ignore", under="ignore"):
-        mag = np.exp2(rng.uniform(-149, 124, (8192, 1)))
-        rand = (rng.standard_normal((8192, 128)) * mag).astype(np.float32)
-        rand[:16] = rng.standard_normal((16, 128)) * 2.0 ** -140
-    assert np.isfinite(rand).all()
-    assert (_group_scale(rand)[:16] == np.float32(1e-12)).all()
-    # row max M fixes s; x = (n + 0.5) * s, nudged by k ulp
-    M = np.exp2(rng.uniform(-40, 120, (4096, 1))).astype(np.float32)
-    s = _group_scale(M)
-    n = rng.integers(-127, 127, (4096, 13)).astype(np.float32)
-    half = ((n + np.float32(0.5)) * s).view(np.int32)
-    adv = (half + np.arange(-3, 4, dtype=np.int32)[:, None, None]).view(
-        np.float32).transpose(1, 0, 2).reshape(4096, -1)
-    edges = s * np.array([127, -127, 126.5, -126.5], np.float32)
-    adv = np.clip(np.concatenate([M, adv, edges], axis=1), -M, M)
-    for x in (rand, adv):
-        q = np.clip(x / _group_scale(x), -127, 127)
-        got = ((q + MAGIC).view(np.uint32) & 0xFF).astype(np.uint8)
-        want = np.rint(q).astype(np.int8)
-        assert np.array_equal(got.view(np.int8), want)
-    assert (np.abs(q - np.floor(q)) == 0.5).sum() > 1000   # ties, both ways
-    assert rand.size >= 10 ** 6
+@pytest.mark.parametrize("dtype", [np.float32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("block", [128, 256])
+def test_pack_ties_and_edges_match_jax_interpret(dtype, block):
+    """Quotients x / scale at n + 0.5 (exact ties, which round to even),
+    a few ulp either side, and at the +-127 edges, with scales from the
+    1e-12 floor (subnormal x among them) to 2**113: plain pack, pack_rows
+    and unpack equal the Pallas kernels bit for bit."""
+    x = CS.qdma_ties(block).astype(dtype)
+    if dtype is np.float32:
+        s = np.maximum(np.abs(x).max(-1, keepdims=True)
+                       * (np.float32(1) / np.float32(127)), np.float32(1e-12))
+        c = x / s
+        assert (c - np.floor(c) == 0.5).sum() > 1000
+        assert (np.abs(c) == 127).sum() >= x.shape[0]
+    q, s = jqp.qdma_pack(jnp.asarray(x), block=block, interpret=True)
+    tq, ts = ops.qdma_pack(interop._to_torch(x, "cpu"), block=block)
+    _same(tq, q)
+    _same(ts, s)
+    rq, rs = ops.qdma_pack_rows(interop._to_torch(x, "cpu"), 5, rows=300,
+                                block=block)
+    _same(rq, np.asarray(q)[5:305])
+    _same(rs, np.asarray(s)[5:305])
+    for name in ("float32", "bfloat16"):
+        _same(ops.qdma_unpack(tq, ts, dtype=name),
+              jqp.qdma_unpack(q, s, dtype=name, interpret=True))
 
 
 @pytest.mark.parametrize("kind", ["bool", "int8", "int32", "bf16", "fp32",

@@ -49,8 +49,9 @@ from ``prepare_rows`` (greedy, temperature and top-k); bit-exact.
 (``phase_qdma_pack``): ``qdma_pack`` of qwen3-0.6b's fp32 MLP leaf at
 blocks 128 and 256 and of a bf16 K pool at 128, ``qdma_pack_rows`` on one
 save descriptor at both blocks, ``qdma_unpack`` of both leaves and of one
-restore descriptor into its rows, and ``qdma_digest`` of the fp32
-embedding; bit-exact.
+restore descriptor into its rows, each unpack with ``torch.mul`` beside
+it (held to the same bits), and ``qdma_digest`` of the fp32 embedding;
+bit-exact.
 
 Prints one line per shape and writes ``chiprun_out/attn_same_call.json``.
 Imports only torch, numpy, ``chip_smoke`` and the port.
@@ -437,9 +438,19 @@ def time_qdma(torch, cs, old, turns, stream):
         return 0.0 if all(cs.bits_equal(torch, a, b)
                           for a, b in zip(got, want)) else float("inf")
 
-    def row(label, fns, want, nbytes, ops_per):
-        turns(label, fns, want, nbytes, ops_per, share_fn=exact,
+    def row(label, fns, want, nbytes, ops_per, lib=None):
+        turns(label, fns, want, nbytes, ops_per, lib=lib, share_fn=exact,
               rate=cs.FP32_FLOP_PER_S, kernel=label.split()[0])
+
+    def library_unpack(q, s, want):
+        """``torch.mul`` of the int8 blocks by their scales into a tensor
+        of want's dtype, held to want's bits: the unpack in one call."""
+        qb, sb = q.view(*s.shape, -1), s.unsqueeze(-1)
+        out = torch.empty(qb.shape, dtype=want.dtype, device="cuda")
+        torch.mul(qb, sb, out=out)
+        cs.check(cs.bits_equal(torch, out.view(want.shape), want),
+                 "qdma_unpack: torch.mul differs from the plain version")
+        return lambda: torch.mul(qb, sb, out=out)
 
     qwen = make_run_config("qwen3-0.6b", "decode_32k").model
     leaves = cs.qdma_leaves(torch, qwen)
@@ -454,13 +465,14 @@ def time_qdma(torch, cs, old, turns, stream):
                 n * x.element_size() + n + n // block * 4, cs.PACK_OPS * n)
         q, s = ops.qdma_pack(x, block=B)
         outs = [torch.empty_like(x) for _ in "on"]
+        want = ops.qdma_unpack(q, s, dtype=x.dtype, backend="ref")
         row(f"qdma_unpack {shape} -> {str(x.dtype)[6:]}",
             {"old": lambda: old_unpack(q, s, outs[0]),
              "new": lambda: ops.qdma_unpack(q, s, dtype=x.dtype,
                                             out=outs[1])},
-            ops.qdma_unpack(q, s, dtype=x.dtype, backend="ref"),
-            n * x.element_size() + n + s.numel() * 4, cs.UNPACK_OPS * n)
-        del q, s, outs
+            want, n * x.element_size() + n + s.numel() * 4,
+            cs.UNPACK_OPS * n, lib=library_unpack(q, s, want))
+        del q, s, outs, want
     x = next(iter(leaves.values()))
     (lo, hi), (rlo, rhi) = cs.qdma_descriptors(x)
     n = (hi - lo) * x.shape[-1]
@@ -474,12 +486,13 @@ def time_qdma(torch, cs, old, turns, stream):
             n * 5 + n // block * 4, cs.PACK_OPS * n)
     q, s = (row_view(t)[rlo:rhi] for t in ops.qdma_pack(x, block=B))
     dst = [row_view(torch.empty_like(x))[rlo:rhi] for _ in "on"]
+    want = ops.qdma_unpack(q, s, backend="ref")
     row(f"qdma_unpack restore rows [{rlo},{rhi}) of the fp32 MLP leaf",
         {"old": lambda: old_unpack(q, s, dst[0]),
          "new": lambda: ops.qdma_unpack(q, s, out=dst[1])},
-        ops.qdma_unpack(q, s, backend="ref"),
-        q.numel() * 5 + s.numel() * 4, cs.UNPACK_OPS * q.numel())
-    del leaves, x, q, s, dst
+        want, q.numel() * 5 + s.numel() * 4, cs.UNPACK_OPS * q.numel(),
+        lib=library_unpack(q, s, want))
+    del leaves, x, q, s, dst, want
     g = torch.Generator(device="cuda").manual_seed(22)
     emb = torch.randn((qwen.vocab_size, qwen.d_model), generator=g,
                       device="cuda")
