@@ -14,12 +14,18 @@ mamba layers, dense FFNs, bf16 params, random weights from ``--seed``):
 prefill logits through the kernels against the plain versions, the paged
 ``ServeEngine`` with bf16 and int8 KV pages, and the uniform-position
 generate path of ``make_serve_steps`` against the teacher-forced forward.
+Last, training at qwen3-0.6b's full width: 30 steps of
+``repro_torch.launch.train``, a train ``Tenant`` paused, unpaused and reconfigured under the
+SVFF manager against its undisturbed twin, an int8 pause of it, the eval
+step through ``flash_attention`` against the plain train-mode loss, and
+the paper's Tables I and II.
 
     python3 chip_smoke.py            # from the repository root
 
 Phases: card, build, one phase per kernel, qwen serve (bf16, int8), SVFF
 (bit-exact staging, int8 staging), hybrid prefill, hybrid serve (bf16,
-int8), hybrid generate, kernels line, result line. Any failed check exits
+int8), hybrid generate, train launch, train tenant (bit-exact, int8),
+eval step, Tables I/II, kernels line, result line. Any failed check exits
 non-zero before the result line. Details go to
 ``chiprun_out/chip_smoke.json``. The script imports only torch, numpy and
 the port.
@@ -30,6 +36,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -103,6 +110,9 @@ HYBRID = "jamba-1.5-large-398b-1p-dense"
 HYBRID_SERVE_KERNELS = SERVE_KERNELS + ("ssm_scan",)
 GENERATE_KERNELS = ("flash_attention", "ssm_scan", "flash_decode")
 QDMA_KERNELS = ("qdma_pack", "qdma_pack_rows", "qdma_unpack", "qdma_digest")
+#: the __global__ functions of qdma_pack.cu in the profiler's names
+STAGING_KERNEL_NAMES = re.compile(
+    r"\b(pack_kernel|pack_any_kernel|unpack_kernel|digest_kernel)\b")
 
 
 class SmokeFailure(RuntimeError):
@@ -1046,16 +1056,24 @@ def int8_bound(torch, exported, eng, engine, label) -> float:
     """The restored state against the state the pause exported: each
     leaf the staging engine packed within its blocks' int8 bound, every
     other leaf equal. Returns the largest share of the bound used."""
-    from repro_torch.kernels.ref import INV127
-    from repro_torch.tree import flatten
-    want = flatten({"params": exported["params"],
-                    "cache": exported["cache"]})[0]
-    got = flatten({"params": eng.params, "cache": eng._cache})[0]
-    check([p for p, _ in want] == [p for p, _ in got],
-          f"{label}: the restored state has another structure")
     for key in ("pos", "last_token", "tables"):
         check(np.array_equal(exported[key], getattr(eng, key)),
               f"{label}: {key} changed")
+    return int8_share(torch, {"params": exported["params"],
+                              "cache": exported["cache"]},
+                      {"params": eng.params, "cache": eng._cache}, engine,
+                      label)
+
+
+def int8_share(torch, exported, restored, engine, label) -> float:
+    """Leaf by leaf, ``restored`` against ``exported``: a leaf the int8
+    engine packs within its blocks' bound, any other leaf bit-equal.
+    Returns the largest share of the bound used."""
+    from repro_torch.kernels.ref import INV127
+    from repro_torch.tree import flatten
+    want, got = flatten(exported)[0], flatten(restored)[0]
+    check([p for p, _ in want] == [p for p, _ in got],
+          f"{label}: the restored state has another structure")
     worst = 0.0
     for (path, x), (_, y) in zip(want, got):
         if not engine._pack_eligible(x):
@@ -1441,6 +1459,324 @@ def run_hybrid(torch, ops, args, card, report, launches):
 
 
 # ---------------------------------------------------------------------------
+# training: launch.train, the train Tenant under the manager, eval
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_LR = "1e-4"        # AdamW moves an entry by about lr a step; the
+                         # largest-fan-in leaf, the tied embedding, starts
+                         # at std 1/sqrt(151936) = 2.6e-3, which lr 3e-3
+                         # and 1e-3 overwrite within a few steps (the loss
+                         # rises over ln V; the readings are in PERF.md)
+CE_BAND = 0.45           # the first ce within this share of ln V of ln V
+                         # (random init: tests/test_models.py's bound)
+CE_ABS_TOL = 1e-2        # the eval step's ce (flash_attention) vs the plain
+                         # path's, absolute: both sum the same bf16 stack,
+                         # the kernel and the plain version round their fp32
+                         # attention to bf16 after sums in other orders
+
+
+def train_batch(torch, run, step: int) -> dict:
+    """The synthetic batch of ``step`` (TRAIN_BATCH x TRAIN_SEQ) on the
+    card."""
+    from repro_torch.data.pipeline import SyntheticSource, to_device
+    src = SyntheticSource(run, batch_override=TRAIN_BATCH,
+                          seq_override=TRAIN_SEQ)
+    return to_device(src.batch_at(step), "cuda")
+
+
+def phase_train_launch(torch, workdir, card, lr: str = TRAIN_LR):
+    """``repro_torch.launch.train`` called as a function: qwen3-0.6b at
+    full width (fp32 params, bf16 compute, AdamW, remat per layer), 30
+    steps of batch 4 x 512 at lr 3e-3 with 5 warmup steps, one final
+    checkpoint. Every loss finite, the first ce near ln V, and the mean
+    loss of the last five steps below that of the first five."""
+    import math
+    from repro_torch.launch import train as launch
+    wd = os.path.join(workdir, "train_launch")
+    args = launch.parser().parse_args([
+        "--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+        str(TRAIN_SEQ), "--steps", "30", "--lr", lr, "--warmup", "5",
+        "--workdir", wd, "--checkpoint-every", "0", "--log-every", "10",
+        "--device", "cuda"])
+    t0 = time.perf_counter()
+    last = launch.train(args)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(wd, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    shutil.rmtree(wd, ignore_errors=True)
+    losses = [m["loss"] for m in lines]
+    lnv = math.log(launch.build(args).model.vocab_size)
+    check(len(lines) == 30 and all(np.isfinite(losses)),
+          f"train: {len(lines)} steps, losses {losses}")
+    check(abs(lines[0]["ce"] - lnv) < CE_BAND * lnv,
+          f"train: the first ce {lines[0]['ce']:.4f} is not within "
+          f"{CE_BAND} ln V of ln V = {lnv:.4f}")
+    first, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(tail < first, f"train: the last five steps' mean loss {tail:.4f} "
+                        f"is not below the first five's {first:.4f}")
+    step_s = float(np.median([m["step_s"] for m in lines[1:]]))
+    res = {"steps": len(lines), "losses": losses,
+           "grad_norms": [m["grad_norm"] for m in lines],
+           "first_ce": lines[0]["ce"], "ln_v": lnv,
+           "first5_mean": first, "last5_mean": tail,
+           "first_step_s": lines[0]["step_s"], "step_s_median": step_s,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "wall_s": wall, "final": last}
+    log(f"train {TRAIN_ARCH} full width, batch {TRAIN_BATCH} x {TRAIN_SEQ}, lr {lr}, "
+        f"30 steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} (first five "
+        f"{first:.4f}, last five {tail:.4f}), first ce {lines[0]['ce']:.4f} "
+        f"(ln V {lnv:.4f}) | step median {step_s * 1e3:.1f} ms (first "
+        f"{lines[0]['step_s'] * 1e3:.0f} ms) | "
+        f"{res['tokens_per_s']:.0f} tokens/s | {wall:.1f} s with the init "
+        f"and the final save | {card}")
+    return res
+
+
+def train_pool():
+    """Four logical slots of the card."""
+    from repro_torch.core import DevicePool
+    return DevicePool([f"traindev{i}" for i in range(4)], max_vfs=4)
+
+
+def train_tenant(run, tid: str, seed: int):
+    from repro_torch.core import Tenant
+    return Tenant(tid, run, local_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                  seed=seed, device="cuda")
+
+
+def state_bytes(torch, state) -> int:
+    """Device bytes of a state tree, each storage counted once."""
+    from repro_torch.tree import tree_leaves
+    seen = {}
+    for t in tree_leaves(state):
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def phase_train_tenant(torch, ops, run, seed, workdir, card):
+    """The paper's transparency for a training guest at full width: two
+    qwen3-0.6b train tenants from one seed, each under its own manager
+    over four logical slots of the card. Tenant A runs 3 steps, is paused
+    with the bit-exact staging engine (digest dirty tracking: a
+    ``qdma_digest`` of every leaf of its state), unpaused, reconfigured
+    through pause, and runs 3 more; B runs the same 6 steps undisturbed.
+    The six losses and every leaf of the two final states must be
+    bit-equal; the pause must free >= 90% of the state's device bytes and
+    the unpause bring them back. Then one int8 pause of A (lossy by
+    design): every leaf within its int8 bound, the staging kernels'
+    device time from one profiler session. Two undisturbed tenants are
+    already bit-equal without ``torch.use_deterministic_algorithms``
+    (``tools/train_readings.py``), so the phase runs without it."""
+    from repro_torch.core import SVFFManager, StagingEngine
+    from repro_torch.tree import flatten
+    mgr_b = SVFFManager(train_pool(), workdir=os.path.join(workdir, "b"))
+    b = train_tenant(run, "trainB", seed)
+    mgr_b.init(1, [b])
+    lb = [b.run_steps(1)["loss"] for _ in range(6)]
+    mgr_a = SVFFManager(train_pool(), workdir=os.path.join(workdir, "a"),
+                        staging=StagingEngine(incremental=True,
+                                              dirty="digest"))
+    slog = StagingLog(mgr_a.staging)
+    a = train_tenant(run, "trainA", seed)
+    mgr_a.init(1, [a])
+    la = [a.run_steps(1)["loss"] for _ in range(3)]
+    nbytes = state_bytes(torch, a.export_state())
+    dev = torch.device("cuda")
+    ops.reset_launch_counts()
+    m0 = allocated(torch, dev)
+    t = mgr_a.pause(a)
+    m1 = allocated(torch, dev)
+    tu = mgr_a.unpause(a)
+    m2 = allocated(torch, dev)
+    tr = mgr_a.reconf(1, use_pause=True)
+    counts = ops.launch_counts()
+    la += [a.run_steps(1)["loss"] for _ in range(3)]
+    same = flatten(a.export_state())[0], flatten(b.export_state())[0]
+    diff = [p for (p, x), (_, y) in zip(*same) if not bits_equal(torch, x, y)]
+    res = {
+        "losses_a": la, "losses_b": lb, "state_bytes": nbytes,
+        "leaves_differing": diff, "launches": counts,
+        "pause_ms": {k: v * 1e3 for k, v in t.phases.items()},
+        "pause_stop_ms": t.stop_ms,
+        "unpause_ms": {k: v * 1e3 for k, v in tu.phases.items()},
+        "reconf_ms": {k: v * 1e3 for k, v in tr.items()},
+        "save": transfer_row(slog.saves[:1]),
+        "restore": transfer_row(slog.restores[:1]),
+        "freed_bytes": m0 - m1, "back_bytes": m2 - m1}
+    log(f"train tenant A (pause, unpause, reconf through pause) vs B "
+        f"undisturbed: losses {'bit-equal' if la == lb else 'DIFFER'} "
+        f"{la} | {len(diff)} of {len(same[0])} leaves differ | pause stop "
+        f"{t.stop_ms:.1f} ms ({', '.join(f'{k} {v * 1e3:.1f}' for k, v in t.phases.items())}) "
+        f"| save {res['save']['bytes_moved']:,} B at "
+        f"{res['save']['gb_per_s']:.2f} GB/s | unpause {tu.total * 1e3:.1f} "
+        f"ms, restore {res['restore']['gb_per_s']:.2f} GB/s | reconf "
+        f"{tr['total'] * 1e3:.1f} ms | freed {m0 - m1:,} of {nbytes:,} "
+        f"state bytes, {m2 - m1:,} back | qdma_digest launches "
+        f"{counts['qdma_digest']} | {card}")
+    check(la == lb, f"train tenant: the paused tenant's losses {la} differ "
+                    f"from the undisturbed twin's {lb}")
+    check(not diff, f"train tenant: {len(diff)} leaves differ from the twin's"
+                    f" ({diff[:4]})")
+    check(m0 - m1 >= 0.9 * nbytes, f"train pause freed {m0 - m1} of the "
+                                   f"state's {nbytes} device bytes (< 90%)")
+    check(m2 - m1 >= 0.9 * nbytes, f"train unpause brought back {m2 - m1} "
+                                   f"of {nbytes} bytes")
+    check(counts["qdma_digest"] > 0, "qdma_digest was never launched by the "
+                                     "train pause")
+    del b, mgr_b, same
+    release(torch)
+
+    # the int8 pause (lossy by design)
+    eng8 = StagingEngine(compression="int8", block=QDMA_BLOCK,
+                         incremental=True, dirty="digest", transport="stream")
+    mgr_a.staging = eng8
+    slog8 = StagingLog(eng8, keep=True)
+    ops.reset_launch_counts()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t8 = mgr_a.pause(a)
+        tu8 = mgr_a.unpause(a)
+        torch.cuda.synchronize()
+    counts8 = ops.launch_counts()
+    exported, slog8.last_tree = slog8.last_tree, None
+    share = int8_share(torch, exported, a.export_state(), eng8, "train int8")
+    del exported
+    kern_ms = {}
+    for e in prof.key_averages():
+        m = STAGING_KERNEL_NAMES.search(e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            kern_ms[m.group(1)] = (kern_ms.get(m.group(1), 0.0) + getattr(
+                e, "self_device_time_total", 0.0) / 1e3)
+    for k in ("qdma_pack_rows", "qdma_unpack", "qdma_digest"):
+        check(counts8[k] > 0, f"{k} was never launched by the int8 train "
+                              "pause")
+    res["int8"] = {"stop_ms": t8.stop_ms, "unpause_ms": tu8.total * 1e3,
+                   "save": transfer_row(slog8.saves),
+                   "restore": transfer_row(slog8.restores),
+                   "int8_bound_share": share, "launches": counts8,
+                   "staging_kernel_device_ms": kern_ms}
+    moved = res["int8"]["save"]
+    log(f"train tenant int8 pause: stop {t8.stop_ms:.1f} ms, unpause "
+        f"{tu8.total * 1e3:.1f} ms | moved {moved['bytes_moved']:,} of "
+        f"{moved['logical_bytes']:,} logical bytes | int8 bound share "
+        f"{share:.6g} | staging kernels' device time "
+        + (", ".join(f"{k} {v:.2f} ms" for k, v in kern_ms.items())
+           or "not recorded by the profiler")
+        + f" | launches {json.dumps({k: counts8[k] for k in QDMA_KERNELS})}"
+        f" | {card}")
+    return res, a, mgr_a
+
+
+def phase_train_eval(torch, ops, run, params, seed):
+    """``make_eval_step`` on the card (no grad: the forward launches
+    ``flash_attention``) against the train-mode loss through the plain
+    attention (``kernel_backend="reference"``), on the same params and
+    batch: logits within LOGITS_REL_TOL of max |logit|, ce within
+    CE_ABS_TOL. Then the refusal: the kernel wrappers raise when asked to
+    launch on inputs that require grad, and launch under no_grad."""
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import make_eval_step
+    batch = train_batch(torch, run, 1000 + seed)
+    plain_run = run.replace(kernel_backend="reference")
+    ops.reset_launch_counts()
+    ev = make_eval_step(run)(params, batch)
+    counts = ops.launch_counts()
+    with torch.no_grad():
+        _, pm = build_model(plain_run).loss(params, batch)
+        a = build_model(run).forward(params, batch)[0]
+        b = build_model(plain_run).forward(params, batch)[0]
+    rel = float((a - b).abs().max() / b.abs().max())
+    del a, b
+    dce = abs(float(ev["ce"]) - float(pm["ce"]))
+    check(counts["flash_attention"] == run.model.num_layers,
+          f"eval step: {counts['flash_attention']} flash_attention launches "
+          f"for {run.model.num_layers} layers")
+    check(rel <= LOGITS_REL_TOL, f"eval step: kernel vs plain logits differ "
+                                 f"by {rel:.3g} of max |logit|")
+    check(dce <= CE_ABS_TOL, f"eval step: ce {float(ev['ce'])} vs the plain "
+                             f"path's {float(pm['ce'])}")
+    g = torch.Generator(device="cuda").manual_seed(seed + 400)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            dtype).requires_grad_(True)
+    hd = run.model.head_dim
+    q, k, v = randn(1, 64, 16, hd), randn(1, 64, 8, hd), randn(1, 64, 8, hd)
+    x, bv, cv = randn(1, 64, 4, 64), randn(1, 64, 64), randn(1, 64, 64)
+    la = -randn(1, 64, 4, dtype=torch.float32).abs()
+    refused = []
+    for name, call in (
+            ("flash_attention", lambda: ops.flash_attention(q, k, v)),
+            ("ssm_scan", lambda: ops.ssm_scan(x, bv, cv, la, chunk=64))):
+        try:
+            call()
+        except RuntimeError as e:
+            refused.append(name if "no backward" in str(e) else str(e))
+    check(refused == ["flash_attention", "ssm_scan"],
+          f"the kernels under autograd: {refused} (each must refuse)")
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    res = {"flash_attention_launches": counts["flash_attention"],
+           "logits_rel_err": rel, "ce_eval": float(ev["ce"]),
+           "ce_plain": float(pm["ce"]), "ce_abs_diff": dce,
+           "loss_eval": float(ev["loss"]), "loss_plain": float(pm["loss"]),
+           "refused_under_autograd": refused}
+    log(f"eval step through flash_attention ({counts['flash_attention']} "
+        f"launches) vs the plain train-mode loss: logits max rel err "
+        f"{rel:.3g} (tolerance {LOGITS_REL_TOL}), ce {res['ce_eval']:.5f} vs "
+        f"{res['ce_plain']:.5f} (|diff| {dce:.3g}, tolerance {CE_ABS_TOL}) | "
+        "flash_attention and ssm_scan refuse inputs that require grad")
+    return res, counts
+
+
+def phase_tables(card):
+    """Paper Tables I and II on the card: 32 logical slots, one
+    svff-bench train tenant per VF, ``reconf`` through detach/attach and
+    through pause (Table I: 10 runs each at 1, 4 and 10 VFs)."""
+    from repro_torch.bench import table1, table2
+    rows1 = table1.bench(10, (1, 4, 10), device="cuda")
+    rows2 = table2.bench((1, 4, 10), device="cuda")
+    for r in rows1:
+        log(f"Table I {r['num_vf']} VF: detach/attach "
+            f"{r['detach_attach_ms']:.2f} ms (std "
+            f"{r['detach_attach_std']:.2f}), pause/unpause "
+            f"{r['pause_unpause_ms']:.2f} ms (std "
+            f"{r['pause_unpause_std']:.2f}), overhead "
+            f"{r['overhead_pct']:.1f}% | {card}")
+    for r in rows2:
+        log(f"Table II {r['num_vf']} VF: " + ", ".join(
+            f"{s} DA {r[f'DA_{s}_ms']:.2f} / PU {r[f'PU_{s}_ms']:.2f}"
+            for s in ("rescan", "remove_vf", "change_num_vf", "add_vf",
+                      "total")) + f" ms | {card}")
+    return {"table1": rows1, "table2": rows2}
+
+
+def run_train(torch, ops, args, card, report, launches, workdir):
+    """The training phases at full width, each path's launch counts added
+    to ``launches``."""
+    from repro_torch.configs import make_run_config
+    report["train_launch"] = phase_train_launch(torch, workdir, card)
+    release(torch)
+    run = make_run_config(TRAIN_ARCH, "train_4k", seed=args.seed)
+    res, a, mgr = phase_train_tenant(torch, ops, run, args.seed,
+                                     os.path.join(workdir, "tenants"), card)
+    for k in QDMA_KERNELS:
+        launches[k] = (launches.get(k, 0) + res["launches"][k]
+                       + res["int8"]["launches"][k])
+    report["train_tenant"] = res
+    report["train_eval"], counts = phase_train_eval(
+        torch, ops, run, a.export_state()["params"], args.seed)
+    launches["flash_attention"] = (launches.get("flash_attention", 0)
+                                   + counts["flash_attention"])
+    del a, mgr
+    release(torch)
+    report["tables"] = phase_tables(card)
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1563,6 +1899,12 @@ def main(argv=None) -> int:
     release(torch)
 
     run_hybrid(torch, ops, args, card, report, launches)
+
+    workdir = tempfile.mkdtemp(prefix="train_smoke_")
+    try:
+        run_train(torch, ops, args, card, report, launches, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     sources = {"flash_attention": ("flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:77"),

@@ -14,20 +14,22 @@ each leaf's raw little-endian bytes (``t.view(torch.uint8)``) and reads
 them back through the dtype named in the manifest. The crc32 runs over
 the same bytes, so a leaf's crc equals the JAX store's for the same
 values. Tensor leaves come back as tensors, numpy leaves as numpy. This
-store backs the detach path: a detached tenant's state parks here.
+store backs the detach path (a detached tenant's state parks here) and
+``launch.train``'s periodic checkpoints (``save_async``, ``latest``).
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 import zlib
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import flatten, tree_map, unflatten
 
 
 def _host_tensor(leaf) -> tuple[torch.Tensor, str]:
@@ -65,6 +67,7 @@ class CheckpointStore:
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
+        self._async_thread: Optional[threading.Thread] = None
 
     # -- save ----------------------------------------------------------------
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None,
@@ -99,6 +102,27 @@ class CheckpointStore:
         self._gc()
         return final
 
+    def save_async(self, step: int, tree: Any,
+                   metadata: Optional[dict] = None) -> threading.Thread:
+        """Non-blocking save: the device->host copy happens here (so the
+        snapshot is consistent even if the caller then updates its
+        tensors in place), the file I/O on a worker thread."""
+        host_tree = tree_map(
+            lambda x: (x.detach().to("cpu", copy=True)
+                       if isinstance(x, torch.Tensor) else np.array(x)),
+            tree)
+        self.wait()
+        t = threading.Thread(target=self.save,
+                             args=(step, host_tree, metadata), daemon=True)
+        t.start()
+        self._async_thread = t
+        return t
+
+    def wait(self):
+        if self._async_thread is not None:
+            self._async_thread.join()
+            self._async_thread = None
+
     # -- restore ---------------------------------------------------------------
     def steps(self) -> list[int]:
         out = []
@@ -109,6 +133,10 @@ class CheckpointStore:
                     os.path.join(self.dir, d, "MANIFEST.json")):
                 out.append(int(d.split("_")[1]))
         return sorted(out)
+
+    def latest(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
 
     def restore(self, step: int, like: Any, device=None,
                 verify: bool = True) -> Any:

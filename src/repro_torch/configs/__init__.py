@@ -6,6 +6,7 @@ from repro_torch.configs.base import (ATTN, MAMBA, MLSTM, SLSTM, FrontendConfig,
                                 SSMConfig, UNIT_MESH, XLSTMConfig,
                                 arch_defaults, get_model_config, list_archs,
                                 make_run_config, register, shape_applicable)
+from repro_torch.configs import paper  # noqa: F401  (registers svff-bench)
 
 __all__ = [
     "ATTN", "MAMBA", "MLSTM", "SLSTM", "FrontendConfig", "MeshConfig",

@@ -294,6 +294,7 @@ def _ensure_imported():
     # The port registers only the architectures it serves so far; the
     # other families come with their slices (ROADMAP Queue 1 item 7).
     from repro_torch.configs import jamba_1_5_large_398b  # noqa: F401
+    from repro_torch.configs import paper  # noqa: F401
     from repro_torch.configs import qwen3_0_6b  # noqa: F401
 
 

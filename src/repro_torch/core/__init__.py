@@ -2,9 +2,10 @@
 
 DevicePool (PF) -> VirtualFunction slices -> tenants (VMs), with the
 pause/unpause mechanism, init/reconf automation, the QMP-style control
-plane, the write-ahead journal and crash recovery, and the staging engine
-whose kernels run on the card. The typed error hierarchy is importable
-from here (``core.errors`` plus ``core.scheduler`` and ``core.pool``).
+plane, the write-ahead journal and crash recovery, the staging engine
+whose kernels run on the card, and the train ``Tenant`` (the guest). The
+typed error hierarchy is importable from here (``core.errors`` plus
+``core.scheduler`` and ``core.pool``).
 """
 from repro_torch.core.errors import (DoubleFreeError, FederationError,
                                      HostUnreachableError, LeaseExpiredError,
@@ -25,7 +26,7 @@ from repro_torch.core.scheduler import (AdmissionError, PlacementRequest,
                                         make_scheduler)
 from repro_torch.core.snapshot import ConfigSpaceSnapshot
 from repro_torch.core.staging import StagingEngine, TransferStats
-from repro_torch.core.tenant import DevicePausedError
+from repro_torch.core.tenant import DevicePausedError, Tenant
 from repro_torch.core.vf import VFState, VFTransitionError, VirtualFunction
 
 __all__ = [
@@ -35,7 +36,8 @@ __all__ = [
     "LeaseExpiredError", "ManagerError", "OpJournal", "PauseError",
     "PhaseTimings", "PlacementRequest", "POLICY_NAMES", "PoolError",
     "RecordStore", "SVFFManager", "Scheduler", "SplitBrainError",
-    "StagingEngine", "Supervisor", "TransferStats", "UnknownRequestError",
+    "StagingEngine", "Supervisor", "Tenant", "TransferStats",
+    "UnknownRequestError",
     "UnknownTenantError", "VFState", "VFTransitionError", "VirtualFunction",
     "crash_plane", "crashpoint", "make_scheduler", "pause_vf",
     "pause_vf_live", "unpause_vf",

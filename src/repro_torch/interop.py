@@ -48,6 +48,12 @@ def params_to_jax(tree) -> dict:
     return tree_map(_to_numpy, tree)
 
 
+#: a train state converts leaf for leaf like params: every leaf bit for
+#: bit, 0-d ``count`` and ``step`` as 0-d int32 tensors / arrays
+train_state_from_jax = params_from_jax
+train_state_to_jax = params_to_jax
+
+
 def staged_from_jax(payload):
     """A JAX ``StagingEngine.save`` payload -> the port's: every numpy
     leaf becomes a CPU tensor of the same bytes (the JAX payload does not

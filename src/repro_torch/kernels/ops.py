@@ -55,6 +55,19 @@ def _plain(backend: str, x: torch.Tensor) -> bool:
     return False
 
 
+def _no_autograd(kernel: str, *xs):
+    """The CUDA kernels compute forward only: their outputs are written
+    through raw pointers and carry no ``grad_fn``. Launching one while
+    autograd records a graph over its inputs would drop their gradients
+    without a word, so the wrapper refuses (training takes the plain
+    versions: ``Model`` asks for ``backend="ref"`` while grad is on)."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an input "
+            "requires grad; call it under torch.no_grad() or take the "
+            "plain version (backend='ref')")
+
+
 def _want(name: str, t: torch.Tensor, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
@@ -95,6 +108,7 @@ def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     dev = q.device
+    _no_autograd("flash_attention", q, k, v)
     if H % K or hd not in (64, 128):
         raise ValueError(f"flash_attention kernel: H={H}, K={K}, hd={hd}")
     _want("q", q, torch.bfloat16, (B, S, H, hd), dev)
@@ -193,6 +207,7 @@ def ssm_scan(xdt, Bv, Cv, log_a, *, chunk: int = 128, backend: str = "auto"):
     if _plain(backend, xdt):
         return _ref.ssm_scan_ref(xdt, Bv, Cv, log_a, chunk=chunk)
     dev = xdt.device
+    _no_autograd("ssm_scan", xdt, Bv, Cv, log_a)
     if xdt.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"ssm_scan kernel takes bf16 or fp32, not "
                         f"{xdt.dtype}")

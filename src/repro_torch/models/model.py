@@ -1,9 +1,13 @@
 """Model orchestration for stacks of attention and mamba blocks: the
 attention mixer, block dispatch by kind, the FFN, a Python loop over the
-period-stacked layers, and the prefill and decode entry points (mirrors
-``repro.models.model``). Decode runs over the paged KV pool with per-slot
-positions (the serve engine), or over a dense cache with one position
-for the whole batch (``make_serve_steps``'s generate path).
+period-stacked layers, the train-mode forward and loss, and the prefill
+and decode entry points (mirrors ``repro.models.model``). While autograd
+records, the train mode runs the plain attention and SSM scan (the CUDA
+kernels compute forward only) and, unless ``run.sharding.remat`` is
+"none", recomputes each period in the backward
+(``torch.utils.checkpoint``). Decode runs over the paged KV pool with
+per-slot positions (the serve engine), or over a dense cache with one
+position for the whole batch (``make_serve_steps``'s generate path).
 
 Cache updates are in place. JAX writes the cache functionally
 (``cache["k"].at[pids, offs].set(...)``), which XLA turns into an
@@ -24,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, MAMBA, ModelConfig, RunConfig,
                                       ShapeConfig)
@@ -37,6 +42,7 @@ from repro_torch.models.ssm import mamba_block
 from repro_torch.tree import tree_map
 
 ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
+NEG_LOGIT = -1e30           # the masked vocab tail's logit
 
 
 def _dt(name: str):
@@ -155,6 +161,11 @@ def _apply_block(cfg, run: RunConfig, kind: str, p, x, mode, cache_j,
     its FFN. Returns (x, the block's new cache in prefill, else None)."""
     cdt = _dt(run.precision.compute)
     backend = ops_backend(run)
+    if mode == "train" and torch.is_grad_enabled():
+        # the kernels compute forward only (``kernels.ops`` refuses them
+        # under autograd): training runs the plain versions, as the JAX
+        # train step runs attention_ref and ssd_chunked
+        backend = "ref"
     if kind == ATTN:
         out, nc = _attn_mixer(cfg, p, x, cdt, mode, cache_j, positions, pos,
                               backend, causal=causal, tables=tables,
@@ -187,15 +198,36 @@ def run_stack(cfg: ModelConfig, run: RunConfig, layers: dict, x, mode,
     pattern = cfg.block_pattern
     nper = cfg.num_layers // len(pattern)
     new = {f"block{j}": [] for j in range(len(pattern))}
-    for i in range(nper):
+    # each stacked leaf split into its periods once: the backward of
+    # ``unbind`` stacks the periods' gradients in one copy, where one
+    # ``leaf[i]`` per period would add a full-size zero-padded gradient
+    # per period (nper² work)
+    periods = tree_map(lambda leaf: leaf.unbind(0), layers)
+
+    def period(x, i):
+        ncs = {}
         for j in range(len(pattern)):
             name = f"block{j}"
-            pp = tree_map(lambda leaf: leaf[i], layers[name])
+            pp = tree_map(lambda leaf: leaf[i], periods[name])
             cj = (tree_map(lambda leaf: leaf[i], cache[name])
                   if cache is not None else None)
-            x, nc = _apply_block(cfg, run, pattern[j], pp, x, mode, cj,
-                                 positions, pos, tables=tables,
-                                 active=active)
+            x, ncs[name] = _apply_block(cfg, run, pattern[j], pp, x, mode,
+                                        cj, positions, pos, tables=tables,
+                                        active=active)
+        return x, ncs
+
+    # remat: the backward recomputes each period's forward instead of
+    # keeping its activations (JAX's jax.checkpoint of the period; every
+    # policy but "none" saves nothing inside the period here)
+    remat = (mode == "train" and run.sharding.remat != "none"
+             and torch.is_grad_enabled())
+    for i in range(nper):
+        if remat:
+            x = checkpoint(lambda x, i=i: period(x, i)[0], x,
+                           use_reentrant=False)
+            continue
+        x, ncs = period(x, i)
+        for name, nc in ncs.items():
             if nc is not None:
                 new[name].append(nc)
     if mode == "prefill":
@@ -268,6 +300,33 @@ class Model:
     def forward(self, params, batch, mode="train"):
         x, aux, cache = self._hidden(params, batch, mode)
         return self._logits(params, x), aux, cache
+
+    # -- loss ------------------------------------------------------------------
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy over valid labels (>= 0) plus the
+        aux losses; returns (loss, metrics) with metrics ``loss``, ``ce``,
+        ``ntok`` and the aux terms, each a 0-d tensor. The padded vocab
+        tail is masked out of the logsumexp. The gold logit is a
+        ``gather``: JAX's one-hot sum adds only zeros beside that one
+        logit, so both give the same value (and gradient)."""
+        cfg = self.cfg
+        logits, aux, _ = self.forward(params, batch, mode="train")
+        labels = batch["labels"].to(torch.int64)
+        Vp = logits.shape[-1]
+        vmask = torch.arange(Vp, device=logits.device) < cfg.vocab_size
+        logits = logits.masked_fill(~vmask, NEG_LOGIT)
+        valid = labels >= 0
+        safe = labels.clamp(0, cfg.vocab_size - 1)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, safe[..., None])[..., 0]
+        ce = torch.where(valid, lse - gold, torch.zeros_like(lse))
+        ntok = valid.sum().clamp(min=1).to(torch.int32)
+        ce_mean = ce.sum() / ntok
+        aux = {k: torch.as_tensor(v, dtype=torch.float32,
+                                  device=logits.device)
+               for k, v in aux.items()}
+        loss = ce_mean + sum(aux.values())
+        return loss, {"loss": loss, "ce": ce_mean, "ntok": ntok, **aux}
 
     # -- serving -------------------------------------------------------------
     def prefill(self, params, batch):

@@ -544,3 +544,78 @@ def test_qdma_wrappers_raise_instead_of_falling_back(cuda):
     assert ops.LAUNCHES == before
     ops.qdma_digest(torch.ones(5, device=cuda))
     assert ops.LAUNCHES["qdma_digest"] == before["qdma_digest"] + 1
+
+
+# ---------------------------------------------------------------------------
+# training: no kernel under autograd; the eval step through the kernel
+# ---------------------------------------------------------------------------
+def _train_run(compute="bfloat16"):
+    """qwen3-0.6b's smoke config with head_dim 64 (the attention kernel
+    takes 64 or 128) and ``kernel_backend="auto"``."""
+    import dataclasses
+    from repro_torch.configs import PrecisionConfig, make_run_config
+    run = make_run_config("qwen3-0.6b", "train_4k", smoke=True,
+                          precision=PrecisionConfig(compute=compute))
+    return run.replace(model=dataclasses.replace(run.model, head_dim=64))
+
+
+def _train_batch(run, cuda, B=2, S=64):
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, run.model.vocab_size, (B, S + 1))
+    toks = torch.from_numpy(toks.astype(np.int32)).to(cuda)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """A launch on inputs that require grad raises (the kernels have no
+    backward), under no_grad it runs; the model's train-mode loss takes
+    the plain versions, so its backward reaches every attention weight."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=cuda).to(
+            dtype).requires_grad_(True)
+    q, k, v = randn(1, 64, 16, 128), randn(1, 64, 8, 128), randn(1, 64, 8, 128)
+    x, bv, cv = randn(1, 64, 4, 64), randn(1, 64, 64), randn(1, 64, 64)
+    la = -randn(1, 64, 4, dtype=torch.float32).abs()
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssm_scan(x, bv, cv, la, chunk=64)
+    assert ops.LAUNCHES == before
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+        ops.ssm_scan(x, bv, cv, la, chunk=64)
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_map
+    run = _train_run()
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      build_model(run).init(seed=0, device=cuda))
+    loss, _ = build_model(run).loss(params, _train_batch(run, cuda))
+    loss.backward()
+    for name in ("wq", "wk", "wv", "wo"):
+        grad = params["decoder"]["layers"]["block0"][name].grad
+        assert grad is not None and bool(grad.abs().sum() > 0), name
+
+
+@pytest.mark.cuda
+def test_eval_step_through_flash_attention_matches_plain_loss(cuda):
+    """The eval step launches flash_attention once a layer and agrees with
+    the train-mode loss through the plain attention: ce within 1e-2 (both
+    sum the same bf16 stack; kernel and plain version round their fp32
+    attention to bf16 after sums in other orders)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import init_train_state, make_eval_step
+    run = _train_run()
+    params = init_train_state(run, seed=1, device=cuda)["params"]
+    batch = _train_batch(run, cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    ev = make_eval_step(run)(params, batch)
+    assert ops.LAUNCHES["flash_attention"] - before == run.model.num_layers
+    _, plain = build_model(run.replace(kernel_backend="reference")).loss(
+        params, batch)
+    assert abs(float(ev["ce"]) - float(plain["ce"])) <= 1e-2
+    assert int(ev["ntok"]) == int(plain["ntok"])

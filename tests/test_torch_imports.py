@@ -20,7 +20,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "hybrid_prefill_margin.py",
-        ROOT / "tools" / "attn_same_call.py"]
+        ROOT / "tools" / "attn_same_call.py",
+        ROOT / "tools" / "train_readings.py"]
 
 
 def _imported_roots(path):
