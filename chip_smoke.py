@@ -14,18 +14,25 @@ mamba layers, dense FFNs, bf16 params, random weights from ``--seed``):
 prefill logits through the kernels against the plain versions, the paged
 ``ServeEngine`` with bf16 and int8 KV pages, and the uniform-position
 generate path of ``make_serve_steps`` against the teacher-forced forward.
-Last, training at qwen3-0.6b's full width: 30 steps of
+Then training at qwen3-0.6b's full width: 30 steps of
 ``repro_torch.launch.train``, a train ``Tenant`` paused, unpaused and reconfigured under the
 SVFF manager against its undisturbed twin, an int8 pause of it, the eval
 step through ``flash_attention`` against the plain train-mode loss, and
-the paper's Tables I and II.
+the paper's Tables I and II. Last, the sim plane with every tenant's
+state on the card: the scenario sweep (24 ops, 16 devices, leaf 16, three
+policies; a default pass and a serve 0.3 / crash 0.1 pass, every
+invariant after every op), the 11 ported crash points x seeds 0-2 x three
+policies, and the pause path (HC1-HC5) on the ~918 MB qwen3-100m-bench
+train state, whose int8 rows launch ``qdma_pack``, ``qdma_pack_rows``
+and ``qdma_unpack``.
 
     python3 chip_smoke.py            # from the repository root
 
 Phases: card, build, one phase per kernel, qwen serve (bf16, int8), SVFF
 (bit-exact staging, int8 staging), hybrid prefill, hybrid serve (bf16,
 int8), hybrid generate, train launch, train tenant (bit-exact, int8),
-eval step, Tables I/II, kernels line, result line. Any failed check exits
+eval step, Tables I/II, sim sweep (two passes), crash matrix, pause path,
+kernels line, result line. Any failed check exits
 non-zero before the result line. Details go to
 ``chiprun_out/chip_smoke.json``. The script imports only torch, numpy and
 the port.
@@ -1777,6 +1784,173 @@ def run_train(torch, ops, args, card, report, launches, workdir):
 
 
 # ---------------------------------------------------------------------------
+# the sim plane: scenario sweep, crash matrix, pause path, state on the card
+# ---------------------------------------------------------------------------
+SIM_POLICIES = ("first_fit", "best_fit", "fair_share")
+SIM_SWEEP_S = 60.0       # the first sweep pass fills about this long
+SIM_SERVE_SWEEP_S = 20.0  # the second (serve 0.3, crash 0.1) pass
+SIM_CRASH_SEEDS = 3
+PAUSE_PATH_REPEATS = 3
+PAUSE_PATH_KERNELS = ("qdma_pack", "qdma_pack_rows", "qdma_unpack")
+
+
+def phase_sim_sweep(torch, card, device, budget_s: float, **rates):
+    """``bench.scenario_sweep.sweep`` at the JAX benchmark's config (24 ops,
+    16 devices, leaf 16, three policies), every invariant after every op,
+    with the seed count set to fill ``budget_s`` from a timed pass of four
+    seeds after a warm-up seed (the first scenario of a process pays its
+    streams and pinned buffers). The sweep proper starts at seed 5. The
+    runner checks after every op that every running tenant's state leaves
+    are tensors on ``device``."""
+    from repro_torch.bench.scenario_sweep import sweep
+    sweep(SIM_POLICIES, 1, 24, 16, device=device, **rates)
+    t0 = time.perf_counter()
+    sweep(SIM_POLICIES, 4, 24, 16, seed0=1, device=device, **rates)
+    per = (time.perf_counter() - t0) / (4 * len(SIM_POLICIES))
+    n = max(2, int(budget_s / (per * len(SIM_POLICIES))))
+    rep = sweep(SIM_POLICIES, n, 24, 16, seed0=5, device=device, **rates)
+    for policy, row in rep["policies"].items():
+        lat = ("no reconfs" if not row["reconfs"] else
+               f"reconf p50 {row['reconf_p50_ms']:.3f} ms, p95 "
+               f"{row['reconf_p95_ms']:.3f} ms ({row['reconfs']} reconfs)")
+        log(f"sim sweep {json.dumps(rates) if rates else 'default'} "
+            f"{policy}: {n} seeds, {row['ops']} ops ({row['ops_ok']} ok, "
+            f"{row['rejected']} rejected) in {row['wall_s']:.2f} s, "
+            f"{row['ops_per_sec']:.1f} ops/s | {lat} | every invariant "
+            f"after every op, every running tenant's state on {device} | "
+            f"{card}")
+    return rep
+
+
+def phase_sim_crash(card, device):
+    """The 11 ported crash points x seeds 0-2 x three policies, tenants on
+    ``device``: each cell recovers green (I1-I8 with I4 bit-identical, I9,
+    the catalogued outcome, liveness); a red cell raises."""
+    from repro_torch.bench.crash_matrix import run_matrix
+    rep = run_matrix(None, SIM_CRASH_SEEDS, SIM_POLICIES, device=device)
+    s = rep["summary"]
+    check(s["all_green"] and s["num_cases"]
+          == len(rep["protocol"]["points"]) * SIM_CRASH_SEEDS * 3,
+          f"crash matrix: {s['num_failures']} of {s['num_cases']} cells "
+          f"failed ({rep['failures'][:2]})")
+    log(f"sim crash matrix: {s['points']} points x {s['seeds']} seeds x "
+        f"{len(s['policies'])} policies = {s['num_cases']} cells green in "
+        f"{s['wall_s']:.2f} s (I1-I9, outcome, liveness) | {card}")
+    return rep
+
+
+def pause_path_kernels(torch, ops, card, device):
+    """The staging kernels at the pause path's shapes, before it is timed:
+    qdma_pack and qdma_unpack on the bench state's embedding (640-wide
+    rows) and an MLP leaf (1920-wide rows) at the int8 rows' block, and
+    qdma_pack_rows and qdma_unpack on every row descriptor the
+    int8_pipelined engine issues for them; each output bit for bit against
+    the plain version on the same inputs."""
+    from repro_torch.bench import pause_path
+    from repro_torch.core.staging import StagingEngine
+    from repro_torch.kernels.ref import row_view
+    B = pause_path.BLOCK
+    eng = StagingEngine(num_queues=8, compression="int8", block=B)
+    params = pause_path.bench_state(device)["params"]
+    leaves = {"embed": params["embed"]["tok"],
+              "ffn wi": params["decoder"]["layers"]["block0"]["ffn"]["wi"]}
+    for name, x in leaves.items():
+        q, s = ops.qdma_pack(x, block=B)
+        wq, ws = ops.qdma_pack(x, block=B, backend="ref")
+        u = ops.qdma_unpack(q, s, dtype=x.dtype)
+        wu = ops.qdma_unpack(q, s, dtype=x.dtype, backend="ref")
+        torch.cuda.synchronize()
+        check(bits_equal(torch, q, wq) and bits_equal(torch, s, ws)
+              and bits_equal(torch, u, wu),
+              f"pause path {name} {tuple(x.shape)}: qdma_pack or qdma_unpack "
+              "differs from the plain version")
+        R, L = eng._row_view_dims(x)
+        ranges = eng._row_chunks(x.numel() * x.element_size(), R)
+        check(len(ranges) > 1, f"pause path {name}: one descriptor only")
+        dst = torch.empty_like(x)
+        for lo, hi in ranges:
+            rq, rs = ops.qdma_pack_rows(x, lo, rows=hi - lo, block=B)
+            wrq, wrs = ops.qdma_pack_rows(x, lo, rows=hi - lo, block=B,
+                                          backend="ref")
+            qd, sd = row_view(q)[lo:hi], row_view(s)[lo:hi]
+            ops.qdma_unpack(qd, sd, out=row_view(dst)[lo:hi])
+            wd = ops.qdma_unpack(qd, sd, backend="ref")
+            torch.cuda.synchronize()
+            check(bits_equal(torch, rq, wrq) and bits_equal(torch, rs, wrs)
+                  and bits_equal(torch, row_view(dst)[lo:hi], wd),
+                  f"pause path {name} rows [{lo}, {hi}): qdma_pack_rows or "
+                  "qdma_unpack differs from the plain version")
+        log(f"pause path kernels {name} {tuple(x.shape)} fp32, block {B}: "
+            f"qdma_pack, qdma_unpack and {len(ranges)} row descriptors "
+            f"({', '.join(f'[{lo},{hi})' for lo, hi in ranges)}) of "
+            f"qdma_pack_rows and qdma_unpack bit-exact against the plain "
+            f"versions | {card}")
+
+
+def phase_pause_path(torch, ops, card, device):
+    """``bench.pause_path`` (HC1-HC5) on the qwen3-100m-bench train state
+    on ``device``, its staging kernels first held bit for bit against the
+    plain versions at its shapes: the bench raises unless every non-int8
+    row restores bit-equal and every int8 row within each block's bound;
+    here an unchanged incremental save must move nothing, the live pause's
+    stall stay under the stop-the-world total, and the int8 rows launch
+    the pack, row pack and unpack kernels. Returns (rows, launch
+    counts)."""
+    from repro_torch.bench import pause_path
+    pause_path_kernels(torch, ops, card, device)
+    release(torch)
+    ops.reset_launch_counts()
+    rows = pause_path.bench(PAUSE_PATH_REPEATS, device=device)
+    counts = ops.launch_counts()
+    by = {r["name"]: r for r in rows}
+    check(by["incremental_unchanged"]["bytes_moved"] == 0,
+          "pause path: an unchanged incremental save moved "
+          f"{by['incremental_unchanged']['bytes_moved']} bytes")
+    check(by["pause_live_precopy"]["stop_ms"]
+          < by["pause_stop_world"]["total_ms"],
+          "pause path: the live pause stalled longer than a stop-the-world "
+          "pause takes")
+    for name in ("int8", "int8_pipelined"):
+        check(0 < by[name]["int8_bound_share"] <= 1,
+              f"pause path {name}: bound share "
+              f"{by[name]['int8_bound_share']}")
+    for k in PAUSE_PATH_KERNELS:
+        check(counts[k] > 0,
+              f"{k} was never launched on the pause path")
+    gb = rows[0]["logical_bytes"] / 1e9
+    for r in rows:
+        if "save_ms" in r:
+            log(f"pause path {r['name']} ({gb:.3f} GB state): save "
+                f"{r['save_ms']:.2f} ms ({r['save_gbps']:.2f} GB/s, "
+                f"{r['bytes_moved']:,} B), restore {r['restore_ms']:.2f} ms "
+                f"({r['restore_gbps']:.2f} GB/s) | max rel err "
+                f"{r['max_rel_err']:.3g}, int8 bound share "
+                f"{r['int8_bound_share']:.6g} | {card}")
+        else:
+            log(f"pause path {r['name']}: total {r['total_ms']:.2f} ms, "
+                f"stop {r['stop_ms']:.2f} ms ({r['stop_bytes_moved']:,} B "
+                f"in the stop) | {card}")
+    log(f"pause path launches {json.dumps({k: counts[k] for k in PAUSE_PATH_KERNELS})}")
+    return rows, counts
+
+
+def run_sim(torch, ops, card, report, launches):
+    """The sim plane's phases on the card, the pause path's staging kernel
+    launches added to ``launches``."""
+    device = torch.device("cuda")
+    report["sim_sweep"] = phase_sim_sweep(torch, card, device, SIM_SWEEP_S)
+    report["sim_sweep_serve_crash"] = phase_sim_sweep(
+        torch, card, device, SIM_SERVE_SWEEP_S, serve_rate=0.3,
+        crash_rate=0.1)
+    report["sim_crash"] = phase_sim_crash(card, device)
+    rows, counts = phase_pause_path(torch, ops, card, device)
+    report["pause_path"] = {"rows": rows, "launches": counts}
+    for k in PAUSE_PATH_KERNELS:
+        launches[k] = launches.get(k, 0) + counts[k]
+    release(torch)
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1905,6 +2079,8 @@ def main(argv=None) -> int:
         run_train(torch, ops, args, card, report, launches, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+    run_sim(torch, ops, card, report, launches)
 
     sources = {"flash_attention": ("flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:77"),

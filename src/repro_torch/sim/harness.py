@@ -1,0 +1,318 @@
+"""ScenarioRunner — executes a generated scenario against the real stack
+(mirrors ``repro.sim.harness``).
+
+One runner = one scenario = one fresh ``DevicePool`` (simulated device
+tokens ``simdev{i}``), ``SVFFManager`` (with the configured placement
+policy), real ``StagingEngine`` / ``RecordStore`` / ``CheckpointStore``
+on a throwaway workdir, and sim tenants whose state lives on ``device``
+(the card by default). After EVERY op — successful or rejected —
+``check_invariants`` runs and every running tenant's state leaves must be
+tensors on ``device``; any violation raises ``InvariantViolation``
+tagged ``seed=<s> op#<i>``, which reproduces the failure exactly:
+
+    ScenarioRunner(ScenarioConfig(seed=<s>, policy=<p>)).run()
+
+Expected rejections (admission failures, illegal transitions, I/O on a
+paused device, ...) are recorded per-op — never exceptions — because the
+property under test is that a rejected op is ATOMIC: the system state it
+leaves behind still satisfies every invariant.
+
+Not ported yet, each refused with ``NotImplementedError`` naming its
+ROADMAP item: the ``autoscale`` op and the autoscaler the JAX runner
+builds (Queue 1 item 11), ``migrate_request`` (item 12), and ``reshape``
+with the pipeline gang lead ``pg0`` (item 13). A config with a nonzero
+``autoscale_rate``, ``migrate_rate`` or ``reshape_rate`` is refused at
+construction.
+"""
+from __future__ import annotations
+
+import dataclasses
+import shutil
+import tempfile
+import time
+import zlib
+from typing import Optional
+
+import torch
+
+from repro_torch.core.errors import ManagerError
+from repro_torch.core.fault import Supervisor
+from repro_torch.core.manager import SVFFManager
+from repro_torch.core.pause import PauseError
+from repro_torch.core.pool import DevicePool, PoolError
+from repro_torch.core.records import RecordError
+from repro_torch.core.scheduler import make_scheduler
+from repro_torch.core.staging import StagingEngine
+from repro_torch.core.tenant import DevicePausedError
+from repro_torch.core.vf import VFTransitionError
+from repro_torch.device import resolve_device
+from repro_torch.sim.chaos import _fire, recover_manager
+from repro_torch.sim.clock import VirtualClock
+from repro_torch.sim.invariants import (InvariantViolation, check_invariants,
+                                        check_pause_timings, check_timings)
+from repro_torch.sim.scenario import Op, ScenarioConfig, generate_scenario
+from repro_torch.sim.tenant import SimServeTenant, SimTenant
+from repro_torch.tree import tree_leaves
+
+#: exception types an op may legally be rejected with (atomically).
+#: All TYPED: a blanket KeyError here once masked real bugs (e.g. a
+#: missing-snapshot lookup) as "expected rejections" — the manager raises
+#: ManagerError/UnknownTenantError for those paths instead.
+REJECTIONS = (PoolError, PauseError, VFTransitionError, DevicePausedError,
+              RecordError, ManagerError)
+
+#: the ops (and the config rates that draw them) waiting for their items
+_UNPORTED = {
+    "autoscale": ("autoscale_rate", "the autoscale op and its autoscaler "
+                  "are not ported yet (ROADMAP Queue 1 item 11)"),
+    "migrate_request": ("migrate_rate", "the migrate_request op is not "
+                        "ported yet (ROADMAP Queue 1 item 12)"),
+    "reshape": ("reshape_rate", "the reshape op and the pipeline gang "
+                "lead are not ported yet (ROADMAP Queue 1 item 13)"),
+}
+
+
+@dataclasses.dataclass
+class OpResult:
+    op: Op
+    status: str                 # ok | rejected
+    error: Optional[str] = None
+    virtual_t: float = 0.0
+
+
+@dataclasses.dataclass
+class ScenarioResult:
+    config: ScenarioConfig
+    ops: list[OpResult]
+    reconf_timings: list[dict]
+    wall_seconds: float
+    virtual_seconds: float
+    final: dict
+
+    @property
+    def num_ok(self) -> int:
+        return sum(1 for r in self.ops if r.status == "ok")
+
+    @property
+    def num_rejected(self) -> int:
+        return sum(1 for r in self.ops if r.status == "rejected")
+
+    def fingerprint(self) -> str:
+        """Digest of the full outcome — equal across replays of a seed."""
+        parts = []
+        for r in self.ops:
+            tag = f"{r.op.kind}:{r.op.tenant}:{r.status}"
+            if r.op.point:
+                tag += f":{r.op.point}"
+            parts.append(tag)
+        for tid in sorted(self.final["tenants"]):
+            q = self.final["tenants"][tid]
+            parts.append(f"{tid}={q['status']}@{q['steps_done']}")
+        return f"{zlib.crc32('|'.join(parts).encode()):08x}"
+
+
+class ScenarioRunner:
+    def __init__(self, cfg: ScenarioConfig, workdir: Optional[str] = None,
+                 device="cuda"):
+        for rate, msg in _UNPORTED.values():
+            if getattr(cfg, rate):
+                raise NotImplementedError(f"{rate}={getattr(cfg, rate)}: "
+                                          f"{msg}")
+        self.cfg = cfg
+        self.workdir = workdir
+        self.device = resolve_device(device)
+        self.clock = VirtualClock()
+        self.mgr: Optional[SVFFManager] = None
+        self.sup: Optional[Supervisor] = None
+        self.tenants: dict = {}
+        self.expected_steps: dict[str, int] = {}
+
+    # ----------------------------------------------------------------- ops
+    def _tenant(self, tid: str):
+        if tid not in self.tenants:
+            if tid.startswith("pg"):
+                raise NotImplementedError(f"tenant {tid}: "
+                                          f"{_UNPORTED['reshape'][1]}")
+            if tid.startswith("sv"):
+                # serving tenants: paged toy engine, I10-checked outputs
+                self.tenants[tid] = SimServeTenant(
+                    tid, seed=self.cfg.seed, clock=self.clock,
+                    placement=self.cfg.policy, device=self.device)
+            else:
+                self.tenants[tid] = SimTenant(
+                    tid, seed=self.cfg.seed * 1009 + len(self.tenants),
+                    leaf_size=self.cfg.leaf_size, clock=self.clock,
+                    placement=self.cfg.policy, device=self.device)
+            self.expected_steps[tid] = 0
+        return self.tenants[tid]
+
+    def _apply(self, op: Op) -> Optional[dict]:
+        mgr, clock = self.mgr, self.clock
+        if op.kind in _UNPORTED:
+            raise NotImplementedError(f"op {op.kind}: "
+                                      f"{_UNPORTED[op.kind][1]}")
+        if op.kind == "init":
+            devices = tuple(f"simdev{i}"
+                            for i in range(self.cfg.num_devices))
+            pool = DevicePool(devices=devices, max_vfs=self.cfg.max_vfs)
+            self.mgr = SVFFManager(pool, workdir=self._wd,
+                                   staging=StagingEngine(num_queues=2),
+                                   scheduler=self.cfg.policy)
+            self.sup = Supervisor(self.mgr, clock=self.clock.now)
+            tns = [self._tenant(f"vm{i}") for i in range(op.num_tenants)]
+            self.mgr.init(op.num_vfs, tns,
+                          devices_per_vf=op.devices_per_vf)
+            clock.advance(0.05)                 # rescan + partition cost
+            return None
+        assert mgr is not None, "scenario must start with init"
+        if op.kind == "attach":
+            mgr.attach(self._tenant(op.tenant))
+        elif op.kind == "detach":
+            mgr.detach(self._tenant(op.tenant))
+            clock.advance(0.02)
+        elif op.kind == "pause":
+            t = mgr.pause(self._tenant(op.tenant))
+            check_pause_timings(t, live=False)
+            clock.advance(0.01)
+        elif op.kind == "pause_live":
+            tn = self._tenant(op.tenant)
+            stepped = [0]
+
+            def _live_step():
+                # the tenant keeps working between pre-copy rounds — the
+                # whole point of the live path (invariant I4 then proves
+                # those steps survive the pause bit-exactly)
+                tn.run_steps(1)
+                stepped[0] += 1
+            t = mgr.pause_live(tn, rounds=2, step_fn=_live_step)
+            self.expected_steps[op.tenant] += stepped[0]
+            check_pause_timings(t, live=True)
+            clock.advance(0.01)
+        elif op.kind == "unpause":
+            mgr.unpause(self._tenant(op.tenant))
+            clock.advance(0.01)
+        elif op.kind == "reconf":
+            timings = mgr.reconf(op.num_vfs,
+                                 devices_per_vf=op.devices_per_vf)
+            check_timings(timings)
+            clock.advance(0.05)
+            return timings
+        elif op.kind == "migrate":
+            mgr.migrate(self._tenant(op.tenant))
+            clock.advance(0.02)
+        elif op.kind == "fault":
+            tn = self._tenant(op.tenant)
+            tn.inject_failure()
+            pre_running = {t for t, tn2 in self.tenants.items()
+                           if tn2.status == "running" and t in mgr.tenants}
+            self.sup.run_round(1)
+            # every healthy running tenant advanced one step; the faulted
+            # one raised before stepping and was migrated with its state
+            for t in pre_running:
+                if t != op.tenant:
+                    self.expected_steps[t] += 1
+            kinds = [e["kind"] for e in self.sup.events[-2:]]
+            if kinds != ["failure", "migrated"]:
+                raise InvariantViolation(
+                    f"fault on {op.tenant} not recovered: {kinds}")
+        elif op.kind == "step":
+            self._tenant(op.tenant).run_steps(op.steps)
+            self.expected_steps[op.tenant] += op.steps
+        elif op.kind == "serve_submit":
+            # guest-side queueing — legal even while the engine is paused
+            self._tenant(op.tenant).submit_burst(op.burst)
+        elif op.kind == "serve_step":
+            # the named tenant first — preserving the rejection behaviour
+            # when it is paused — then every other running serving tenant
+            self._tenant(op.tenant).run_steps(op.steps)
+            self.expected_steps[op.tenant] += op.steps
+            for tid in sorted(self.tenants):
+                tn = self.tenants[tid]
+                if (tid != op.tenant and tid.startswith("sv")
+                        and tn.status == "running"):
+                    tn.run_steps(op.steps)
+                    self.expected_steps[tid] += op.steps
+        elif op.kind == "crash":
+            # kill the manager at the named crash point mid-trigger-op,
+            # then rebuild it via SVFFManager.recover (with the I9
+            # double-recovery check inside recover_manager)
+            victim = self._tenant(op.tenant) if op.tenant else None
+            stepped = _fire(mgr, op.trigger, op.point, victim)
+            if op.tenant:
+                self.expected_steps[op.tenant] += stepped
+            self.mgr = recover_manager(mgr, self.tenants,
+                                       policy=self.cfg.policy,
+                                       workdir=self._wd, num_queues=2)
+            self.sup = Supervisor(self.mgr, clock=self.clock.now)
+            clock.advance(0.1)              # manager restart + recovery
+        else:
+            raise ValueError(f"unknown op {op.kind}")
+        return None
+
+    # ----------------------------------------------------------------- run
+    def run(self) -> ScenarioResult:
+        make_scheduler(self.cfg.policy)     # fail fast on a policy typo
+        ops = generate_scenario(self.cfg)
+        self._wd = self.workdir or tempfile.mkdtemp(prefix="svff_sim_")
+        results: list[OpResult] = []
+        reconf_timings: list[dict] = []
+        t0 = time.perf_counter()
+        try:
+            for i, op in enumerate(ops):
+                try:
+                    timings = self._apply(op)
+                    if timings is not None:
+                        reconf_timings.append(timings)
+                    results.append(OpResult(op, "ok",
+                                            virtual_t=self.clock.now()))
+                    self.clock.stamp("ok", op=op.kind, tenant=op.tenant)
+                except REJECTIONS as e:
+                    if op.kind == "init":
+                        raise    # a scenario with no system is no scenario
+                    results.append(OpResult(op, "rejected", error=repr(e),
+                                            virtual_t=self.clock.now()))
+                    self.clock.stamp("rejected", op=op.kind,
+                                     tenant=op.tenant)
+                try:
+                    check_invariants(self.mgr)
+                    self._check_step_counters()
+                    self._check_placement()
+                except InvariantViolation as e:
+                    raise InvariantViolation(
+                        f"seed={self.cfg.seed} policy={self.cfg.policy} "
+                        f"op#{i} {op}: {e}") from e
+            final = self.mgr.query()
+        finally:
+            if self.workdir is None:
+                shutil.rmtree(self._wd, ignore_errors=True)
+        return ScenarioResult(
+            config=self.cfg, ops=results, reconf_timings=reconf_timings,
+            wall_seconds=time.perf_counter() - t0,
+            virtual_seconds=self.clock.now(), final=final)
+
+    def _check_placement(self):
+        """Every running tenant's state leaves are tensors on the runner's
+        device (an attribute read, no sync)."""
+        for tid, tn in self.tenants.items():
+            if tn.status != "running":
+                continue
+            for x in tree_leaves(tn.export_state()):
+                if (not isinstance(x, torch.Tensor)
+                        or x.device.type != self.device.type):
+                    raise InvariantViolation(
+                        f"{tid}: a state leaf is not a tensor on "
+                        f"{self.device}")
+
+    def _check_step_counters(self):
+        for tid, want in self.expected_steps.items():
+            got = self.tenants[tid].steps_done
+            if got != want:
+                raise InvariantViolation(
+                    f"step counter drift for {tid}: {got} != {want}")
+
+
+def run_scenario(seed: int, policy: str = "first_fit", device="cuda",
+                 **kw) -> ScenarioResult:
+    """Convenience: run one seeded scenario, return its result."""
+    return ScenarioRunner(ScenarioConfig(seed=seed, policy=policy, **kw),
+                          device=device).run()

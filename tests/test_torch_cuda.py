@@ -619,3 +619,71 @@ def test_eval_step_through_flash_attention_matches_plain_loss(cuda):
         params, batch)
     assert abs(float(ev["ce"]) - float(plain["ce"])) <= 1e-2
     assert int(ev["ntok"]) == int(plain["ntok"])
+
+
+def _sim_leaves(runner) -> dict:
+    """(tid, path) -> host bytes of every running tenant's state leaf."""
+    from repro_torch.tree import flatten
+    out = {}
+    for tid, tn in runner.tenants.items():
+        if tn.status == "running":
+            for path, x in flatten(tn.export_state())[0]:
+                out[tid, path] = x.cpu().numpy().tobytes()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates", [{}, {"serve_rate": 0.3, "crash_rate": 0.1}],
+                         ids=["default", "serve_crash"])
+def test_sim_scenario_on_card_matches_cpu(cuda, rates):
+    """One seeded scenario with every tenant's state on the card: the same
+    per-op outcomes, virtual time and final leaves, bit for bit, as the
+    same scenario on the CPU (fp32 adds round alike on both)."""
+    from repro_torch.sim import ScenarioConfig, ScenarioRunner
+    from repro_torch.tree import tree_leaves
+    cfg = ScenarioConfig(seed=3, policy="best_fit", num_ops=40, **rates)
+    on_card = ScenarioRunner(cfg, device=cuda)
+    got = on_card.run()
+    on_cpu = ScenarioRunner(cfg, device="cpu")
+    want = on_cpu.run()
+    assert got.fingerprint() == want.fingerprint()
+    assert got.virtual_seconds == want.virtual_seconds
+    assert [r.status for r in got.ops] == [r.status for r in want.ops]
+    leaves = _sim_leaves(on_card)
+    assert leaves and leaves == _sim_leaves(on_cpu)
+    assert all(x.device.type == "cuda" for tn in on_card.tenants.values()
+               if tn.status == "running"
+               for x in tree_leaves(tn.export_state()))
+
+
+@pytest.mark.cuda
+def test_serve_sim_tenant_live_pause_on_card(cuda):
+    """``ServeSimTenant`` on the card through ``pause_vf_live`` (two
+    pre-copy rounds while its cache steps) and ``unpause_vf``: params come
+    back bit-equal, the cache at its step count, on the card."""
+    from repro_torch.core import (DevicePool, StagingEngine, pause_vf_live,
+                                  unpause_vf)
+    from repro_torch.core.vf import VFState, VirtualFunction
+    from repro_torch.sim import ServeSimTenant
+    g = torch.Generator(device=cuda).manual_seed(5)
+    params = {"w": torch.randn((512, 1024), generator=g, device=cuda),
+              "b": torch.randn((1024,), generator=g,
+                               device=cuda).bfloat16()}
+    want = {k: v.clone() for k, v in params.items()}
+    tn = ServeSimTenant(params, torch.zeros((64, 1024), device=cuda))
+    pool = DevicePool(devices=("d0",))
+    vf = VirtualFunction(vf_id="0000:0b:00.1")
+    vf.assign_devices(pool.devices, (1, 1))
+    vf.transition(VFState.ATTACHED)
+    vf.owner = tn.tid
+    tn.step()
+    staging = StagingEngine(num_queues=4, incremental=True)
+    snap, t = pause_vf_live(pool, vf, tn, staging, rounds=2, step_fn=tn.step)
+    assert tn.params is None and t.stop_ms <= t.total * 1e3
+    vf.assign_devices(pool.devices, (1, 1))
+    unpause_vf(pool, vf, tn, snap, staging)
+    assert tn.steps_done == 3 and tn.cache.device.type == "cuda"
+    assert bool((tn.cache == 3.0).all())
+    for k, v in want.items():
+        assert tn.params[k].device.type == "cuda"
+        assert CS.bits_equal(torch, tn.params[k], v), k

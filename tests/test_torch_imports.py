@@ -46,6 +46,18 @@ def test_no_jax_or_repro_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_sim_plane_and_benchmarks_are_checked():
+    """The sim plane and the benchmarks of the scenario sweep, crash
+    matrix and pause path are among the files held free of JAX above."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    for mod in ("sim/__init__.py", "sim/clock.py", "sim/scenario.py",
+                "sim/tenant.py", "sim/invariants.py", "sim/chaos.py",
+                "sim/harness.py", "bench/scenario_sweep.py",
+                "bench/crash_matrix.py", "bench/pause_path.py"):
+        assert mod in checked, mod
+
+
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a process where importing JAX
     or the JAX package fails."""
