@@ -8,6 +8,12 @@ vocab 151,936; random weights from ``--seed``) through the paged
 ``ServeFleet`` of two engine tenants under the SVFF manager, reconfigured
 mid-traffic (live pause, reconf through pause and through detach/attach,
 migrate) with the bit-exact staging engine and with the int8 one. Then
+the elastic fleet at the same width: requests live-migrated between the
+two engines mid-decode (bf16 and int8 KV pages), a busy engine scaled in
+(its in-flight requests migrated), a crashed engine's requests re-homed
+and regenerated, and the JAX elastic benchmark's static-vs-autoscaled
+fleets over four traffic traces (and again at the smoke width on the CPU,
+for the action sequence). Then
 the hybrid Mamba-attention stack, jamba-1.5-large-398b-1p-dense (one
 period of Jamba-1.5-Large at every published width, 1 attention and 7
 mamba layers, dense FFNs, bf16 params, random weights from ``--seed``):
@@ -21,7 +27,7 @@ step through ``flash_attention`` against the plain train-mode loss, and
 the paper's Tables I and II. Last, the sim plane with every tenant's
 state on the card: the scenario sweep (24 ops, 16 devices, leaf 16, three
 policies; a default pass and a serve 0.3 / crash 0.1 pass, every
-invariant after every op), the 11 ported crash points x seeds 0-2 x three
+invariant after every op), the 15 ported crash points x seeds 0-2 x three
 policies, and the pause path (HC1-HC5) on the ~918 MB qwen3-100m-bench
 train state, whose int8 rows launch ``qdma_pack``, ``qdma_pack_rows``
 and ``qdma_unpack``.
@@ -29,7 +35,8 @@ and ``qdma_unpack``.
     python3 chip_smoke.py            # from the repository root
 
 Phases: card, build, one phase per kernel, qwen serve (bf16, int8), SVFF
-(bit-exact staging, int8 staging), hybrid prefill, hybrid serve (bf16,
+(bit-exact staging, int8 staging), elastic (migration bf16 and int8,
+scale-in, recovery, elastic sweep), hybrid prefill, hybrid serve (bf16,
 int8), hybrid generate, train launch, train tenant (bit-exact, int8),
 eval step, Tables I/II, sim sweep (two passes), crash matrix, pause path,
 kernels line, result line. Any failed check exits
@@ -936,22 +943,30 @@ def fleet_requests(Request, vocab: int, seed: int) -> list:
             + make_requests(Request, vocab, seed + 1, first_rid=16))
 
 
-def make_fleet(run, params, device, workdir):
+def make_fleet(run, params, device, workdir, kv_dtype=None):
     """Two engine tenants of qwen3-0.6b (8 slots, max_len 1024, page 16,
-    bf16 KV, fused sampling) over a pool of four logical slots."""
+    bf16 KV unless ``kv_dtype``, fused sampling) over a pool of four
+    logical slots."""
     from repro_torch.serve.fleet import ServeFleet
     return ServeFleet(run, params, num_engines=2, num_devices=4, slots=8,
                       max_len=1024, page_size=16, fused_sampling=True,
-                      device=device, workdir=workdir)
+                      kv_dtype=kv_dtype, device=device, workdir=workdir)
 
 
-def drive_fleet(fleet, reqs, schedule: dict, label: str) -> list:
-    """Submit every request, step the fleet, running ``schedule[k]()``
-    before fleet step k; drain, and check that every request completed.
-    Returns the token streams."""
-    for r in reqs:
-        fleet.submit(r)
-    for k in range(max(schedule, default=-1) + 1):
+def drive_fleet(fleet, reqs, schedule: dict, label: str,
+                arrive_every: int = 0) -> list:
+    """Submit the requests — all at once, or request i before fleet step
+    ``i * arrive_every`` — and step the fleet, running ``schedule[k]()``
+    before fleet step k (after that step's arrivals); drain, and check
+    that every request completed. Returns the token streams."""
+    if not arrive_every:
+        for r in reqs:
+            fleet.submit(r)
+    last = max(max(schedule, default=-1), (len(reqs) - 1) * arrive_every)
+    for k in range(last + 1):
+        if arrive_every and k % arrive_every == 0 and \
+                k // arrive_every < len(reqs):
+            fleet.submit(reqs[k // arrive_every])
         if k in schedule:
             schedule[k]()
         fleet.step()
@@ -999,7 +1014,8 @@ def phase_svff(torch, run, params, seed, device, workdir):
     reconf cycle to 3 VFs through pause, the same through detach/attach
     (state parked on disk), and a migrate of serve1. Every token stream
     must equal the reference's; the pause must free the paused engine's
-    device memory and the unpause bring it back."""
+    device memory and the unpause bring it back. Returns (the report,
+    the reference's token streams)."""
     from repro_torch.serve.engine import Request
     vocab = run.model.vocab_size
     fleet = make_fleet(run, params, device, os.path.join(workdir, "ref"))
@@ -1056,7 +1072,7 @@ def phase_svff(torch, run, params, seed, device, workdir):
                       {6: live, 14: lambda: reconf(True),
                        20: lambda: reconf(False), 26: migrate}, "SVFF")
     check(out == ref, "SVFF: a reconfiguration changed the tokens (I10)")
-    return res
+    return res, ref
 
 
 def int8_bound(torch, exported, eng, engine, label) -> float:
@@ -1404,6 +1420,343 @@ def phase_profile(torch, run, params, seed, name="decode",
         log(f"  {r['device_ms_per_step']:8.3f} ms/step "
             f"{r['calls'] // steps:5d} calls/step  {r['name'][:90]}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# the elastic fleet: request live migration, scale-in, recovery, autoscaler
+# ---------------------------------------------------------------------------
+STALL_BOUND = 2.0        # frozen-slot ticks per completed migration (the
+#                          JAX migration benchmark's bound)
+MIGRATE_FROM = 3         # the first migration before this fleet step,
+MIGRATE_EVERY = 5        # then one every this many steps
+ARRIVE_EVERY = 2         # a request arrives every this many fleet steps
+SCALE_IN_AT = 10
+RECOVER_AT = 8
+ELASTIC_KERNELS = ("flash_attention", "paged_decode", "paged_decode_quant",
+                   "fused_sample")
+
+
+def migration_schedule(torch, fleet, migrations, label, int8=False):
+    """``{step: migrate}`` for ``drive_fleet``: from MIGRATE_FROM, every
+    MIGRATE_EVERY steps one in-flight request moves from the engine with
+    more active slots to the other. Each completed migration's result,
+    shipped bytes and GB/s go to ``migrations``; with ``int8`` pools the
+    target's pages are checked against the source's right after the
+    hand-off, before a decode step writes the next row into them."""
+    slog = StagingLog(fleet.mgr.staging)
+
+    def migrate():
+        running = sorted(fleet.tenants.values(),
+                         key=lambda tn: fleet._order[tn.tid])
+        src = max(running, key=lambda tn: (sum(
+            r is not None for r in tn.engine.active),
+            -fleet._order[tn.tid]))
+        dst = next(tn for tn in running if tn.tid != src.tid)
+        rid = src.peek_migratable()
+        if rid is None:
+            return
+        if int8:
+            pages = src.engine.alloc.pages_of(rid)
+            chain = {(blk, n): (node[n][:, pages].cpu(),
+                                node[n + "_scale"][:, pages].cpu())
+                     for blk, node in src.engine._cache.items()
+                     for n in ("k", "v")}
+        n0, r0 = len(slog.saves), len(slog.restores)
+        res = fleet.migrate_request(src.tid, dst.tid, rid)
+        if res is None:
+            migrations.append({"rid": rid, "completed": False})
+            return
+        ms = res["migrate_request_s"] * 1e3
+        shipped = transfer_row(slog.saves[n0:])["bytes_moved"]
+        migrations.append({
+            "rid": rid, "completed": True, "src": src.tid, "dst": dst.tid,
+            "ms": ms, "blocks": res["blocks"], "bytes_shipped": shipped,
+            "gb_per_s": shipped / (ms * 1e-3) / 1e9,
+            "save": transfer_row(slog.saves[n0:]),
+            "restore": transfer_row(slog.restores[r0:])})
+        if int8:
+            check_requantized(torch, dst.engine, rid, chain, label)
+
+    return {MIGRATE_FROM + MIGRATE_EVERY * i: migrate for i in range(12)}
+
+
+def check_requantized(torch, eng, rid, chain, label):
+    """A migrated int8 request's target pages and scales against the
+    port's plain requantization of the source's dequantized pages,
+    computed on the host: bit for bit."""
+    from repro_torch.kernels.ref import kv_dequant_ref, kv_quant_ref
+    pages = eng.alloc.pages_of(rid)
+    for (blk, n), (q, s) in chain.items():
+        want_q, want_s = kv_quant_ref(kv_dequant_ref(q, s))
+        node = eng._cache[blk]
+        check(torch.equal(node[n][:, pages].cpu(), want_q)
+              and bits_equal(torch, node[n + "_scale"][:, pages].cpu(),
+                             want_s),
+              f"{label}: request {rid}'s {blk}/{n} pages on the target are "
+              "not the plain requantization of the source's")
+
+
+def migration_summary(migrations, fleet) -> dict:
+    done = [m for m in migrations if m["completed"]]
+    stall = sum(tn.engine.stats["migration_stall_ticks"]
+                for tn in fleet.tenants.values())
+    return {"attempted": len(migrations), "completed": len(done),
+            "stall_ticks": stall,
+            "stall_per_migration": stall / max(len(done), 1),
+            "ms": [m["ms"] for m in done],
+            "blocks": [m["blocks"] for m in done],
+            "bytes_shipped": [m["bytes_shipped"] for m in done],
+            "gb_per_s": [m["gb_per_s"] for m in done],
+            "save_gb_per_s": [m["save"]["gb_per_s"] for m in done],
+            "restore_gb_per_s": [m["restore"]["gb_per_s"] for m in done]}
+
+
+def phase_migration(torch, run, params, seed, device, workdir, ref, card):
+    """Request live migration under traffic, bf16 then int8 KV pages (the
+    default, bit-exact staging engine ships each chain). bf16: every
+    stream equals the undisturbed fleet's (``ref``), stall ticks per
+    migration <= STALL_BOUND, >= 4 migrations complete. int8: every
+    migrated request's target pages are the plain requantization of the
+    source's; how many streams equal an undisturbed int8 fleet's is
+    logged, not held (a requantization may move a scale by one ulp)."""
+    from repro_torch.serve.engine import Request
+    vocab = run.model.vocab_size
+    res = {}
+    for kv in (None, "int8"):
+        name = kv or "bf16"
+        label = f"migration kv={name}"
+        fleet = make_fleet(run, params, device,
+                           os.path.join(workdir, f"mig_{name}"),
+                           kv_dtype=kv)
+        migrations = []
+        out = drive_fleet(fleet, fleet_requests(Request, vocab, seed),
+                          migration_schedule(torch, fleet, migrations, label,
+                                             int8=kv is not None),
+                          label, arrive_every=ARRIVE_EVERY)
+        summary = migration_summary(migrations, fleet)
+        check(summary["completed"] >= 4,
+              f"{label}: {summary['completed']} migrations completed (< 4)")
+        check(summary["stall_per_migration"] <= STALL_BOUND,
+              f"{label}: {summary['stall_per_migration']:.2f} stall ticks "
+              f"per migration (> {STALL_BOUND})")
+        if kv is None:
+            check(out == ref, f"{label}: a migration changed the tokens "
+                              "(I10)")
+            summary["streams_equal"] = len(out)
+        else:
+            del fleet
+            release(torch)
+            fleet = make_fleet(run, params, device,
+                               os.path.join(workdir, "mig_int8_ref"),
+                               kv_dtype=kv)
+            plain = drive_fleet(fleet, fleet_requests(Request, vocab, seed),
+                                {}, "int8 reference",
+                                arrive_every=ARRIVE_EVERY)
+            summary["streams_equal"] = sum(a == b
+                                           for a, b in zip(out, plain))
+        res[name] = summary
+        del fleet
+        release(torch)
+        for m in migrations:
+            if m["completed"]:
+                log(f"{label}: request {m['rid']} {m['src']} -> {m['dst']} "
+                    f"{m['ms']:.2f} ms, {m['blocks']} blocks, "
+                    f"{m['bytes_shipped']:,} B shipped, "
+                    f"{m['gb_per_s']:.2f} GB/s end to end (save "
+                    f"{m['save']['gb_per_s']:.2f}, restore "
+                    f"{m['restore']['gb_per_s']:.2f} GB/s) | {card}")
+        log(f"{label}: {summary['completed']} of {summary['attempted']} "
+            f"migrations completed, {summary['stall_ticks']} stall ticks, "
+            f"{summary['streams_equal']} of 32 streams equal the "
+            f"undisturbed fleet's | {card}")
+    return res
+
+
+def phase_scale_in(torch, run, params, seed, device, workdir, ref, card):
+    """``scale_in("serve1")`` at fleet step SCALE_IN_AT while it is busy:
+    its queue resubmits to serve0, its in-flight requests live-migrate
+    (>= 1 must), every stream equals the undisturbed fleet's, and the
+    detach frees >= 90% of serve1's device bytes."""
+    from repro_torch.serve.engine import Request
+    fleet = make_fleet(run, params, device, os.path.join(workdir, "scalein"))
+    res = {}
+
+    def scale_in():
+        tn = fleet.tenants["serve1"]
+        check(tn.load > 0, "scale-in: serve1 is not busy at the call")
+        inflight = sum(r is not None for r in tn.engine.active)
+        state = engine_bytes(torch, tn.engine)
+        m0 = allocated(torch, device)
+        t0 = time.perf_counter()
+        fleet.scale_in("serve1")
+        ms = (time.perf_counter() - t0) * 1e3
+        release(torch)
+        m1 = allocated(torch, device)
+        desc = fleet.telemetry.describe()["serve1"]
+        res.update({"ms": ms, "inflight": inflight,
+                    "migrated": desc["migrations_completed"],
+                    "engine_bytes": state, "freed_bytes": m0 - m1,
+                    "status": tn.status})
+        check(desc["migrations_completed"] >= 1,
+              "scale-in: no in-flight request migrated")
+        check(tn.status == "detached", f"scale-in: serve1 is {tn.status}")
+        if device.type == "cuda":
+            check(m0 - m1 >= 0.9 * state,
+                  f"scale-in freed {m0 - m1} of serve1's {state} device "
+                  "bytes (< 90%)")
+
+    out = drive_fleet(fleet, fleet_requests(Request, run.model.vocab_size,
+                                            seed),
+                      {SCALE_IN_AT: scale_in}, "scale-in",
+                      arrive_every=ARRIVE_EVERY)
+    check(out == ref, "scale-in: the drain changed the tokens (I10)")
+    del fleet
+    release(torch)
+    log(f"scale-in of busy serve1 at step {SCALE_IN_AT}: {res['ms']:.2f} ms, "
+        f"{res['migrated']} of {res['inflight']} in-flight requests "
+        f"migrated, freed {res['freed_bytes']:,} of its "
+        f"{res['engine_bytes']:,} device bytes | streams equal the "
+        f"undisturbed fleet's | {card}")
+    return res
+
+
+def phase_recovery(torch, run, params, seed, device, workdir, ref, card):
+    """``recover_engine("serve0")`` at fleet step RECOVER_AT: its live
+    requests re-home onto serve1 and regenerate from their prompts; every
+    stream equals the undisturbed fleet's, and serve0 serves again (the
+    later arrivals land on it and complete)."""
+    from repro_torch.serve.engine import Request
+    fleet = make_fleet(run, params, device, os.path.join(workdir, "recover"))
+    res = {}
+
+    # the engine each request is submitted to after the crash
+    after_crash = {}
+    submit = fleet.submit
+
+    def crash():
+        t0 = time.perf_counter()
+        out = fleet.recover_engine("serve0")
+        res.update({"ms": (time.perf_counter() - t0) * 1e3,
+                    "rehomed": [rid for rid, _ in out["rehomed"]]})
+        check(res["rehomed"], "recovery: serve0 held no live request")
+
+    def noted_submit(r):
+        tid = submit(r)
+        if "ms" in res:
+            after_crash[r.rid] = tid
+        return tid
+    fleet.submit = noted_submit
+    reqs = fleet_requests(Request, run.model.vocab_size, seed)
+    out = drive_fleet(fleet, reqs, {RECOVER_AT: crash}, "recovery",
+                      arrive_every=ARRIVE_EVERY)
+    check(out == ref, "recovery: a re-homed request regenerated other "
+                      "tokens (I10)")
+    after = [rid for rid, tid in after_crash.items() if tid == "serve0"]
+    check(after and all(reqs[rid].done for rid in after),
+          "recovery: serve0 served nothing after its reset")
+    res["served_after"] = len(after)
+    del fleet
+    release(torch)
+    log(f"recovery of serve0 at step {RECOVER_AT}: {res['ms']:.2f} ms, "
+        f"{len(res['rehomed'])} requests re-homed and regenerated "
+        f"bit-identically, serve0 then served {len(after)} requests | "
+        f"{card}")
+    return res
+
+
+def phase_elastic_sweep(torch, run, params, device, card):
+    """The JAX elastic benchmark's protocol (60 ticks, peak 3, max_new 8,
+    slots 8, slo_max_load 16, 8 logical devices; the elastic fleet 1
+    engine + 3 spares over 4 VFs) at full width on the card, then at the
+    smoke width on the CPU: on spike and ramp elastic beats static on
+    rejection and SLO-miss rate, and each trace's action kinds equal the
+    CPU run's (the plan reads loads only). TTFT and ITL in ticks and ms."""
+    from repro_torch.bench.elastic_sweep import bench
+    from repro_torch.configs import make_run_config
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    rows = bench(run, params, device, log=lambda s: None)
+    wall = time.perf_counter() - t0
+    summary = rows[-1]
+    srun = make_run_config("qwen3-0.6b", "decode_32k", smoke=True)
+    cpu_rows = bench(srun, build_model(srun).init(seed=0, device="cpu"),
+                     torch.device("cpu"), log=lambda s: None)
+    check(summary["elastic_beats_static_spike_ramp"],
+          "elastic sweep: elastic does not beat static on spike and ramp "
+          f"({json.dumps({k: v for k, v in summary.items() if 'spike' in k or 'ramp' in k})})")
+    check(summary["actions_per_trace"] == cpu_rows[-1]["actions_per_trace"],
+          f"elastic sweep: actions {summary['actions_per_trace']} != the "
+          f"CPU run's {cpu_rows[-1]['actions_per_trace']}")
+    for r in rows[1:-1]:
+        log(f"elastic sweep {r['trace']}/{r['mode']}: offered {r['offered']}"
+            f", rejected {r['rejection_rate']:.4f}, SLO miss "
+            f"{r['slo_miss_rate']:.4f} | TTFT p50/p95 {r['ttft_ticks_p50']}/"
+            f"{r['ttft_ticks_p95']} ticks, p95 {r['ttft_p95_ms']:.3f} ms | "
+            f"ITL p50/p95 {r['itl_ticks_p50']}/{r['itl_ticks_p95']} ticks, "
+            f"p95 {r['itl_p95_ms']:.3f} ms | "
+            f"{[a['kind'] for a in r['actions']]} | {r['wall_s']:.1f} s | "
+            f"{card}")
+    log(f"elastic sweep: {wall:.1f} s on the card | gates "
+        f"{summary['elastic_beats_static_spike_ramp']}, ITL within 1.1x "
+        f"{summary.get('itl_within_target')} | actions equal the CPU run's "
+        f"| {card}")
+    return {"rows": rows, "wall_s": wall,
+            "cpu_actions": cpu_rows[-1]["actions_per_trace"]}
+
+
+def run_elastic(torch, ops, args, card, report, launches, params=None,
+                ref=None):
+    """The elastic fleet's phases at qwen3-0.6b's full width: request
+    migration (bf16, int8), scale-in under load, engine recovery and the
+    elastic sweep, each with the launch counts set to 0 just before it
+    and added to ``launches`` just after. ``ref`` is the undisturbed
+    fleet's token streams (``phase_svff``'s reference); alone (from a
+    script under ``build/``) it is served here once."""
+    from repro_torch.configs import make_run_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request
+    run = make_run_config("qwen3-0.6b", "decode_32k", seed=args.seed)
+    device = torch.device("cuda")
+    if params is None:
+        params = build_model(run).init(seed=args.seed, device=device)
+    workdir = tempfile.mkdtemp(prefix="elastic_smoke_")
+    try:
+        if ref is None:
+            fleet = make_fleet(run, params, device,
+                               os.path.join(workdir, "ref"))
+            ref = drive_fleet(fleet, fleet_requests(
+                Request, run.model.vocab_size, args.seed), {}, "reference")
+            del fleet
+            release(torch)
+        report["elastic"] = {}
+        for name, phase in (("migration", phase_migration),
+                            ("scale_in", phase_scale_in),
+                            ("recovery", phase_recovery)):
+            ops.reset_launch_counts()
+            report["elastic"][name] = phase(torch, run, params, args.seed,
+                                            device, workdir, ref, card)
+            counts = ops.launch_counts()
+            report["elastic"][name]["launches"] = counts
+            need = ELASTIC_KERNELS if name == "migration" else (
+                "flash_attention", "paged_decode", "fused_sample")
+            for k in need:
+                check(counts[k] > 0, f"{k} was never launched on the "
+                                     f"elastic {name} path")
+            for k in ELASTIC_KERNELS:
+                launches[k] = launches.get(k, 0) + counts[k]
+        ops.reset_launch_counts()
+        report["elastic"]["sweep"] = phase_elastic_sweep(torch, run, params,
+                                                         device, card)
+        counts = ops.launch_counts()
+        report["elastic"]["sweep"]["launches"] = counts
+        for k in ("flash_attention", "paged_decode"):
+            check(counts[k] > 0, f"{k} was never launched on the elastic "
+                                 "sweep")
+        for k in ELASTIC_KERNELS:
+            launches[k] = launches.get(k, 0) + counts[k]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    release(torch)
 
 
 def run_hybrid(torch, ops, args, card, report, launches):
@@ -1823,7 +2176,7 @@ def phase_sim_sweep(torch, card, device, budget_s: float, **rates):
 
 
 def phase_sim_crash(card, device):
-    """The 11 ported crash points x seeds 0-2 x three policies, tenants on
+    """The 15 ported crash points x seeds 0-2 x three policies, tenants on
     ``device``: each cell recovers green (I1-I8 with I4 bit-identical, I9,
     the catalogued outcome, liveness); a red cell raises."""
     from repro_torch.bench.crash_matrix import run_matrix
@@ -2047,8 +2400,8 @@ def main(argv=None) -> int:
     workdir = tempfile.mkdtemp(prefix="svff_smoke_")
     try:
         ops.reset_launch_counts()
-        report["svff"] = phase_svff(torch, run, params, args.seed,
-                                    torch.device("cuda"), workdir)
+        report["svff"], ref = phase_svff(torch, run, params, args.seed,
+                                         torch.device("cuda"), workdir)
         counts = ops.launch_counts()
         report["svff"]["launches"] = counts
         for k in ("flash_attention", "paged_decode", "fused_sample"):
@@ -2067,6 +2420,8 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log_svff(report, card)
+    run_elastic(torch, ops, args, card, report, launches, params=params,
+                ref=ref)
     if args.profile:
         report["profile"] = phase_profile(torch, run, params, args.seed)
     del params

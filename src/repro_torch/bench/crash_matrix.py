@@ -2,9 +2,9 @@
 and verified (mirrors ``benchmarks/crash_matrix.py``: the same report
 keys).
 
-For every ported crash point (``repro_torch.sim.PORTED_POINTS``, the 11
-windows of the core ops; the request-migration and gang windows wait for
-ROADMAP Queue 1 items 12 and 13), for each seed and placement policy,
+For every ported crash point (``repro_torch.sim.PORTED_POINTS``, the 15
+windows of the core ops and request migration; the gang windows wait for
+ROADMAP Queue 1 item 13), for each seed and placement policy,
 the runner kills the manager at that point mid-operation, rebuilds it
 with ``SVFFManager.recover``, and asserts invariants I1-I8, recovery
 idempotence (I9) and the cataloged outcome (rolled back == op never
@@ -72,7 +72,7 @@ def main(argv=None):
     ap.add_argument("--policies", nargs="*",
                     default=["first_fit", "best_fit", "fair_share"])
     ap.add_argument("--points", nargs="*", default=None,
-                    help="crash points (default: the 11 ported ones)")
+                    help="crash points (default: the 15 ported ones)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the tenants' state (cuda, or cpu)")
     ap.add_argument("--out", default=None, help="JSON report path")

@@ -17,12 +17,16 @@ Every reconf returns per-macro-step timings matching Table II rows:
   rescan / remove_vf / change_num_vf / add_vf.
 
 The manager also owns the fault-tolerance paths (migrate a straggler's
-tenant via pause->rebind; detach snapshots double as restart checkpoints).
+tenant via pause->rebind; detach snapshots double as restart checkpoints)
+and request-granular live migration (``migrate_request``: one in-flight
+request's KV block chain shipped between two serving tenants through
+the staging engine, journaled, with its four crash windows recovered).
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: request-granular migration (``migrate_request``, Queue 1
-item 12) and the gang ops of pipeline-parallel engines (``attach_group``,
-``detach_group``, ``reshape``, Queue 1 item 13), with their recovery.
+ROADMAP item: the gang ops of pipeline-parallel engines
+(``attach_group``, ``detach_group``, ``reshape``, Queue 1 item 13), with
+their recovery, and cross-host migration (``migrate_request(...,
+dst_host=...)``, the federation, Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -48,9 +52,8 @@ from repro_torch.core.vf import VFState, VirtualFunction
 
 __all__ = ["ManagerError", "SVFFManager", "UnknownTenantError"]
 
-_REQUEST_MIGRATION = ("request-granular migration is not ported yet "
-                      "(ROADMAP Queue 1 item 12, after the engine's request "
-                      "migration, item 5)")
+_FEDERATION = ("cross-host request migration (dst_host) is not ported yet "
+               "(ROADMAP Queue 1 item 9: federation)")
 _GANG = ("gang ops of pipeline-parallel engines are not ported yet "
          "(ROADMAP Queue 1 item 13, with the pipeline-parallel engines, "
          "item 8)")
@@ -418,8 +421,84 @@ class SVFFManager:
 
     def migrate_request(self, src, dst, rid: Optional[int] = None, *,
                         dst_host: Optional[str] = None) -> dict:
-        """Request-granular live migration of one in-flight request."""
-        raise NotImplementedError(_REQUEST_MIGRATION)
+        """Request-granular live migration: ship ONE in-flight request's
+        KV block chain from ``src`` to ``dst`` through the staging
+        engine and resume it there token-identically (I10). The paper's
+        pause/migrate story pushed down from VF granularity to request
+        granularity.
+
+        Ordering is chosen so every step before the source release is
+        non-destructive: peek (pure) -> WAL begin -> extract (freeze +
+        copy) -> ship -> admit on target -> release on source -> commit.
+        A clean failure anywhere (typically target ``CacheExhausted``)
+        rolls back via ``_resolve_failed``: the target admitted nothing,
+        the source thaws the frozen slot and keeps serving the request —
+        the caller may simply retry. Crash windows are catalogued in
+        ``sim/chaos.py`` (mid_extract / mid_ship / after_target_admit /
+        before_source_free); ``recover`` rolls forward iff the target
+        owns the request (invariant I13: live on exactly one engine,
+        source pages freed iff target committed). The shipped state is
+        restored onto the target's device."""
+        if dst_host is not None:
+            raise NotImplementedError(_FEDERATION)
+        t0 = time.perf_counter()
+        for role, tn in (("source", src), ("target", dst)):
+            if getattr(tn, "status", None) != "running":
+                raise ManagerError(
+                    f"migrate_request: {role} {tn.tid} is "
+                    f"{getattr(tn, 'status', None)}, not running")
+        if src.tid == dst.tid:
+            raise ManagerError(
+                f"migrate_request: source and target are both {src.tid}")
+        for tn, attr in ((src, "extract_request"), (dst, "admit_migrated")):
+            if not hasattr(tn, attr):
+                raise ManagerError(
+                    f"migrate_request: {tn.tid} lacks the request-"
+                    f"migration protocol ({attr})")
+        rid = src.peek_migratable(rid)
+        if rid is None:
+            raise ManagerError(
+                f"migrate_request: {src.tid} has no migratable in-flight "
+                "request")
+        entry = self.journal.begin("migrate_request", src.tid,
+                                   vf_id=src.vf_id, dst=dst.tid, rid=rid)
+        mig_key = f"{src.tid}/mig:{rid}"
+        try:
+            payload = src.extract_request(rid)
+            if payload is None:
+                raise ManagerError(
+                    f"migrate_request: {src.tid} lost request {rid} "
+                    "between peek and extract")
+            # crash window: chain gathered, slot frozen, nothing
+            # destructive yet -> recovery rolls BACK
+            crashpoint("migrate_mid_extract")
+            shipped = self.staging.save(payload["state"], tenant=mig_key)
+            # crash window: descriptor pipeline mid-flight, target
+            # untouched -> recovery rolls BACK
+            crashpoint("migrate_mid_ship")
+            state = self.staging.restore(
+                shipped, dst.shardings_for(self.pool.vfs.get(dst.vf_id)))
+            dst.admit_migrated(payload, state)
+            # crash window: target committed, source still frozen ->
+            # recovery rolls FORWARD (source releases its copy)
+            crashpoint("migrate_after_target_admit")
+            # crash window: same predicate, last instant before the only
+            # destructive step -> recovery rolls FORWARD
+            crashpoint("migrate_before_source_free")
+            src.release_request(rid)
+            self.staging.clear(mig_key)
+            self.journal.commit(entry)
+        except InjectedCrash:
+            raise                      # a crash leaves the intent pending
+        except Exception:
+            # clean failure (target exhausted, admission rejected): the
+            # recovery predicate sees the target does not own the request
+            # and rolls back — frozen slot thaws, source keeps serving
+            self._resolve_failed(entry)
+            raise
+        return {"rid": rid, "src": src.tid, "dst": dst.tid,
+                "blocks": payload.get("chain_len", 0),
+                "migrate_request_s": time.perf_counter() - t0}
 
     # ------------------------------------------------------------- gang ops
     def attach_group(self, lead) -> PhaseTimings:
@@ -625,8 +704,26 @@ class SVFFManager:
                 self.journal.abort(seq, recovered="rollback")
 
         elif op == "migrate_request":
-            raise NotImplementedError(f"recovery of entry {seq}: "
-                                      f"{_REQUEST_MIGRATION}")
+            # request-granular migration. Predicate: the TARGET owns the
+            # request => the admit committed, roll FORWARD (source frees
+            # its copy); otherwise roll BACK (target drops any partial
+            # admission, source thaws the frozen slot and keeps serving).
+            # Every callee is idempotent, so double recovery (I9) holds.
+            rid = e["details"].get("rid")
+            dtn = self.tenants.get(e["details"].get("dst"))
+            self.staging.clear(f"{tid}/mig:{rid}")
+            dst_owns = (dtn is not None and hasattr(dtn, "owns_request")
+                        and dtn.owns_request(rid))
+            if dst_owns:
+                if tn is not None and hasattr(tn, "release_request"):
+                    tn.release_request(rid)
+                self.journal.commit(seq, recovered="forward")
+            else:
+                if dtn is not None and hasattr(dtn, "abort_incoming"):
+                    dtn.abort_incoming(rid)
+                if tn is not None and hasattr(tn, "abort_migration"):
+                    tn.abort_migration(rid)
+                self.journal.abort(seq, recovered="rollback")
 
         elif op in ("attach_group", "detach_group", "reshape"):
             raise NotImplementedError(f"recovery of entry {seq}: {_GANG}")

@@ -96,10 +96,17 @@ def paged_decode_ref(q, k_pages, v_pages, tables, pos):
 def kv_quant_ref(x):
     """Symmetric int8 quantization of a KV tensor over its last (hd) axis.
     x: (..., hd) float -> (q int8 same shape, scale fp32 shape[:-1]).
-    scale = max|x| / 127 per (page-row, head), so a later dequant-requant
-    round-trip is exact (q_max lands on 127 by construction)."""
+    scale = max(max|x| * INV127, 1e-12) per (page-row, head) and q =
+    round(x / scale), half to even. The JAX engine quantizes inside
+    ``jit`` (its decode step and its admission scatter), where XLA turns
+    ``max|x| / 127.0`` into a multiply by float32(1/127): the port
+    multiplies by the same constant, on the host and on the card, so its
+    scales are the JAX engine's bit for bit. A dequant -> requant round
+    trip can move a scale by one ulp under this rule (the reference
+    engine's too), so migrated int8 pages are the requantized bytes, not
+    the source's."""
     xf = x.to(torch.float32)
-    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    scale = (xf.abs().amax(dim=-1) * INV127).clamp_min(1e-12)
     q = torch.round(xf / scale[..., None]).clamp(-127, 127)
     return q.to(torch.int8), scale
 

@@ -4,13 +4,18 @@ bare or as a fleet of engine tenants under the SVFF manager (mirrors
 
 Serves synthetic requests and reports latency/throughput. Runs on the
 card unless ``--device cpu`` is given. The paged KV layout is the only
-one ported, so it is on with or without ``--paged``. Options the port
-does not have yet are refused when given: ``--prefill-chunk`` (chunked
-prefill), and the fleet's ``--autoscale`` and ``--spares`` (the elastic
-control plane).
+one ported, so it is on with or without ``--paged``. ``--prefill-chunk
+C`` prefills prompts longer than C tokens C at a time (all-attention
+stacks). ``--fleet N`` serves through a ``ServeFleet``; adding
+``--autoscale`` turns on the elastic control plane — one
+``autoscale_step`` per drive-loop tick plans and executes scale-out /
+scale-in / rebalance from live telemetry, with ``--spares`` warm parked
+standby engines for pause-free scale-out.
 
     python -m repro_torch.launch.serve --paged
     python -m repro_torch.launch.serve --fleet 2 --slo-max-load 4
+    python -m repro_torch.launch.serve --fleet 1 --autoscale --spares 2 \
+        --slo-max-load 4 --requests 16
     python -m repro_torch.launch.serve --arch jamba-1.5-large-398b-1p-dense
 
 The synthetic prompts are 4-11 tokens, inside the hybrid stack's SSM
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import SHAPES, list_archs, make_run_config
+from repro_torch.core.autoscaler import AutoscaleConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Request, ServeEngine
@@ -50,18 +56,16 @@ def main(argv=None):
                          "ported: always on)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="chunked prefill (not ported yet: refused)")
+                    help="chunked prefill (attention stacks; 0 = whole)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--fleet", type=int, default=0,
                     help="serve through a ServeFleet of N engine tenants"
                          " under the SVFFManager (0 = bare engine)")
     ap.add_argument("--autoscale", action="store_true",
-                    help="fleet mode: the elastic control plane (not "
-                         "ported yet: refused)")
-    ap.add_argument("--spares", type=int, default=None,
-                    help="fleet mode: parked standby engines (not ported "
-                         "yet: refused)")
+                    help="fleet mode: enable the elastic control plane")
+    ap.add_argument("--spares", type=int, default=1,
+                    help="fleet mode: warm parked standby engines")
     ap.add_argument("--slo-max-load", type=int, default=None,
                     help="fleet mode: per-engine admission bound "
                          "(default 64)")
@@ -69,20 +73,10 @@ def main(argv=None):
                     help="torch device (cuda, or cpu for the plain versions)")
     args = ap.parse_args(argv)
 
-    elastic = [f for f, on in (("--autoscale", args.autoscale),
-                               ("--spares", args.spares is not None)) if on]
-    if elastic:
-        raise NotImplementedError(
-            f"{', '.join(elastic)}: the autoscaler and elastic fleet are "
-            "not ported yet (ROADMAP Queue 1 item 11)")
     if args.slo_max_load is not None and args.fleet <= 0:
         raise NotImplementedError(
             "--slo-max-load: the admission bound exists in fleet mode only "
             "(give --fleet N)")
-    if args.prefill_chunk:
-        raise NotImplementedError(
-            "--prefill-chunk: chunked prefill is not ported yet (ROADMAP "
-            "Queue 1 item 5)")
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 logits in fp32
     run = make_run_config(args.arch, args.shape, smoke=args.smoke)
@@ -92,13 +86,14 @@ def main(argv=None):
     if args.fleet > 0:
         return _serve_fleet(run, params, reqs, args, device)
     eng = ServeEngine(run, params, device=device, slots=args.slots,
-                      max_len=args.max_len, page_size=args.page_size)
+                      max_len=args.max_len, page_size=args.page_size,
+                      prefill_chunk=args.prefill_chunk)
     for r in reqs:
         eng.submit(r)
 
     t0 = time.perf_counter()
     steps = 0
-    while (eng.step() or eng.queue) and steps < 10_000:
+    while (eng.step() or eng.queue or eng._jobs) and steps < 10_000:
         steps += 1
     wall = time.perf_counter() - t0
     toks = sum(len(r.out) for r in reqs)
@@ -122,17 +117,27 @@ def _requests(run, args) -> list:
 
 
 def _serve_fleet(run, params, reqs, args, device) -> int:
+    autoscale = None
+    if args.autoscale:
+        autoscale = AutoscaleConfig(
+            hysteresis=1, cooldown=2,
+            max_engines=args.fleet + args.spares, pinned=("serve0",))
     workdir = tempfile.mkdtemp(prefix="svff_serve_")
     try:
         fleet = ServeFleet(
             run, params, num_engines=args.fleet, device=device,
-            num_devices=max(2 * args.fleet, 4), slots=args.slots,
-            max_len=args.max_len, page_size=args.page_size,
+            num_devices=max(2 * (args.fleet + args.spares), 4),
+            num_vfs=args.fleet + (args.spares if args.autoscale else 0),
+            slots=args.slots, max_len=args.max_len,
+            page_size=args.page_size, prefill_chunk=args.prefill_chunk,
             slo_max_load=(64 if args.slo_max_load is None
-                          else args.slo_max_load), workdir=workdir)
+                          else args.slo_max_load), autoscale=autoscale,
+            spare_engines=args.spares if args.autoscale else 0,
+            workdir=workdir)
         t0 = time.perf_counter()
         pending = list(reqs)
         steps = 0
+        actions = []
         while (pending or any(tn.load for tn in fleet.tenants.values())) \
                 and steps < 10_000:
             retry = []
@@ -142,6 +147,11 @@ def _serve_fleet(run, params, reqs, args, device) -> int:
                 except RequestRejected:
                     retry.append(r)     # side-effect-free: resubmit later
             pending = retry
+            if autoscale is not None:
+                act = fleet.autoscale_step()
+                if act is not None:
+                    actions.append({"step": steps, "kind": act.kind,
+                                    "reason": act.reason})
             fleet.step()
             steps += 1
         res = fleet.drain()
@@ -150,12 +160,15 @@ def _serve_fleet(run, params, reqs, args, device) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     toks = sum(len(r.out) for r in reqs)
-    out = {"mode": "fleet", "engines": args.fleet,
+    out = {"mode": "fleet", "engines_initial": args.fleet,
+           "engines_final": sum(1 for tn in fleet.tenants.values()
+                                if tn.status == "running"),
            "requests": len(reqs), "completed": sum(r.done for r in reqs),
            "drained": res.drained, "fleet_steps": steps,
            "generated_tokens": toks, "wall_s": wall,
            "tokens_per_s": toks / wall,
            "rejected_submissions": fleet.rejected_total,
+           "autoscale_actions": actions,
            "journal_pending": journal_pending}
     print(json.dumps(out))
     return 0 if out["completed"] == len(reqs) else 1

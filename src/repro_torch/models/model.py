@@ -1,10 +1,10 @@
 """Model orchestration for stacks of attention and mamba blocks: the
 attention mixer, block dispatch by kind, the FFN, a Python loop over the
-period-stacked layers, the train-mode forward and loss, and the prefill
-and decode entry points (mirrors ``repro.models.model``). While autograd
-records, the train mode runs the plain attention and SSM scan (the CUDA
-kernels compute forward only) and, unless ``run.sharding.remat`` is
-"none", recomputes each period in the backward
+period-stacked layers, the train-mode forward and loss, and the prefill,
+chunked-prefill and decode entry points (mirrors ``repro.models.model``).
+While autograd records, the train mode runs the plain attention and SSM
+scan (the CUDA kernels compute forward only) and, unless
+``run.sharding.remat`` is "none", recomputes each period in the backward
 (``torch.utils.checkpoint``). Decode runs over the paged KV pool with
 per-slot positions (the serve engine), or over a dense cache with one
 position for the whole batch (``make_serve_steps``'s generate path).
@@ -122,14 +122,21 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, cdt, mode, cache, positions,
             cache["v"][pids, offs] = v[:, 0].to(cache["v"].dtype)
             o = paged_decode_attention(q, cache["k"], cache["v"], tables, pos,
                                        backend=backend)
-    elif mode in ("train", "prefill"):
+    elif mode == "prefill_chunk":
+        # chunked-prefill continuation: this chunk's KV lands at offset
+        # ``pos`` (a 0-d tensor) of the dense staging cache, in place, and
+        # the chunk attends causally against everything cached so far —
+        # the plain attention, as JAX's traced offset takes it (the not-
+        # yet-written tail and any chunk padding sit past every query)
+        at = pos.to(torch.int64) + torch.arange(S, device=x.device)
+        cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
+        o = attention(q, cache["k"], cache["v"], causal=True, q_offset=pos,
+                      backend=backend)
+    else:                                   # train / prefill
         o = attention(q, k, v, causal=causal, backend=backend)
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
-    else:
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (chunked prefill: ROADMAP "
-            "deferred serve-engine parts)")
     out = o.reshape(B, S, H * hd).to(cdt) @ p["wo"].to(cdt)
     return out, new_cache
 
@@ -334,6 +341,32 @@ class Model:
         are computed: they are all the serve path reads."""
         x, _, cache = self._hidden(params, batch, "prefill")
         return cache, self._logits(params, x[:, -1:])[:, 0]
+
+    def prefill_chunk(self, params, cache, tokens, offset):
+        """One chunk of a chunked prefill: process ``tokens`` (B,C) at
+        absolute positions [offset, offset+C), appending KV into the dense
+        staging ``cache`` (in place) and attending causally against every
+        earlier chunk. ``offset`` is a 0-d int tensor. Returns (cache,
+        logits (B,C,V)) — the caller picks the logits row of the last
+        REAL token (trailing chunk padding yields garbage rows that are
+        never used, and the padded KV tail is never attended).
+
+        Only all-attention stacks support this (recurrent blocks would
+        need their chunk-boundary state threaded); the engine gates on
+        ``block_pattern``."""
+        cfg, run = self.cfg, self.run
+        if any(kind != ATTN for kind in cfg.block_pattern):
+            raise ValueError(f"{cfg.name}: chunked prefill needs an "
+                             "all-attention stack")
+        offset = torch.as_tensor(offset, dtype=torch.int64)
+        x = self._embed(params, tokens, _dt(run.precision.compute))
+        offset = offset.to(x.device)
+        positions = offset + torch.arange(x.shape[1], device=x.device)
+        x, _, cache = run_stack(cfg, run, params["decoder"]["layers"], x,
+                                "prefill_chunk", cache=cache,
+                                positions=positions, pos=offset)
+        x = rms_norm(x, params["decoder"]["final_norm"], cfg.norm_eps)
+        return cache, self._logits(params, x)
 
     def decode_step(self, params, cache, tokens, pos, *, tables=None,
                     active=None):

@@ -14,12 +14,21 @@ rejects a prompt longer than the SSM chunk that is not a multiple of it
 runs on the device (``kernels/csrc/fused_sample.cu``) and only token ids
 come back. Sampling is per-request temperature / top-k with a
 counter-seeded RNG — a request's tokens are a pure function of (request,
-logits), so a pause mid-request cannot change its output (invariant I10).
+logits), so a pause or a migration mid-request cannot change its output
+(invariant I10).
 
-Not ported yet (ROADMAP, deferred serve-engine parts): the dense
-per-slot ring layout, chunked prefill of an all-attention stack (any
-other stack turns it off, as the JAX engine does), and request
-migration; each raises ``NotImplementedError``.
+Prefill is chunked when ``prefill_chunk > 0`` on an all-attention stack
+(any other stack turns it off, as the JAX engine does): one prompt chunk
+is processed per engine step into a dense staging cache, interleaved
+with the running batch's decode, through the plain attention (a chunk's
+K is the whole staging cache, as in JAX). Request live migration ships
+one in-flight request's KV block chain to another engine
+(``extract_request`` -> ``admit_migrated`` -> ``release_request``, driven
+by ``SVFFManager.migrate_request``); a frozen slot goes to the kernels as
+an inactive one.
+
+Not ported yet: the dense per-slot ring layout (ROADMAP Queue 1 item 5),
+which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,13 +49,12 @@ from repro_torch.models.model import build_model
 from repro_torch.serve.paged import (BlockAllocator, CacheExhausted,
                                      RequestRejected, admit_kv,
                                      apply_page_moves, copy_page,
-                                     init_paged_cache, paged_cache_supported,
+                                     extract_kv, init_paged_cache,
+                                     paged_cache_supported,
                                      reset_slot_state)
-from repro_torch.train.step import make_decode_step, make_serve_steps
+from repro_torch.train.step import (make_decode_step, make_prefill_chunk,
+                                    make_serve_steps)
 from repro_torch.tree import tree_to
-
-_DEFERRED = ("is not ported yet (ROADMAP: deferred serve-engine parts — "
-             "dense layout, chunked prefill, migration)")
 
 
 @dataclasses.dataclass
@@ -84,6 +92,17 @@ class DrainResult(list):
         self.drained = drained
 
 
+@dataclasses.dataclass
+class _PrefillJob:
+    """An in-progress chunked prefill occupying a slot (not yet decoding)."""
+    req: Request
+    slot: int
+    cache: dict                        # dense (B=1) staging cache
+    plen: int
+    offset: int = 0
+    pages: Optional[list] = None       # pages reserved at admission
+
+
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
@@ -97,14 +116,15 @@ class ServeEngine:
                  fused_sampling: bool = False):
         self.device = resolve_device(device)
         if not paged:
-            raise NotImplementedError(f"the dense cache layout {_DEFERRED}")
+            raise NotImplementedError(
+                "the dense cache layout is not ported yet (ROADMAP Queue 1 "
+                "item 5: the dense per-slot ring layout)")
         # chunked prefill needs per-chunk attention continuation, which
         # only an all-attention stack has; for any other stack the JAX
         # engine turns it off (recurrent blocks would need their
         # chunk-boundary state threaded through), and so does the port
-        if prefill_chunk and all(b == ATTN for b in run.model.block_pattern):
-            raise NotImplementedError(f"chunked prefill {_DEFERRED}")
-        self.prefill_chunk = 0
+        chunkable = all(b == ATTN for b in run.model.block_pattern)
+        self.prefill_chunk = prefill_chunk if chunkable else 0
         self.run = run
         self.model = build_model(run)
         self._set_params(params)
@@ -116,8 +136,14 @@ class ServeEngine:
         self.last_token = np.zeros((slots,), np.int32)
         self.paused = False
         self._finished: list[Request] = []              # completed requests
-        #: cache-pressure / sharing counters, cumulative over the
-        #: engine's lifetime
+        self._jobs: dict[int, _PrefillJob] = {}         # slot -> prefill job
+        #: rid -> slot frozen by an in-flight outbound migration. A frozen
+        #: slot keeps its Request/pages/KV (extraction copies, never
+        #: moves), is skipped by decode, and thaws on release (commit) or
+        #: abort — which is why an aborted migration is side-effect-free.
+        self._migrating: dict[int, int] = {}
+        #: cache-pressure / sharing / migration counters, read by the
+        #: fleet's telemetry; cumulative over the engine's lifetime
         self.stats = collections.Counter()
         # per-step dirty set: which export_state keys changed since the
         # last export (params stay the same tensors across exports)
@@ -145,6 +171,7 @@ class ServeEngine:
         self._prefill, _ = make_serve_steps(run)
         self._decode = make_decode_step(run, paged=True,
                                         fused=self.fused_sampling)
+        self._chunk = make_prefill_chunk(run)
         self._cache = None                              # lazy page pools
 
     # -- cache plumbing -------------------------------------------------------
@@ -224,7 +251,7 @@ class ServeEngine:
         finishes at prefill does NOT consume the slot — it is re-offered
         to the next queued request in the same pass."""
         for s in range(self.slots):
-            if self.active[s] is not None:
+            if self.active[s] is not None or s in self._jobs:
                 continue
             while self.queue:
                 req = self.queue.popleft()
@@ -245,6 +272,10 @@ class ServeEngine:
                         self.queue.appendleft(req)    # keep arrival order
                         return
                 self._ensure_cache()
+                if self.prefill_chunk and len(req.prompt) > \
+                        self.prefill_chunk:
+                    self._start_job(s, req, pages)
+                    break                         # slot taken by the job
                 if self._prefill_full(s, req, pages):
                     break                         # slot now decoding
                 # finished at prefill: slot re-offered to the next request
@@ -263,6 +294,67 @@ class ServeEngine:
         self._place(slot, req, req_cache, len(req.prompt), pages)
         self.last_token[slot] = tok
         return True
+
+    # -- chunked prefill ------------------------------------------------------
+    def _start_job(self, slot: int, req: Request, pages):
+        C = self.prefill_chunk
+        plen = len(req.prompt)
+        cap = C * _next_pow2(math.ceil(plen / C))   # bucketed staging len
+        shape = dataclasses.replace(self.run.shape, seq_len=cap,
+                                    global_batch=1)
+        self._jobs[slot] = _PrefillJob(
+            req=req, slot=slot,
+            cache=self.model.init_cache(shape, device=self.device),
+            plen=plen, pages=pages)
+
+    def _advance_prefill(self):
+        """Process ONE chunk of the oldest pending prefill job — prefill
+        work is batched into the decode schedule instead of stalling it.
+        The offset rides in as a 0-d tensor, as JAX's traced offset, so
+        every chunk (the first too) takes the plain attention."""
+        if not self._jobs:
+            return
+        slot, job = next(iter(self._jobs.items()))
+        C = self.prefill_chunk
+        req = job.req
+        real = min(C, job.plen - job.offset)
+        chunk = np.zeros((C,), np.int64)
+        chunk[:real] = np.asarray(req.prompt[job.offset:job.offset + real],
+                                  np.int64)
+        job.cache, logits = self._chunk(
+            self._cparams, job.cache, self._tensor(chunk, torch.int64)[None],
+            self._tensor(job.offset, torch.int64))
+        job.offset += real
+        if job.offset < job.plen:
+            return
+        del self._jobs[slot]
+        tok = self._emit(req, logits[0, real - 1].cpu().numpy())
+        if req.done:                         # finished at prefill
+            self.alloc.free(req.rid)
+            return
+        req_cache = self._slice_kv(job.cache, job.plen)
+        self._place(slot, req, req_cache, job.plen, job.pages)
+        self.last_token[slot] = tok
+
+    @staticmethod
+    def _slice_kv(cache: dict, L: int) -> dict:
+        """The staging cache's first ``L`` KV rows (the prompt's)."""
+        return {blk: {name: (leaf[:, :, :L] if name in ("k", "v") else leaf)
+                      for name, leaf in node.items()}
+                for blk, node in cache.items()}
+
+    def abort_prefill_jobs(self):
+        """Push every in-flight chunked-prefill job back onto the queue
+        (front, original arrival order) and release its pages. A job has
+        emitted NO tokens yet (the first token is sampled at completion)
+        and prefill is deterministic, so restarting it after a pause is
+        token-identical — a suspend keeps export_state a COMPLETE device-
+        state snapshot without staging half-built staging caches."""
+        for slot, job in reversed(list(self._jobs.items())):
+            if job.pages is not None:
+                self.alloc.free(job.req.rid)
+            self.queue.appendleft(job.req)    # dict is admission-ordered
+        self._jobs.clear()
 
     def _place(self, slot: int, req: Request, req_cache, logical_len: int,
                pages):
@@ -326,14 +418,24 @@ class ServeEngine:
         return min(_next_pow2(max(need, 1)), self.tables.shape[1])
 
     def step(self) -> int:
-        """One engine iteration: admit + one batched decode over the
-        ACTIVE slots (inactive slots are masked out: their pages stay
+        """One engine iteration: admit + one prefill chunk + one batched
+        decode over the ACTIVE slots (inactive slots — idle or frozen by
+        an in-flight migration — are masked out: their pages stay
         untouched and they add no attention work). Returns the number of
         active slots (0 = idle). No-op while paused."""
         if self.paused:
             return 0
         self._admit()
-        act = [s for s in range(self.slots) if self.active[s] is not None]
+        self._advance_prefill()
+        frozen = set(self._migrating.values())
+        if frozen:
+            # a synchronous migration freezes and thaws within one manager
+            # op, so this only ticks when a caller holds the freeze across
+            # steps (or a crash did): the measured migration stall
+            self.stats["migration_stall_ticks"] += sum(
+                1 for s in frozen if self.active[s] is not None)
+        act = [s for s in range(self.slots)
+               if self.active[s] is not None and s not in frozen]
         if not act:
             return 0
         self._ensure_cache()
@@ -441,7 +543,8 @@ class ServeEngine:
             self.alloc.free(rid)
         self.tables[slot, :] = 0
         self._dirty.add("tables")
-        reset_slot_state(self._cache, slot)
+        if self._cache is not None:     # a paused engine holds no pools
+            reset_slot_state(self._cache, slot)
         self.pos[slot] = -1
 
     def defragment(self) -> dict:
@@ -456,15 +559,178 @@ class ServeEngine:
                 pages = self.alloc.pages_of(req.rid)
                 self.tables[s, :] = 0
                 self.tables[s, :len(pages)] = pages
+        for job in self._jobs.values():
+            if job.pages is not None:
+                job.pages = self.alloc.pages_of(job.req.rid)
         return moves
 
-    # -- request migration (not ported yet) -----------------------------------
-    def peek_migratable(self, rid: Optional[int] = None):
-        raise NotImplementedError(f"request migration {_DEFERRED}")
+    # -- request migration (KV block shipping) --------------------------------
+    # Protocol driven by SVFFManager.migrate_request: peek -> journal ->
+    # extract (freeze, copy) -> ship -> admit on target -> release here.
+    # Everything before release is non-destructive, so any abort (target
+    # CacheExhausted, crash rollback) just thaws the frozen slot and the
+    # source keeps serving the request.
+    def peek_migratable(self, rid: Optional[int] = None) -> Optional[int]:
+        """Pure query: the rid ``extract_request`` would pick — first
+        active decoding slot in slot order (or ``rid`` if it is one).
+        None when nothing is migratable (idle, or already mid-
+        migration)."""
+        frozen = set(self._migrating.values())
+        for s in range(self.slots):
+            req = self.active[s]
+            if req is None or s in frozen:
+                continue
+            if rid is None or req.rid == rid:
+                return req.rid
+        return None
 
-    extract_request = admit_migrated = release_request = peek_migratable
-    abort_migration = abort_incoming = owns_request = peek_migratable
-    reset_after_crash = peek_migratable
+    def extract_request(self, rid: Optional[int] = None) -> Optional[dict]:
+        """Freeze one in-flight request and gather everything the target
+        needs to resume it: the Request object, its KV block chain as a
+        dense strip (``extract_kv``), its slot's recurrent state, decode
+        position and last sampled token, and the prompt tokens recorded
+        by the allocator (so the target can re-share trie pages). The
+        source keeps its pages — nothing destructive happens here."""
+        rid = self.peek_migratable(rid)
+        if rid is None:
+            return None
+        slot = next(s for s in range(self.slots)
+                    if self.active[s] is not None
+                    and self.active[s].rid == rid)
+        self._ensure_cache()
+        chain = self.alloc.pages_of(rid)
+        state = extract_kv(self._cache, chain, self.page_size, slot)
+        self._migrating[rid] = slot
+        return {"rid": rid, "req": self.active[slot], "slot": slot,
+                "chain_len": len(chain), "page_size": self.page_size,
+                "tokens": self.alloc.tokens_of(rid),
+                "pos": int(self.pos[slot]),
+                "last": int(self.last_token[slot]),
+                "state": state}
+
+    def admit_migrated(self, payload: dict, state) -> int:
+        """Admit a migrated request into a free slot: allocate a same-
+        length chain (re-sharing trie pages for FULL prompt pages only —
+        the partly-filled last prompt page may already hold this
+        request's decode rows, which a sibling's registered page does
+        not), scatter the shipped strip via ``admit_kv`` skipping the
+        re-shared head (on this engine's device, wherever the strip came
+        back from staging), and resume at the shipped pos/last_token.
+        Raises ``CacheExhausted`` (clean, side-effect-free) when no slot
+        or not enough pages after one defragment. Idempotent: re-
+        admitting an owned rid is a no-op (recovery roll-forward
+        replays)."""
+        rid = payload["rid"]
+        if self.owns_request(rid):
+            return next(s for s, r in enumerate(self.active)
+                        if r is not None and r.rid == rid)
+        slot = next((s for s in range(self.slots)
+                     if self.active[s] is None and s not in self._jobs),
+                    None)
+        if slot is None:
+            raise CacheExhausted(
+                f"request {rid}: no free slot on migration target")
+        n = payload["chain_len"]
+        if n > self.tables.shape[1]:
+            raise RequestRejected(
+                f"request {rid}: chain of {n} pages exceeds target table "
+                f"width {self.tables.shape[1]}")
+        if payload["page_size"] != self.page_size:
+            raise RequestRejected(
+                f"request {rid}: page_size {payload['page_size']} != "
+                f"target {self.page_size}")
+        tokens = payload.get("tokens")
+        share = None
+        if self.share_prefix and tokens:
+            share = tokens[:self.page_size * (len(tokens)
+                                              // self.page_size)] or None
+        try:
+            pages = self.alloc.allocate(rid, n, tokens=share)
+        except CacheExhausted:
+            self.stats["cache_exhausted"] += 1
+            self.defragment()
+            self.stats["defrag_events"] += 1
+            pages = self.alloc.allocate(rid, n, tokens=share)
+        shared = self.alloc.shared_count(rid)
+        self.stats["shared_page_hits"] += shared
+        self._ensure_cache()
+        admit_kv(self._cache, state, pages, self.page_size, slot,
+                 skip_pages=shared)
+        row = self.tables[slot]
+        row[:] = 0
+        row[:len(pages)] = pages
+        self.active[slot] = payload["req"]
+        self.pos[slot] = payload["pos"]
+        self.last_token[slot] = payload["last"]
+        if self.share_prefix and share:
+            self.alloc.register_prefix(rid)
+        self.stats["migrations_in"] += 1
+        self.stats["migration_blocks_shipped"] += n - shared
+        self._dirty |= {"cache", "pos", "last_token", "tables"}
+        return slot
+
+    def release_request(self, rid: int) -> bool:
+        """Commit side of an outbound migration: the target owns the
+        request now, so free our pages and recycle the frozen slot.
+        Idempotent (False when rid is not frozen here) — recovery may
+        roll the same release forward twice."""
+        slot = self._migrating.pop(rid, None)
+        if slot is None:
+            return False
+        self.active[slot] = None
+        self._reset_slot(slot, rid=rid)
+        self.stats["migrations_out"] += 1
+        self._dirty |= {"cache", "pos", "tables"}
+        return True
+
+    def abort_migration(self, rid: int) -> bool:
+        """Abort side: thaw the frozen slot. The request never stopped
+        being ours (pages, KV, Request object all untouched), so decode
+        resumes next step exactly where it froze."""
+        return self._migrating.pop(rid, None) is not None
+
+    def abort_incoming(self, rid: int):
+        """Target-side rollback: drop any (possibly partial) admission of
+        ``rid``. Idempotent no-op when we never admitted it."""
+        if rid not in self.alloc.owners():
+            return
+        for s, req in enumerate(self.active):
+            if req is not None and req.rid == rid:
+                self.active[s] = None
+                self._reset_slot(s, rid=rid)
+                return
+        self.alloc.free(rid)
+
+    def owns_request(self, rid: int) -> bool:
+        """Commit predicate for migration recovery: does this engine hold
+        ``rid`` live (an active slot, a prefill job, the queue, or pages
+        in its allocator)?"""
+        if any(r is not None and r.rid == rid for r in self.active):
+            return True
+        if any(j.req.rid == rid for j in self._jobs.values()):
+            return True
+        if any(r.rid == rid for r in self.queue):
+            return True
+        return rid in self.alloc.owners()
+
+    def reset_after_crash(self):
+        """Model an engine-process crash: device state (page pools, block
+        tables) is lost, every queued/active request is gone. The fleet
+        re-homes the victim's requests onto siblings BEFORE calling this
+        (``ServeFleet.recover_engine``). The pools' device memory goes
+        back to the allocator; the engine is empty but servable again (its
+        pools are rebuilt at the next admission)."""
+        self.queue.clear()
+        self._jobs.clear()
+        self._finished.clear()
+        self._migrating.clear()
+        self.active = [None] * self.slots
+        self.pos = np.full((self.slots,), -1, np.int64)
+        self.last_token = np.zeros((self.slots,), np.int32)
+        self._cache = None
+        self.alloc = BlockAllocator(self.num_pages, self.page_size)
+        self.tables = np.zeros_like(self.tables)
+        self._dirty |= {"params", "cache", "pos", "last_token", "tables"}
 
     def run_until_idle(self, max_steps: int = 10_000) -> DrainResult:
         """Drive the engine until queue and slots drain; returns every
@@ -474,9 +740,9 @@ class ServeEngine:
         for _ in range(max_steps):
             if self.paused:
                 break
-            if self.step() == 0 and not self.queue:
+            if self.step() == 0 and not self.queue and not self._jobs:
                 break
-        pending = (bool(self.queue)
+        pending = (bool(self.queue) or bool(self._jobs)
                    or any(r is not None for r in self.active))
         done, self._finished = self._finished, []
         return DrainResult(done, drained=not pending)

@@ -18,19 +18,39 @@ traffic keeps arriving. The fleet packages exactly that:
                  step the victim engine itself, so reconfiguration fires
                  mid-traffic.
 
+On top of the on-request reconfiguration surface sits the elastic SLO
+control plane: a ``MetricsBus`` (``serve/telemetry.py``) samples per-
+engine load and latency windows on the hot path, and ``autoscale_step``
+feeds one snapshot per epoch to the ``core.autoscaler`` policy loop,
+executing its actions through the SAME journaled manager ops —
+
+  scale_out   attach a parked/fresh ``EngineTenant`` to a free VF, or run
+              the paper's full reconf cycle to carve one more VF
+  scale_in    detach an engine (state parks on disk; its VF keeps its
+              devices and becomes the next scale_out's cheap path); a
+              busy engine drains first, its in-flight requests live-
+              migrating to siblings (``migrate_request``)
+  rebalance   move queued requests hot -> cold (they have emitted
+              nothing, so moving them is token-identical), live-migrate
+              in-flight ones, and migrate the hot victim onto fresh
+              devices without dropping its batch
+
+— so crash recovery covers autoscaler-initiated reconfiguration too.
+``recover_engine`` re-homes a crashed engine's live requests onto its
+siblings by deterministic recompute.
+
 One card is one torch device: every engine of the fleet computes on the
 fleet's ``device``, and the pool's slots (``fleetdev0``, ...) are logical,
 as in the JAX fleet. A paused or detached engine holds no device memory:
 ``EngineTenant.suspend`` and ``detach`` drop the engine's params, their
 compute copy and its page pools, and ``resume`` (or an attach from disk)
-rebuilds them from the snapshot.
+rebuilds them from the snapshot. A parked spare engine (``spare_engines``)
+holds its params on the card, ready to attach.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: the autoscaler and the elastic fleet (``autoscale``,
-``spare_engines``, ``telemetry_snapshot``, ``autoscale_step``,
-``scale_out``, ``scale_in``, ``rebalance``), request migration and engine
-recovery (``migrate_request``, ``recover_engine``, ``handle_vf_loss``),
-and pipeline-stage engines (``stages > 1``, ``reshape_engine``).
+ROADMAP item: pipeline-stage engines and gang ops (``stages > 1``,
+``reshape_engine``, ``handle_vf_loss``: item 13) and the federation's
+view of the fleet (``federation_snapshot``: item 9).
 """
 from __future__ import annotations
 
@@ -42,22 +62,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.autoscaler import (Autoscaler, AutoscaleAction,
+                                         AutoscaleConfig, EngineStats,
+                                         TelemetrySnapshot)
+from repro_torch.core.errors import ManagerError
 from repro_torch.core.manager import SVFFManager
 from repro_torch.core.pool import DevicePool
 from repro_torch.core.tenant import DevicePausedError
-from repro_torch.core.vf import VirtualFunction
+from repro_torch.core.vf import VFState, VirtualFunction
 from repro_torch.device import resolve_device
 from repro_torch.serve.engine import DrainResult, Request, ServeEngine
-from repro_torch.serve.paged import RequestRejected
+from repro_torch.serve.paged import CacheExhausted, RequestRejected
 from repro_torch.serve.telemetry import MetricsBus
 from repro_torch.tree import tree_map, tree_to
 
-_AUTOSCALE = ("is not ported yet (ROADMAP Queue 1 item 11: the autoscaler "
-              "and elastic fleet, core/autoscaler.py)")
-_MIGRATION = ("is not ported yet (ROADMAP Queue 1 item 12: fleet request "
-              "migration and engine recovery)")
 _STAGES = ("is not ported yet (ROADMAP Queue 1 item 13: pipeline-stage "
-           "engines and gang ops)")
+           "engines, gang ops and the reshape op)")
 
 
 def _template(x):
@@ -147,6 +167,10 @@ class EngineTenant:
         eng.params = eng._cparams = eng._cache = None
 
     def suspend(self):
+        # in-flight chunked prefills re-queue (they have emitted nothing
+        # and are deterministic), so the exported snapshot really is the
+        # engine's complete device state
+        self.engine.abort_prefill_jobs()
         self._drop_device_state()
         self.status = "paused"
 
@@ -155,16 +179,46 @@ class EngineTenant:
         self.bind(vf, state=state)
 
     def detach(self):
+        self.engine.abort_prefill_jobs()
         self._drop_device_state()
         self.vf_id = None
         self.status = "detached"
+
+    # -- request live migration (delegated to the engine) --------------------
+    # the manager's migrate_request op speaks this protocol on the
+    # TENANT, so the adapter forwards it 1:1 — EngineTenant and
+    # SimServeTenant stay interchangeable under SVFFManager
+    def peek_migratable(self, rid: Optional[int] = None):
+        return self.engine.peek_migratable(rid)
+
+    def extract_request(self, rid: Optional[int] = None) -> dict:
+        return self.engine.extract_request(rid)
+
+    def admit_migrated(self, payload: dict, state) -> int:
+        return self.engine.admit_migrated(payload, state)
+
+    def release_request(self, rid: int) -> None:
+        self.engine.release_request(rid)
+
+    def abort_migration(self, rid: int) -> None:
+        self.engine.abort_migration(rid)
+
+    def abort_incoming(self, rid: int) -> None:
+        self.engine.abort_incoming(rid)
+
+    def owns_request(self, rid: int) -> bool:
+        return self.engine.owns_request(rid)
+
+    def reset_after_crash(self) -> None:
+        self.engine.reset_after_crash()
 
     # -- introspection -------------------------------------------------------
     @property
     def load(self) -> int:
         """Requests this engine is responsible for right now."""
         eng = self.engine
-        return len(eng.queue) + sum(r is not None for r in eng.active)
+        return (len(eng.queue) + len(eng._jobs)
+                + sum(r is not None for r in eng.active))
 
     def query(self) -> dict:
         return {"tenant": self.tid, "status": self.status,
@@ -184,13 +238,10 @@ class ServeFleet:
                  kv_dtype: Optional[str] = None,
                  fused_sampling: bool = False,
                  slo_max_load: int = 64, workdir: Optional[str] = None,
-                 devices=None, device="cuda", autoscale=None,
+                 devices=None, device="cuda",
+                 autoscale: Optional[AutoscaleConfig] = None,
                  spare_engines: int = 0, num_vfs: Optional[int] = None,
                  stages: int = 1):
-        if autoscale is not None:
-            raise NotImplementedError(f"autoscale {_AUTOSCALE}")
-        if spare_engines:
-            raise NotImplementedError(f"spare_engines {_AUTOSCALE}")
         if stages != 1:
             raise NotImplementedError(f"stages={stages} {_STAGES}")
         self.run = run
@@ -215,9 +266,20 @@ class ServeFleet:
                                share_prefix=share_prefix,
                                kv_dtype=kv_dtype,
                                fused_sampling=fused_sampling)
+        # pre-carving MORE VFs than engines (``num_vfs``) gives scale-out
+        # a pause-free path: attaching to an existing detached VF never
+        # interrupts the running engines, whereas growing the partition
+        # runs the paper's full reconf cycle (brief pause of every engine)
         tns = [self._spawn_tenant() for _ in range(num_engines)]
         self.mgr.init(max(num_vfs or num_engines, num_engines), tns)
+        # parked standbys: spawned (own params copy on the card) but not
+        # attached — the autoscaler's cheap scale-out pool
+        for _ in range(spare_engines):
+            self._spawn_tenant()
         self.telemetry = MetricsBus()
+        self.autoscale_config = autoscale
+        self.autoscaler = Autoscaler(autoscale) if autoscale else None
+        self._epoch = 0
         self._harvested: dict[str, int] = {}   # tid -> _finished scanned
         #: fleet-side rejection ledger (the REQUEST is never mutated), one
         #: entry per rejected submission, bounded
@@ -282,6 +344,8 @@ class ServeFleet:
             self.telemetry.record_cache_pressure(
                 tn.tid, tn.engine.stats["cache_exhausted"],
                 tn.engine.stats["defrag_events"])
+            self.telemetry.record_migration_stall(
+                tn.tid, tn.engine.stats["migration_stall_ticks"])
             # harvest only the suffix of _finished not yet scanned (drain
             # clears the list; rescanning it whole would make the hot
             # path O(completed history))
@@ -301,7 +365,8 @@ class ServeFleet:
         done: list[Request] = []
         for _ in range(max_steps):
             if self.step() == 0 and not any(
-                    tn.engine.queue for tn in self.tenants.values()
+                    tn.engine.queue or tn.engine._jobs
+                    for tn in self.tenants.values()
                     if tn.status == "running"):
                 break
         pending = False
@@ -329,37 +394,273 @@ class ServeFleet:
     def migrate(self, tid: str):
         return self.mgr.migrate(self.tenants[tid])
 
+    def migrate_request(self, src: str, dst: str,
+                        rid: Optional[int] = None, *,
+                        retries: int = 2) -> Optional[dict]:
+        """Live-migrate one in-flight request ``src -> dst`` through the
+        journaled manager op. A target-side ``CacheExhausted`` aborts the
+        attempt CLEANLY — journal rolled back, the request untouched and
+        still decoding on the source — and the target defragments before
+        the bounded retry. Returns the manager's result dict (rid /
+        blocks shipped / timing), or None when every attempt aborted."""
+        s, d = self.tenants[src], self.tenants[dst]
+        for attempt in range(1 + retries):
+            try:
+                res = self.mgr.migrate_request(s, d, rid)
+            except CacheExhausted:
+                self.telemetry.record_migration(src, dst, completed=False)
+                if attempt < retries:
+                    d.engine.defragment()     # compact, then retry
+                continue
+            self.telemetry.record_migration(src, dst, completed=True,
+                                            blocks=res["blocks"])
+            return res
+        return None
+
+    # -- the elastic control plane --------------------------------------------
+    def _free_vfs(self) -> list:
+        """Attachable VFs: detached, unowned, still holding devices. One
+        predicate for BOTH the snapshot the planner reads and the VF
+        scale_out picks, so plan and execution criteria cannot drift."""
+        return [vf for vf in self.pool.vfs.values()
+                if vf.state == VFState.DETACHED and vf.owner is None
+                and vf.devices]
+
+    def telemetry_snapshot(self) -> TelemetrySnapshot:
+        """One observation epoch: per-engine stats + the capacity facts
+        that gate scale-out. Cheap (counters + window percentiles). Every
+        engine is one stage wide (``stages > 1`` is item 13)."""
+        self._epoch += 1
+        stats = []
+        for tid, tn in self.tenants.items():
+            eng = tn.engine
+            stats.append(EngineStats(
+                tid=tid, index=self._order[tid], status=tn.status,
+                load=tn.load, queue_depth=len(eng.queue),
+                inflight=sum(r is not None for r in eng.active),
+                prefill_jobs=len(eng._jobs),
+                ttft_p95_ms=self.telemetry.ttft_ms(tid),
+                itl_p95_ms=self.telemetry.itl_ms(tid),
+                rejected=self.telemetry.rejected[tid],
+                cache_exhausted=eng.stats["cache_exhausted"],
+                defrag_events=eng.stats["defrag_events"],
+                pages_in_use=eng.alloc.pages_in_use,
+                pages_free=eng.alloc.num_free,
+                migrations_attempted=(
+                    self.telemetry.migrations_attempted[tid]),
+                migrations_completed=(
+                    self.telemetry.migrations_completed[tid]),
+                migrations_aborted=self.telemetry.migrations_aborted[tid],
+                migration_blocks_shipped=self.telemetry.migration_blocks[tid],
+                migration_stall_ticks=eng.stats["migration_stall_ticks"]))
+        return TelemetrySnapshot(
+            epoch=self._epoch, slo_max_load=self.slo_max_load,
+            engines=tuple(stats), free_vfs=len(self._free_vfs()),
+            grow_budget=max(0, self.pool.num_devices - len(self.pool.vfs)),
+            rejected_recent=self.telemetry.take_rejected_recent())
+
+    def autoscale_step(self) -> Optional[AutoscaleAction]:
+        """One policy-loop epoch: snapshot -> plan -> execute. Returns the
+        executed action (None on a quiet/cooldown epoch). Every executed
+        action flows through journaled manager ops, so a crash mid-action
+        recovers exactly like a crash mid-reconf (I8/I9)."""
+        if self.autoscaler is None:
+            raise ValueError(
+                "fleet built without autoscale=AutoscaleConfig(...)")
+        action = self.autoscaler.observe(self.telemetry_snapshot())
+        if action is None:
+            return None
+        if action.kind == "scale_out":
+            self.scale_out()
+        elif action.kind == "scale_in":
+            self.scale_in(action.victim)
+        elif action.kind == "reshape":
+            self.reshape_engine(action.victim, action.width)
+        else:
+            self.rebalance(action.victim, action.target)
+        return action
+
+    def scale_out(self) -> str:
+        """Bring one more engine into service: re-attach the oldest parked
+        tenant (or spawn a fresh one) onto a free VF; when no detached VF
+        exists, run the paper's full reconf cycle to carve one more
+        (running engines pause briefly — their queues hold — and resume
+        on the new partition)."""
+        free = self._free_vfs()
+        missing = 0 if free else 1
+        n = len(self.pool.vfs) + missing
+        if missing and n > self.pool.num_devices:
+            # validate BEFORE spawning: a fresh tenant registered here
+            # would leak (params copy + a never-attachable fleet entry)
+            raise ManagerError(
+                f"scale_out: {n} VFs exceed the device budget "
+                f"({self.pool.num_devices})")
+        parked = sorted((tn for tn in self.tenants.values()
+                         if tn.status in ("created", "detached")),
+                        key=lambda tn: self._order[tn.tid])
+        tn = parked[0] if parked else self._spawn_tenant()
+        if not missing:
+            self.mgr.attach(tn)
+        else:
+            self.mgr.reconf(n, new_tenants=[tn],
+                            devices_per_vf=max(
+                                1, self.pool.num_devices // n))
+        # the new engine takes queued (not-yet-admitted) work off the
+        # hottest engine immediately — otherwise it idles until the next
+        # rebalance epoch while the hot queue keeps missing SLO
+        hot = max((t for t in self.tenants.values()
+                   if t.status == "running" and t.tid != tn.tid),
+                  key=lambda t: (t.load, -self._order[t.tid]),
+                  default=None)
+        if hot is not None and hot.engine.queue:
+            self.rebalance(hot.tid, tn.tid, migrate=False)
+        return tn.tid
+
+    def scale_in(self, tid: str) -> str:
+        """Park an engine: journaled detach (state snapshots to disk,
+        the VF keeps its devices and becomes attachable). A BUSY engine
+        drains first — in-flight chunked prefills abort back to its
+        queue (they have emitted nothing), queued requests resubmit to
+        running siblings under the SLO admission bound, and active
+        decode slots LIVE-MIGRATE (journaled KV hand-off, token streams
+        unchanged). Typed refusal when no sibling has the capacity —
+        every request the drain already moved stays live on its new
+        engine, nothing strands."""
+        tn = self.tenants[tid]
+        if tn.status != "running":
+            raise ManagerError(f"scale_in: {tid} is {tn.status}")
+        if tn.load:      # load = queued + in-flight prefill + active slots
+            self._drain_for_scale_in(tn)
+        self.mgr.detach(tn)
+        return tid
+
+    def _drain_for_scale_in(self, tn: EngineTenant) -> None:
+        sibs = [t for t in self.tenants.values()
+                if t.status == "running" and t.tid != tn.tid]
+        if not sibs:
+            raise ManagerError(
+                f"scale_in: {tn.tid} is busy (load {tn.load}) and has "
+                "no running sibling to drain to")
+
+        def best():
+            return min(sibs, key=lambda t: (t.load, self._order[t.tid]))
+        # chunked prefills re-queue deterministically (nothing emitted)
+        tn.engine.abort_prefill_jobs()
+        while tn.engine.queue:
+            pick = best()
+            if pick.load >= self.slo_max_load:
+                raise ManagerError(
+                    f"scale_in: no sibling admission capacity for "
+                    f"{tn.tid}'s queued requests (best {pick.tid}@"
+                    f"{pick.load} >= {self.slo_max_load})")
+            pick.engine.submit(tn.engine.queue.pop())
+            self.telemetry.record_submit(pick.tid)
+        # active decode slots: journaled live migration with bounded
+        # per-sibling retries (migrate_request defragments in between)
+        while (rid := tn.peek_migratable()) is not None:
+            for t in sorted(sibs,
+                            key=lambda t: (t.load, self._order[t.tid])):
+                if (t.load < self.slo_max_load and
+                        self.migrate_request(tn.tid, t.tid,
+                                             rid) is not None):
+                    break
+            else:
+                raise ManagerError(
+                    f"scale_in: no sibling has KV capacity for in-"
+                    f"flight request {rid} on {tn.tid}")
+        if tn.load:
+            raise ManagerError(
+                f"scale_in: {tn.tid} still busy after drain "
+                f"(load {tn.load}) — active work is not migratable")
+
+    def rebalance(self, src: str, dst: str,
+                  migrate: Optional[bool] = None) -> int:
+        """Move queued (not-yet-admitted) requests from the hot engine to
+        the cold one — they have emitted nothing, so replacement is
+        token-identical — then live-migrate in-flight ones while the gap
+        stays, then migrate the hot victim onto fresh devices (pause ->
+        reallocate -> unpause keeps its in-flight batch). Returns the
+        number of requests moved."""
+        s, d = self.tenants[src], self.tenants[dst]
+        moved = 0
+        while s.engine.queue and s.load - d.load > 1:
+            # steal from the BACK: the oldest requests keep their engine
+            d.engine.submit(s.engine.queue.pop())
+            moved += 1
+        # queue-stealing can't close the gap when the hot engine's load
+        # is IN-FLIGHT: live-migrate decode slots hot -> cold through the
+        # journaled op. An abort (target KV full even after its defrag
+        # retries) ends the steal — the request stays live on the source.
+        while (s.status == "running" and d.status == "running"
+               and s.load - d.load > 1
+               and s.peek_migratable() is not None):
+            if self.migrate_request(src, dst) is None:
+                break
+            moved += 1
+        if migrate is None:
+            migrate = (self.autoscale_config.rebalance_migrate
+                       if self.autoscale_config else True)
+        if migrate and s.status == "running":
+            self.mgr.migrate(s)
+        return moved
+
+    def recover_engine(self, tid: str) -> dict:
+        """An engine CRASHED mid-serving (its device state is gone):
+        re-home every live request onto running siblings by
+        deterministic recompute — emitted tokens are cleared and
+        regenerate bit-identically from the prompt (the counter-seeded
+        sampler keys on (seed, rid, position), not on engine identity)
+        — then reset the victim to a clean, re-servable state. Typed
+        refusal BEFORE any mutation when the siblings lack admission
+        capacity, so the caller can scale out first and retry."""
+        tn = self.tenants[tid]
+        eng = tn.engine
+        live = [r for r in ([j.req for j in eng._jobs.values()]
+                            + list(eng.queue)
+                            + [r for r in eng.active if r is not None])
+                if not r.done]
+        sibs = [t for t in self.tenants.values()
+                if t.status == "running" and t.tid != tid]
+        if live and not sibs:
+            raise ManagerError(
+                f"recover_engine: {tid} holds {len(live)} live requests "
+                "and no sibling is running")
+        headroom = sum(max(0, self.slo_max_load - t.load) for t in sibs)
+        if len(live) > headroom:
+            raise ManagerError(
+                f"recover_engine: siblings have admission headroom for "
+                f"{headroom} requests, {tid} holds {len(live)}")
+        eng.reset_after_crash()
+        self._harvested[tid] = 0
+        rehomed = []
+        for req in live:
+            req.out.clear()
+            req.t_tok.clear()
+            pick = min(sibs, key=lambda t: (t.load, self._order[t.tid]))
+            pick.engine.submit(req)
+            self.telemetry.record_submit(pick.tid)
+            rehomed.append((req.rid, pick.tid))
+        return {"tid": tid, "rehomed": rehomed}
+
     def query(self) -> dict:
         return {"manager": self.mgr.query(),
                 "engines": {tid: tn.query()
                             for tid, tn in self.tenants.items()},
                 "telemetry": self.telemetry.describe(),
-                "rejections": self.rejected_total}
+                "rejections": self.rejected_total,
+                "autoscale_actions": (len(self.autoscaler.history)
+                                      if self.autoscaler else 0)}
 
     # -- not ported yet -------------------------------------------------------
-    def autoscale_step(self):
-        raise NotImplementedError(f"autoscale_step {_AUTOSCALE}")
-
-    def telemetry_snapshot(self):
-        raise NotImplementedError(f"telemetry_snapshot {_AUTOSCALE}")
-
-    def scale_out(self):
-        raise NotImplementedError(f"scale_out {_AUTOSCALE}")
-
-    def scale_in(self, tid: str):
-        raise NotImplementedError(f"scale_in {_AUTOSCALE}")
-
-    def rebalance(self, src: str, dst: str, migrate=None):
-        raise NotImplementedError(f"rebalance {_AUTOSCALE}")
-
-    def migrate_request(self, src: str, dst: str, rid=None, *, retries=2):
-        raise NotImplementedError(f"migrate_request {_MIGRATION}")
-
-    def recover_engine(self, tid: str):
-        raise NotImplementedError(f"recover_engine {_MIGRATION}")
-
-    def handle_vf_loss(self, tid: str, vf_id: str):
-        raise NotImplementedError(f"handle_vf_loss {_MIGRATION}")
-
     def reshape_engine(self, tid: str, width: int):
         raise NotImplementedError(f"reshape_engine {_STAGES}")
+
+    def handle_vf_loss(self, tid: str, vf_id: str):
+        # a gang member's VF loss re-instantiates the engine at K-1
+        # through the manager's reshape
+        raise NotImplementedError(f"handle_vf_loss {_STAGES}")
+
+    def federation_snapshot(self, now: float = 0.0):
+        raise NotImplementedError(
+            "federation_snapshot is not ported yet (ROADMAP Queue 1 item "
+            "9: federation)")

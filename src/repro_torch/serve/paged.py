@@ -21,6 +21,7 @@ from a shared pool:
 The page pools are torch tensors updated in place: ``admit_kv``,
 ``copy_page``, ``apply_page_moves`` and ``reset_slot_state`` write into
 the tensors of the tree they are given and return that same tree.
+``extract_kv`` (request migration) gathers a chain into fresh tensors.
 
 The attention-side consumer is ``kernels/csrc/paged_decode.cu``
 (block-table indirection, cost proportional to pages actually written).
@@ -35,9 +36,9 @@ import torch
 
 from repro_torch.core.errors import (DoubleFreeError,  # noqa: F401
                                      UnknownRequestError)
-# symmetric int8 KV rows over the trailing hd axis, scale = max|x| / 127
-# per (..., head) row and q = round(x / scale), half to even: the max lands
-# on +-127, so dequant -> requant round-trips bit-exactly
+# symmetric int8 KV rows over the trailing hd axis, scale = max|x| times
+# float32(1/127) per (..., head) row (the JAX engine's scale under jit) and
+# q = round(x / scale), half to even
 from repro_torch.kernels.ref import (kv_dequant_ref as kv_dequantize,  # noqa
                                      kv_quant_ref as kv_quantize)
 
@@ -449,12 +450,16 @@ def admit_kv(cache: dict, req_cache: dict, page_ids, page_size: int,
     for blk, node in cache.items():
         for name, leaf in node.items():
             if not _paged(name):
-                leaf[:, slot] = req_cache[blk][name][:, 0].to(leaf.dtype)
+                leaf[:, slot] = req_cache[blk][name][:, 0].to(leaf.device,
+                                                              leaf.dtype)
         if n == 0 or "k" not in node:   # whole prompt shared: no KV rows
             continue
-        idx = torch.as_tensor(ids, dtype=torch.int64, device=node["k"].device)
+        dev = node["k"].device
+        idx = torch.as_tensor(ids, dtype=torch.int64, device=dev)
         for name in _KV:
-            r = req_cache[blk][name]
+            # a shipped strip may come back from staging in host memory:
+            # it moves to the pool's device before the scatter
+            r = req_cache[blk][name].to(dev)
             nper, _, L, K, hd = r.shape
             rows = torch.zeros((nper, n * page_size, K, hd), dtype=r.dtype,
                                device=r.device)
@@ -468,6 +473,41 @@ def admit_kv(cache: dict, req_cache: dict, page_ids, page_size: int,
             else:
                 pooled[:, idx] = rows.to(pooled.dtype)
     return cache
+
+
+def extract_kv(cache: dict, page_ids, page_size: int, slot: int) -> dict:
+    """Gather dual of ``admit_kv``, for request migration: pull a
+    request's KV block chain out of the page pools into a dense
+    (nper, 1, n*page_size, K, hd) request tree, and slice its batch slot
+    out of every dense (recurrent-state) leaf, keeping the slot axis. The
+    result has exactly the shape ``admit_kv`` scatters, so target-side
+    admission IS ``admit_kv(..., skip_pages=n_reshared)``. Every leaf is
+    a fresh tensor on the pools' device: later writes into the pools do
+    not reach it.
+
+    int8 pools are DEQUANTIZED to fp32 here and the scale leaves dropped:
+    a migration payload is always the fp dense layout, so source and
+    target engines may run different ``kv_dtype`` settings; a target that
+    re-admits into int8 requantizes the rows (``kv_quantize``)."""
+    ids = list(page_ids)
+    n = len(ids)
+    out = {}
+    for blk, node in cache.items():
+        out[blk] = {}
+        for name, leaf in node.items():
+            if name in _KV_SCALE:
+                continue
+            if name in _KV:
+                idx = torch.as_tensor(ids, dtype=torch.int64,
+                                      device=leaf.device)
+                nper, _, P, K, hd = leaf.shape
+                rows = leaf[:, idx]
+                if leaf.dtype == torch.int8:
+                    rows = kv_dequantize(rows, node[name + "_scale"][:, idx])
+                out[blk][name] = rows.reshape(nper, 1, n * P, K, hd)
+            else:
+                out[blk][name] = leaf[:, slot:slot + 1].clone()
+    return out
 
 
 def copy_page(cache: dict, src: int, dst: int) -> dict:

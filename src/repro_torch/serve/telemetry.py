@@ -7,9 +7,10 @@ percentiles) is deferred to read time. Latencies are harvested from the
 per-token wall timestamps the engine already records on each ``Request``
 (``t_submit`` / ``t_tok``), so serving pays nothing extra for them.
 
-The JAX bus also carries request-migration and pipeline-stage counters
+The autoscaler reads the bus once an epoch (``ServeFleet.
+telemetry_snapshot``). The JAX bus also carries pipeline-stage counters
 and a replica for the federation; those come with their slices (ROADMAP
-Queue 1 items 5, 8 and 9), as does the autoscaler that reads the bus.
+Queue 1 items 13 and 9).
 """
 from __future__ import annotations
 
@@ -48,6 +49,15 @@ class MetricsBus:
         # from each engine's stats, not deltas — record overwrites)
         self.cache_exhausted = collections.Counter()
         self.defrag_events = collections.Counter()
+        # request live-migration counters, attributed to the SOURCE
+        # engine (it initiated the hand-off); stall ticks are mirrored
+        # from the engine like the cache counters above
+        self.migrations_attempted = collections.Counter()
+        self.migrations_completed = collections.Counter()
+        self.migrations_aborted = collections.Counter()
+        self.migration_blocks = collections.Counter()
+        self.migration_stall_ticks = collections.Counter()
+        self._rejected_since_snapshot = 0
         # requests already harvested, keyed (rid, t_submit); pruned when
         # the owner engine's finished list is drained
         self._seen: dict[str, set] = collections.defaultdict(set)
@@ -58,6 +68,7 @@ class MetricsBus:
 
     def record_reject(self, tid: str) -> None:
         self.rejected[tid] += 1
+        self._rejected_since_snapshot += 1
 
     def record_load(self, tid: str, load: int, queued: int) -> None:
         self._load[tid].append((load, queued))
@@ -68,6 +79,22 @@ class MetricsBus:
         fleet can have short queues yet be thrashing its paged pool."""
         self.cache_exhausted[tid] = exhausted
         self.defrag_events[tid] = defrags
+
+    def record_migration(self, src: str, dst: str, *, completed: bool,
+                         blocks: int = 0) -> None:
+        """One request-migration attempt src -> dst. ``blocks`` is the
+        number of KV pages actually shipped (0 on an aborted attempt)."""
+        self.migrations_attempted[src] += 1
+        if completed:
+            self.migrations_completed[src] += 1
+            self.migration_blocks[src] += blocks
+        else:
+            self.migrations_aborted[src] += 1
+
+    def record_migration_stall(self, tid: str, ticks: int) -> None:
+        """Mirror an engine's cumulative frozen-slot stall ticks (decode
+        iterations a slot sat unservable mid-hand-off)."""
+        self.migration_stall_ticks[tid] = ticks
 
     def harvest(self, tid: str, finished: Iterable) -> None:
         """Pull TTFT/ITL samples from finished requests' token walls.
@@ -95,6 +122,12 @@ class MetricsBus:
     def itl_ms(self, tid: str, q: float = 0.95) -> float:
         return percentile(self._itl[tid], q) * 1e3
 
+    def take_rejected_recent(self) -> int:
+        """Fleet-wide rejections since the last call (one autoscaler
+        snapshot reads and resets it)."""
+        n, self._rejected_since_snapshot = self._rejected_since_snapshot, 0
+        return n
+
     def load_p95(self, tid: str) -> float:
         return percentile([s[0] for s in self._load[tid]], 0.95)
 
@@ -104,10 +137,17 @@ class MetricsBus:
                       "rejected": self.rejected[tid],
                       "cache_exhausted": self.cache_exhausted[tid],
                       "defrag_events": self.defrag_events[tid],
+                      "migrations_attempted": self.migrations_attempted[tid],
+                      "migrations_completed": self.migrations_completed[tid],
+                      "migrations_aborted": self.migrations_aborted[tid],
+                      "migration_blocks": self.migration_blocks[tid],
+                      "migration_stall_ticks":
+                          self.migration_stall_ticks[tid],
                       "load_p95": self.load_p95(tid),
                       "ttft_p95_ms": round(self.ttft_ms(tid), 3),
                       "itl_p95_ms": round(self.itl_ms(tid), 3)}
                 for tid in sorted(set(self.submitted)
                                   | set(self.completed)
                                   | set(self.rejected)
-                                  | set(self.cache_exhausted))}
+                                  | set(self.cache_exhausted)
+                                  | set(self.migrations_attempted))}

@@ -22,22 +22,25 @@ Pieces
               benchmark's serving-shaped stub
   invariants  ``check_invariants`` (I1-I5, I8, I10, I12, I13) +
               ``check_timings`` (I6) + ``check_pause_timings`` (I7),
-              asserted after every op
+              asserted after every op, and ``check_autoscale`` (I11)
+              after every autoscale op
   chaos       crash-point catalogue (``CRASH_POINTS``), per-cell runner
-              (``run_crash_case``) and ``crash_matrix`` over the 11
-              ported points (``PORTED_POINTS``); I9 (recovery
-              idempotence) lives in ``recover_manager``
+              (``run_crash_case``) and ``crash_matrix`` over the 15
+              ported points (``PORTED_POINTS``: the core ops' and the
+              four ``migrate_*`` windows); I9 (recovery idempotence)
+              lives in ``recover_manager``
   harness     ``ScenarioRunner`` / ``run_scenario`` — executes a scenario,
               records per-op outcomes (ok / atomically rejected) and the
               Table-II timing dict of every reconf; ``crash`` ops kill
               the manager at a crash point and rebuild it via
-              ``SVFFManager.recover``
+              ``SVFFManager.recover``; ``autoscale`` ops run the policy
+              loop over the serving tenants, ``migrate_request`` ops
+              live-migrate a request between them
 
-Not ported yet (ROADMAP Queue 1): the autoscale op and I11 (item 11),
-request migration with I13's migration side and the ``migrate_*`` crash
-points (item 12), ``SimPipelineTenant``, ``reshape``, I14 and the gang
-crash points (item 13), and the federation plane with I15/I16 (item 9).
-Each refuses with ``NotImplementedError`` naming its item.
+Not ported yet (ROADMAP Queue 1): ``SimPipelineTenant``, ``reshape``, I14
+and the gang crash points (item 13), and the federation plane with
+I15/I16 (item 9). Each refuses with ``NotImplementedError`` naming its
+item.
 
 Reproducing a failure
 ---------------------
@@ -57,7 +60,8 @@ from repro_torch.sim.chaos import (CRASH_POINTS, PORTED_POINTS, CrashSpec,
 from repro_torch.sim.clock import VirtualClock
 from repro_torch.sim.harness import (OpResult, ScenarioResult,
                                      ScenarioRunner, run_scenario)
-from repro_torch.sim.invariants import (InvariantViolation, check_invariants,
+from repro_torch.sim.invariants import (InvariantViolation, check_autoscale,
+                                        check_invariants,
                                         check_pause_timings, check_timings)
 from repro_torch.sim.scenario import (ARRIVAL_PATTERNS, Op, OP_KINDS,
                                       ScenarioConfig, generate_scenario)
@@ -67,7 +71,8 @@ __all__ = [
     "ARRIVAL_PATTERNS", "CRASH_POINTS", "CrashSpec", "InvariantViolation",
     "Op", "OP_KINDS", "OpResult", "PORTED_POINTS", "ScenarioConfig",
     "ScenarioResult", "ScenarioRunner", "ServeSimTenant", "SimServeTenant",
-    "SimTenant", "VirtualClock", "check_invariants", "check_pause_timings",
+    "SimTenant", "VirtualClock", "check_autoscale", "check_invariants",
+    "check_pause_timings",
     "check_timings", "crash_matrix", "generate_scenario", "recover_manager",
     "run_crash_case", "run_scenario", "state_fingerprint",
 ]

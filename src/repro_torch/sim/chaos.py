@@ -29,11 +29,12 @@ state). ``crash_matrix`` sweeps points x seeds x policies and
 
 The catalogue keeps all 19 points of the JAX package as data (the
 scenario generator draws from ``sorted(CRASH_POINTS)``, so its op stream
-depends on every key). The port recovers the 11 points of the core ops
-(``PORTED_POINTS``); ``run_crash_case`` refuses a ``migrate_*`` point
-(request migration, ROADMAP Queue 1 item 12) and a ``gang_*`` or
-``reshape_*`` point (gang ops, item 13) with ``NotImplementedError``.
-The sim tenants live on ``device`` (the card by default).
+depends on every key). The port recovers 15 (``PORTED_POINTS``): the 11
+windows of the core ops and the four of request migration
+(``migrate_*``); ``run_crash_case`` refuses a ``gang_*`` or
+``reshape_*`` point (gang ops, ROADMAP Queue 1 item 13) with
+``NotImplementedError``. The sim tenants live on ``device`` (the card by
+default).
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ from repro_torch.core.staging import StagingEngine
 from repro_torch.device import resolve_device
 from repro_torch.sim.clock import VirtualClock
 from repro_torch.sim.invariants import InvariantViolation, check_invariants
-from repro_torch.sim.tenant import SimTenant
+from repro_torch.sim.tenant import SimServeTenant, SimTenant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,8 +90,7 @@ CRASH_POINTS: dict[str, CrashSpec] = {s.point: s for s in (
               "VF re-attached, guest not yet resumed"),
     CrashSpec("qmp_timeout", ("qmp",), "none",
               "command applied, monitor died before the response"),
-    # -- request-granular live migration (ROADMAP Queue 1 item 12: kept as
-    # data, refused by run_crash_case). outcome names the
+    # -- request-granular live migration. outcome names the
     # MIGRATION's fate: "none" == the request stays on the source (roll
     # back), "complete" == it resumes on the target (roll forward). The
     # source tenant's status is "running" either way (that is what
@@ -174,17 +174,13 @@ def recover_manager(mgr: SVFFManager, tenants: dict, *,
     return new
 
 
-#: the crash points of the core ops, which the port recovers; the other
-#: eight wait for request migration (item 12) and gang ops (item 13)
+#: the crash points the port recovers: the core ops' and request
+#: migration's; the four gang ones wait for gang ops (item 13)
 PORTED_POINTS = tuple(p for p in sorted(CRASH_POINTS)
-                      if not p.startswith(("migrate_", "gang_", "reshape_")))
+                      if not p.startswith(("gang_", "reshape_")))
 
 
 def _refuse_unported(point: str) -> None:
-    if point.startswith("migrate_"):
-        raise NotImplementedError(
-            f"crash point {point!r}: request migration is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
     if point.startswith(("gang_", "reshape_")):
         raise NotImplementedError(
             f"crash point {point!r}: gang ops are not ported yet (ROADMAP "
@@ -214,6 +210,12 @@ def _fire(mgr: SVFFManager, trigger: str, point: str,
             mgr.unpause(victim)
         elif trigger == "qmp":
             ControlPlane(mgr).execute({"execute": "query-status"})
+        elif trigger == "migrate_request":
+            dst = next(tn for tid, tn in sorted(mgr.tenants.items())
+                       if tn is not victim
+                       and getattr(tn, "status", None) == "running"
+                       and hasattr(tn, "admit_migrated"))
+            mgr.migrate_request(victim, dst)
         else:
             raise ValueError(f"unknown crash trigger {trigger!r}")
         raise InvariantViolation(
@@ -249,17 +251,40 @@ def run_crash_case(point: str, seed: int, policy: str = "first_fit",
             return tenants[tid]
 
         bystander = make("vm0", seed * 13 + 1)
-        other = make("vm1", seed * 13 + 2)
-        mgr.init(num_vfs=3, tenants=[bystander, other], devices_per_vf=2)
-        bystander.run_steps(1 + seed % 3)
-        other.run_steps(1 + (seed // 3) % 3)
-        if trigger == "unpause":
-            mgr.pause(other)
-            victim = other
-        elif trigger == "attach":
-            victim = make("vm2", seed * 13 + 3)
+        mig_rid = target = None
+        if trigger == "migrate_request":
+            # serve-shaped cell: sv0 decodes a request mid-flight, sv1 is
+            # the (idle, capacious) migration target
+            victim = SimServeTenant("sv0", seed=seed * 13 + 2, clock=clock,
+                                    placement=policy, device=dev)
+            target = SimServeTenant("sv1", seed=seed * 13 + 3, clock=clock,
+                                    placement=policy, device=dev)
+            tenants[victim.tid], tenants[target.tid] = victim, target
+            mgr.init(num_vfs=4, tenants=[bystander, victim, target],
+                     devices_per_vf=2)
+            bystander.run_steps(1 + seed % 3)
+            victim.submit_burst(3)
+            for _ in range(6):               # drive to a decoding slot
+                victim.run_steps(1)
+                if victim.peek_migratable() is not None:
+                    break
+            mig_rid = victim.peek_migratable()
+            if mig_rid is None:
+                raise InvariantViolation(
+                    "setup: sv0 never reached an in-flight request")
         else:
-            victim = other
+            other = make("vm1", seed * 13 + 2)
+            mgr.init(num_vfs=3, tenants=[bystander, other],
+                     devices_per_vf=2)
+            bystander.run_steps(1 + seed % 3)
+            other.run_steps(1 + (seed // 3) % 3)
+            if trigger == "unpause":
+                mgr.pause(other)
+                victim = other
+            elif trigger == "attach":
+                victim = make("vm2", seed * 13 + 3)
+            else:
+                victim = other
         check_invariants(mgr)
         pre_status = victim.status
         pre_steps = {tid: tn.steps_done for tid, tn in tenants.items()}
@@ -286,6 +311,40 @@ def run_crash_case(point: str, seed: int, policy: str = "first_fit",
                 raise InvariantViolation(
                     f"step counter drift for {tid} across crash+recover: "
                     f"{tenants[tid].steps_done} != {steps + add}")
+
+        if trigger == "migrate_request":
+            # I13 sharpened per-cell: the request survives on exactly the
+            # cataloged side, no slot stays frozen, and driving both
+            # engines to completion yields the no-migration oracle token
+            # stream (extended I10 — zero in-flight work lost)
+            owner, loser = ((target, victim) if spec.outcome == "complete"
+                            else (victim, target))
+            if not owner.owns_request(mig_rid):
+                raise InvariantViolation(
+                    f"migration outcome: {owner.tid} should own request "
+                    f"{mig_rid} after {point} recovery, but does not")
+            if loser.owns_request(mig_rid):
+                raise InvariantViolation(
+                    f"migration outcome: request {mig_rid} live on BOTH "
+                    f"engines after {point} recovery")
+            if victim._migrating:
+                raise InvariantViolation(
+                    f"frozen slot survived recovery: {victim._migrating}")
+            req = next(r for r in victim.requests if r.rid == mig_rid)
+            for _ in range(40):
+                victim.run_steps(1)
+                target.run_steps(1)
+                if req.done:
+                    break
+            if not req.done:
+                raise InvariantViolation(
+                    f"request {mig_rid} stranded after {point} recovery")
+            oracle = SimServeTenant.expected_output(req.seed, req.rid)
+            if req.out != oracle:
+                raise InvariantViolation(
+                    f"I10 after migration crash: request {mig_rid} "
+                    f"emitted {req.out}, oracle {oracle}")
+            check_invariants(mgr)
 
         # post-recovery liveness: survivors still reconfigure and step
         # with bit-identical state
@@ -317,10 +376,10 @@ def crash_matrix(points: Optional[Iterable[str]] = None,
                                             "fair_share"),
                  raise_on_fail: bool = True, device="cuda") -> dict:
     """The crash matrix: points x seeds x policies. The default points are
-    ``PORTED_POINTS``, the 11 windows of the core ops the port recovers
-    (attach, detach, pause, pause_live, unpause and the QMP monitor); the
-    catalogue's request-migration and gang windows are refused until
-    ROADMAP Queue 1 items 12 and 13 land. Returns the result table."""
+    ``PORTED_POINTS``, the 15 windows the port recovers (attach, detach,
+    pause, pause_live, unpause, the QMP monitor and request migration);
+    the catalogue's gang windows are refused until ROADMAP Queue 1 item
+    13 lands. Returns the result table."""
     points = list(points) if points is not None else list(PORTED_POINTS)
     cases, failures = [], []
     for point in points:

@@ -17,12 +17,14 @@ paused device, ...) are recorded per-op — never exceptions — because the
 property under test is that a rejected op is ATOMIC: the system state it
 leaves behind still satisfies every invariant.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: the ``autoscale`` op and the autoscaler the JAX runner
-builds (Queue 1 item 11), ``migrate_request`` (item 12), and ``reshape``
-with the pipeline gang lead ``pg0`` (item 13). A config with a nonzero
-``autoscale_rate``, ``migrate_rate`` or ``reshape_rate`` is refused at
-construction.
+``autoscale`` ops run one policy-loop epoch (``core.autoscaler``) over
+the serving tenants and execute its action through journaled manager ops,
+with I11 checked after the op; ``migrate_request`` ops live-migrate one
+in-flight request between two running serving tenants.
+
+Not ported yet, refused with ``NotImplementedError`` naming its ROADMAP
+item: ``reshape`` with the pipeline gang lead ``pg0`` (Queue 1 item 13).
+A config with a nonzero ``reshape_rate`` is refused at construction.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.autoscaler import (Autoscaler, AutoscaleConfig,
+                                         EngineStats, TelemetrySnapshot)
 from repro_torch.core.errors import ManagerError
 from repro_torch.core.fault import Supervisor
 from repro_torch.core.manager import SVFFManager
@@ -44,11 +48,13 @@ from repro_torch.core.records import RecordError
 from repro_torch.core.scheduler import make_scheduler
 from repro_torch.core.staging import StagingEngine
 from repro_torch.core.tenant import DevicePausedError
-from repro_torch.core.vf import VFTransitionError
+from repro_torch.core.vf import VFState, VFTransitionError
 from repro_torch.device import resolve_device
 from repro_torch.sim.chaos import _fire, recover_manager
 from repro_torch.sim.clock import VirtualClock
-from repro_torch.sim.invariants import (InvariantViolation, check_invariants,
+from repro_torch.serve.paged import CacheExhausted
+from repro_torch.sim.invariants import (InvariantViolation, check_autoscale,
+                                        check_invariants,
                                         check_pause_timings, check_timings)
 from repro_torch.sim.scenario import Op, ScenarioConfig, generate_scenario
 from repro_torch.sim.tenant import SimServeTenant, SimTenant
@@ -63,10 +69,6 @@ REJECTIONS = (PoolError, PauseError, VFTransitionError, DevicePausedError,
 
 #: the ops (and the config rates that draw them) waiting for their items
 _UNPORTED = {
-    "autoscale": ("autoscale_rate", "the autoscale op and its autoscaler "
-                  "are not ported yet (ROADMAP Queue 1 item 11)"),
-    "migrate_request": ("migrate_rate", "the migrate_request op is not "
-                        "ported yet (ROADMAP Queue 1 item 12)"),
     "reshape": ("reshape_rate", "the reshape op and the pipeline gang "
                 "lead are not ported yet (ROADMAP Queue 1 item 13)"),
 }
@@ -111,6 +113,16 @@ class ScenarioResult:
         return f"{zlib.crc32('|'.join(parts).encode()):08x}"
 
 
+#: policy-loop sizing for sim serving tenants (SimServeTenant has 2 slots
+#: and bursts of up to ~12, so hot = load >= ceil(0.75 * 6) = 5)
+SIM_SLO_MAX_LOAD = 6
+#: sv0 is the scenario's fixed traffic ingress (serve_submit/serve_step
+#: target it by name), so it is pinned against scale_in
+SIM_AUTOSCALE = AutoscaleConfig(hysteresis=1, cooldown=1,
+                                rebalance_gap=4, max_engines=4,
+                                pinned=("sv0",))
+
+
 class ScenarioRunner:
     def __init__(self, cfg: ScenarioConfig, workdir: Optional[str] = None,
                  device="cuda"):
@@ -126,6 +138,17 @@ class ScenarioRunner:
         self.sup: Optional[Supervisor] = None
         self.tenants: dict = {}
         self.expected_steps: dict[str, int] = {}
+        autocfg = SIM_AUTOSCALE
+        if cfg.migrate_rate > 0:
+            # with migration traffic the scenario attaches sv1 as a
+            # fixed migration target — pin it like sv0 so the autoscaler
+            # can't scale it in under the generator's validity model
+            # (which schedules ops against sv1)
+            autocfg = dataclasses.replace(SIM_AUTOSCALE,
+                                          pinned=("sv0", "sv1"))
+        self.autoscaler = Autoscaler(autocfg)
+        self._as_epoch = 0
+        self._last_autoscale = None       # pending I11 check
 
     # ----------------------------------------------------------------- ops
     def _tenant(self, tid: str):
@@ -245,9 +268,117 @@ class ScenarioRunner:
                                        workdir=self._wd, num_queues=2)
             self.sup = Supervisor(self.mgr, clock=self.clock.now)
             clock.advance(0.1)              # manager restart + recovery
+        elif op.kind == "autoscale":
+            self._autoscale_step()
+            clock.advance(0.005)
+        elif op.kind == "migrate_request":
+            # deterministic pair pick among the running serving engines:
+            # source = first (sorted) one with a migratable in-flight
+            # request, target = first other running one. No such pair is
+            # a no-op — the op is about what happens WHEN a migration
+            # runs, not about manufacturing one — and a target-side
+            # CacheExhausted is a clean journaled abort (the source keeps
+            # serving, invariant I13 still checked after the op).
+            svs = [tn for tn in self._serve_tenants()
+                   if tn.status == "running"]
+            src = next((tn for tn in svs
+                        if tn.peek_migratable() is not None), None)
+            dst = next((tn for tn in svs
+                        if src is not None and tn.tid != src.tid), None)
+            if src is not None and dst is not None:
+                try:
+                    mgr.migrate_request(src, dst)
+                except CacheExhausted:
+                    pass
+                clock.advance(0.01)
         else:
             raise ValueError(f"unknown op {op.kind}")
         return None
+
+    # ------------------------------------------------------- elastic plane
+    def _serve_tenants(self) -> list:
+        return [self.tenants[tid] for tid in sorted(self.tenants)
+                if tid.startswith("sv")]
+
+    def _autoscale_snapshot(self) -> TelemetrySnapshot:
+        """Telemetry over the serving tenants: load = guest-side queue +
+        in-flight slots. ``grow_budget`` is 0 — the sim's executor only
+        takes the cheap path (attach to an existing free VF), it never
+        runs a grow-reconf, and the planner must know that."""
+        self._as_epoch += 1
+        stats = []
+        for tn in self._serve_tenants():
+            queued = len(tn.queue) if tn.queue is not None else 0
+            inflight = (sum(r is not None for r in tn.active)
+                        if tn.active is not None else 0)
+            stats.append(EngineStats(
+                tid=tn.tid, index=int(tn.tid[2:] or 0), status=tn.status,
+                load=queued + inflight, queue_depth=queued,
+                inflight=inflight, prefill_jobs=0))
+        pool = self.mgr.pool
+        free_vfs = sum(1 for vf in pool.vfs.values()
+                       if vf.state == VFState.DETACHED
+                       and vf.owner is None and vf.devices)
+        return TelemetrySnapshot(
+            epoch=self._as_epoch, slo_max_load=SIM_SLO_MAX_LOAD,
+            engines=tuple(stats), free_vfs=free_vfs, grow_budget=0)
+
+    def _autoscale_step(self):
+        """One policy-loop epoch over the serving tenants. The planned
+        action is remembered for the I11 check that runs with the post-op
+        invariants (so a violation carries the seed/op# tag), then
+        executed through the ordinary journaled manager ops."""
+        action = self.autoscaler.observe(self._autoscale_snapshot())
+        if action is None:
+            return
+        self._last_autoscale = (action, self.autoscaler.cfg)
+        if action.kind == "scale_out":
+            # prefer re-attaching a previously scaled-in tenant (its
+            # state restores from the detach snapshot) over minting one
+            parked = [tn.tid for tn in self._serve_tenants()
+                      if tn.status == "detached"]
+            nxt = 1 + max((int(tn.tid[2:] or 0)
+                           for tn in self._serve_tenants()), default=0)
+            new = self._tenant(parked[0] if parked else f"sv{nxt}")
+            self.mgr.attach(new)
+
+            # like the fleet: the fresh engine immediately takes queued
+            # work off the hottest serving tenant (queued requests have
+            # emitted nothing, so moving them is I10-safe)
+            def _load(tn):
+                return (len(tn.queue)
+                        + sum(r is not None for r in tn.active))
+            hot = max((tn for tn in self._serve_tenants()
+                       if tn.status == "running" and tn.tid != new.tid),
+                      key=_load, default=None)
+            while (hot is not None and hot.queue
+                   and _load(hot) - _load(new) > 1):
+                new.queue.append(hot.queue.pop())
+        elif action.kind == "scale_in":
+            self.mgr.detach(self.tenants[action.victim])
+        else:                                     # rebalance
+            src = self.tenants[action.victim]
+            dst = self.tenants[action.target]
+
+            def _gap(a, b):
+                return (len(a.queue)
+                        + sum(r is not None for r in a.active)
+                        - len(b.queue)
+                        - sum(r is not None for r in b.active))
+            while src.queue and _gap(src, dst) > 1:
+                dst.queue.append(src.queue.pop())
+            # queue-stealing alone can't close the gap when the hot
+            # engine's load is IN-FLIGHT: steal live requests through the
+            # journaled migration op. CacheExhausted (target KV full) or
+            # a manager refusal ends the steal cleanly — the request
+            # stays live on the source.
+            while (_gap(src, dst) > 1
+                   and src.peek_migratable() is not None):
+                try:
+                    self.mgr.migrate_request(src, dst)
+                except (CacheExhausted, ManagerError):
+                    break
+            self.mgr.migrate(src)
 
     # ----------------------------------------------------------------- run
     def run(self) -> ScenarioResult:
@@ -277,6 +408,10 @@ class ScenarioRunner:
                     check_invariants(self.mgr)
                     self._check_step_counters()
                     self._check_placement()
+                    if self._last_autoscale is not None:
+                        act, acfg = self._last_autoscale
+                        self._last_autoscale = None
+                        check_autoscale(act, acfg)      # I11
                 except InvariantViolation as e:
                     raise InvariantViolation(
                         f"seed={self.cfg.seed} policy={self.cfg.policy} "

@@ -2,12 +2,11 @@
 ``repro.sim.invariants``).
 
 Ported: I1-I5, I8, I10, I12 and I13 (``check_invariants``), I6
-(``check_timings``) and I7 (``check_pause_timings``); I9 lives in
-``repro_torch.sim.chaos.recover_manager``. I13 holds trivially until
-request migration lands (ROADMAP Queue 1 item 12): no request ever
-leaves its engine. Not ported yet: ``check_autoscale`` (I11, item 11),
-the I14 gang/template block (item 13) and ``check_federation`` (I15, with
-I16, item 9). I4 reads each device leaf to the host once and compares it
+(``check_timings``), I7 (``check_pause_timings``) and I11
+(``check_autoscale``); I9 lives in
+``repro_torch.sim.chaos.recover_manager``. Not ported yet: the I14
+gang/template block (ROADMAP Queue 1 item 13) and ``check_federation``
+(I15, with I16, item 9). I4 reads each device leaf to the host once and compares it
 with ``expected_state`` bit for bit; I12 reads a serving tenant's block
 table to the host once.
 
@@ -48,6 +47,14 @@ table to the host once.
       request's output is identical with and without a pause/pause_live/
       migrate mid-flight; any byte corrupted in the paged KV state by a
       reconfiguration round-trip surfaces here as token divergence
+  I11 autoscale justification (``check_autoscale``, run by the harness
+      after every autoscale op): every action the autoscaler took must be
+      justified by the telemetry snapshot it read — scale_out only with a
+      hot engine AND spare capacity, scale_in only of an idle victim
+      above the floor, rebalance only across a real hot/cold gap with
+      queued work to move. Paired with I10 (checked after the same op),
+      this is the claim that the control plane never reconfigures without
+      telemetry evidence and never perturbs a token stream doing so
   I12 page-refcount accounting: for every tenant holding a
       ``BlockAllocator``, refcounts recomputed from the per-rid page
       chains equal the allocator's live refcount map (its own
@@ -363,3 +370,17 @@ def check_pause_timings(t, live: bool = False) -> None:
     elif t.background:
         _fail(f"I7 stop-the-world pause has background phases "
               f"{sorted(t.background)}")
+
+
+def check_autoscale(action, cfg) -> None:
+    """I11 — an autoscaler action must be justified by the telemetry
+    snapshot it carries (``core.autoscaler.justify_action`` re-derives
+    the action's necessary conditions from that snapshot alone). The
+    token-stream half of the invariant — the action must not perturb any
+    request's output — is I10, which the harness checks after the same
+    op."""
+    from repro_torch.core.autoscaler import justify_action
+    err = justify_action(action, cfg)
+    if err is not None:
+        _fail(f"I11 unjustified autoscale action "
+              f"(snapshot {action.snapshot.describe()}): {err}")

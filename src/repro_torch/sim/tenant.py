@@ -46,8 +46,6 @@ from repro_torch.tree import tree_map
 _LEAVES = ("w0", "w1")        # params leaves
 _OPT = ("mu",)                # optimizer leaves
 
-_REQUEST_MIGRATION = ("request migration of the sim serving tenant is not "
-                      "ported yet (ROADMAP Queue 1 item 12)")
 
 
 def _tree_shapes(leaf_size: int) -> dict:
@@ -242,8 +240,10 @@ class SimServeTenant:
     request served across a mid-flight reconfiguration must produce
     exactly the tokens it would have produced without one.
 
-    Request migration (``peek_migratable`` ... ``owns_request`` in the JAX
-    tenant) comes with ROADMAP Queue 1 item 12: those methods raise.
+    Request migration (``peek_migratable`` ... ``owns_request``) mirrors
+    ``ServeEngine``'s protocol: the shipped state is the chain's page
+    cells, read from the device once; the target writes them back as new
+    tensors.
     """
 
     VOCAB = 97
@@ -284,6 +284,13 @@ class SimServeTenant:
         self.shared_hits = 0              # pages admitted without a copy
         self.cow_splits = 0               # decode writes that split a page
         self.preemptions = 0              # CoW exhaustion -> recompute
+        #: rid -> slot frozen by an in-flight outbound migration (mirrors
+        #: ServeEngine._migrating): the slot keeps its request/pages, is
+        #: skipped by decode, thaws on release (commit) or abort
+        self._migrating: dict = {}
+        self.migrations_in = 0
+        self.migrations_out = 0
+        self.migration_stall_ticks = 0
         self._h: Optional[dict] = None    # host copies during a step
 
     def _shapes(self) -> dict:
@@ -422,9 +429,13 @@ class SimServeTenant:
     def _engine_step(self):
         h = self._h
         self._admit()
+        frozen = set(self._migrating.values())
         for s in range(self.SLOTS):
             req = self.active[s]
             if req is None:
+                continue
+            if s in frozen:               # mid-migration: slot is frozen
+                self.migration_stall_ticks += 1
                 continue
             # copy-on-write: this step's KV cell must land in a PRIVATE
             # page; a shared one is split first (one page, one table row)
@@ -452,27 +463,127 @@ class SimServeTenant:
                 h["tables"][s, :] = 0
                 h["pos"][s] = -1
 
-    # -- request migration: ROADMAP Queue 1 item 12 ---------------------------
+    # -- request migration (mirrors ServeEngine's protocol) -----------------
+    def _host_arrays(self) -> dict:
+        """Host copies of the four state arrays (one read each); written
+        back with ``_set_arrays`` as new tensors, so the staging memo sees
+        them dirty."""
+        return {k: getattr(self, k).cpu().numpy().copy()
+                for k in _SERVE_ARRAYS}
+
     def peek_migratable(self, rid=None):
-        raise NotImplementedError(_REQUEST_MIGRATION)
+        """Pure query: the rid ``extract_request`` would pick."""
+        frozen = set(self._migrating.values())
+        for s in range(self.SLOTS):
+            req = self.active[s]
+            if req is None or s in frozen:
+                continue
+            if rid is None or req.rid == rid:
+                return req.rid
+        return None
 
     def extract_request(self, rid=None):
-        raise NotImplementedError(_REQUEST_MIGRATION)
+        """Freeze one in-flight request and copy out everything the
+        target needs: page cells of its chain (a fresh tensor on the
+        device), pos, last token, prompt tokens (for trie re-sharing).
+        Non-destructive — the source keeps its pages until
+        ``release_request``."""
+        rid = self.peek_migratable(rid)
+        if rid is None:
+            return None
+        slot = next(s for s in range(self.SLOTS)
+                    if self.active[s] is not None
+                    and self.active[s].rid == rid)
+        chain = self.alloc.pages_of(rid)
+        self._migrating[rid] = slot
+        idx = torch.as_tensor(chain, dtype=torch.int64, device=self.device)
+        return {"rid": rid, "req": self.active[slot], "slot": slot,
+                "chain_len": len(chain), "page_size": self.PAGE,
+                "tokens": self.alloc.tokens_of(rid),
+                "pos": int(self.pos[slot]), "last": int(self.last[slot]),
+                "state": {"cells": self.pages[idx].clone()}}
 
     def admit_migrated(self, payload, state):
-        raise NotImplementedError(_REQUEST_MIGRATION)
+        """Admit a migrated request into a free slot. Re-shares trie
+        pages for FULL prompt pages only — the partly-filled last prompt
+        page may already hold this request's decode cells, which a
+        sibling's registered page does not. Raises ``CacheExhausted``
+        (side-effect-free) when no slot or not enough pages."""
+        rid = payload["rid"]
+        if self.owns_request(rid):        # idempotent recovery replay
+            return
+        slot = next((s for s in range(self.SLOTS)
+                     if self.active[s] is None), None)
+        if slot is None:
+            raise CacheExhausted(
+                f"request {rid}: no free slot on migration target "
+                f"{self.tid}")
+        tokens = payload.get("tokens")
+        share = None
+        if tokens:
+            share = tokens[:self.PAGE * (len(tokens) // self.PAGE)] or None
+        pages = self.alloc.allocate(rid, payload["chain_len"],
+                                    tokens=share)
+        shared = self.alloc.shared_count(rid)
+        self.shared_hits += shared
+        cells = torch.as_tensor(state["cells"]).cpu().numpy()
+        h = self._host_arrays()
+        for i, p in enumerate(pages):
+            if i >= shared:
+                h["pages"][p] = cells[i]
+        h["tables"][slot, :] = 0
+        h["tables"][slot, :len(pages)] = pages
+        h["pos"][slot] = payload["pos"]
+        h["last"][slot] = payload["last"]
+        self._set_arrays(h)
+        self.active[slot] = payload["req"]
+        if share:
+            self.alloc.register_prefix(rid)
+        self.migrations_in += 1
+
+    def _clear_slot(self, slot: int):
+        """An empty slot's table row and position, on the device."""
+        if self.tables is None:           # paused / detached: no arrays
+            return
+        h = self._host_arrays()
+        h["tables"][slot, :] = 0
+        h["pos"][slot] = -1
+        self._set_arrays(h)
 
     def release_request(self, rid) -> bool:
-        raise NotImplementedError(_REQUEST_MIGRATION)
+        """Commit side of an outbound migration: free our copy. Idempotent
+        (recovery may roll the same release forward twice)."""
+        slot = self._migrating.pop(rid, None)
+        if slot is None:
+            return False
+        self.alloc.free(rid)
+        self.active[slot] = None
+        self._clear_slot(slot)
+        self.migrations_out += 1
+        return True
 
     def abort_migration(self, rid) -> bool:
-        raise NotImplementedError(_REQUEST_MIGRATION)
+        """Thaw the frozen slot — the request never left (side-effect-free
+        on the request object)."""
+        return self._migrating.pop(rid, None) is not None
 
     def abort_incoming(self, rid):
-        raise NotImplementedError(_REQUEST_MIGRATION)
+        """Target-side rollback of a (possibly partial) admission."""
+        if rid not in self.alloc.owners():
+            return
+        for s, req in enumerate(self.active):
+            if req is not None and req.rid == rid:
+                self.active[s] = None
+                self._clear_slot(s)
+                break
+        self.alloc.free(rid)
 
     def owns_request(self, rid) -> bool:
-        raise NotImplementedError(_REQUEST_MIGRATION)
+        if any(r is not None and r.rid == rid for r in self.active):
+            return True
+        if any(r.rid == rid for r in self.queue):
+            return True
+        return rid in self.alloc.owners()
 
     # ------------------------------------------------------------- protocol
     def bind(self, vf: VirtualFunction, state=None, *,
@@ -547,7 +658,7 @@ class SimServeTenant:
                 "workload": self.workload,
                 "queued": len(self.queue),
                 "inflight": sum(r is not None for r in self.active),
-                "migrating": [],
+                "migrating": sorted(self._migrating),
                 "exec_keys": [list(map(str, k)) for k in self._exec_cache]}
 
     def inject_failure(self):

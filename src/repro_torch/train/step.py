@@ -13,6 +13,8 @@ JAX package returns a function to ``jit``:
   make_eval_step    (params, batch) -> metrics under ``torch.no_grad()``,
                     where the forward launches the CUDA kernels on a card
   make_serve_steps  the model's prefill and uniform-position decode
+  make_prefill_chunk  one chunk of a chunked prefill (all-attention
+                    stacks)
 
 A train state is ``{"params", "opt", "step"}``, ``step`` a 0-d int32
 tensor. Sharding rules (``train_state_specs``, ``batch_specs``) come with
@@ -132,6 +134,13 @@ def make_serve_steps(run: RunConfig):
     return model.prefill, model.decode_step
 
 
+def make_prefill_chunk(run: RunConfig):
+    """Chunked-prefill step (all-attention stacks only):
+    ``chunk(params, cache, tokens, offset)`` -> (cache, logits (B,C,V)),
+    the dense staging cache updated in place."""
+    return build_model(run).prefill_chunk
+
+
 def make_decode_step(run: RunConfig, *, paged: bool = False,
                      fused: bool = False):
     """Continuous-batching decode step with an active-slot mask over the
@@ -147,7 +156,7 @@ def make_decode_step(run: RunConfig, *, paged: bool = False,
     if not paged:
         raise NotImplementedError(
             "dense (non-paged) decode layout is not ported yet "
-            "(ROADMAP: deferred serve-engine parts)")
+            "(ROADMAP Queue 1 item 5: the dense per-slot ring layout)")
     model = build_model(run)
     backend = ops_backend(run)
 

@@ -687,3 +687,118 @@ def test_serve_sim_tenant_live_pause_on_card(cuda):
     for k, v in want.items():
         assert tn.params[k].device.type == "cuda"
         assert CS.bits_equal(torch, tn.params[k], v), k
+
+
+def _mig_run(arch):
+    """``arch``'s smoke config with head_dim 64 (the attention kernel
+    takes 64 or 128)."""
+    import dataclasses
+    from repro_torch.configs import make_run_config
+    run = make_run_config(arch, "decode_32k", smoke=True)
+    return run.replace(model=dataclasses.replace(run.model, head_dim=64))
+
+
+def _mig_fleet(arch, cuda, params, run, tmp, **kw):
+    from repro_torch.serve.fleet import ServeFleet
+    return ServeFleet(run, params, num_engines=2, num_devices=4, slots=2,
+                      max_len=64, page_size=8, device=cuda,
+                      workdir=str(tmp), **kw)
+
+
+def _mig_requests(n_tok, new=6):
+    from repro_torch.serve.engine import Request
+    return [Request(rid=i, prompt=(np.arange(n) * (i + 3) + 1) % 300,
+                    max_new_tokens=new, temperature=0.8 if i % 2 else 0.0,
+                    seed=3 + i) for i, n in enumerate(n_tok)]
+
+
+def _chain_leaves(eng, rid):
+    """(blk, name) -> the rid's chain of every paged leaf, and the slot's
+    rows of every dense leaf, copied."""
+    chain = eng.alloc.pages_of(rid)
+    slot = next(s for s, r in enumerate(eng.active)
+                if r is not None and r.rid == rid)
+    out = {}
+    for blk, node in eng._cache.items():
+        for name, leaf in node.items():
+            out[blk, name] = (leaf[:, chain] if name in
+                              ("k", "v", "k_scale", "v_scale")
+                              else leaf[:, slot]).clone()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_migrated_request_pages_on_card(cuda, tmp_path, kv_dtype):
+    """A request migrated mid-decode between two engines on the card (the
+    smoke config with head_dim 64): with
+    bf16 pages the target's chain is the source's, bit for bit; with int8
+    pages the target's pages and scales are, bit for bit, the CPU port's
+    plain requantization of the source's dequantized pages (what the JAX
+    engine's jitted admission computes). The stream equals an undisturbed
+    fleet's on the card."""
+    from repro_torch.models.model import build_model
+    run = _mig_run("qwen3-0.6b")
+    params = build_model(run).init(seed=0, device=cuda)
+    streams = []
+    for migrate in (False, True):
+        fleet = _mig_fleet("qwen3-0.6b", cuda, params, run,
+                           tmp_path / str(migrate), kv_dtype=kv_dtype)
+        reqs = _mig_requests((11, 7))
+        for r in reqs:
+            fleet.submit(r)
+        for _ in range(2):
+            fleet.step()
+        if migrate:
+            src = fleet.tenants["serve0"].engine
+            dst = fleet.tenants["serve1"].engine
+            before = _chain_leaves(src, 0)
+            assert fleet.migrate_request("serve0", "serve1", 0) is not None
+            after = _chain_leaves(dst, 0)
+            for blk, name in before:
+                if name.endswith("_scale"):
+                    continue
+                if kv_dtype is None:
+                    assert CS.bits_equal(torch, after[blk, name],
+                                         before[blk, name]), (blk, name)
+                    continue
+                q, s = (before[blk, name].cpu(),
+                        before[blk, name + "_scale"].cpu())
+                want_q, want_s = tref.kv_quant_ref(tref.kv_dequant_ref(q, s))
+                assert torch.equal(after[blk, name].cpu(), want_q)
+                assert CS.bits_equal(torch, after[blk, name + "_scale"].cpu(),
+                                     want_s)
+        fleet.drain()
+        streams.append([list(r.out) for r in reqs])
+    if kv_dtype is None:
+        assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+def test_hybrid_migration_on_card(cuda, tmp_path):
+    """The hybrid twin at smoke width (head_dim 64) on the card: a request
+    migrates mid-decode with its conv and SSM slot state (bit for bit) and
+    its KV chain, and every stream equals an undisturbed fleet's on the
+    card."""
+    from repro_torch.models.model import build_model
+    run = _mig_run("jamba-1.5-large-398b-1p-dense")
+    params = build_model(run).init(seed=0, device=cuda)
+    streams = []
+    for migrate in (False, True):
+        fleet = _mig_fleet(run.model.name, cuda, params, run,
+                           tmp_path / str(migrate))
+        reqs = _mig_requests((16, 9))
+        for r in reqs:
+            fleet.submit(r)
+        for _ in range(2):
+            fleet.step()
+        if migrate:
+            before = _chain_leaves(fleet.tenants["serve0"].engine, 0)
+            assert fleet.migrate_request("serve0", "serve1", 0) is not None
+            after = _chain_leaves(fleet.tenants["serve1"].engine, 0)
+            assert any(name in ("conv", "ssm") for _, name in before)
+            for key in before:
+                assert CS.bits_equal(torch, after[key], before[key]), key
+        fleet.drain()
+        streams.append([list(r.out) for r in reqs])
+    assert streams[0] == streams[1]

@@ -58,6 +58,17 @@ def test_sim_plane_and_benchmarks_are_checked():
         assert mod in checked, mod
 
 
+def test_elastic_plane_modules_are_checked():
+    """The autoscaler (a copy of the JAX package's standard-library-only
+    module, not an import of it) and the migration and elastic-sweep
+    drivers are among the files held free of JAX above."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    for mod in ("core/autoscaler.py", "serve/fleet.py", "serve/engine.py",
+                "bench/migration.py", "bench/elastic_sweep.py"):
+        assert mod in checked, mod
+
+
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a process where importing JAX
     or the JAX package fails."""

@@ -12,6 +12,7 @@ bit-exact.
 import importlib.util
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -99,9 +100,18 @@ def test_model_attention_matches_jax(causal):
                            interpret=True), TOL["bfloat16"])
     _close(tattn.attention_ref(qt, kt, vt, causal=causal),
            jattn.attention_ref(qj, kj, vj, causal=causal), TOL["bfloat16"])
-    for kw in ({"q_offset": 3}, {"kv_len": 8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattn.attention(qt, kt, vt, causal=causal, **kw)
+    # a query offset or a KV length takes the plain attention, as in the
+    # JAX dispatch (a 0-d tensor offset too, even one holding 0)
+    for kw in ({"q_offset": 3}, {"kv_len": 8},
+               {"q_offset": 2, "kv_len": 12}):
+        jkw = dict(kw)
+        tkw = dict(kw, q_offset=torch.tensor(kw.get("q_offset", 0)))
+        want = jattn.attention(qj, kj, vj, causal=causal, backend="pallas",
+                               interpret=True, **jkw)
+        _close(tattn.attention(qt, kt, vt, causal=causal, **kw), want,
+               TOL["bfloat16"])
+        _close(tattn.attention(qt, kt, vt, causal=causal, **tkw), want,
+               TOL["bfloat16"])
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +241,13 @@ def test_paged_decode_plain_matches_jax(dtype):
 
 
 def test_kv_quant_bit_identical_to_jax():
+    """The oracle is what the JAX engine runs: its quantizer under
+    ``jit`` (the decode step and the admission scatter), where the scale
+    is max|x| times float32(1/127)."""
+    from repro.serve.paged import kv_quantize
     x = np.random.default_rng(2).standard_normal((5, 8, 2, 32), np.float32)
     x[0, 0, 0] = 0.0                       # an all-zero row: the 1e-12 floor
-    qj, sj = jref.kv_quant_ref(jnp.asarray(x))
+    qj, sj = jax.jit(kv_quantize)(jnp.asarray(x))
     qt, st = tref.kv_quant_ref(torch.from_numpy(x))
     assert np.array_equal(qt.numpy(), np.asarray(qj))
     assert np.array_equal(st.numpy(), np.asarray(sj))

@@ -211,15 +211,18 @@ def test_device_defaults_to_cuda_and_raises_without_it(setup):
 
 
 def test_deferred_engine_parts_raise(setup):
+    """The dense per-slot ring layout is the one deferred engine part
+    left; chunked prefill and request migration run (their parity with
+    the JAX engine: ``test_torch_migration.py``)."""
     _, _, trun, tp = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         ServeEngine(trun, tp, device="cpu", paged=False)    # dense layout
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(trun, tp, device="cpu", paged=True, prefill_chunk=4)
+    eng = ServeEngine(trun, tp, device="cpu", paged=True, prefill_chunk=4)
+    assert eng.prefill_chunk == 4
     eng = ServeEngine(trun, tp, device="cpu")           # paged by default
     assert eng.alloc.page_size == 16
-    with pytest.raises(NotImplementedError, match="migration"):
-        eng.extract_request()
+    assert eng.extract_request() is None                # idle: nothing
+    assert eng.peek_migratable() is None
 
 
 def test_launch_serve_bare_engine(capsys):
@@ -229,13 +232,16 @@ def test_launch_serve_bare_engine(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["completed"] == out["requests"] == 3
     assert out["generated_tokens"] == 12
-    # options the port does not have yet are refused, not ignored
-    for extra, name in ((["--fleet", "2", "--autoscale"], "--autoscale"),
-                        (["--fleet", "2", "--spares", "1"], "--spares"),
-                        (["--slo-max-load", "64"], "--slo-max-load"),
-                        (["--prefill-chunk", "4"], "--prefill-chunk")):
-        with pytest.raises(NotImplementedError, match=name):
-            serve.main(["--smoke", "--device", "cpu"] + extra)
+    # chunked prefill runs (prompts of 4-11 tokens, chunks of 4)
+    rc = serve.main(["--smoke", "--paged", "--device", "cpu",
+                     "--requests", "3", "--new-tokens", "4",
+                     "--prefill-chunk", "4"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["completed"] == 3
+    assert out["generated_tokens"] == 12
+    # the admission bound exists in fleet mode only: refused, not ignored
+    with pytest.raises(NotImplementedError, match="--slo-max-load"):
+        serve.main(["--smoke", "--device", "cpu", "--slo-max-load", "64"])
 
 
 # ---------------------------------------------------------------------------
@@ -371,15 +377,15 @@ def test_hybrid_inactive_slot_state_bit_untouched(hybrid):
 
 def test_hybrid_prefill_chunk_is_turned_off(hybrid, setup):
     """As in the JAX engine, a stack that is not all attention serves with
-    chunked prefill off; an all-attention stack still refuses it."""
+    chunked prefill off; an all-attention stack keeps it on."""
     _, _, trun, tp = hybrid
     eng = ServeEngine(trun, tp, device="cpu", slots=2, max_len=48,
                       page_size=8, prefill_chunk=8)
     assert eng.prefill_chunk == 0
     _serve(eng, _hybrid_requests(Request, n=2, new=2))
     _, _, qrun, qp = setup
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        ServeEngine(qrun, qp, device="cpu", prefill_chunk=8)
+    assert ServeEngine(qrun, qp, device="cpu",
+                       prefill_chunk=8).prefill_chunk == 8
 
 
 def test_hybrid_engine_rejects_a_prompt_breaking_the_chunk_rule(hybrid):

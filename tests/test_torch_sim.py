@@ -9,10 +9,13 @@ The JAX package is the oracle, run on the same seeds and configs:
   ``fingerprint()``, ``num_ok``, ``num_rejected`` and ``virtual_seconds``,
   and every final ``SimTenant`` leaf is bit-equal to the JAX tenant's
   ``export_state()`` (exact: fp32 adds of the same numpy draws);
-* ``run_crash_case`` gives the same rows for each of the 11 ported crash
-  points;
-* the checker bites (I4, I10, I12), and the unported ops, rates and
-  crash points raise ``NotImplementedError`` naming their ROADMAP item;
+* ``run_crash_case`` gives the same rows for each of the 15 ported crash
+  points (the four ``migrate_*`` windows included);
+* with nonzero autoscale and migrate rates the runners agree too, and the
+  serving sim tenant's migration methods match the JAX tenant's;
+* the checker bites (I4, I10, I12), and the unported reshape op, rate and
+  gang crash points raise ``NotImplementedError`` naming their ROADMAP
+  item;
 * the three benchmarks in ``repro_torch.bench`` run and print the JAX
   benchmarks' report keys (the committed ``BENCH_*.json`` of the JAX
   package).
@@ -27,6 +30,9 @@ import torch
 
 import repro.sim as jsim
 import repro_torch.sim as tsim
+from repro.core.manager import SVFFManager as JManager
+from repro.core.pool import DevicePool as JPool
+from repro.core.staging import StagingEngine as JStaging
 from repro.sim.chaos import run_crash_case as jax_crash_case
 from repro_torch.bench import crash_matrix as tcrash
 from repro_torch.bench import pause_path as tpause
@@ -76,15 +82,17 @@ def test_scenario_config_fields_match_jax():
 
 
 def test_crash_catalogue_matches_jax():
-    """All 19 points kept as data (the generator draws from them), the 11
-    of the core ops recovered."""
+    """All 19 points kept as data (the generator draws from them), the 15
+    of the core ops and request migration recovered."""
     assert ({k: dataclasses.astuple(v) for k, v in tsim.CRASH_POINTS.items()}
             == {k: dataclasses.astuple(v)
                 for k, v in jsim.CRASH_POINTS.items()})
     assert len(tsim.CRASH_POINTS) == 19
-    assert len(tsim.PORTED_POINTS) == 11
+    assert len(tsim.PORTED_POINTS) == 15
+    assert len([p for p in tsim.PORTED_POINTS
+                if p.startswith("migrate_")]) == 4
     assert not [p for p in tsim.PORTED_POINTS
-                if p.startswith(("migrate_", "gang_", "reshape_"))]
+                if p.startswith(("gang_", "reshape_"))]
 
 
 def _leaves(tree) -> dict:
@@ -143,7 +151,7 @@ def test_crash_case_matches_jax(point):
 def test_crash_matrix_default_is_the_ported_points():
     out = tsim.crash_matrix(seeds=(0,), policies=("best_fit",),
                             device="cpu")
-    assert out["summary"]["num_cases"] == 11
+    assert out["summary"]["num_cases"] == 15
     assert out["summary"]["num_failures"] == 0
     assert sorted(c["point"] for c in out["cases"]) == sorted(
         tsim.PORTED_POINTS)
@@ -245,32 +253,107 @@ def test_serve_tenant_pause_live_round_trip(tmp_path):
 # ---------------------------------------------------------------------------
 # refusals, each naming its ROADMAP item
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("rate,item", [("autoscale_rate", "item 11"),
-                                       ("migrate_rate", "item 12"),
-                                       ("reshape_rate", "item 13")])
+@pytest.mark.parametrize("rate,item", [("reshape_rate", "item 13")])
 def test_runner_refuses_unported_rates(rate, item):
     cfg = tsim.ScenarioConfig(seed=0, serve_rate=0.3, **{rate: 0.2})
     with pytest.raises(NotImplementedError, match=item):
         tsim.ScenarioRunner(cfg, device="cpu")
 
 
+ELASTIC_CONFIGS = {"autoscale": {"autoscale_rate": 0.2},
+                   "migrate": {"migrate_rate": 0.25},
+                   "both": {"autoscale_rate": 0.1, "migrate_rate": 0.25},
+                   "both_crash": {"autoscale_rate": 0.1,
+                                  "migrate_rate": 0.25, "crash_rate": 0.1}}
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("name", sorted(ELASTIC_CONFIGS))
+def test_runner_elastic_rates_match_jax(name, policy):
+    """The autoscale and migrate_request ops: per-op outcomes, virtual
+    time, autoscaler history, migrations and the serving tenants' token
+    streams equal the JAX runner's, seeds 0-3, with I11 and I13 checked
+    after every op."""
+    for seed in range(4):
+        kw = dict(seed=seed, policy=policy, serve_rate=0.45,
+                  **ELASTIC_CONFIGS[name])
+        jr = jsim.ScenarioRunner(jsim.ScenarioConfig(**kw))
+        want = jr.run()
+        tr = tsim.ScenarioRunner(tsim.ScenarioConfig(**kw), device="cpu")
+        got = tr.run()
+        assert got.fingerprint() == want.fingerprint(), seed
+        assert got.virtual_seconds == want.virtual_seconds
+        assert ([(a.kind, a.victim, a.target) for a in
+                 tr.autoscaler.history]
+                == [(a.kind, a.victim, a.target) for a in
+                    jr.autoscaler.history])
+        assert sorted(tr.tenants) == sorted(jr.tenants)
+        for tid, jt in jr.tenants.items():
+            tt = tr.tenants[tid]
+            assert (tt.status, tt.steps_done) == (jt.status, jt.steps_done)
+            if hasattr(jt, "requests"):
+                assert ([(r.rid, r.out, r.done) for r in tt.requests]
+                        == [(r.rid, r.out, r.done) for r in jt.requests])
+                assert ((tt.migrations_in, tt.migrations_out,
+                         tt.migration_stall_ticks)
+                        == (jt.migrations_in, jt.migrations_out,
+                            jt.migration_stall_ticks))
+
+
 @pytest.mark.parametrize("point", sorted(
     set(tsim.CRASH_POINTS) - set(tsim.PORTED_POINTS)))
 def test_unported_crash_points_refused(point):
-    item = "item 12" if point.startswith("migrate_") else "item 13"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 13"):
         tsim.run_crash_case(point, 0, device="cpu")
 
 
-def test_serve_tenant_migration_methods_refused():
-    tn = tsim.SimServeTenant("sv0", seed=0, device="cpu")
-    for call in (lambda: tn.peek_migratable(), lambda: tn.extract_request(),
-                 lambda: tn.admit_migrated({}, {}),
-                 lambda: tn.release_request(0),
-                 lambda: tn.abort_migration(0), lambda: tn.abort_incoming(0),
-                 lambda: tn.owns_request(0)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+def test_serve_tenant_migration_methods_refused(tmp_path):
+    """The serving sim tenant's migration protocol, step by step beside
+    the JAX tenant's: peek, extract (a frozen slot, the chain's cells),
+    a target-side no-op abort, a thawed slot, then a committed hand-off; ownership, counters and every emitted token
+    equal, and both engines' requests finish on the oracle's stream."""
+    def run(sim, kw):
+        a = sim.SimServeTenant("sv0", seed=4, **kw)
+        b = sim.SimServeTenant("sv1", seed=4, **kw)
+        core = (DevicePool, SVFFManager, StagingEngine) if sim is tsim \
+            else (JPool, JManager, JStaging)
+        pool = core[0](devices=tuple(f"d{i}" for i in range(8)), max_vfs=4)
+        mgr = core[1](pool, workdir=str(tmp_path / sim.__name__),
+                      staging=core[2](num_queues=1), scheduler="first_fit")
+        mgr.init(2, [a, b], devices_per_vf=2)
+        a.submit_burst(4)
+        obs = []
+        for _ in range(3):
+            a.run_steps(1)
+            b.run_steps(1)
+        rid = a.peek_migratable()
+        obs.append((rid, a.owns_request(rid), b.owns_request(rid)))
+        payload = a.extract_request(rid)
+        cells = np.asarray(payload["state"]["cells"].cpu()
+                           if sim is tsim else payload["state"]["cells"])
+        obs.append((payload["chain_len"], payload["pos"], payload["last"],
+                    cells.tolist(), a.peek_migratable(rid)))
+        a.run_steps(1)                              # the frozen slot stalls
+        obs.append(a.migration_stall_ticks)
+        b.abort_incoming(rid)                       # no-op: never admitted
+        obs.append(a.abort_migration(rid))
+        res = mgr.migrate_request(a, b, rid)
+        obs.append((res["rid"], res["blocks"], a.owns_request(rid),
+                    b.owns_request(rid), a.migrations_out, b.migrations_in,
+                    b.shared_hits))
+        for _ in range(12):
+            a.run_steps(1)
+            b.run_steps(1)
+        sim.check_invariants(mgr)
+        obs.append([(r.rid, r.out, r.done) for r in a.requests + b.requests])
+        return obs
+
+    got = run(tsim, {"device": "cpu"})
+    assert got == run(jsim, {})
+    assert got[0][1:] == (True, False) and got[2] == 1
+    for rid, out, done in got[-1]:
+        assert done and out == tsim.SimServeTenant.expected_output(4, rid)
+
 
 
 def test_entry_points_default_to_the_card():

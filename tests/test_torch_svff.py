@@ -202,21 +202,29 @@ def test_pause_drops_every_device_tensor(setup, tmp_path):
 
 def test_unported_fleet_paths_raise_naming_their_roadmap_item(setup,
                                                               tmp_path):
-    tf = _fleet(setup, PORT_SIDE, tmp_path, num_engines=1)
-    for call, item in ((tf.autoscale_step, "item 11"),
-                       (tf.scale_out, "item 11"),
-                       (lambda: tf.migrate_request("serve0", "serve0"),
-                        "item 12"),
-                       (lambda: tf.reshape_engine("serve0", 2), "item 13"),
-                       (lambda: tf.mgr.attach_group(tf.tenants["serve0"]),
+    """What stays refused on the elastic fleet: the gang ops and the
+    reshape (item 13, ``handle_vf_loss`` among them, since it reshapes)
+    and the federation (item 9). Migration, recovery and the autoscaler
+    run: ``test_torch_migration.py``, ``test_torch_autoscaler.py``."""
+    tf = _fleet(setup, PORT_SIDE, tmp_path, num_engines=2)
+    s0, s1 = tf.tenants["serve0"], tf.tenants["serve1"]
+    for call, item in ((lambda: tf.reshape_engine("serve0", 2), "item 13"),
+                       (lambda: tf.handle_vf_loss("serve0", "vf1"),
                         "item 13"),
-                       (lambda: tf.mgr.migrate_request("serve0", "serve0"),
-                        "item 12")):
+                       (lambda: tf.mgr.attach_group(s0), "item 13"),
+                       (lambda: tf.mgr.reshape(s0, 2), "item 13"),
+                       (lambda: tf.mgr.migrate_request(s0, s1,
+                                                       dst_host="host1"),
+                        "item 9"),
+                       (tf.federation_snapshot, "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             call()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _fleet(setup, PORT_SIDE, tmp_path / "b", num_engines=1,
-               spare_engines=1)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        _fleet(setup, PORT_SIDE, tmp_path / "b", num_engines=1, stages=2)
+    # the autoscaler's paths run; without a config the step is a typed
+    # refusal, as in the JAX fleet
+    with pytest.raises(ValueError, match="autoscale"):
+        tf.autoscale_step()
 
 
 def test_manager_default_workdir_is_private():
@@ -283,14 +291,20 @@ def test_launch_serve_fleet(capsys):
                      "--slo-max-load", "2", "--requests", "6",
                      "--new-tokens", "4"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rc == 0 and out["mode"] == "fleet" and out["engines"] == 2
+    assert rc == 0 and out["mode"] == "fleet"
+    assert out["engines_initial"] == out["engines_final"] == 2
     assert out["completed"] == out["requests"] == 6 and out["drained"]
     assert out["generated_tokens"] == 24
     assert out["rejected_submissions"] > 0 and out["journal_pending"] == 0
-    for extra in (["--autoscale"], ["--spares", "1"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            serve.main(["--smoke", "--device", "cpu", "--fleet", "2"]
-                       + extra)
+    assert out["autoscale_actions"] == []
+    # the elastic control plane: one engine, two warm spares
+    rc = serve.main(["--smoke", "--device", "cpu", "--fleet", "1",
+                     "--autoscale", "--spares", "2", "--slo-max-load", "4",
+                     "--requests", "16", "--new-tokens", "4"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["completed"] == 16 and out["drained"]
+    assert "scale_out" in [a["kind"] for a in out["autoscale_actions"]]
+    assert out["journal_pending"] == 0
 
 
 # ---------------------------------------------------------------------------
