@@ -13,7 +13,12 @@ two engines mid-decode (bf16 and int8 KV pages), a busy engine scaled in
 (its in-flight requests migrated), a crashed engine's requests re-homed
 and regenerated, and the JAX elastic benchmark's static-vs-autoscaled
 fleets over four traffic traces (and again at the smoke width on the CPU,
-for the action sequence). Then
+for the action sequence). Then the serve plane at the same width: the
+dense per-slot KV ring (``ServeEngine(paged=False)``) serving the same
+16 requests, and the JAX package's serve-plane benchmarks through the
+port's benchmarks (``bench.serve_path``, ``bench.prefix_share``,
+``bench.decode_roofline`` at bf16 against the H100's data sheet,
+``bench.throughput`` on svff-bench and a qwen3-0.6b train tenant). Then
 the hybrid Mamba-attention stack, jamba-1.5-large-398b-1p-dense (one
 period of Jamba-1.5-Large at every published width, 1 attention and 7
 mamba layers, dense FFNs, bf16 params, random weights from ``--seed``):
@@ -36,10 +41,11 @@ and ``qdma_unpack``.
 
 Phases: card, build, one phase per kernel, qwen serve (bf16, int8), SVFF
 (bit-exact staging, int8 staging), elastic (migration bf16 and int8,
-scale-in, recovery, elastic sweep), hybrid prefill, hybrid serve (bf16,
-int8), hybrid generate, train launch, train tenant (bit-exact, int8),
-eval step, Tables I/II, sim sweep (two passes), crash matrix, pause path,
-kernels line, result line. Any failed check exits
+scale-in, recovery, elastic sweep), serve plane (dense ring, serve path,
+prefix share, decode roofline, throughput x2), hybrid prefill, hybrid
+serve (bf16, int8), hybrid generate, train launch, train tenant
+(bit-exact, int8), eval step, Tables I/II, sim sweep (two passes), crash
+matrix, pause path, kernels line, result line. Any failed check exits
 non-zero before the result line. Details go to
 ``chiprun_out/chip_smoke.json``. The script imports only torch, numpy and
 the port.
@@ -849,15 +855,15 @@ def hybrid_requests(Request, vocab: int, seed: int):
 
 
 def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
-          pause_at=None, count=False, requests=make_requests):
-    """Serve the 16 requests to completion; returns (token streams,
-    metrics). With ``pause_at`` the engine is paused after that step, its
-    device state staged to host memory and dropped, restored and
-    unpaused."""
+          pause_at=None, count=False, requests=make_requests, paged=True):
+    """Serve the 16 requests to completion (paged, page 16, or through
+    the dense ring); returns (token streams, metrics, launch counts).
+    With ``pause_at`` the engine is paused after that step, its device
+    state staged to host memory and dropped, restored and unpaused."""
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.tree import tree_to
     eng = ServeEngine(run, params, device="cuda", slots=8, max_len=1024,
-                      paged=True, page_size=16, kv_dtype=kv_dtype,
+                      paged=paged, page_size=16, kv_dtype=kv_dtype,
                       fused_sampling=fused)
     reqs = requests(Request, run.model.vocab_size, seed)
     for r in reqs:
@@ -1759,6 +1765,270 @@ def run_elastic(torch, ops, args, card, report, launches, params=None,
     release(torch)
 
 
+# ---------------------------------------------------------------------------
+# the serve plane's benchmarks and the dense ring, at full width
+# ---------------------------------------------------------------------------
+SERVE_PATH_KW = dict(requests=32, slots=16, max_len=1024, page_size=32,
+                     max_new=24)     # the JAX benchmark's defaults
+THROUGHPUT_STEPS = {"svff-bench": 20, "qwen3-0.6b": 10}
+ROOFLINE_KERNELS = ("flash_decode", "paged_decode", "paged_decode_quant",
+                    "fused_sample", "ssm_scan")
+
+
+def first_difference(a: list, b: list) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def phase_dense(torch, ops, run, params, seed, paged, card):
+    """The dense per-slot ring (``ServeEngine(paged=False)``) on the 16
+    requests of the serve phase: fused sampling (launch counts), host
+    sampling (I10: the same tokens) and a pause round trip (the same
+    tokens). Its greedy streams are held against the paged engine's
+    (``paged``: the bf16 serve phase's streams and metrics): where one
+    diverges, the two tokens at the first difference must be a near tie
+    of the teacher-forced logits there (within ``LOGITS_REL_TOL`` of max
+    |logit|, the kernel-vs-plain prefill bound): the ring decodes
+    through the plain attention, which rounds the probabilities to bf16
+    before P V, the paged kernel keeps them fp32."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request
+    out, met, counts = serve(torch, ops, run, params, None, seed,
+                             count=True, paged=False)
+    host, _, _ = serve(torch, ops, run, params, None, seed, fused=False,
+                       paged=False)
+    check(host == out, "dense ring: host sampling gives other tokens than "
+                       "fused sampling (I10)")
+    paused, _, _ = serve(torch, ops, run, params, None, seed, pause_at=10,
+                         paged=False)
+    check(paused == out, "dense ring: the pause round trip changed the "
+                         "tokens (I10)")
+    for k in ("flash_attention", "fused_sample"):
+        check(counts[k] > 0, f"{k} was never launched on the dense ring")
+    model = build_model(run)
+    cp = model.compute_params(params)
+    reqs = make_requests(Request, run.model.vocab_size, seed)
+    greedy, diverged = 0, []
+    for r, a, b in zip(reqs, out, paged["streams"]):
+        if r.temperature > 0:
+            continue
+        greedy += 1
+        if a == b:
+            continue
+        j = first_difference(a, b)
+        toks = np.concatenate([r.prompt, np.asarray(a[:j], np.int32)])
+        with torch.no_grad():
+            _, lg = model.prefill(cp, {"tokens": torch.as_tensor(
+                toks, dtype=torch.int64, device="cuda")[None]})
+        lg = lg[0].float()
+        gap = float((lg[a[j]] - lg[b[j]]).abs() / lg.abs().max())
+        diverged.append({"rid": r.rid, "token": j, "dense": a[j],
+                         "paged": b[j], "gap_rel": gap})
+    del cp
+    release(torch)
+    res = dict(met, launches=counts, greedy_streams=greedy,
+               greedy_equal_paged=greedy - len(diverged),
+               greedy_diverged=diverged,
+               paged_decode_step_ms_median=paged["decode_step_ms_median"])
+    log(f"dense ring qwen3-0.6b: 16 requests x 32 tokens in {met['steps']} "
+        f"steps, {met['wall_s']:.2f} s | decode step median "
+        f"{met['decode_step_ms_median']:.2f} ms (paged "
+        f"{paged['decode_step_ms_median']:.2f} ms) | {met['tokens_per_s']:.1f}"
+        f" tokens/s | fused == host, pause round trip token-identical | "
+        f"greedy streams equal the paged engine's: {greedy - len(diverged)} "
+        f"of {greedy}" + "".join(
+            f"; rid {d['rid']} first differs at token {d['token']} "
+            f"(dense {d['dense']}, paged {d['paged']}, logit gap "
+            f"{d['gap_rel']:.3g} of max |logit|)" for d in diverged)
+        + f" | launches {json.dumps(counts)} | {card}")
+    for d in diverged:
+        check(d["gap_rel"] <= LOGITS_REL_TOL,
+              f"dense ring: rid {d['rid']} leaves the paged engine's greedy "
+              f"stream at token {d['token']} ({d['dense']} vs {d['paged']}) "
+              f"where the logits differ by {d['gap_rel']:.3g} of max |logit|"
+              f" (> {LOGITS_REL_TOL}): not a near tie")
+    return res
+
+
+def phase_serve_path(torch, run, params, card):
+    """``bench.serve_path`` at full width with the JAX benchmark's defaults:
+    the fused-sampling bit identities are hard; the wall-clock gates are
+    reported (the fused int8 speedup against the JAX package's CPU
+    figure, and the within-run one beside it)."""
+    from repro_torch.bench import serve_path
+    t0 = time.perf_counter()
+    rows = serve_path.bench(device="cuda", run=run, params=params,
+                            log=log, **SERVE_PATH_KW)
+    s = rows[-1]
+    gates = serve_path.wall_gates(s)
+    res = {"rows": rows, "wall_gates": gates,
+           "seconds": time.perf_counter() - t0}
+    met = {k: "met" if v else "missed" for k, v in gates.items()}
+    log(f"serve_path qwen3-0.6b (slots 16, max_len 1024, page 32, 32 x 24 "
+        f"tokens): paged_speedup_vs_dense {s['paged_speedup_vs_dense']} "
+        f"(JAX gate >= 1.5: {met['paged_speedup_vs_dense >= 1.5']}) | "
+        f"live_pause_itl_p95_ratio {s['live_pause_itl_p95_ratio']} (JAX "
+        f"gate <= 3.0: {met['live_pause_itl_p95_ratio <= 3.0']}) | "
+        "fused_int8_speedup_vs_baseline "
+        f"{s['fused_int8_speedup_vs_baseline']} against a CPU figure of "
+        "the JAX package (reported, not held) | "
+        f"fused_int8_speedup_vs_paged16 {s['fused_int8_speedup_vs_paged16']}"
+        f" | fused bit-identical {s['fused_bit_identical']}, int8 "
+        f"{s['fused_int8_bit_identical']} | {res['seconds']:.1f} s | {card}")
+    check(serve_path.identities_hold(s), "serve_path: fused sampling gave "
+          f"other tokens than host sampling (fused {s['fused_bit_identical']}"
+          f", int8 {s['fused_int8_bit_identical']})")
+    return res
+
+
+def phase_prefix_share(torch, run, params, card):
+    """``bench.prefix_share`` at full width: its page accounting (>= 3x
+    capacity) and token identity are hard."""
+    from repro_torch.bench import prefix_share
+    t0 = time.perf_counter()
+    rows = prefix_share.bench(device="cuda", run=run, params=params, log=log)
+    s = rows[-1]
+    res = {"rows": rows, "seconds": time.perf_counter() - t0}
+    log(f"prefix_share qwen3-0.6b: capacity_ratio {s['capacity_ratio']} | "
+        f"outputs bit-identical {s['outputs_bit_identical']} | cow splits "
+        f"{s['cow_splits']}, shared page hits {s['shared_page_hits']} | "
+        f"{res['seconds']:.1f} s | {card}")
+    check(prefix_share.gates_hold(s), f"prefix_share: gates missed ({s})")
+    return res
+
+
+def phase_decode_roofline(torch, card):
+    """``bench.decode_roofline`` at its full shapes, bf16, each row timed
+    by the ``Timer`` (median of 25 calls, L2 flushed) against the H100's
+    data sheet; the peaks the card reached (``measure_local_peaks``,
+    the JAX sizes) are kept beside it. Hard: the five rows, wall_s > 0,
+    the int8 pool at most 0.6x the bf16 pool's bytes, and no row above 1.0
+    of the data sheet; reported: the int8 wall ratio (JAX gate <= 2.5)."""
+    from repro_torch.bench import decode_roofline
+    from repro_torch.runtime.roofline import Peaks, measure_local_peaks
+    timer = Timer(torch)
+    t0 = time.perf_counter()
+    rows, ok = decode_roofline.bench(
+        reduced=False, peaks=Peaks(), device="cuda", log=lambda *_: None,
+        time_fn=lambda fn: timer.ms(fn) / 1e3)
+    measured = measure_local_peaks(device="cuda")
+    del timer
+    s = rows[-1]
+    res = {"rows": rows, "datasheet_peaks": Peaks().row(),
+           "measured_peaks": measured.row(), "int8_wall_gate_met": ok,
+           "seconds": time.perf_counter() - t0}
+    log(f"decode_roofline (bf16 pages; data sheet {Peaks().hbm_bw / 1e12:.2f}"
+        f" TB/s, {Peaks().flops / 1e12:.0f} TFLOP/s; measured copy "
+        f"{measured.hbm_bw / 1e12:.3f} TB/s, fp32 512^2 matmul "
+        f"{measured.flops / 1e12:.3f} TFLOP/s): " + ", ".join(
+            f"{r['name']} {r['wall_s'] * 1e3:.4f} ms "
+            f"{r['achieved_bw_frac']:.3f} of the sheet's bytes/s"
+            for r in rows[:-1])
+        + f" | int8_bytes_vs_fp {s['int8_bytes_vs_fp']}, int8_wall_vs_fp "
+        f"{s['int8_wall_vs_fp']} (JAX gate <= 2.5: "
+        f"{'met' if ok else 'missed'}) | {card}")
+    check([r["name"] for r in rows[:-1]] == list(decode_roofline.ROWS),
+          "decode_roofline: a row is missing")
+    for r in rows[:-1]:
+        check(r["wall_s"] > 0, f"decode_roofline: {r['name']} took no time")
+        check(r["achieved_bw_frac"] <= 1.0 and r["peak_frac"] <= 1.0,
+              f"decode_roofline: {r['name']} reads above the data sheet "
+              f"({r['achieved_bw_frac']:.3f} of its bytes/s, "
+              f"{r['peak_frac']:.3f} of its bound)")
+    check(s["int8_bytes_vs_fp"] <= 0.6, "decode_roofline: the int8 pool's "
+          f"bytes are {s['int8_bytes_vs_fp']} of the bf16 pool's (> 0.6)")
+    return res
+
+
+def phase_throughput(torch, arch, card, seed):
+    """``bench.throughput`` (the paper's claim: a pause/unpause cycle
+    leaves the step time unchanged) on ``arch``: svff-bench at its smoke
+    widths as the JAX benchmark runs it, qwen3-0.6b at full width on 4 x
+    512 (a 7.15 GB train state). Hard: after the cycle the state is
+    bit-equal to a twin's that ran as many steps never paused. Reported:
+    the overhead and the snapshot bytes, ms and GB/s."""
+    from repro_torch.bench import throughput
+    from repro_torch.tree import flatten
+    full = arch != "svff-bench"
+    batch, seq = (TRAIN_BATCH, TRAIN_SEQ) if full else (4, 64)
+    steps = THROUGHPUT_STEPS[arch]
+    t0 = time.perf_counter()
+    out, tn = throughput.run_bench(steps, arch=arch, smoke=not full,
+                                   local_batch=batch, seq_len=seq,
+                                   device="cuda", seed=seed)
+    workdir = tempfile.mkdtemp(prefix="tp_twin_")
+    try:
+        tw = throughput.twin(tn, steps, workdir, batch, seq)
+        a, b = flatten(tn.export_state())[0], flatten(tw.export_state())[0]
+        diff = [p for (p, x), (_, y) in zip(a, b)
+                if not bits_equal(torch, x, y)]
+        nleaves = len(a)
+        del tw, a, b
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del tn
+    release(torch)
+    res = dict(out, arch=arch, batch=batch, seq=seq, steps=steps,
+               leaves_differing=diff, seconds=time.perf_counter() - t0)
+    log(f"throughput {arch} ({'full' if full else 'smoke'} widths, {batch} "
+        f"x {seq}, {steps} steps a window): step "
+        f"{out['step_ms_before_pause']:.2f} ms before the pause, "
+        f"{out['step_ms_after_unpause']:.2f} ms after "
+        f"({out['pause_cycle_overhead_pct']:+.2f}%) | snapshot none "
+        f"{out['snapshot_none_bytes']:,} B {out['snapshot_none_ms']:.2f} ms "
+        f"{out['snapshot_none_gbps']:.2f} GB/s, int8 "
+        f"{out['snapshot_int8_bytes']:,} B {out['snapshot_int8_ms']:.2f} ms "
+        f"{out['snapshot_int8_gbps']:.2f} GB/s (ratio "
+        f"{out['compression_ratio']:.3f}) | {len(diff)} of {nleaves} leaves "
+        f"differ from the never-paused twin | {res['seconds']:.1f} s | {card}")
+    check(not diff, f"throughput {arch}: {len(diff)} leaves differ from the "
+                    f"never-paused twin's ({diff[:4]})")
+    return res
+
+
+def run_serve_plane(torch, ops, args, card, report, launches, params,
+                    paged):
+    """The dense ring and the serve plane's benchmarks at qwen3-0.6b's full
+    width, each with the launch counts set to 0 just before it and added
+    to ``launches`` just after; ``paged`` is the bf16 serve phase's
+    streams and decode-step median."""
+    from repro_torch.configs import make_run_config
+    run = make_run_config("qwen3-0.6b", "decode_32k", seed=args.seed)
+    report["serve_plane"] = {}
+    phases = (
+        ("dense_ring", lambda: phase_dense(torch, ops, run, params,
+                                           args.seed, paged, card),
+         ("flash_attention", "fused_sample")),
+        ("serve_path", lambda: phase_serve_path(torch, run, params, card),
+         SERVE_KERNELS),
+        ("prefix_share", lambda: phase_prefix_share(torch, run, params,
+                                                    card),
+         ("flash_attention", "paged_decode")),
+        ("decode_roofline", lambda: phase_decode_roofline(torch, card),
+         ROOFLINE_KERNELS),
+        ("throughput_svff_bench",
+         lambda: phase_throughput(torch, "svff-bench", card, args.seed),
+         ("qdma_pack_rows",)),
+        ("throughput_qwen3_0_6b",
+         lambda: phase_throughput(torch, "qwen3-0.6b", card, args.seed),
+         ("qdma_pack_rows",)))
+    for name, phase, need in phases:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = phase()
+        counts = ops.launch_counts()
+        res["launches"] = counts
+        res["phase_s"] = time.perf_counter() - t0
+        report["serve_plane"][name] = res
+        log(f"{name}: {res['phase_s']:.1f} s | launches {json.dumps(counts)}")
+        for k in need:
+            check(counts[k] > 0, f"{k} was never launched on the {name} "
+                                 "path")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        release(torch)
+
+
 def run_hybrid(torch, ops, args, card, report, launches):
     """The hybrid stack's phases at full width: its prefill, its serve
     path (bf16 and int8 KV) and its generate path (its kernels,
@@ -2371,6 +2641,7 @@ def main(argv=None) -> int:
 
     launches = dict.fromkeys(SERVE_KERNELS, 0)
     report["serve"] = {}
+    paged = {}
     for kv in (None, "int8"):
         name = kv or "bf16"
         out, met, counts = serve(torch, ops, run, params, kv, args.seed,
@@ -2387,6 +2658,9 @@ def main(argv=None) -> int:
                              "changed the tokens (I10)")
         met["launches"] = counts
         report["serve"][name] = met
+        if kv is None:
+            paged = {"streams": out,
+                     "decode_step_ms_median": met["decode_step_ms_median"]}
         log(f"serve qwen3-0.6b kv={name}: 16 requests x 32 tokens in "
             f"{met['steps']} steps, {met['wall_s']:.2f} s | decode step "
             f"median {met['decode_step_ms_median']:.2f} ms | "
@@ -2422,6 +2696,7 @@ def main(argv=None) -> int:
     log_svff(report, card)
     run_elastic(torch, ops, args, card, report, launches, params=params,
                 ref=ref)
+    run_serve_plane(torch, ops, args, card, report, launches, params, paged)
     if args.profile:
         report["profile"] = phase_profile(torch, run, params, args.seed)
     del params

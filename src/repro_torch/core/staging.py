@@ -247,6 +247,12 @@ class StagingEngine:
         else:
             self._memos.pop(tenant, None)
 
+    def close(self) -> None:
+        """A no-op, kept for the reference's API: the JAX engine joins its
+        long-lived transfer-queue threads here, while the port opens a
+        thread pool per save or restore call (and closes it before the
+        call returns), so there is nothing left to join."""
+
     def _digest_dispatch(self, x):
         """Start a digest: for a tensor the kernel is launched
         asynchronously (the (2,) result is read later by

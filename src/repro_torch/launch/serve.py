@@ -3,8 +3,8 @@ bare or as a fleet of engine tenants under the SVFF manager (mirrors
 ``repro.launch.serve``: the same flags and the same JSON line).
 
 Serves synthetic requests and reports latency/throughput. Runs on the
-card unless ``--device cpu`` is given. The paged KV layout is the only
-one ported, so it is on with or without ``--paged``. ``--prefill-chunk
+card unless ``--device cpu`` is given. The KV cache is the dense per-slot
+ring unless ``--paged`` asks for block-granular pages. ``--prefill-chunk
 C`` prefills prompts longer than C tokens C at a time (all-attention
 stacks). ``--fleet N`` serves through a ``ServeFleet``; adding
 ``--autoscale`` turns on the elastic control plane — one
@@ -51,9 +51,8 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=8)
-    ap.add_argument("--paged", action="store_true", default=True,
-                    help="block-granular paged KV cache (the only layout "
-                         "ported: always on)")
+    ap.add_argument("--paged", action="store_true",
+                    help="block-granular paged KV cache")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill (attention stacks; 0 = whole)")
@@ -86,7 +85,8 @@ def main(argv=None):
     if args.fleet > 0:
         return _serve_fleet(run, params, reqs, args, device)
     eng = ServeEngine(run, params, device=device, slots=args.slots,
-                      max_len=args.max_len, page_size=args.page_size,
+                      max_len=args.max_len, paged=args.paged,
+                      page_size=args.page_size,
                       prefill_chunk=args.prefill_chunk)
     for r in reqs:
         eng.submit(r)
@@ -128,7 +128,7 @@ def _serve_fleet(run, params, reqs, args, device) -> int:
             run, params, num_engines=args.fleet, device=device,
             num_devices=max(2 * (args.fleet + args.spares), 4),
             num_vfs=args.fleet + (args.spares if args.autoscale else 0),
-            slots=args.slots, max_len=args.max_len,
+            slots=args.slots, max_len=args.max_len, paged=args.paged,
             page_size=args.page_size, prefill_chunk=args.prefill_chunk,
             slo_max_load=(64 if args.slo_max_load is None
                           else args.slo_max_load), autoscale=autoscale,

@@ -68,10 +68,16 @@ def attention(q, k, v, *, causal: bool, backend: str = "auto", q_offset=0,
 
 def decode_attention(q, k_cache, v_cache, pos, *, backend: str = "auto"):
     """Single-token decode over a dense cache. q: (B,1,H,hd); caches:
-    (B,T,K,hd); pos: one position for the whole batch (an int or a 0-d
-    tensor), the index the current token was just written to (attend to
-    <= pos). Per-slot positions (the dense ring) are not ported yet:
-    ``Model.decode_step`` refuses them."""
+    (B,T,K,hd); pos: the index the current token was just written to
+    (attend to <= pos). One position for the whole batch (an int or a 0-d
+    tensor) takes ``flash_decode``. Per-slot positions, a (B,) tensor
+    (the dense ring of continuous batching; pos[b] < 0 marks an inactive
+    slot, whose output is meaningless and discarded), take
+    ``attention_ref`` with ``kv_len = pos + 1``, as the JAX package
+    computes them outside any Pallas kernel."""
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        return attention_ref(q, k_cache, v_cache, causal=False,
+                             kv_len=pos.to(q.device) + 1)
     return kops.flash_decode(q, k_cache, v_cache, pos, backend=backend)
 
 

@@ -7,7 +7,8 @@ scan (the CUDA kernels compute forward only) and, unless
 ``run.sharding.remat`` is "none", recomputes each period in the backward
 (``torch.utils.checkpoint``). Decode runs over the paged KV pool with
 per-slot positions (the serve engine), or over a dense cache with one
-position for the whole batch (``make_serve_steps``'s generate path).
+position for the whole batch (``make_serve_steps``'s generate path) or
+per-slot positions (the serve engine's dense ring).
 
 Cache updates are in place. JAX writes the cache functionally
 (``cache["k"].at[pids, offs].set(...)``), which XLA turns into an
@@ -77,10 +78,28 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, cdt, mode, cache, positions,
 
     new_cache = None
     if mode == "decode" and tables is None:
-        # dense cache, one position for the whole batch: the new row lands
-        # at index pos of this layer's view (B, T, K, hd), in place — JAX's
-        # dynamic_update_slice. An int pos slices; a 0-d tensor indexes.
-        if isinstance(pos, torch.Tensor):
+        # dense cache: the new row lands in this layer's view (B, T, K,
+        # hd), in place. Per-slot positions, a (B,) tensor (the dense
+        # ring): slot b's row at index max(pos[b], 0). One position for
+        # the whole batch: JAX's dynamic_update_slice, an int pos slices
+        # and a 0-d tensor indexes.
+        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            rows = torch.arange(B, device=x.device)
+            posw = pos.to(torch.int64).clamp(min=0)
+            knew = k[:, 0].to(cache["k"].dtype)
+            vnew = v[:, 0].to(cache["v"].dtype)
+            if active is not None:
+                # masked scatter: an inactive slot writes back the bytes
+                # it already holds (gathered into a fresh tensor before
+                # the write), so its rows stay bit-untouched and nothing
+                # lands at row 0 of an empty slot; one row per slot, so
+                # the scatter's targets are distinct
+                keep = active[:, None, None]
+                knew = torch.where(keep, knew, cache["k"][rows, posw])
+                vnew = torch.where(keep, vnew, cache["v"][rows, posw])
+            cache["k"][rows, posw] = knew
+            cache["v"][rows, posw] = vnew
+        elif isinstance(pos, torch.Tensor):
             at = pos.reshape(1).to(torch.int64)
             cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
             cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
@@ -378,33 +397,31 @@ class Model:
         tables), attention-cache leaves are page pools (nper, P, page,
         K, hd) — see ``repro_torch.serve.paged`` — and ``pos`` is (B,)
         int32, per slot. Without, the cache is ``init_cache``'s dense one
-        and ``pos`` one position for the whole batch (an int or a 0-d
-        tensor); the per-slot dense ring is not ported yet.
+        and ``pos`` either one position for the whole batch (an int or a
+        0-d tensor: ``flash_decode``) or (B,) per slot (the dense ring of
+        continuous batching: the plain attention, as in JAX).
 
-        active: optional (B,) bool, paged layout — False rows are masked
-        OUT of the decode: their KV writes go to the garbage page 0,
-        their attention reads zero tokens (pos[b] must be < 0 for them)
-        and their recurrent state stays bit-untouched. Their logits are
-        garbage and must be discarded."""
+        active: optional (B,) bool — False rows are masked OUT of the
+        decode: their KV rows stay bit-untouched (paged: the write goes to
+        the garbage page 0; dense ring: the slot writes back the bytes it
+        holds), their attention reads zero tokens (pos[b] must be < 0 for
+        them) and their recurrent state stays bit-untouched. Their logits
+        are garbage and must be discarded."""
         cfg, run = self.cfg, self.run
         x = self._embed(params, tokens, _dt(run.precision.compute))
-        if tables is None:
-            if isinstance(pos, torch.Tensor) and pos.dim() != 0:
-                raise NotImplementedError(
-                    "the dense cache with per-slot positions (the dense "
-                    "ring layout) is not ported yet (ROADMAP Queue 1 item "
-                    "5)")
-            if isinstance(pos, torch.Tensor):
-                pos = pos.to(x.device)
-                positions = pos.reshape(1).to(torch.int64)
-            else:
-                # an int stays an int down to the cache write and the
-                # kernel (an argument, not a tensor)
-                pos = int(pos)
-                positions = self._positions(pos, x.device)
-        else:
-            # rope positions must be in-range even for inactive (-1) slots
+        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            # per-slot positions (paged, or the dense ring): rope positions
+            # must be in-range even for inactive (-1) slots
+            pos = pos.to(x.device)
             positions = pos.to(torch.int64).clamp(min=0)[:, None]
+        elif isinstance(pos, torch.Tensor):
+            pos = pos.to(x.device)
+            positions = pos.reshape(1).to(torch.int64)
+        else:
+            # an int stays an int down to the cache write and the kernel
+            # (an argument, not a tensor)
+            pos = int(pos)
+            positions = self._positions(pos, x.device)
         x, _, cache = run_stack(cfg, run, params["decoder"]["layers"], x,
                                 "decode", cache=cache, positions=positions,
                                 pos=pos, tables=tables, active=active)

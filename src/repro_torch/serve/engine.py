@@ -1,12 +1,23 @@
-"""Serving engine: continuous batching over the paged-KV decode step
-(mirrors ``repro.serve.engine``).
+"""Serving engine: continuous batching over decode_step, dense or paged
+KV (mirrors ``repro.serve.engine``).
 
 Requests are admitted into slots of a batched decode state and decoded
-together; finished slots are recycled without stopping the batch. Slots
-borrow fixed-size pages from a shared pool through a ``BlockAllocator``;
-decode is block-table-indirected (``kernels/csrc/paged_decode.cu``) and
-costs only the pages a request has written. A hybrid stack's mamba
-layers keep their conv and SSM state dense per slot beside the pages.
+together; finished slots are recycled without stopping the batch. Two
+cache layouts:
+
+  dense (default)   per-slot ring of ``max_len`` KV rows: every slot pays
+                    for its worst case and decode walks the whole
+                    allocation, through the plain attention with per-slot
+                    KV lengths (as the JAX package computes it, outside
+                    any Pallas kernel)
+  paged             slots borrow fixed-size pages from a shared pool
+                    through a ``BlockAllocator``; decode is block-table-
+                    indirected (``kernels/csrc/paged_decode.cu``) and
+                    costs only the pages a request has written
+
+A hybrid stack's mamba layers keep their conv and SSM state dense per
+slot beside either layout.
+
 Prefill is whole-prompt (B=1) through ``kernels/csrc/flash_attention.cu``
 and, in mamba layers, ``kernels/csrc/ssm_scan.cu``, whose chunk rule
 rejects a prompt longer than the SSM chunk that is not a multiple of it
@@ -24,11 +35,8 @@ with the running batch's decode, through the plain attention (a chunk's
 K is the whole staging cache, as in JAX). Request live migration ships
 one in-flight request's KV block chain to another engine
 (``extract_request`` -> ``admit_migrated`` -> ``release_request``, driven
-by ``SVFFManager.migrate_request``); a frozen slot goes to the kernels as
-an inactive one.
-
-Not ported yet: the dense per-slot ring layout (ROADMAP Queue 1 item 5),
-which raises ``NotImplementedError``.
+by ``SVFFManager.migrate_request``; paged engines only); a frozen slot
+goes to the kernels as an inactive one.
 """
 from __future__ import annotations
 
@@ -100,7 +108,7 @@ class _PrefillJob:
     cache: dict                        # dense (B=1) staging cache
     plen: int
     offset: int = 0
-    pages: Optional[list] = None       # pages reserved at admission
+    pages: Optional[list] = None       # paged: pages reserved at admission
 
 
 def _next_pow2(n: int) -> int:
@@ -109,16 +117,12 @@ def _next_pow2(n: int) -> int:
 
 class ServeEngine:
     def __init__(self, run: RunConfig, params, *, device="cuda",
-                 slots: int = 4, max_len: int = 256, paged: bool = True,
+                 slots: int = 4, max_len: int = 256, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefill_chunk: int = 0, share_prefix: bool = False,
                  kv_dtype: Optional[str] = None,
                  fused_sampling: bool = False):
         self.device = resolve_device(device)
-        if not paged:
-            raise NotImplementedError(
-                "the dense cache layout is not ported yet (ROADMAP Queue 1 "
-                "item 5: the dense per-slot ring layout)")
         # chunked prefill needs per-chunk attention continuation, which
         # only an all-attention stack has; for any other stack the JAX
         # engine turns it off (recurrent blocks would need their
@@ -147,12 +151,12 @@ class ServeEngine:
         self.stats = collections.Counter()
         # per-step dirty set: which export_state keys changed since the
         # last export (params stay the same tensors across exports)
-        self._dirty = {"params", "cache", "pos", "last_token", "tables"}
+        self._dirty = {"params", "cache", "pos", "last_token"}
 
         cfg = run.model
-        ok, why = paged_cache_supported(cfg)
-        if not ok:
-            raise ValueError(f"paged KV for {cfg.name}: {why}")
+        self.paged = paged
+        if kv_dtype is not None and not paged:
+            raise ValueError("kv_dtype requires the paged cache layout")
         self.kv_dtype = kv_dtype
         #: fused sampling: temperature/top-k Gumbel sampling runs on the
         #: device after the decode step and only token ids come back to
@@ -160,29 +164,53 @@ class ServeEngine:
         #: draw the same portable counter-hash noise), so I10 holds
         #: across the knob
         self.fused_sampling = bool(fused_sampling)
-        self.page_size = page_size
-        maxp = math.ceil(max_len / page_size)
-        self.num_pages = (num_pages if num_pages is not None
-                          else 1 + slots * maxp)
-        self.alloc = BlockAllocator(self.num_pages, page_size)
-        self.tables = np.zeros((slots, maxp), np.int32)
-        self.share_prefix = bool(share_prefix)
+        if paged:
+            ok, why = paged_cache_supported(cfg)
+            if not ok:
+                raise ValueError(f"paged KV for {cfg.name}: {why}")
+            self.page_size = page_size
+            maxp = math.ceil(max_len / page_size)
+            self.num_pages = (num_pages if num_pages is not None
+                              else 1 + slots * maxp)
+            self.alloc = BlockAllocator(self.num_pages, page_size)
+            self.tables = np.zeros((slots, maxp), np.int32)
+            self._dirty.add("tables")
+        # prefix sharing maps block tables onto shared pages: paged only
+        self.share_prefix = paged and bool(share_prefix)
 
         self._prefill, _ = make_serve_steps(run)
-        self._decode = make_decode_step(run, paged=True,
+        self._decode = make_decode_step(run, paged=paged,
                                         fused=self.fused_sampling)
         self._chunk = make_prefill_chunk(run)
-        self._cache = None                              # lazy page pools
+        self._cache = None                    # lazy page pools / dense ring
 
     # -- cache plumbing -------------------------------------------------------
     def _ensure_cache(self):
         if self._cache is None:
             shape = dataclasses.replace(self.run.shape, seq_len=self.max_len,
                                         global_batch=self.slots)
-            self._cache = init_paged_cache(self.model, shape, self.num_pages,
-                                           self.page_size,
-                                           kv_dtype=self.kv_dtype,
-                                           device=self.device)
+            if self.paged:
+                self._cache = init_paged_cache(self.model, shape,
+                                               self.num_pages,
+                                               self.page_size,
+                                               kv_dtype=self.kv_dtype,
+                                               device=self.device)
+            else:
+                self._cache = self.model.init_cache(shape,
+                                                    device=self.device)
+
+    def _insert(self, slot: int, req_cache):
+        """Write a (1, L, ...) request cache (a prefill's, or a chunked
+        prefill's staging cache sliced to its prompt) into the dense
+        ring's ``slot``, in place: KV rows [0, L) of the slot, recurrent
+        state whole."""
+        for blk, node in req_cache.items():
+            for name, leaf in node.items():
+                dst = self._cache[blk][name]
+                if name in ("k", "v"):
+                    dst[:, slot, :leaf.shape[2]] = leaf[:, 0]
+                else:
+                    dst[:, slot] = leaf[:, 0]
 
     def _set_params(self, params):
         # ``params`` is the master copy export_state hands out; the steps
@@ -257,7 +285,8 @@ class ServeEngine:
                 req = self.queue.popleft()
                 try:
                     need = self._validate(req)
-                    pages = self._paged_admit(req, need)
+                    pages = (self._paged_admit(req, need) if self.paged
+                             else None)
                 except RequestRejected as e:
                     self._reject(req, e)
                     continue                      # slot still free
@@ -289,7 +318,8 @@ class ServeEngine:
                                                {"tokens": tokens})
         tok = self._emit(req, last_logits[0].cpu().numpy())
         if req.done:
-            self.alloc.free(req.rid)
+            if pages is not None:
+                self.alloc.free(req.rid)
             return False
         self._place(slot, req, req_cache, len(req.prompt), pages)
         self.last_token[slot] = tok
@@ -330,7 +360,8 @@ class ServeEngine:
         del self._jobs[slot]
         tok = self._emit(req, logits[0, real - 1].cpu().numpy())
         if req.done:                         # finished at prefill
-            self.alloc.free(req.rid)
+            if job.pages is not None:
+                self.alloc.free(req.rid)
             return
         req_cache = self._slice_kv(job.cache, job.plen)
         self._place(slot, req, req_cache, job.plen, job.pages)
@@ -358,22 +389,27 @@ class ServeEngine:
 
     def _place(self, slot: int, req: Request, req_cache, logical_len: int,
                pages):
-        """Copy-on-admit: move a prefilled request's KV into its allocated
-        pages, skipping the trie-shared chain head."""
-        shared = self.alloc.shared_count(req.rid)
-        self.stats["shared_page_hits"] += shared
-        admit_kv(self._cache, req_cache, pages, self.page_size, slot,
-                 skip_pages=shared)
-        row = self.tables[slot]
-        row[:] = 0
-        row[:len(pages)] = pages
-        # offer this prompt's pages for sharing only now that their bytes
-        # are written
-        if self.share_prefix:
-            self.alloc.register_prefix(req.rid)
+        """Copy-on-admit: move a prefilled request's cache into the batch
+        (paged: into its allocated pages, skipping the trie-shared chain
+        head; dense: into its slot ring)."""
+        if self.paged:
+            shared = self.alloc.shared_count(req.rid)
+            self.stats["shared_page_hits"] += shared
+            admit_kv(self._cache, req_cache, pages, self.page_size, slot,
+                     skip_pages=shared)
+            row = self.tables[slot]
+            row[:] = 0
+            row[:len(pages)] = pages
+            self._dirty.add("tables")
+            # offer this prompt's pages for sharing only now that their
+            # bytes are written
+            if self.share_prefix:
+                self.alloc.register_prefix(req.rid)
+        else:
+            self._insert(slot, req_cache)
         self.active[slot] = req
         self.pos[slot] = logical_len - 1
-        self._dirty |= {"cache", "pos", "last_token", "tables"}
+        self._dirty |= {"cache", "pos", "last_token"}
 
     # -- sampling -------------------------------------------------------------
     def _sample(self, req: Request, logits_row: np.ndarray) -> int:
@@ -420,9 +456,9 @@ class ServeEngine:
     def step(self) -> int:
         """One engine iteration: admit + one prefill chunk + one batched
         decode over the ACTIVE slots (inactive slots — idle or frozen by
-        an in-flight migration — are masked out: their pages stay
-        untouched and they add no attention work). Returns the number of
-        active slots (0 = idle). No-op while paused."""
+        an in-flight migration — are masked out: their cache bytes stay
+        untouched and their attention reads no token). Returns the number
+        of active slots (0 = idle). No-op while paused."""
         if self.paused:
             return 0
         self._admit()
@@ -439,23 +475,25 @@ class ServeEngine:
         if not act:
             return 0
         self._ensure_cache()
-        # every write target must be private and allocated BEFORE the
-        # batched call: lazily grow the chain and CoW-split shared pages;
-        # a slot the pool cannot serve is preempted
-        act = [s for s in act if self._ensure_writable(s)]
-        if not act:
-            return 0
+        if self.paged:
+            # every write target must be private and allocated BEFORE the
+            # batched call: lazily grow the chain and CoW-split shared
+            # pages; a slot the pool cannot serve is preempted
+            act = [s for s in act if self._ensure_writable(s)]
+            if not act:
+                return 0
         act_mask = np.zeros((self.slots,), bool)
         act_mask[act] = True
         pos_new = np.where(act_mask, self.pos + 1, -1).astype(np.int32)
-        W = self._table_width(pos_new)
         args = [self._cparams, self._cache,
                 self._tensor(np.where(act_mask, self.last_token, 0)[:, None],
                              torch.int64),
-                self._tensor(pos_new, torch.int32),
-                self._tensor(np.ascontiguousarray(self.tables[:, :W]),
-                             torch.int32),
-                self._tensor(act_mask, torch.bool)]
+                self._tensor(pos_new, torch.int32)]
+        if self.paged:
+            W = self._table_width(pos_new)
+            args.append(self._tensor(np.ascontiguousarray(self.tables[:, :W]),
+                                     torch.int32))
+        args.append(self._tensor(act_mask, torch.bool))
         if self.fused_sampling:
             # per-slot sampling params ride into the step; only (slots,)
             # int32 token ids come back — the (B, V) logits stay on the
@@ -538,18 +576,23 @@ class ServeEngine:
         self._dirty |= {"cache", "pos", "tables"}
 
     def _reset_slot(self, slot: int, rid: Optional[int] = None):
-        """Recycle a finished slot: its pages go back to the allocator."""
-        if rid is not None:
-            self.alloc.free(rid)
-        self.tables[slot, :] = 0
-        self._dirty.add("tables")
-        if self._cache is not None:     # a paused engine holds no pools
+        """Recycle a finished slot: paged KV pages go back to the
+        allocator; dense KV is masked by pos, so it needs no reset; the
+        recurrent per-slot state is zeroed either way."""
+        if self.paged:
+            if rid is not None:
+                self.alloc.free(rid)
+            self.tables[slot, :] = 0
+            self._dirty.add("tables")
+        if self._cache is not None:     # a paused engine holds no cache
             reset_slot_state(self._cache, slot)
         self.pos[slot] = -1
 
     def defragment(self) -> dict:
         """Compact the page pool (allocator + physical pages + tables);
-        returns the {old: new} page moves."""
+        returns the {old: new} page moves. No-op for dense engines."""
+        if not self.paged:
+            return {}
         moves = self.alloc.defragment()
         if moves and self._cache is not None:
             apply_page_moves(self._cache, moves)
@@ -573,8 +616,10 @@ class ServeEngine:
     def peek_migratable(self, rid: Optional[int] = None) -> Optional[int]:
         """Pure query: the rid ``extract_request`` would pick — first
         active decoding slot in slot order (or ``rid`` if it is one).
-        None when nothing is migratable (idle, or already mid-
-        migration)."""
+        None when nothing is migratable (dense engine, idle, or already
+        mid-migration)."""
+        if not self.paged:
+            return None
         frozen = set(self._migrating.values())
         for s in range(self.slots):
             req = self.active[s]
@@ -621,6 +666,9 @@ class ServeEngine:
         admitting an owned rid is a no-op (recovery roll-forward
         replays)."""
         rid = payload["rid"]
+        if not self.paged:
+            raise RequestRejected(
+                f"request {rid}: migration target is not a paged engine")
         if self.owns_request(rid):
             return next(s for s, r in enumerate(self.active)
                         if r is not None and r.rid == rid)
@@ -692,7 +740,7 @@ class ServeEngine:
     def abort_incoming(self, rid: int):
         """Target-side rollback: drop any (possibly partial) admission of
         ``rid``. Idempotent no-op when we never admitted it."""
-        if rid not in self.alloc.owners():
+        if not self.paged or rid not in self.alloc.owners():
             return
         for s, req in enumerate(self.active):
             if req is not None and req.rid == rid:
@@ -711,15 +759,15 @@ class ServeEngine:
             return True
         if any(r.rid == rid for r in self.queue):
             return True
-        return rid in self.alloc.owners()
+        return self.paged and rid in self.alloc.owners()
 
     def reset_after_crash(self):
-        """Model an engine-process crash: device state (page pools, block
-        tables) is lost, every queued/active request is gone. The fleet
-        re-homes the victim's requests onto siblings BEFORE calling this
-        (``ServeFleet.recover_engine``). The pools' device memory goes
-        back to the allocator; the engine is empty but servable again (its
-        pools are rebuilt at the next admission)."""
+        """Model an engine-process crash: device state (the cache, page
+        pools, block tables) is lost, every queued/active request is
+        gone. The fleet re-homes the victim's requests onto siblings
+        BEFORE calling this (``ServeFleet.recover_engine``). The cache's
+        device memory goes back to the allocator; the engine is empty but
+        servable again (its cache is rebuilt at the next admission)."""
         self.queue.clear()
         self._jobs.clear()
         self._finished.clear()
@@ -728,9 +776,11 @@ class ServeEngine:
         self.pos = np.full((self.slots,), -1, np.int64)
         self.last_token = np.zeros((self.slots,), np.int32)
         self._cache = None
-        self.alloc = BlockAllocator(self.num_pages, self.page_size)
-        self.tables = np.zeros_like(self.tables)
-        self._dirty |= {"params", "cache", "pos", "last_token", "tables"}
+        if self.paged:
+            self.alloc = BlockAllocator(self.num_pages, self.page_size)
+            self.tables = np.zeros_like(self.tables)
+            self._dirty.add("tables")
+        self._dirty |= {"params", "cache", "pos", "last_token"}
 
     def run_until_idle(self, max_steps: int = 10_000) -> DrainResult:
         """Drive the engine until queue and slots drain; returns every
@@ -754,21 +804,22 @@ class ServeEngine:
 
     def export_state(self) -> dict:
         """The engine's device-state snapshot, which a pause stages to the
-        host. The page pools are updated in place by every later step, so
-        the snapshot holds a copy of them (JAX's immutable arrays gave the
+        host. The cache is updated in place by every later step, so the
+        snapshot holds a copy of it (JAX's immutable arrays gave the
         reference engine this for free). Params are never written in
         place and are handed back as they are."""
         cache = (None if self._cache is None else
                  tree_to(self._cache, self.device, copy=True))
         st = {"params": self.params, "cache": cache,
-              "pos": self.pos.copy(), "last_token": self.last_token.copy(),
-              "tables": self.tables.copy()}
+              "pos": self.pos.copy(), "last_token": self.last_token.copy()}
+        if self.paged:
+            st["tables"] = self.tables.copy()
         self._dirty = set()
         return st
 
     def import_state(self, st: dict):
         """Restore a snapshot, from host or device memory. The restored
-        pools are fresh tensors on the engine's device, so the snapshot
+        cache leaves are fresh tensors on the engine's device, so the snapshot
         stays valid after the engine writes into them."""
         if "params" in st:
             self._set_params(st["params"])
@@ -776,6 +827,6 @@ class ServeEngine:
                        tree_to(st["cache"], self.device, copy=True))
         self.pos = np.array(st["pos"], np.int64)
         self.last_token = np.array(st["last_token"], np.int32)
-        if "tables" in st:
+        if self.paged and "tables" in st:
             self.tables = np.array(st["tables"], np.int32)
         self._dirty = set(st)

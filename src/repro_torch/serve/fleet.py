@@ -157,6 +157,9 @@ class EngineTenant:
             self.export_state()
         return self._template
 
+    def dirty_keys(self):
+        return self.engine.dirty_keys()
+
     def _drop_device_state(self):
         """Let go of every device tensor the engine holds — params, their
         compute-dtype copy and the page pools — so that, with the exported
@@ -225,6 +228,10 @@ class EngineTenant:
                 "vf": self.vf_id, "steps_done": self.steps_done,
                 "workload": self.workload, "load": self.load,
                 "exec_keys": [list(map(str, k)) for k in self._exec_cache]}
+
+    def inject_failure(self):
+        """The sim's ``fault`` op calls this on any tenant; an engine
+        tenant has no fault model, as in the reference."""
 
 
 class ServeFleet:
@@ -444,8 +451,8 @@ class ServeFleet:
                 rejected=self.telemetry.rejected[tid],
                 cache_exhausted=eng.stats["cache_exhausted"],
                 defrag_events=eng.stats["defrag_events"],
-                pages_in_use=eng.alloc.pages_in_use,
-                pages_free=eng.alloc.num_free,
+                pages_in_use=eng.alloc.pages_in_use if eng.paged else 0,
+                pages_free=eng.alloc.num_free if eng.paged else 0,
                 migrations_attempted=(
                     self.telemetry.migrations_attempted[tid]),
                 migrations_completed=(
@@ -569,6 +576,7 @@ class ServeFleet:
                     f"scale_in: no sibling has KV capacity for in-"
                     f"flight request {rid} on {tn.tid}")
         if tn.load:
+            # a dense engine (no paged KV) cannot ship its active slots
             raise ManagerError(
                 f"scale_in: {tn.tid} still busy after drain "
                 f"(load {tn.load}) — active work is not migratable")

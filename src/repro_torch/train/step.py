@@ -143,9 +143,10 @@ def make_prefill_chunk(run: RunConfig):
 
 def make_decode_step(run: RunConfig, *, paged: bool = False,
                      fused: bool = False):
-    """Continuous-batching decode step with an active-slot mask over the
-    paged-KV page pool (a block table rides along; see
-    ``Model.decode_step``).
+    """Continuous-batching decode step with an active-slot mask: over the
+    paged-KV page pool (``paged``, a block table rides along) or over the
+    dense per-slot ring (per-slot positions into ``init_cache``'s cache);
+    see ``Model.decode_step``.
 
     With ``fused`` the step also takes per-slot sampling params
     (temp (B,) f32, top_k (B,) i32, keys (B,3) i32 = (seed, rid,
@@ -153,23 +154,31 @@ def make_decode_step(run: RunConfig, *, paged: bool = False,
     logits — temperature/top-k Gumbel sampling runs on the device
     (``kernels/ops.fused_sample``), bit-identical to
     ``ServeEngine._sample``, and the (B, V) logits never leave it."""
-    if not paged:
-        raise NotImplementedError(
-            "dense (non-paged) decode layout is not ported yet "
-            "(ROADMAP Queue 1 item 5: the dense per-slot ring layout)")
     model = build_model(run)
     backend = ops_backend(run)
 
-    if fused:
+    def sample(logits, temp, topk, keys):
+        return kops.fused_sample(logits, temp, topk, keys,
+                                 vocab_size=run.model.vocab_size,
+                                 backend=backend)
+
+    if paged and fused:
         def decode(params, cache, tokens, pos, tables, active,
                    temp, topk, keys):
             logits, cache = model.decode_step(params, cache, tokens, pos,
                                               tables=tables, active=active)
-            return kops.fused_sample(logits, temp, topk, keys,
-                                     vocab_size=run.model.vocab_size,
-                                     backend=backend), cache
-    else:
+            return sample(logits, temp, topk, keys), cache
+    elif paged:
         def decode(params, cache, tokens, pos, tables, active):
             return model.decode_step(params, cache, tokens, pos,
                                      tables=tables, active=active)
+    elif fused:
+        def decode(params, cache, tokens, pos, active, temp, topk, keys):
+            logits, cache = model.decode_step(params, cache, tokens, pos,
+                                              active=active)
+            return sample(logits, temp, topk, keys), cache
+    else:
+        def decode(params, cache, tokens, pos, active):
+            return model.decode_step(params, cache, tokens, pos,
+                                     active=active)
     return decode

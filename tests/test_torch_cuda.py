@@ -802,3 +802,100 @@ def test_hybrid_migration_on_card(cuda, tmp_path):
         fleet.drain()
         streams.append([list(r.out) for r in reqs])
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# the dense per-slot ring and the decode-roofline rows
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_dense_per_slot_decode_on_card_matches_cpu(cuda):
+    """The dense ring's per-slot decode (the plain attention with per-slot
+    KV lengths, in place) on the card against the same run on the CPU:
+    slots of 5, 16 and 32 tokens, slot 1 inactive, three steps at fp32
+    compute. Logits and the ring within 1e-4 (fp32 sums in other orders),
+    slot 1's bytes untouched on the card. Then a smoke dense engine on
+    the card at bf16 compute: fused sampling launches ``fused_sample``
+    and gives the host sampler's tokens (I10)."""
+    import dataclasses
+    from repro_torch.configs import PrecisionConfig, make_run_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.tree import tree_to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = make_run_config("qwen3-0.6b", "decode_32k", smoke=True,
+                          precision=PrecisionConfig(compute="float32"))
+    run = run.replace(model=dataclasses.replace(run.model, head_dim=64))
+    model = build_model(run)
+    params = model.compute_params(model.init(seed=0, device="cpu"))
+    lens, T = (5, 16, 32), 48
+    rng = np.random.default_rng(3)
+    ring = model.init_cache(dataclasses.replace(run.shape, seq_len=T,
+                                                global_batch=3),
+                            device="cpu")
+    for b, L in enumerate(lens):
+        c, _ = model.prefill(params, {"tokens": torch.from_numpy(
+            rng.integers(0, 500, (1, L)))})
+        for blk, node in c.items():
+            for name, leaf in node.items():
+                ring[blk][name][:, b, :L] = leaf[:, 0]
+    ring_c = tree_to(ring, cuda, copy=True)
+    params_c = tree_to(params, cuda)
+    before = {(blk, n): t[:, 1].clone() for blk, node in ring_c.items()
+              for n, t in node.items()}
+    active = torch.tensor([True, False, True])
+    for step in range(3):
+        pos = torch.tensor([lens[0] + step, -1, lens[2] + step],
+                           dtype=torch.int32)
+        toks = torch.from_numpy(rng.integers(0, 500, (3, 1)))
+        want, ring = model.decode_step(params, ring, toks, pos,
+                                       active=active)
+        got, ring_c = model.decode_step(params_c, ring_c, toks.to(cuda),
+                                        pos.to(cuda), active=active.to(cuda))
+        torch.testing.assert_close(got.cpu()[active], want[active],
+                                   atol=1e-4, rtol=1e-4)
+    for blk, node in ring.items():
+        for name, leaf in node.items():
+            torch.testing.assert_close(ring_c[blk][name].cpu(), leaf,
+                                       atol=1e-4, rtol=1e-4)
+            assert torch.equal(ring_c[blk][name][:, 1],
+                               before[blk, name]), (blk, name)
+
+    # the engine's prefill launches flash_attention, which takes bf16
+    brun = run.replace(precision=PrecisionConfig())
+    bparams = build_model(brun).init(seed=0, device=cuda)
+
+    def serve(fused):
+        eng = ServeEngine(brun, bparams, device=cuda, slots=2, max_len=64,
+                          fused_sampling=fused)
+        reqs = [Request(rid=i, prompt=(np.arange(n) * (i + 3) + 1) % 300,
+                        max_new_tokens=6, temperature=0.8 if i % 2 else 0.0,
+                        seed=3 + i) for i, n in enumerate((5, 9, 3))]
+        for r in reqs:
+            eng.submit(r)
+        assert eng.run_until_idle().drained and not eng.paged
+        return [list(r.out) for r in reqs]
+    host = serve(False)
+    before = ops.LAUNCHES["fused_sample"]
+    assert serve(True) == host
+    assert ops.LAUNCHES["fused_sample"] > before
+
+
+@pytest.mark.cuda
+def test_decode_roofline_rows_on_card_within_the_data_sheet(cuda):
+    """``bench.decode_roofline`` at its full shapes on the card, bf16,
+    against the H100 data sheet (``Peaks()``): the five rows, each
+    reading at most the sheet's bytes a second, and the int8 pool's bytes
+    at most 0.6x the bf16 pool's."""
+    from repro_torch.bench import decode_roofline
+    from repro_torch.runtime.roofline import Peaks
+    before = dict(ops.LAUNCHES)
+    rows, _ = decode_roofline.bench(reduced=False, reps=3, peaks=Peaks(),
+                                    device=cuda, log=lambda *_: None)
+    assert [r["name"] for r in rows[:-1]] == list(decode_roofline.ROWS)
+    for r in rows[:-1]:
+        assert r["wall_s"] > 0 and r["achieved_bw_frac"] <= 1.0, r
+        assert r["peak_frac"] <= 1.0, r
+    assert rows[-1]["int8_bytes_vs_fp"] <= 0.6
+    for k in ("flash_decode", "paged_decode", "paged_decode_quant",
+              "fused_sample", "ssm_scan"):
+        assert ops.LAUNCHES[k] > before[k], k

@@ -69,6 +69,18 @@ def test_elastic_plane_modules_are_checked():
         assert mod in checked, mod
 
 
+def test_serve_plane_benchmarks_and_runtime_are_checked():
+    """``runtime`` (the kernel half of the roofline model) and the
+    throughput, prefix-share, decode-roofline and serve-path benchmarks are
+    among the files held free of JAX above."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    for mod in ("runtime/__init__.py", "runtime/roofline.py",
+                "bench/throughput.py", "bench/prefix_share.py",
+                "bench/decode_roofline.py", "bench/serve_path.py"):
+        assert mod in checked, mod
+
+
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a process where importing JAX
     or the JAX package fails."""

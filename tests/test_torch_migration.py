@@ -136,7 +136,7 @@ def _reference(setup, side, specs, **engine_kw):
     if side == JAX:
         eng = JEngine(run, params, paged=True, **engine_kw)
     else:
-        eng = TEngine(run, params, device="cpu", **engine_kw)
+        eng = TEngine(run, params, device="cpu", paged=True, **engine_kw)
     reqs = [_req(side, rid, p, n, **_sampling(rid)) for rid, p, n in specs]
     for r in reqs:
         eng.submit(r)
@@ -565,7 +565,8 @@ def test_chunked_prefill_engine_matches_jax(setup):
         run_cfg, params = setup[side]
         kw = dict(slots=2, max_len=48, page_size=8, prefill_chunk=4)
         eng = (JEngine(run_cfg, params, paged=True, **kw) if side == JAX
-               else TEngine(run_cfg, params, device="cpu", **kw))
+               else TEngine(run_cfg, params, device="cpu", paged=True,
+                            **kw))
         reqs = [_req(side, rid, p, n, **_sampling(rid))
                 for rid, p, n in specs]
         for r in reqs:

@@ -211,15 +211,25 @@ def test_device_defaults_to_cuda_and_raises_without_it(setup):
 
 
 def test_deferred_engine_parts_raise(setup):
-    """The dense per-slot ring layout is the one deferred engine part
-    left; chunked prefill and request migration run (their parity with
-    the JAX engine: ``test_torch_migration.py``)."""
+    """No engine part is deferred any more: the dense per-slot ring is
+    the default layout and serves (its parity with the JAX engine:
+    ``test_torch_dense.py``), with nothing to migrate; chunked prefill
+    and request migration run on the paged engine (their parity:
+    ``test_torch_migration.py``)."""
     _, _, trun, tp = setup
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ServeEngine(trun, tp, device="cpu", paged=False)    # dense layout
+    eng = ServeEngine(trun, tp, device="cpu", slots=2, max_len=48)
+    assert not eng.paged and not hasattr(eng, "alloc")    # dense default
+    reqs = _requests(Request, n=3, new=4)
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    assert any(r is not None for r in eng.active)
+    assert eng.peek_migratable() is None            # dense: not migratable
+    assert eng.extract_request() is None
+    assert eng.run_until_idle().drained
+    assert all(r.done and len(r.out) == 4 for r in reqs)
     eng = ServeEngine(trun, tp, device="cpu", paged=True, prefill_chunk=4)
     assert eng.prefill_chunk == 4
-    eng = ServeEngine(trun, tp, device="cpu")           # paged by default
     assert eng.alloc.page_size == 16
     assert eng.extract_request() is None                # idle: nothing
     assert eng.peek_migratable() is None
@@ -327,7 +337,7 @@ def test_hybrid_pause_round_trip_token_identical(hybrid, kv_dtype):
 def test_hybrid_export_state_copies_recurrent_state(hybrid):
     _, _, trun, tp = hybrid
     eng = ServeEngine(trun, tp, device="cpu", slots=2, max_len=48,
-                      page_size=8)
+                      paged=True, page_size=8)
     for r in _hybrid_requests(Request, n=2):
         eng.submit(r)
     eng.step()
@@ -348,7 +358,7 @@ def test_hybrid_inactive_slot_state_bit_untouched(hybrid):
     SSM state bytes exactly as they were (JAX's masked write-back)."""
     _, _, trun, tp = hybrid
     eng = ServeEngine(trun, tp, device="cpu", slots=3, max_len=48,
-                      page_size=8)
+                      paged=True, page_size=8)
     for r in _hybrid_requests(Request, n=3, new=12):
         eng.submit(r)
     eng.step()
@@ -380,7 +390,7 @@ def test_hybrid_prefill_chunk_is_turned_off(hybrid, setup):
     chunked prefill off; an all-attention stack keeps it on."""
     _, _, trun, tp = hybrid
     eng = ServeEngine(trun, tp, device="cpu", slots=2, max_len=48,
-                      page_size=8, prefill_chunk=8)
+                      paged=True, page_size=8, prefill_chunk=8)
     assert eng.prefill_chunk == 0
     _serve(eng, _hybrid_requests(Request, n=2, new=2))
     _, _, qrun, qp = setup
@@ -393,7 +403,7 @@ def test_hybrid_engine_rejects_a_prompt_breaking_the_chunk_rule(hybrid):
     the request is rejected, the engine serves the others."""
     _, _, trun, tp = hybrid
     eng = ServeEngine(trun, tp, device="cpu", slots=2, max_len=48,
-                      page_size=8)
+                      paged=True, page_size=8)
     bad = Request(rid=0, prompt=np.arange(20) % 100, max_new_tokens=2)
     good = Request(rid=1, prompt=np.arange(32) % 100, max_new_tokens=2)
     eng.submit(bad)

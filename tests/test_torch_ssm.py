@@ -264,8 +264,8 @@ def test_flash_decode_plain_matches_pallas(B, T, H, K, hd, pos, dtype):
 
 def test_flash_decode_refuses_bad_tiles_and_per_slot_positions():
     """The reference's tile rule (T a multiple of min(256, T)) holds, and
-    a (B,) position — the dense ring, not ported — is refused on every
-    path."""
+    a (B,) position — the dense ring, which takes the plain attention
+    instead — is refused on every path."""
     q = torch.zeros((2, 1, 4, 32))
     with pytest.raises(ValueError, match="multiple"):
         ops.flash_decode(q, torch.zeros((2, 300, 2, 32)),
@@ -436,14 +436,56 @@ def test_uniform_decode_matches_jax(weights, compute, jax_backend):
 
 
 def test_per_slot_dense_decode_still_raises(weights):
-    _, tp = weights
-    _, trun = _runs()
-    model = torch_model(trun)
-    shape = dataclasses.replace(trun.shape, seq_len=16, global_batch=2)
-    cache = model.init_cache(shape, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        model.decode_step(tp, cache, torch.zeros((2, 1), dtype=torch.int64),
-                          torch.tensor([3, 4]))
+    """Per-slot dense decode (the dense ring, a (B,) ``pos``) against
+    JAX's ``Model.decode_step``: slots prefilled to 5, 16 and 32 tokens,
+    the middle one inactive (pos -1), two steps. Logits of the active
+    rows and every cache leaf within the fp32 tolerance; the inactive
+    slot's KV rows and recurrent state bit-untouched. What still raises
+    is the kernel: ``ops.flash_decode`` takes one position for the whole
+    batch, never a (B,) one (the model sends those to the plain
+    attention, as JAX does)."""
+    jp, tp = weights
+    jrun, trun = _runs()
+    jm, tm = jax_model(jrun), torch_model(trun)
+    jprefill, jdecode = jax.jit(jm.prefill), jax.jit(jm.decode_step)
+    params = tm.compute_params(tp)
+    lens, T = (5, 16, 32), 40
+    rng = np.random.default_rng(7)
+    shape = dataclasses.replace(trun.shape, seq_len=T, global_batch=3)
+    dense = tm.init_cache(shape, device="cpu")
+    for b, L in enumerate(lens):
+        toks = rng.integers(0, 512, (1, L))
+        c, _ = jprefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
+        for (blk, name), leaf in tree_items(c):
+            dst = dense[blk][name]
+            leaf = torch.from_numpy(np.array(leaf, np.float32))
+            if name in ("k", "v"):
+                dst[:, b, :L] = leaf[:, 0]
+            else:
+                dst[:, b] = leaf[:, 0]
+    jc = {blk: {n: jnp.asarray(t.numpy()) for n, t in node.items()}
+          for blk, node in dense.items()}
+    before = {(blk, n): t[:, 1].clone() for blk, node in dense.items()
+              for n, t in node.items()}
+    active = np.array([True, False, True])
+    for step in range(2):
+        pos = np.where(active, np.array(lens) + step, -1).astype(np.int32)
+        toks = rng.integers(0, 512, (3, 1))
+        jl, jc = jdecode(jp, jc, jnp.asarray(toks, jnp.int32),
+                         jnp.asarray(pos), active=jnp.asarray(active))
+        tl, dense = tm.decode_step(params, dense, torch.tensor(toks),
+                                   torch.tensor(pos),
+                                   active=torch.tensor(active))
+        _close(tl[active], np.asarray(jl)[active], TOL["float32"])
+    for (path, a), (_, b) in zip(tree_items(jc), tree_items(dense)):
+        _close(b, a, TOL["float32"], str(path))
+    for (blk, n), old in before.items():
+        assert torch.equal(dense[blk][n][:, 1].view(torch.uint8),
+                           old.view(torch.uint8)), (blk, n)
+    q = torch.zeros((3, 1, 4, 16))
+    kv = torch.zeros((3, T, 2, 16))
+    with pytest.raises(ValueError, match="scalar"):
+        ops.flash_decode(q, kv, kv, torch.tensor([3, 4, 5]))
 
 
 def test_model_prefill_breaking_the_chunk_rule_raises(weights):

@@ -13,6 +13,8 @@ runs, and the recovered tenant statuses, VF states and journal
 resolutions must be equal — and the recovered fleets must go on to serve
 the same tokens.
 """
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -22,8 +24,10 @@ from repro.configs import PrecisionConfig as JPrecision
 from repro.configs import make_run_config as jax_run_config
 from repro.core.manager import SVFFManager as JManager
 from repro.core.qmp import ControlPlane as JControl
+from repro.core.staging import StagingEngine as JStaging
 from repro.models.model import build_model as jax_model
 from repro.serve.engine import Request as JRequest
+from repro.serve.fleet import EngineTenant as JEngineTenant
 from repro.serve.fleet import ServeFleet as JFleet
 import repro_torch.core.fault as tfault
 from repro_torch import interop
@@ -31,7 +35,9 @@ from repro_torch.configs import PrecisionConfig as TPrecision
 from repro_torch.configs import make_run_config as torch_run_config
 from repro_torch.core.manager import SVFFManager as TManager
 from repro_torch.core.qmp import ControlPlane as TControl
+from repro_torch.core.staging import StagingEngine as TStaging
 from repro_torch.serve.engine import Request
+from repro_torch.serve.fleet import EngineTenant as TEngineTenant
 from repro_torch.serve.fleet import ServeFleet as TFleet
 
 ARCH = "qwen3-0.6b"
@@ -57,6 +63,43 @@ def disarmed():
     yield
     jfault.crash_plane.disarm()
     tfault.crash_plane.disarm()
+
+
+@pytest.mark.parametrize("cls,method", [
+    ("EngineTenant", "dirty_keys"), ("EngineTenant", "inject_failure"),
+    ("StagingEngine", "close")])
+def test_reference_public_methods_present_with_its_signature(cls, method):
+    """The reference's public methods that the ported classes lacked:
+    present, with the reference's signature."""
+    jcls, tcls = {"EngineTenant": (JEngineTenant, TEngineTenant),
+                  "StagingEngine": (JStaging, TStaging)}[cls]
+    assert inspect.signature(getattr(tcls, method)) == \
+        inspect.signature(getattr(jcls, method))
+
+
+def test_engine_tenant_dirty_keys_and_inject_failure(setup, tmp_path):
+    """``dirty_keys`` is the engine's, as in the reference, and
+    ``inject_failure`` changes nothing; the port's ``StagingEngine.close``
+    is a no-op after which the engine still saves and restores."""
+    sides = ((_fleet(setup, JAX_SIDE, tmp_path / "j"), JRequest),
+             (_fleet(setup, PORT_SIDE, tmp_path / "t"), Request))
+    got = []
+    for fleet, cls in sides:
+        tn = fleet.tenants["serve0"]
+        fleet.submit(cls(rid=0, prompt=np.arange(5), max_new_tokens=3))
+        fleet.step()
+        tn.inject_failure()
+        assert tn.dirty_keys() == tn.engine.dirty_keys()
+        got.append(tn.dirty_keys())
+        tn.export_state()
+        assert tn.dirty_keys() == set()
+    assert got[0] == got[1]
+    eng = TStaging()
+    staged = eng.save({"x": np.arange(4.0)})
+    eng.close()
+    eng.close()
+    assert np.array_equal(eng.restore(staged, device="cpu")["x"],
+                          np.arange(4.0))
 
 
 def _fleet(setup, side, workdir, **kw):
