@@ -35,7 +35,22 @@ policies; a default pass and a serve 0.3 / crash 0.1 pass, every
 invariant after every op), the 15 ported crash points x seeds 0-2 x three
 policies, and the pause path (HC1-HC5) on the ~918 MB qwen3-100m-bench
 train state, whose int8 rows launch ``qdma_pack``, ``qdma_pack_rows``
-and ``qdma_unpack``.
+and ``qdma_unpack``. Then the other model families, one at a time with
+random weights from ``--seed``, each model's params freed before the
+next is built: olmoe-1b-7b at full width (16 layers, d_model 2,048, 16/16
+heads of 128, 64 experts top-8, 6.92 B fp32 params) on the dense ring,
+paged bf16 and paged int8 engines (16 requests of 5-512 tokens, and a
+600-token prompt rejected by the MoE group rule), llama3-8b and
+phi3-mini-3.8b (head dim 96) on paged engines, xlstm-350m (its generate
+path against the forward, the sLSTM's token loop timed, the dense ring),
+seamless-m4t-medium (random frames through the non-causal kernel, the
+dense ring with its cross KV), internvl2-1b (256 random patches, dense
+and paged), arctic-480b-1l (one layer of Arctic at every published
+width, 128 experts top-2 beside a dense FFN, 14.07 B bf16 params) and
+jamba-1.5-large-398b at its smoke widths with its experts (MoE beside
+mamba on ``ssm_scan``): each a prefill-logits check through the kernels
+against the plain versions at fp32 compute, and the serve phases'
+checks on each engine.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -45,7 +60,8 @@ scale-in, recovery, elastic sweep), serve plane (dense ring, serve path,
 prefix share, decode roofline, throughput x2), hybrid prefill, hybrid
 serve (bf16, int8), hybrid generate, train launch, train tenant
 (bit-exact, int8), eval step, Tables I/II, sim sweep (two passes), crash
-matrix, pause path, kernels line, result line. Any failed check exits
+matrix, pause path, families (per model: prefill, serve on its engines;
+olmoe's group rule, xlstm's generate path), kernels line, result line. Any failed check exits
 non-zero before the result line. Details go to
 ``chiprun_out/chip_smoke.json``. The script imports only torch, numpy and
 the port.
@@ -204,38 +220,68 @@ def bound(nbytes: float, ops: float, rate: float):
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
-def phase_flash_attention(torch, ops, timer, cfg, hcfg):
+def family_attention_shapes(get):
+    """The other families' prefill attention shapes, (S, T, H, K, hd,
+    causal, who) from their full configs (``get(arch)``): phi3-mini's hd
+    96 at qwen's S 384 and longest prompt 600; seamless's encoder (S = T)
+    and cross attention (T = S / 4), not causal; internvl2's 256 patches
+    + 384 tokens at G = 7; arctic's 56/8 heads."""
+    phi3, seam = get("phi3-mini-3.8b"), get("seamless-m4t-medium")
+    vl, arctic = get("internvl2-1b"), get("arctic-480b-1l")
+    out = [(S, S, phi3.num_heads, phi3.num_kv_heads, phi3.head_dim, True,
+            "phi3-mini") for S in (384, 600)]
+    out += [(384, 384, seam.num_heads, seam.num_kv_heads, seam.head_dim,
+             False, "seamless encoder"),
+            (384, 96, seam.num_heads, seam.num_kv_heads, seam.head_dim,
+             False, "seamless cross"),
+            (640, 640, vl.num_heads, vl.num_kv_heads, vl.head_dim, True,
+             "internvl2, 256 patches + 384"),
+            (384, 384, arctic.num_heads, arctic.num_kv_heads,
+             arctic.head_dim, True, "arctic")]
+    return out
+
+
+def phase_flash_attention(torch, ops, timer, cfg, hcfg, families=()):
     """flash_attention at qwen3-0.6b's prompt lengths (S 7, 200, 384 and
-    its longest, 600; 16/8 heads of 128) and at the hybrid's prefill
-    shape (S 512, 64/8 heads of 128)."""
+    its longest, 600; 16/8 heads of 128), at the hybrid's prefill shape
+    (S 512, 64/8 heads of 128) and at the other families' (``families``:
+    hd 96, G 1 and 7, not causal, T != S)."""
     import torch.nn.functional as F
-    hd = cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(11)
     rows = []
-    shapes = [(S, cfg.num_heads, cfg.num_kv_heads) for S in (7, 200, 384, 600)]
-    shapes.append((512, hcfg.num_heads, hcfg.num_kv_heads))
-    for S, H, K in shapes:
-        q, k, v = (torch.randn((1, S, n, hd), generator=g, device="cuda")
-                   .to(torch.bfloat16) for n in (H, K, K))
-        got = ops.flash_attention(q, k, v, causal=True)
-        want = ops.flash_attention(q, k, v, causal=True, backend="ref")
+    hd = cfg.head_dim
+    shapes = [(S, S, cfg.num_heads, cfg.num_kv_heads, hd, True, None)
+              for S in (7, 200, 384, 600)]
+    shapes.append((512, 512, hcfg.num_heads, hcfg.num_kv_heads, hd, True,
+                   None))
+    shapes += list(families)
+    for S, T, H, K, hd, causal, who in shapes:
+        q = torch.randn((1, S, H, hd), generator=g, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn((1, T, K, hd), generator=g, device="cuda")
+                .to(torch.bfloat16) for _ in "kv")
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ops.flash_attention(q, k, v, causal=causal, backend="ref")
         torch.cuda.synchronize()
         err, share = attn_err(got, want)
-        label = f"q (1,{S},{H},{hd}) k/v {K} heads"
+        label = f"q (1,{S},{H},{hd}) k/v {K} heads" + (
+            f" T={T}" if T != S else "") + (f" ({who})" if who else "")
         check(share <= 1, f"flash_attention {label}: max_abs_err {err}, "
                           f"{share:.3g} of the limit")
-        check(torch.equal(got, ops.flash_attention(q, k, v)),
+        check(torch.equal(got, ops.flash_attention(q, k, v, causal=causal)),
               f"flash_attention {label}: not deterministic")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib = timer.ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-        ms = timer.ms(lambda: ops.flash_attention(q, k, v))
-        plain = timer.ms(lambda: ops.flash_attention(q, k, v,
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+        plain = timer.ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                      backend="ref"))
-        nbytes = 2 * (2 * S * H * hd + 2 * S * K * hd)   # q, o, k, v bf16
-        flops = 4 * H * hd * S * (S + 1) / 2             # causal QK^T + PV
+        nbytes = 2 * (2 * S * H * hd + 2 * T * K * hd)   # q, o, k, v bf16
+        pairs = S * (S + 1) / 2 if causal else S * T      # (query, key)
+        flops = 4 * H * hd * pairs                        # QK^T + PV
         b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-        rows.append({"shape": f"{label} bf16, causal",
+        rows.append({"shape": f"{label} bf16, "
+                              f"{'causal' if causal else 'not causal'}",
                      "max_abs_err": err, "share_of_limit": share,
                      "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
@@ -366,14 +412,15 @@ def sample_inputs(torch, cfg):
     return logits, temp, top_k, keys
 
 
-def phase_fused_sample(torch, ops, timer, cfg, hcfg):
-    """The sampler at qwen3-0.6b's padded vocabulary (the main row) and
-    the hybrid's, B = 8 (greedy, temperature, top-k rows): bit-exact
-    against the plain version, and one call puts one kernel on the card
-    (one profiler session)."""
+def phase_fused_sample(torch, ops, timer, cfg, hcfg, *more):
+    """The sampler at qwen3-0.6b's padded vocabulary (the main row), the
+    hybrid's and those of ``more`` configs (seamless's 256,256, the
+    widest), B = 8 (greedy, temperature, top-k rows): bit-exact against
+    the plain version, and one call puts one kernel on the card (one
+    profiler session)."""
     from repro_torch.kernels.sampling import prepare_rows
     rows, calls = [], []
-    for c in (cfg, hcfg):
+    for c in (cfg, hcfg) + more:
         logits, temp, top_k, keys = sample_inputs(torch, c)
         V, (B, Vp) = c.vocab_size, logits.shape
         got = ops.fused_sample(logits, temp, top_k, keys, vocab_size=V)
@@ -406,43 +453,79 @@ def phase_fused_sample(torch, ops, timer, cfg, hcfg):
 def one_kernel_each(torch, calls, name):
     """Check, in one profiler session, that each call puts exactly one
     kernel on the card, one of ``name``'s."""
-    names = device_kernels(torch, calls)
+    names, lead = device_kernels(torch, calls)
     check(len(names) == len(calls) and all(name in n for n in names),
           f"{name}: {len(calls)} calls put {names} on the card, not one "
           "kernel each")
     log(f"{name}: {len(calls)} calls put {len(names)} kernels on the card, "
-        f"all {name}")
+        f"all {name} (the card's lead over the host clock {fmt_ms(lead)})")
 
 
-def device_kernels(torch, calls, tries: int = 4) -> list:
-    """The names of what the calls put on the card, kernels, copies and
-    memsets alike, in one torch.profiler session (warm calls first).
-    torch.profiler loses device work now and then: a session records
-    nothing in a process that has profiled before, or misses one call's
-    kernel (an H100 run recorded 5 kernels for 6 flash_decode calls). A
-    record with fewer device events than calls is incomplete and the
-    session is taken again, up to ``tries`` times; a record with as many
-    or more is returned for the caller's check, so a call that puts no
-    kernel, two kernels or a fill on the card still fails it. ``main``
-    runs these sessions (every kernel phase's, flash_decode's first) before
-    any other profiling."""
+#: torch.cuda._sleep cycles on either side of a profiled region: ~20 ms
+#: at the H100's clock. Kineto keeps only the device events that lie
+#: inside the session's window on the host's clock; in a process that has
+#: run for minutes the card's timestamps can lead that clock by a
+#: millisecond or more, and the session's first device events then fall
+#: before the window and are dropped (PERF.md §7). The sleeps take that
+#: loss, and the region's own events lie well inside.
+PROFILE_PAD_CYCLES = 40_000_000
+
+
+def profiled(torch, fn, pad: int = PROFILE_PAD_CYCLES):
+    """Run ``fn`` in one torch.profiler session between two device
+    sleeps of ``pad`` cycles, the first waited for. Returns (fn's result,
+    the names of the device events the region put on the card, kernels,
+    copies and memsets alike, the sleeps left out, and the card's lead in
+    ms: the most any device event's start precedes the start of its own
+    launch call on the host, matched by correlation id. fn's first
+    launches find the card idle, so their work starts microseconds after
+    the call: the lead is that much below 0 where the two clocks agree,
+    and above 0 by about their disagreement where the card's leads. None
+    where no launch was matched)."""
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(pad)
+        torch.cuda.synchronize()        # fn's launches find the card idle
+        out = fn()
+        torch.cuda._sleep(pad)
+        torch.cuda.synchronize()
+    dev = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in prof.events()
+             if e.device_type == dev and "spin_kernel" not in e.name]
+    raw = prof.profiler.kineto_results.events()
+    launch = {e.correlation_id(): e.start_ns() for e in raw
+              if e.device_type() != dev and e.name().startswith("cuda")}
+    leads = [launch[e.correlation_id()] - e.start_ns() for e in raw
+             if e.device_type() == dev and e.correlation_id() in launch]
+    return out, names, (max(leads) / 1e6 if leads else None)
+
+
+def device_kernels(torch, calls, tries: int = 4):
+    """The names of what the calls put on the card, kernels, copies and
+    memsets alike, in one profiled session (``profiled``; warm calls
+    first), and the session's lead of the card's clock. A record with fewer device events than calls is incomplete
+    and the session is taken again with twice the padding, up to
+    ``tries`` times; a record with as many or more is returned for the
+    caller's check, so a call that puts no kernel, two kernels or a fill
+    on the card still fails it."""
     for fn in calls:
         fn()
     torch.cuda.synchronize()
     for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for fn in calls:
-                fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        _, names, lead = profiled(
+            torch, lambda: [fn() for fn in calls],
+            PROFILE_PAD_CYCLES << attempt)
         if len(names) >= len(calls):
             break
         log(f"profiler session {attempt + 1}: {len(names)} device events "
-            f"for {len(calls)} calls, an incomplete record; taken again")
-    return names
+            f"for {len(calls)} calls, an incomplete record (the card's "
+            f"lead over the host clock {fmt_ms(lead)}); taken again")
+    return names, lead
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def phase_flash_decode(torch, ops, timer, cfg):
@@ -855,11 +938,14 @@ def hybrid_requests(Request, vocab: int, seed: int):
 
 
 def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
-          pause_at=None, count=False, requests=make_requests, paged=True):
-    """Serve the 16 requests to completion (paged, page 16, or through
-    the dense ring); returns (token streams, metrics, launch counts).
-    With ``pause_at`` the engine is paused after that step, its device
-    state staged to host memory and dropped, restored and unpaused."""
+          pause_at=None, count=False, requests=make_requests, paged=True,
+          host_params=True):
+    """Serve the 16 requests (or those ``requests`` makes) to completion
+    (paged, page 16, or through the dense ring); returns (token streams,
+    metrics, launch counts). A step that ran no prefill is a decode step
+    of the median. With ``pause_at`` the engine is paused after that
+    step, its device state (the params too, unless ``host_params`` is
+    False) staged to host memory and dropped, restored and unpaused."""
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.tree import tree_to
     eng = ServeEngine(run, params, device="cuda", slots=8, max_len=1024,
@@ -874,11 +960,11 @@ def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
     t0 = time.perf_counter()
     decode_ms, steps = [], 0
     while steps < 2000:
-        before = ops.LAUNCHES["flash_attention"]
+        before = eng.prefill_calls
         ts = time.perf_counter()
         n = eng.step()
         torch.cuda.synchronize()
-        if n and ops.LAUNCHES["flash_attention"] == before:
+        if n and eng.prefill_calls == before:
             decode_ms.append((time.perf_counter() - ts) * 1e3)
         steps += 1
         if n == 0 and not eng.queue:
@@ -886,8 +972,9 @@ def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
         if steps == pause_at:
             eng.pause()
             st = eng.export_state()
-            host = dict(st, params=tree_to(st["params"], "cpu"),
-                        cache=tree_to(st["cache"], "cpu"))
+            host = dict(st, cache=tree_to(st["cache"], "cpu"))
+            if host_params:
+                host["params"] = tree_to(st["params"], "cpu")
             eng._cache = None
             torch.cuda.empty_cache()
             eng.import_state(host)
@@ -896,7 +983,7 @@ def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
     counts = ops.launch_counts() if count else None
     check(all(r.done and r.error is None for r in reqs),
           f"serve kv={kv_dtype}: not every request completed")
-    check(all(len(r.out) == 32 for r in reqs),
+    check(all(len(r.out) == r.max_new_tokens for r in reqs),
           f"serve kv={kv_dtype}: a request stopped short")
     toks = sum(len(r.out) for r in reqs)
     metrics = {"steps": steps, "wall_s": wall, "tokens": toks,
@@ -1228,93 +1315,32 @@ def phase_prefill_logits(torch, run, params, seed):
 # ---------------------------------------------------------------------------
 # the hybrid Mamba-attention stack
 # ---------------------------------------------------------------------------
-def phase_hybrid_prefill(torch, run, params, seed):
-    """The hybrid's prefill through the kernels and through the plain
-    versions, both with bf16 compute, each held against the plain
-    versions with fp32 compute on the same weights and prompts: the last
-    logits and each mamba layer's final SSM state. At bf16 any change of
-    rounding moves this stack by 1-2% of max |logit|, so a fixed limit on
-    kernel vs plain cannot tell a kernel error from rounding; the kernel
-    path is held to ``HYBRID_MARGIN`` times the plain bf16 path's own
-    distance from fp32 compute (one layer's state alone is too noisy to
-    hold: the mean over layers is held)."""
-    import dataclasses
-    from repro_torch.models.model import build_model
-    plain_run = run.replace(kernel_backend="reference")
-    paths = {"kernel": build_model(run), "plain": build_model(plain_run)}
-    exact = build_model(plain_run.replace(precision=dataclasses.replace(
-        run.precision, compute="float32")))
-    rng = np.random.default_rng(seed + 200)
-    res = {}
-    for S in (100, 384):
-        toks = torch.tensor(rng.integers(0, run.model.vocab_size, (1, S)),
-                            device="cuda")
-        ref_cache, ref = exact.prefill(params, {"tokens": toks})
-        ref_states = {blk: node["ssm"] for blk, node in ref_cache.items()
-                      if "ssm" in node}
-        del ref_cache
-        r, out = {}, {}
-        for name, model in paths.items():
-            cache, out[name] = model.prefill(params, {"tokens": toks})
-            check(bool(torch.isfinite(out[name]).all())
-                  and out[name].shape == ref.shape,
-                  f"hybrid prefill S={S} {name}: non-finite or misshapen "
-                  "logits")
-            check(all(bool(torch.isfinite(cache[blk]["ssm"]).all())
-                      for blk in ref_states),
-                  f"hybrid prefill S={S} {name}: non-finite SSM state")
-            ssm = {blk: float((cache[blk]["ssm"] - st).abs().max()
-                              / st.abs().max())
-                   for blk, st in ref_states.items()}
-            r[name] = {"logits": float((out[name] - ref).abs().max()
-                                       / ref.abs().max()),
-                       "ssm": ssm,
-                       "ssm_mean": float(np.mean(list(ssm.values())))}
-            del cache
-        r["kernel_vs_plain"] = float((out["kernel"] - out["plain"]).abs()
-                                     .max() / out["plain"].abs().max())
-        res[S] = r
-        log(f"hybrid prefill S={S}, from the fp32-compute plain path "
-            f"(of max |logit|; of each layer's max |state|): kernel path "
-            f"logits {r['kernel']['logits']:.4g}, states "
-            + ", ".join(f"{v:.4g}" for v in r["kernel"]["ssm"].values())
-            + f" (mean {r['kernel']['ssm_mean']:.4g}) | plain bf16 path "
-            f"logits {r['plain']['logits']:.4g}, states "
-            + ", ".join(f"{v:.4g}" for v in r["plain"]["ssm"].values())
-            + f" (mean {r['plain']['ssm_mean']:.4g}) | limits "
-            f"{HYBRID_MARGIN} x the plain path's | kernel vs plain path "
-            f"logits {r['kernel_vs_plain']:.4g}")
-    for S, r in res.items():
-        k, p = r["kernel"], r["plain"]
-        check(k["logits"] <= HYBRID_MARGIN * p["logits"],
-              f"hybrid prefill S={S}: the kernel path's logits are "
-              f"{k['logits']:.4g} of max |logit| from fp32 compute, over "
-              f"{HYBRID_MARGIN} x the plain bf16 path's {p['logits']:.4g}")
-        check(k["ssm_mean"] <= HYBRID_MARGIN * p["ssm_mean"],
-              f"hybrid prefill S={S}: the kernel path's SSM states are "
-              f"{k['ssm_mean']:.4g} of their max from fp32 compute (mean "
-              f"over layers), over {HYBRID_MARGIN} x the plain bf16 "
-              f"path's {p['ssm_mean']:.4g}")
-    return res
-
-
 def phase_generate(torch, ops, run, params, seed):
     """``make_serve_steps``' generate path: prefill B=4 prompts of 384
-    tokens, widen the cache to a dense one of 1,024 positions, then 128
-    decode steps with one position for the batch (384 ... 511), each
-    step's logits against one teacher-forced forward at S=512. The launch
-    counts cover the prefill and the decode steps only."""
+    tokens (timed), widen the cache to a dense one of 1,024 positions,
+    then 128 decode steps with one position for the batch (384 ... 511),
+    each step's logits against one teacher-forced forward at S=512. Any
+    stack: the kernels it must launch are those of its blocks
+    (flash_attention and flash_decode for attention, ssm_scan for mamba;
+    an xLSTM stack launches none). The launch counts cover the prefill
+    and the decode steps only."""
     import dataclasses
     from repro_torch.models.model import build_model
     from repro_torch.train.step import make_serve_steps
+    from repro_torch.tree import tree_map
     B, S0, S, T = 4, 384, 512, 1024
     model = build_model(run)
+    cparams = model.compute_params(params)
     prefill, decode = make_serve_steps(run)
     rng = np.random.default_rng(seed + 300)
     toks = torch.tensor(rng.integers(0, run.model.vocab_size, (B, S)),
                         device="cuda")
     ops.reset_launch_counts()
-    cache, last = prefill(params, {"tokens": toks[:, :S0]})
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    cache, last = prefill(cparams, {"tokens": toks[:, :S0]})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - ts) * 1e3
     dense = model.init_cache(dataclasses.replace(run.shape, seq_len=T,
                                                  global_batch=B),
                              device="cuda")
@@ -1322,60 +1348,87 @@ def phase_generate(torch, ops, run, params, seed):
         for name, leaf in node.items():
             if name in ("k", "v"):
                 dense[blk][name][:, :, :S0] = leaf
-            else:
-                dense[blk][name].copy_(leaf)
+            else:           # recurrent state (nested for the xLSTM's)
+                tree_map(lambda d, t: d.copy_(t), dense[blk][name], leaf)
     del cache
     logits, step_ms = [last], []
     for t in range(S0, S - 1):
         torch.cuda.synchronize()
         ts = time.perf_counter()
-        lg, dense = decode(params, dense, toks[:, t:t + 1], t)
+        lg, dense = decode(cparams, dense, toks[:, t:t + 1], t)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - ts) * 1e3)
         logits.append(lg)
-    # the last step under the profiler: the kernels one step puts on the
-    # card, by name
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        lg, dense = decode(params, dense, toks[:, S - 1:S], S - 1)
-        torch.cuda.synchronize()
+    # the last step, profiled: the kernels one step puts on the card, by
+    # name. A record that holds fewer flash_decode kernels than the step
+    # launched is taken again with twice the padding, up to four
+    # sessions, each from the cache as it was before the step (the step
+    # advances the recurrent state)
+    before_step = tree_map(lambda t: t.clone(), dense)
+    for attempt in range(4):
+        if attempt:
+            tree_map(lambda t, t0: t.copy_(t0), dense, before_step)
+        before = ops.LAUNCHES["flash_decode"]
+        (lg, dense), names, lead = profiled(
+            torch, lambda: decode(cparams, dense, toks[:, S - 1:S], S - 1),
+            PROFILE_PAD_CYCLES << attempt)
+        launched = ops.LAUNCHES["flash_decode"] - before
+        n_attn = sum(1 for n in names if "flash_decode" in n)
+        if n_attn >= launched:
+            break
+        log(f"generate: profiler session {attempt + 1} recorded {n_attn} "
+            f"flash_decode kernels of {launched} launched ({len(names)} "
+            f"device events; the card's lead over the host clock "
+            f"{fmt_ms(lead)}), an incomplete record; taken again")
+    del before_step
     logits.append(lg)
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
     counts = ops.launch_counts()
     del dense
-    full = model.forward(params, {"tokens": toks})[0]
+    full = model.forward(cparams, {"tokens": toks})[0]
+    del cparams
     scale = float(full.abs().max())
     errs = [float((lg - full[:, S0 - 1 + i]).abs().max())
             for i, lg in enumerate(logits)]
-    check(all(np.isfinite(errs)), "generate: non-finite logits")
+    name = run.model.name
+    check(all(np.isfinite(errs)), f"{name} generate: non-finite logits")
     check(max(errs) <= GEN_REL_TOL * scale,
-          f"generate: decode logits differ from the forward by "
+          f"{name} generate: decode logits differ from the forward by "
           f"{max(errs) / scale:.3g} of max |logit| (> {GEN_REL_TOL})")
-    for k in GENERATE_KERNELS:
-        check(counts[k] > 0, f"{k} was never launched on the generate path")
-    n_attn = sum(1 for n in names if "flash_decode" in n)
+    pattern = run.model.block_pattern
+    kernels = [k for k in GENERATE_KERNELS
+               if ("mamba" if k == "ssm_scan" else "attn") in pattern]
+    for k in kernels:
+        check(counts[k] > 0, f"{name}: {k} was never launched on the "
+                             "generate path")
+    layers = pattern.count("attn") * run.model.num_periods
+    check(launched == layers,
+          f"{name} generate: the last step launched {launched} flash_decode "
+          f"kernels for {layers} attention layers")
     if names:       # the profiler saw the step's device work
-        check(n_attn == counts["flash_decode"] // (S - S0),
-              f"generate: the profiled step ran {n_attn} flash_decode "
-              f"kernels, not one per attention layer")
+        check(n_attn == launched,
+              f"{name} generate: in {attempt + 1} profiler sessions the "
+              f"record of the last step held {len(names)} device events "
+              f"but {n_attn} of its {launched} flash_decode kernels")
     else:
-        log("generate: the profiler recorded no device work for the last "
-            "step")
+        log(f"{name} generate: the profiler recorded no device work for "
+            "the last step")
     res = {"rel_err": max(errs) / scale, "steps": len(step_ms) + 1,
+           "prefill_ms": prefill_ms,
            "decode_step_ms_median": float(np.median(step_ms)),
            "launches": counts, "kernels_per_step": len(names),
            "fill_kernels_per_step": sum(1 for n in names
                                         if "fill" in n.lower()),
+           "profiler_sessions": attempt + 1, "card_lead_ms": lead,
            "step_kernels": {n: names.count(n) for n in sorted(set(names))}}
-    log(f"generate B={B} prefill {S0} + {res['steps']} uniform-pos decode "
-        f"steps (T={T}): max rel err vs forward {res['rel_err']:.3g} "
-        f"(tolerance {GEN_REL_TOL}) | decode step median "
-        f"{res['decode_step_ms_median']:.2f} ms | a step: "
+    log(f"{name} generate B={B} prefill {S0} ({prefill_ms:.1f} ms) + "
+        f"{res['steps']} uniform-pos decode steps (T={T}): max rel err vs "
+        f"forward {res['rel_err']:.3g} (tolerance {GEN_REL_TOL}) | decode "
+        f"step median {res['decode_step_ms_median']:.2f} ms | a step: "
         f"{res['kernels_per_step']} kernels, "
-        f"{res['fill_kernels_per_step']} fills | launches "
-        f"{json.dumps({k: counts[k] for k in GENERATE_KERNELS})}")
+        f"{res['fill_kernels_per_step']} fills (profiler sessions "
+        f"{attempt + 1}, the card's lead over the host clock "
+        f"{fmt_ms(lead)}) | launches "
+        f"{json.dumps({k: counts[k] for k in kernels})}")
     return res
 
 
@@ -2044,8 +2097,9 @@ def run_hybrid(torch, ops, args, card, report, launches):
     torch.cuda.synchronize()
     log(f"{HYBRID} params: {hcfg.param_count():,} bf16 on the card "
         f"({time.perf_counter() - t0:.1f} s)")
-    report["hybrid_prefill"] = phase_hybrid_prefill(torch, hrun, params,
-                                                    args.seed)
+    report["hybrid_prefill"] = phase_family_prefill(
+        torch, ops, hrun, params, args.seed, (100, 384), states=True,
+        floor=0.0)
     report["hybrid_serve"] = {}
     hybrid_launches = dict.fromkeys(HYBRID_SERVE_KERNELS, 0)
     for kv in (None, "int8"):
@@ -2574,6 +2628,307 @@ def run_sim(torch, ops, card, report, launches):
 
 
 # ---------------------------------------------------------------------------
+# the other model families
+# ---------------------------------------------------------------------------
+OLMOE, ARCTIC_1L = "olmoe-1b-7b", "arctic-480b-1l"
+JAMBA_MOE = "jamba-1.5-large-398b"
+FAMILY_SERVE_KERNELS = {"dense": ("flash_attention", "fused_sample"),
+                        "paged": ("flash_attention", "paged_decode",
+                                  "fused_sample"),
+                        "int8": ("flash_attention", "paged_decode_quant",
+                                 "fused_sample")}
+
+
+def family_requests(n: int, lens: str, new: int = 32):
+    """A request factory: ``n`` requests of ``new`` tokens, half greedy,
+    half at temperature 0.8 (top-k 50 on a quarter), prompts drawn from
+    the seed under a family's sequence rule: "moe" 5-512 tokens (the MoE
+    group rule), the first two 384 and 512; "chunk128" at most 128 or a
+    multiple of 128 (the mLSTM chunk rule), three of them 256, 384 and
+    512; "chunk16" the same at jamba's smoke chunk of 16; "any" 5-600,
+    the first two 384 and 600."""
+    def make(Request, vocab: int, seed: int):
+        rng = np.random.default_rng(seed + 400)
+        if lens == "moe":
+            ls = rng.integers(5, 513, n)
+            ls[:2] = (384, 512)
+        elif lens == "chunk128":
+            ls = rng.integers(5, 129, n)
+            ls[:3] = (256, 384, 512)
+        elif lens == "chunk16":
+            ls = rng.integers(4, 17, n)
+            ls[:3] = (32, 64, 128)
+        else:
+            ls = rng.integers(5, 601, n)
+            ls[:2] = (384, 600)
+        return [Request(rid=i, prompt=rng.integers(0, vocab, int(L))
+                        .astype(np.int32), max_new_tokens=new,
+                        temperature=0.8 if i % 2 else 0.0,
+                        top_k=50 if i % 4 == 1 else 0, seed=seed + i)
+                for i, L in enumerate(ls[:n])]
+    return make
+
+
+def family_batch(torch, cfg, toks, seed):
+    """A prefill batch: the tokens, with random patches (vision) or
+    frames (encoder-decoder; S // frame_ratio) on the card, fp32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"tokens": toks}
+    if cfg.frontend.kind == "vision":
+        batch["patches"] = torch.randn(
+            (toks.shape[0], cfg.frontend.num_patches, cfg.d_model),
+            generator=g, device="cuda")
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn(
+            (toks.shape[0], max(1, toks.shape[1] // cfg.frontend.frame_ratio),
+             cfg.d_model), generator=g, device="cuda")
+    return batch
+
+
+def phase_family_prefill(torch, ops, run, params, seed, lengths, *,
+                         states=False, floor=LOGITS_REL_TOL):
+    """A stack's prefill logits through the kernels and through the plain
+    versions, both at bf16 compute, each against the plain versions at
+    fp32 compute on the same weights and inputs (random patches and
+    frames: the serve path's are zeros, whose encoder output is exactly
+    zero). At bf16 any change of rounding moves a deep stack by 1-2% of
+    max |logit|, so a fixed limit on kernel vs plain cannot tell a kernel
+    error from rounding: the kernel path is held to ``HYBRID_MARGIN``
+    times the plain bf16 path's own distance, or ``floor`` where that is
+    larger (qwen's limit for the families, whose MoE routers' near ties
+    move tokens to other experts on either path). With ``states`` each
+    mamba layer's final SSM state is held the same way, by the mean over
+    layers (one layer's state alone is too noisy to hold). Returns the
+    distances and the kernel path's launch counts."""
+    import dataclasses
+    from repro_torch.models.model import build_model
+    plain_run = run.replace(kernel_backend="reference")
+    paths = {"kernel": build_model(run), "plain": build_model(plain_run)}
+    exact = build_model(plain_run.replace(precision=dataclasses.replace(
+        run.precision, compute="float32")))
+    cparams = paths["kernel"].compute_params(params)
+    rng = np.random.default_rng(seed + 500)
+    res, counts = {}, dict.fromkeys(ops.LAUNCHES, 0)
+    name = run.model.name
+
+    def ssm_states(cache):
+        return {blk: node["ssm"] for blk, node in cache.items()
+                if "ssm" in node} if states else {}
+
+    for S in lengths:
+        toks = torch.tensor(rng.integers(0, run.model.vocab_size, (1, S)),
+                            device="cuda")
+        batch = family_batch(torch, run.model, toks, seed + S)
+        ref_cache, ref = exact.prefill(params, batch)
+        ref_states = ssm_states(ref_cache)
+        del ref_cache
+        scale = float(ref.abs().max())
+        r, out = {}, {}
+        for what, model in paths.items():
+            ops.reset_launch_counts()
+            cache, out[what] = model.prefill(cparams, batch)
+            torch.cuda.synchronize()
+            if what == "kernel":
+                for k, v in ops.launch_counts().items():
+                    counts[k] += v
+            lg, st = out[what], ssm_states(cache)
+            check(bool(torch.isfinite(lg).all()) and lg.shape == ref.shape,
+                  f"{name} prefill S={S} {what}: non-finite or misshapen "
+                  "logits")
+            check(all(bool(torch.isfinite(t).all()) for t in st.values()),
+                  f"{name} prefill S={S} {what}: non-finite SSM state")
+            ssm = {blk: float((st[blk] - t).abs().max() / t.abs().max())
+                   for blk, t in ref_states.items()}
+            r[what] = {"logits": float((lg - ref).abs().max()) / scale,
+                       **({"ssm": ssm,
+                           "ssm_mean": float(np.mean(list(ssm.values())))}
+                          if ssm else {})}
+            del cache
+        r["kernel_vs_plain"] = float((out["kernel"] - out["plain"]).abs()
+                                     .max() / out["plain"].abs().max())
+        k, p = r["kernel"], r["plain"]
+        limit = max(HYBRID_MARGIN * p["logits"], floor)
+        check(k["logits"] <= limit,
+              f"{name} prefill S={S}: the kernel path's logits are "
+              f"{k['logits']:.4g} of max |logit| from fp32 compute, over "
+              f"{limit:.4g} (the plain bf16 path's {p['logits']:.4g})")
+        line = (f"{name} prefill S={S} from the fp32-compute plain path (of "
+                f"max |logit|): kernel path {k['logits']:.4g}, plain bf16 "
+                f"path {p['logits']:.4g} (limit {limit:.4g})")
+        if ref_states:
+            check(k["ssm_mean"] <= HYBRID_MARGIN * p["ssm_mean"],
+                  f"{name} prefill S={S}: the kernel path's SSM states are "
+                  f"{k['ssm_mean']:.4g} of their max from fp32 compute "
+                  f"(mean over layers), over {HYBRID_MARGIN} x the plain "
+                  f"bf16 path's {p['ssm_mean']:.4g}")
+            line += (" | SSM states (of each layer's max |state|): kernel "
+                     "path " + ", ".join(f"{v:.4g}" for v in k["ssm"].values())
+                     + f" (mean {k['ssm_mean']:.4g}), plain bf16 path "
+                     + ", ".join(f"{v:.4g}" for v in p["ssm"].values())
+                     + f" (mean {p['ssm_mean']:.4g}), limit {HYBRID_MARGIN}"
+                     " x the plain path's mean")
+        res[S] = r
+        log(line + f" | kernel vs plain {r['kernel_vs_plain']:.4g}")
+    del cparams
+    check(counts["flash_attention"] > 0 or run.model.attention_free,
+          f"{name}: flash_attention was never launched on the prefill")
+    return {"rel_err": res, "launches": counts}
+
+
+def family_serve(torch, ops, run, params, seed, card, requests, layouts,
+                 pause=True):
+    """Serve ``requests`` on each layout ("dense", "paged", "int8"): the
+    fused stream's launches counted, host sampling's tokens equal to the
+    fused ones (I10), and on the first layout a pause round trip (the
+    cache staged to host memory; the params stay) token-identical.
+    Returns {layout: metrics} with streams and launch counts."""
+    out = {}
+    name = run.model.name
+    for i, layout in enumerate(layouts):
+        kv = "int8" if layout == "int8" else None
+        paged = layout != "dense"
+        toks, met, counts = serve(torch, ops, run, params, kv, seed,
+                                  count=True, requests=requests, paged=paged)
+        host, _, _ = serve(torch, ops, run, params, kv, seed, fused=False,
+                           requests=requests, paged=paged)
+        check(host == toks, f"serve {name} {layout}: host sampling gives "
+                            "other tokens than fused sampling (I10)")
+        what = "fused == host sampling"
+        if pause and i == 0:
+            paused, _, _ = serve(torch, ops, run, params, kv, seed,
+                                 pause_at=10, requests=requests,
+                                 paged=paged, host_params=False)
+            check(paused == toks, f"serve {name} {layout}: the pause round "
+                                  "trip changed the tokens (I10)")
+            what += ", pause round trip token-identical"
+        want = FAMILY_SERVE_KERNELS[layout]
+        if run.model.attention_free:
+            want = ("fused_sample",)
+        elif "mamba" in run.model.block_pattern:
+            want += ("ssm_scan",)
+        for k in want:
+            check(counts[k] > 0, f"{k} was never launched serving {name} "
+                                 f"({layout})")
+        met.update(launches=counts, streams=toks)
+        out[layout] = met
+        log(f"serve {name} {layout}: {len(toks)} requests x "
+            f"{len(toks[0])} tokens in {met['steps']} steps, "
+            f"{met['wall_s']:.2f} s | decode step median "
+            f"{met['decode_step_ms_median']:.2f} ms | "
+            f"{met['tokens_per_s']:.1f} tokens/s | {card} | {what} | "
+            f"launches {json.dumps({k: counts[k] for k in want})}")
+    return out
+
+
+def phase_group_rule(torch, run, params):
+    """A 600-token prompt breaks the MoE group rule: the engine rejects it
+    at admission with the rule's message (no prefill runs)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(run, params, device="cuda", slots=8, max_len=1024)
+    bad = Request(rid=0, prompt=np.zeros(600, np.int32), max_new_tokens=32)
+    eng.submit(bad)
+    eng.run_until_idle()
+    check(bad.done and bad.error is not None and "group rule" in bad.error,
+          f"{run.model.name}: a 600-token prompt was not rejected at "
+          f"admission ({bad.error})")
+    log(f"{run.model.name}: a 600-token prompt rejected at admission: "
+        f"{bad.error}")
+    return bad.error
+
+
+def slstm_loop_ms(torch, run, params) -> float:
+    """One sLSTM block's prefill of 256 tokens at B=2 (its per-token
+    loop), timed after a warm call."""
+    from repro_torch.models.model import build_model
+    from repro_torch.models.xlstm import slstm_block
+    cparams = build_model(run).compute_params(params)
+    blk = next(f"block{j}" for j, k in enumerate(run.model.block_pattern)
+               if k == "slstm")
+    p = {k: v[0] for k, v in cparams["decoder"]["layers"][blk].items()}
+    x = torch.randn((2, 256, run.model.d_model), device="cuda").to(
+        torch.bfloat16)
+    slstm_block(run.model, p, x, torch.bfloat16, mode="prefill")
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    slstm_block(run.model, p, x, torch.bfloat16, mode="prefill")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - ts) * 1e3
+    log(f"{run.model.name}: one sLSTM block's 256-token loop at B=2 "
+        f"{ms:.1f} ms")
+    return ms
+
+
+#: the families at full width (arctic cut to one layer, jamba at its
+#: smoke widths): (arch, prefill lengths, request factory, layouts,
+#: smoke); params are freed before the next model is built
+FAMILIES = (
+    (OLMOE, (384, 512), family_requests(16, "moe"),
+     ("dense", "paged", "int8"), False),
+    ("llama3-8b", (384,), family_requests(8, "any"), ("paged",), False),
+    ("phi3-mini-3.8b", (384, 600), family_requests(8, "any"), ("paged",),
+     False),
+    ("xlstm-350m", (), family_requests(8, "chunk128"), ("dense",), False),
+    ("seamless-m4t-medium", (384, 600), family_requests(8, "any"),
+     ("dense",), False),
+    ("internvl2-1b", (384,), family_requests(8, "any"), ("dense", "paged"),
+     False),
+    (ARCTIC_1L, (384,), family_requests(4, "moe"), ("paged",), False),
+    (JAMBA_MOE, (128,), family_requests(8, "chunk16"), ("paged",), True),
+)
+
+
+def run_families(torch, ops, args, card, report, launches):
+    """Every other model family at full width, one after another, each
+    model's params freed before the next is built: a prefill-logits check
+    through the kernels (random patches and frames), the serve engine on
+    the family's layouts with the serve phases' checks, and for olmoe the
+    group rule's rejection at admission, for xlstm the generate path
+    against the forward; with ``--profile`` a profiled paged decode step
+    of each family that has pages (in ``chip_smoke.json``). Adds each
+    serve path's launch counts to ``launches``."""
+    from repro_torch.configs import make_run_config
+    from repro_torch.models.model import build_model
+    report["families"] = {}
+    for arch, lengths, requests, layouts, smoke in FAMILIES:
+        run = make_run_config(arch, "decode_32k", seed=args.seed,
+                              smoke=smoke)
+        cfg = run.model
+        t0 = time.perf_counter()
+        params = build_model(run).init(seed=args.seed, device="cuda")
+        torch.cuda.synchronize()
+        rep = {"params": cfg.param_count(),
+               "param_dtype": run.precision.params,
+               "init_s": time.perf_counter() - t0}
+        log(f"{cfg.name} params: {cfg.param_count():,} "
+            f"{run.precision.params} on the card "
+            f"({rep['init_s']:.1f} s, {allocated(torch, torch.device('cuda')) / 1e9:.1f} GB allocated)")
+        if lengths:
+            rep["prefill"] = phase_family_prefill(torch, ops, run, params,
+                                                  args.seed, lengths)
+            release(torch)
+        if cfg.attention_free:
+            rep["generate"] = phase_generate(torch, ops, run, params,
+                                             args.seed)
+            rep["slstm_block_prefill_ms"] = slstm_loop_ms(torch, run,
+                                                          params)
+            release(torch)
+        if cfg.moe is not None and not smoke:
+            rep["group_rule"] = phase_group_rule(torch, run, params)
+        rep["serve"] = family_serve(torch, ops, run, params, args.seed, card,
+                                    requests, layouts)
+        if args.profile and "paged" in layouts:
+            rep["profile"] = phase_profile(torch, run, params, args.seed,
+                                           name=cfg.name, requests=requests)
+        for met in rep["serve"].values():
+            for k, v in met["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            met.pop("streams")
+        report["families"][cfg.name] = rep
+        del params
+        release(torch)
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2619,12 +2974,15 @@ def main(argv=None) -> int:
     timer = Timer(torch)
     hcfg = make_run_config(HYBRID, "decode_32k").model
     # flash_decode first: its launch check is the process's first profiling
+    fam = family_attention_shapes(
+        lambda arch: make_run_config(arch, "decode_32k").model)
+    scfg = make_run_config("seamless-m4t-medium", "decode_32k").model
     kern = {"flash_decode": phase_flash_decode(torch, ops, timer, hcfg),
             "flash_attention": phase_flash_attention(torch, ops, timer, cfg,
-                                                     hcfg),
+                                                     hcfg, fam),
             **phase_paged_decode(torch, ops, timer, cfg, hcfg, args.seed),
             "fused_sample": phase_fused_sample(torch, ops, timer, cfg,
-                                               hcfg),
+                                               hcfg, scfg),
             "ssm_scan": phase_ssm_scan(torch, ops, timer, hcfg),
             **phase_qdma_pack(torch, ops, timer, cfg),
             "qdma_digest": phase_qdma_digest(torch, ops, timer, cfg)}
@@ -2711,6 +3069,7 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     run_sim(torch, ops, card, report, launches)
+    run_families(torch, ops, args, card, report, launches)
 
     sources = {"flash_attention": ("flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:77"),

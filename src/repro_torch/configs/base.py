@@ -291,11 +291,12 @@ def register(name: str, full: Callable[[], ModelConfig],
 
 
 def _ensure_imported():
-    # The port registers only the architectures it serves so far; the
-    # other families come with their slices (ROADMAP Queue 1 item 7).
-    from repro_torch.configs import jamba_1_5_large_398b  # noqa: F401
-    from repro_torch.configs import paper  # noqa: F401
-    from repro_torch.configs import qwen3_0_6b  # noqa: F401
+    # One module per assigned arch, imported lazily to avoid import cycles.
+    from repro_torch.configs import (arctic_480b, olmoe_1b_7b,  # noqa
+                                     qwen3_0_6b, llama3_8b, deepseek_67b,
+                                     phi3_mini_3_8b, seamless_m4t_medium,
+                                     xlstm_350m, jamba_1_5_large_398b,
+                                     internvl2_1b, paper)
 
 
 def list_archs() -> list[str]:

@@ -16,14 +16,13 @@ expand 2, 256 SSM heads of 64, conv 4, chunk 128) with two cuts:
   moe         16 experts -> None: every layer keeps the dense SwiGLU of
               the published width. The four MoE layers of a period would
               hold 16 x 3 x 8,192 x 24,576 = 9.66 B parameters each, 77
-              GB in bf16 on an 80 GB card; the experts come with the MoE
-              families (ROADMAP Queue 1 item 7)
+              GB in bf16 on an 80 GB card
 
 It has 8,905,349,120 parameters, stored in bf16 (17.8 GB): the published
 398 B model is over ``make_run_config``'s 30 B line, so it stores its
 params in bf16, and this variant stands for one pipeline stage of it.
-The full config with experts is registered too and raises
-``NotImplementedError`` when its params are built.
+The full config with experts is registered too; on one card it runs
+at its smoke size (``smoke()``, MoE on every other layer).
 """
 import dataclasses
 

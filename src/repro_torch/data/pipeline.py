@@ -5,8 +5,10 @@ Batch content is a pure function of (seed, step, shard), drawn with
 numpy exactly as the JAX package draws it, so both packages train on the
 same bytes and a restart resumes bit-identically. ``Prefetcher`` builds
 batches on a background thread and places them on the device with
-``.to(device, non_blocking=True)``. The vision and encoder-decoder inputs
-come with those model families (ROADMAP Queue 1 item 7).
+``.to(device, non_blocking=True)``. A vision model's batches carry
+``patches`` (B, num_patches, D) and an encoder-decoder's ``frames`` (B,
+max(1, S // frame_ratio), D), standard normal fp32 draws from the same
+generator, after the tokens, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,10 +21,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import RunConfig
-
-_FAMILIES = ("is not ported yet (ROADMAP Queue 1 item 7, other model "
-             "families)")
-
 
 @dataclass
 class HostShard:
@@ -47,12 +45,9 @@ class SyntheticSource:
         self.seq = seq_override or run.shape.seq_len
 
     def batch_at(self, step: int) -> dict:
-        """{"tokens", "labels"}: (local_batch, seq) int32 numpy arrays."""
+        """{"tokens", "labels"}: (local_batch, seq) int32 numpy arrays,
+        with ``patches`` or ``frames`` (fp32) where the model takes them."""
         cfg = self.cfg
-        if cfg.frontend.kind == "vision":
-            raise NotImplementedError(f"vision patch inputs {_FAMILIES}")
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(f"encoder frames {_FAMILIES}")
         rng = np.random.default_rng(
             (self.run.seed * 1_000_003 + step) * 97 + self.shard.index)
         B, S = self.local_batch, self.seq
@@ -64,7 +59,15 @@ class SyntheticSource:
         noise = rng.integers(0, V, (B, S + 1))
         mask = rng.random((B, S + 1)) < 0.1
         toks = np.where(mask, noise, base).astype(np.int32)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.frontend.kind == "vision":
+            batch["patches"] = rng.standard_normal(
+                (B, cfg.frontend.num_patches, cfg.d_model)).astype(np.float32)
+        if cfg.is_encoder_decoder:
+            Te = max(1, S // cfg.frontend.frame_ratio)
+            batch["frames"] = rng.standard_normal(
+                (B, Te, cfg.d_model)).astype(np.float32)
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         step = 0

@@ -102,14 +102,16 @@ def _stream(device) -> int:
 # ---------------------------------------------------------------------------
 def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
     """q: (B,S,H,hd); k,v: (B,T,K,hd); H % K == 0. Returns (B,S,H,hd).
-    The kernel takes bf16 and hd in (64, 128), any S and T."""
+    The kernel takes bf16, any S and T, and any hd that is a multiple of
+    8 up to 128: its tiles are 128 columns wide, and it stages rows in
+    16-byte (8-column) chunks, zero-filling the columns at or past hd."""
     if _plain(backend, q):
         return _ref.flash_attention_ref(q, k, v, causal=causal)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     dev = q.device
     _no_autograd("flash_attention", q, k, v)
-    if H % K or hd not in (64, 128):
+    if H % K or hd % 8 or not 8 <= hd <= 128:
         raise ValueError(f"flash_attention kernel: H={H}, K={K}, hd={hd}")
     _want("q", q, torch.bfloat16, (B, S, H, hd), dev)
     _want("k", k, torch.bfloat16, (B, T, K, hd), dev)

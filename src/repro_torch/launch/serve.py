@@ -17,9 +17,14 @@ standby engines for pause-free scale-out.
     python -m repro_torch.launch.serve --fleet 1 --autoscale --spares 2 \
         --slo-max-load 4 --requests 16
     python -m repro_torch.launch.serve --arch jamba-1.5-large-398b-1p-dense
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --paged
+    python -m repro_torch.launch.serve --arch internvl2-1b --max-len 320
 
-The synthetic prompts are 4-11 tokens, inside the hybrid stack's SSM
-chunk rule (at most one chunk, or a multiple of it).
+``--arch`` takes every registered architecture. The synthetic prompts
+are 4-11 tokens, inside every layer's sequence rule (the SSM and mLSTM
+chunk rules, the MoE group rule). A vision model's prompt follows its
+patch rows, so ``--max-len`` must cover them (internvl2-1b: 256 at full
+width, 8 at smoke size).
 """
 from __future__ import annotations
 

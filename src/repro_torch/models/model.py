@@ -1,24 +1,25 @@
-"""Model orchestration for stacks of attention and mamba blocks: the
-attention mixer, block dispatch by kind, the FFN, a Python loop over the
-period-stacked layers, the train-mode forward and loss, and the prefill,
-chunked-prefill and decode entry points (mirrors ``repro.models.model``).
-While autograd records, the train mode runs the plain attention and SSM
-scan (the CUDA kernels compute forward only) and, unless
-``run.sharding.remat`` is "none", recomputes each period in the backward
-(``torch.utils.checkpoint``). Decode runs over the paged KV pool with
-per-slot positions (the serve engine), or over a dense cache with one
-position for the whole batch (``make_serve_steps``'s generate path) or
-per-slot positions (the serve engine's dense ring).
+"""Model orchestration: the attention and cross-attention mixers, block
+dispatch by kind (attention, mamba, mLSTM, sLSTM), the FFN (dense, MoE or
+both), a Python loop over the period-stacked layers, the encoder of an
+encoder-decoder, the vision patches, the train-mode forward and loss, and
+the prefill, chunked-prefill and decode entry points (mirrors
+``repro.models.model``). While autograd records, the train mode runs the
+plain attention and SSM scan (the CUDA kernels compute forward only)
+and, unless ``run.sharding.remat`` is "none", recomputes each period in
+the backward (``torch.utils.checkpoint``). Decode runs over the paged KV
+pool with per-slot positions (the serve engine), or over a dense cache
+with one position for the whole batch (``make_serve_steps``'s generate
+path) or per-slot positions (the serve engine's dense ring).
 
 Cache updates are in place. JAX writes the cache functionally
 (``cache["k"].at[pids, offs].set(...)``), which XLA turns into an
 in-place update inside ``jit``; done the same way in eager PyTorch it
 would copy the whole page pool for every layer of every step. Here the
 stack loop hands each layer a view (``pool[i]``) of the stacked cache
-leaves, and the decode writes (KV rows, and a mamba layer's conv and SSM
-state) land through those views, so ``decode_step`` returns the very
-tensors it was given, updated. Anything that must not see later writes
-(a pause snapshot) takes a copy: see ``ServeEngine.export_state``.
+leaves, and the decode writes (KV rows, and a recurrent layer's state)
+land through those views, so ``decode_step`` returns the very tensors it
+was given, updated. Anything that must not see later writes (a pause
+snapshot) takes a copy: see ``ServeEngine.export_state``.
 
 Matrix products in float32 run in full float32 on the card: the port
 leaves ``torch.backends.cuda.matmul.allow_tf32`` at False, and its entry
@@ -31,19 +32,27 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (ATTN, MAMBA, ModelConfig, RunConfig,
-                                      ShapeConfig)
+from repro_torch.configs.base import (ATTN, MAMBA, MLSTM, SLSTM,
+                                      ModelConfig, RunConfig, ShapeConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import params as P
 from repro_torch.models.attention import (attention, decode_attention,
                                           paged_decode_attention)
 from repro_torch.models.layers import (apply_rope, embed_lookup, rms_norm,
                                        swiglu)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_block
-from repro_torch.tree import tree_map
+from repro_torch.models.xlstm import mlstm_block, slstm_block
+from repro_torch.tree import tree_items, tree_map
 
+_BLOCK_FNS = {MAMBA: mamba_block, MLSTM: mlstm_block, SLSTM: slstm_block}
+#: matrices a block reads in fp32 whatever the compute dtype, which
+#: ``Model.compute_params`` leaves as they are
+_READ_FP32 = {MAMBA: ("conv_w",), MLSTM: ("w_i", "w_f"),
+              SLSTM: ("r_z", "r_i", "r_f", "r_o")}
 ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
 NEG_LOGIT = -1e30           # the masked vocab tail's logit
+STATE_M0 = -1e30            # a fresh cache's exp-gate stabilizers ("m")
 
 
 def _dt(name: str):
@@ -160,21 +169,56 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, cdt, mode, cache, positions,
     return out, new_cache
 
 
+def _cross_mixer(cfg: ModelConfig, p: dict, x, cdt, mode, cache, memory,
+                 backend):
+    """Encoder-decoder cross attention, non-causal over the memory's Te
+    rows. memory: (B, Te, D), or None in decode, where the projected
+    memory (xk/xv) is read from the cache."""
+    B, S, D = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = rms_norm(x, p["ln_x"], cfg.norm_eps).to(cdt)
+    q = (h @ p["xq"].to(cdt)).reshape(B, S, H, hd)
+    if mode == "decode":
+        xk, xv = cache["xk"], cache["xv"]
+    else:
+        m = memory.to(cdt)
+        Te = m.shape[1]
+        xk = (m @ p["xk"].to(cdt)).reshape(B, Te, K, hd)
+        xv = (m @ p["xv"].to(cdt)).reshape(B, Te, K, hd)
+    o = attention(q, xk, xv, causal=False, backend=backend)
+    out = o.reshape(B, S, H * hd).to(cdt) @ p["xo"].to(cdt)
+    new_cache = {"xk": xk, "xv": xv} if mode == "prefill" else None
+    return out, new_cache
+
+
 def _apply_ffn(cfg: ModelConfig, p: dict, x, cdt):
+    """The block's FFN: the dense SwiGLU, the MoE experts, or both summed
+    (a dense residual beside the experts). Returns (x, aux losses)."""
+    aux = {}
     if "ln2" not in p:
-        return x
+        return x, aux
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y = swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"], cdt)
-    return x + y.to(x.dtype)
+    y = None
+    if "ffn" in p:
+        y = swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"], cdt)
+    if "moe" in p:
+        ym, aux = moe_ffn(h, p["moe"], cfg.moe, cdt)
+        # JAX sums both terms onto zeros_like(x), so at x's dtype
+        y = ym if y is None else y.to(x.dtype) + ym
+    return x + y.to(x.dtype), aux
 
 
 def _write_state(cache_j: dict, nc: dict, active):
     """Land a recurrent block's new decode state in its cache views, in
-    place. An inactive slot (``active[b]`` False) keeps its old bytes, so
-    its state stays bit-untouched (its row would otherwise integrate the
-    garbage token)."""
+    place (nested trees too: the mLSTM's and sLSTM's states). An inactive
+    slot (``active[b]`` False) keeps its old bytes, so its state stays
+    bit-untouched (its row would otherwise integrate the garbage
+    token)."""
     for name, new in nc.items():
         old = cache_j[name]
+        if isinstance(new, dict):
+            _write_state(old, new, active)
+            continue
         if active is not None:
             keep = active.reshape(active.shape + (1,) * (new.dim() - 1))
             new = torch.where(keep, new.to(old.dtype), old)
@@ -182,9 +226,10 @@ def _write_state(cache_j: dict, nc: dict, active):
 
 
 def _apply_block(cfg, run: RunConfig, kind: str, p, x, mode, cache_j,
-                 positions, pos, causal=True, tables=None, active=None):
-    """One block of ``kind`` (ATTN or MAMBA: see check_supported), then
-    its FFN. Returns (x, the block's new cache in prefill, else None)."""
+                 positions, pos, memory=None, causal=True, cross=False,
+                 tables=None, active=None):
+    """One block of ``kind``, then its FFN. Returns (x, the block's new
+    cache in prefill, else None, aux losses)."""
     cdt = _dt(run.precision.compute)
     backend = ops_backend(run)
     if mode == "train" and torch.is_grad_enabled():
@@ -196,33 +241,44 @@ def _apply_block(cfg, run: RunConfig, kind: str, p, x, mode, cache_j,
         out, nc = _attn_mixer(cfg, p, x, cdt, mode, cache_j, positions, pos,
                               backend, causal=causal, tables=tables,
                               active=active)
-    elif kind == MAMBA:
-        out, nc = mamba_block(cfg, p, x, cdt, mode=mode, cache=cache_j,
-                              backend=backend)
+        x = x + out
+        if cross:
+            out, ncx = _cross_mixer(cfg, p, x, cdt, mode, cache_j, memory,
+                                    backend)
+            x = x + out
+            if ncx:
+                nc = dict(nc or {}, **ncx)
+    else:
+        out, nc = _BLOCK_FNS[kind](cfg, p, x, cdt, mode=mode, cache=cache_j,
+                                   backend=backend)
         if mode == "decode":
             _write_state(cache_j, nc, active)
             nc = None
-    else:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    x = _apply_ffn(cfg, p, x + out, cdt)
-    return x, nc
+        x = x + out
+    x, aux = _apply_ffn(cfg, p, x, cdt)
+    return x, nc, aux
 
 
 # ===========================================================================
 # the layer stack: a Python loop over periods
 # ===========================================================================
 def run_stack(cfg: ModelConfig, run: RunConfig, layers: dict, x, mode,
-              cache=None, positions=None, pos=None, tables=None,
-              active=None):
+              cache=None, positions=None, pos=None, memory=None,
+              is_encoder=False, tables=None, active=None):
     """Loop over the (period-stacked) layer stack.
 
     layers: {"block{j}": tree stacked over periods}
     cache: same structure; prefill returns a fresh stacked cache, decode
     updates ``cache`` in place (through per-period views) and returns it.
+    memory: the encoder's output, read by a decoder's cross attention.
+    is_encoder: the encoder's stack (attention blocks, non-causal, no
+    cache). Returns (x, aux losses summed over the stack, cache).
     """
-    P.check_supported(cfg)
-    pattern = cfg.block_pattern
-    nper = cfg.num_layers // len(pattern)
+    pattern = (ATTN,) if is_encoder else cfg.block_pattern
+    nper = (cfg.num_encoder_layers if is_encoder
+            else cfg.num_layers) // len(pattern)
+    causal = not is_encoder
+    cross = cfg.is_encoder_decoder and not is_encoder
     new = {f"block{j}": [] for j in range(len(pattern))}
     # each stacked leaf split into its periods once: the backward of
     # ``unbind`` stacks the periods' gradients in one copy, where one
@@ -230,37 +286,41 @@ def run_stack(cfg: ModelConfig, run: RunConfig, layers: dict, x, mode,
     # per period (nper² work)
     periods = tree_map(lambda leaf: leaf.unbind(0), layers)
 
-    def period(x, i):
+    def period(x, aux_in, i):
+        aux = dict(aux_in)
         ncs = {}
         for j in range(len(pattern)):
             name = f"block{j}"
             pp = tree_map(lambda leaf: leaf[i], periods[name])
             cj = (tree_map(lambda leaf: leaf[i], cache[name])
                   if cache is not None else None)
-            x, ncs[name] = _apply_block(cfg, run, pattern[j], pp, x, mode,
-                                        cj, positions, pos, tables=tables,
-                                        active=active)
-        return x, ncs
+            x, ncs[name], a = _apply_block(
+                cfg, run, pattern[j], pp, x, mode, cj, positions, pos,
+                memory=memory, causal=causal, cross=cross, tables=tables,
+                active=active)
+            for k, v in a.items():
+                aux[k] = aux[k] + v
+        return x, aux, ncs
 
     # remat: the backward recomputes each period's forward instead of
     # keeping its activations (JAX's jax.checkpoint of the period; every
     # policy but "none" saves nothing inside the period here)
     remat = (mode == "train" and run.sharding.remat != "none"
              and torch.is_grad_enabled())
+    aux = dict(ZERO_AUX)
     for i in range(nper):
         if remat:
-            x = checkpoint(lambda x, i=i: period(x, i)[0], x,
-                           use_reentrant=False)
+            x, aux = checkpoint(lambda x, aux, i=i: period(x, aux, i)[:2],
+                                x, aux, use_reentrant=False)
             continue
-        x, ncs = period(x, i)
+        x, aux, ncs = period(x, aux, i)
         for name, nc in ncs.items():
             if nc is not None:
                 new[name].append(nc)
-    if mode == "prefill":
-        cache = {name: {k: torch.stack([nc[k] for nc in per])
-                        for k in per[0]}
+    if mode == "prefill" and not is_encoder:
+        cache = {name: tree_map(lambda *ls: torch.stack(ls), *per)
                  for name, per in new.items()}
-    return x, dict(ZERO_AUX), cache
+    return x, aux, cache
 
 
 # ===========================================================================
@@ -272,7 +332,6 @@ class Model:
     def __init__(self, run: RunConfig):
         self.run = run
         self.cfg = run.model
-        P.check_supported(self.cfg)
         ops_backend(run)                  # reject an unknown backend early
         self._pos_tables = {}             # device -> arange, see _positions
 
@@ -285,22 +344,35 @@ class Model:
         return P.param_shapes(self.cfg, _dt(self.run.precision.params))
 
     def compute_params(self, params) -> dict:
-        """``params`` as the forward pass reads them: the layer stack's
+        """``params`` as the forward pass reads them: the layer stacks'
         matrices cast once to the compute dtype. The forward casts each
         matrix where it uses it (``.to(cdt)``, as the JAX package does
         inside ``jit``, where XLA hoists the cast); in eager PyTorch that
         is a copy of every weight on every call, while a matrix already
-        in the compute dtype passes through untouched. Norm weights, the
-        mamba conv weights and per-head vectors, the embedding and the
-        head keep their dtype: they are read in fp32."""
+        in the compute dtype passes through untouched. Norm weights,
+        per-head vectors, the matrices a block reads in fp32
+        (``_READ_FP32``: the mamba conv, the mLSTM gate projections, the
+        sLSTM recurrent weights), the embedding and the head keep their
+        dtype."""
         cdt = _dt(self.run.precision.compute)
 
-        def cast(node):
+        def cast(node, keep=()):
             return {k: (cast(w) if isinstance(w, dict) else
-                        w.to(cdt) if w.dim() >= 3 and k != "conv_w" else w)
+                        w.to(cdt) if w.dim() >= 3 and k not in keep else w)
                     for k, w in node.items()}
-        layers = cast(params["decoder"]["layers"])
-        return dict(params, decoder=dict(params["decoder"], layers=layers))
+
+        def stack(layers, pattern):
+            return {f"block{j}": cast(layers[f"block{j}"],
+                                      _READ_FP32.get(kind, ()))
+                    for j, kind in enumerate(pattern)}
+
+        out = dict(params, decoder=dict(
+            params["decoder"], layers=stack(params["decoder"]["layers"],
+                                            self.cfg.block_pattern)))
+        if "encoder" in params:
+            out["encoder"] = dict(params["encoder"], layers=stack(
+                params["encoder"]["layers"], (ATTN,)))
+        return out
 
     # -- embedding / head ----------------------------------------------------
     def _embed(self, params, tokens, cdt):
@@ -313,12 +385,31 @@ class Model:
             return x.to(ldt) @ w.to(ldt).T
         return x.to(ldt) @ params["lm_head"].to(ldt)
 
+    def _encode(self, params, frames, cdt):
+        """The encoder over precomputed frames (B, Te, D): non-causal
+        attention blocks, then the encoder's final norm."""
+        x = frames.to(cdt)
+        pos = torch.arange(x.shape[1], device=x.device)
+        x, _, _ = run_stack(self.cfg, self.run, params["encoder"]["layers"],
+                            x, "train", positions=pos, is_encoder=True)
+        return rms_norm(x, params["encoder"]["final_norm"], self.cfg.norm_eps)
+
     def _hidden(self, params, batch, mode):
+        """The decoder stack's final-normed hidden states: vision patches
+        (B, num_patches, D) prepended to the token embeddings, and an
+        encoder-decoder's memory encoded from ``batch["frames"]``."""
         cfg, run = self.cfg, self.run
-        x = self._embed(params, batch["tokens"], _dt(run.precision.compute))
+        cdt = _dt(run.precision.compute)
+        x = self._embed(params, batch["tokens"], cdt)
+        memory = None
+        if cfg.frontend.kind == "vision":
+            x = torch.cat([batch["patches"].to(device=x.device, dtype=cdt),
+                           x], dim=1)
+        if cfg.is_encoder_decoder:
+            memory = self._encode(params, batch["frames"].to(x.device), cdt)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux, cache = run_stack(cfg, run, params["decoder"]["layers"], x,
-                                  mode, positions=positions)
+                                  mode, positions=positions, memory=memory)
         x = rms_norm(x, params["decoder"]["final_norm"], cfg.norm_eps)
         return x, aux, cache
 
@@ -329,14 +420,18 @@ class Model:
 
     # -- loss ------------------------------------------------------------------
     def loss(self, params, batch):
-        """Mean next-token cross-entropy over valid labels (>= 0) plus the
-        aux losses; returns (loss, metrics) with metrics ``loss``, ``ce``,
-        ``ntok`` and the aux terms, each a 0-d tensor. The padded vocab
-        tail is masked out of the logsumexp. The gold logit is a
-        ``gather``: JAX's one-hot sum adds only zeros beside that one
-        logit, so both give the same value (and gradient)."""
+        """Mean next-token cross-entropy over valid labels (>= 0), on the
+        text positions only (a vision model's patch rows are cut), plus
+        the aux losses summed over the stack; returns (loss, metrics) with
+        metrics ``loss``, ``ce``, ``ntok`` and the aux terms, each a 0-d
+        tensor. The padded vocab tail is masked out of the logsumexp. The
+        gold logit is a ``gather``: JAX's one-hot sum adds only zeros
+        beside that one logit, so both give the same value (and
+        gradient)."""
         cfg = self.cfg
         logits, aux, _ = self.forward(params, batch, mode="train")
+        if cfg.frontend.kind == "vision":          # text positions only
+            logits = logits[:, cfg.frontend.num_patches:]
         labels = batch["labels"].to(torch.int64)
         Vp = logits.shape[-1]
         vmask = torch.arange(Vp, device=logits.device) < cfg.vocab_size
@@ -357,7 +452,9 @@ class Model:
     # -- serving -------------------------------------------------------------
     def prefill(self, params, batch):
         """Returns (cache, last_logits). Only the last position's logits
-        are computed: they are all the serve path reads."""
+        are computed: they are all the serve path reads. ``batch`` holds
+        ``tokens`` (B, S), and ``patches`` (vision) or ``frames``
+        (encoder-decoder) as ``input_specs`` lists them."""
         x, _, cache = self._hidden(params, batch, "prefill")
         return cache, self._logits(params, x[:, -1:])[:, 0]
 
@@ -370,13 +467,16 @@ class Model:
         REAL token (trailing chunk padding yields garbage rows that are
         never used, and the padded KV tail is never attended).
 
-        Only all-attention stacks support this (recurrent blocks would
-        need their chunk-boundary state threaded); the engine gates on
-        ``block_pattern``."""
+        Only decoder-only all-attention stacks support this (recurrent
+        blocks would need their chunk-boundary state threaded, and a
+        decoder's cross attention has no memory here; the JAX method
+        fails on either); the engine also leaves vision models out, whose
+        patches a chunk does not carry."""
         cfg, run = self.cfg, self.run
-        if any(kind != ATTN for kind in cfg.block_pattern):
-            raise ValueError(f"{cfg.name}: chunked prefill needs an "
-                             "all-attention stack")
+        if (any(kind != ATTN for kind in cfg.block_pattern)
+                or cfg.is_encoder_decoder):
+            raise ValueError(f"{cfg.name}: chunked prefill needs a "
+                             "decoder-only all-attention stack")
         offset = torch.as_tensor(offset, dtype=torch.int64)
         x = self._embed(params, tokens, _dt(run.precision.compute))
         offset = offset.to(x.device)
@@ -440,17 +540,46 @@ class Model:
             self._pos_tables[device] = table
         return table[pos:pos + 1]
 
-    # -- caches --------------------------------------------------------------
+    # -- specs and caches --------------------------------------------------
+    def input_specs(self, shape: Optional[ShapeConfig] = None) -> dict:
+        """The inputs of one step as ShapeDtype: tokens (and labels to
+        train), vision patches (B, num_patches, D) and encoder frames (B,
+        S // frame_ratio, D) in the compute dtype; a decode step's one
+        token and its position."""
+        cfg = self.cfg
+        shape = shape or self.run.shape
+        B, S = shape.global_batch, shape.seq_len
+        cdt = _dt(self.run.precision.compute)
+        i32 = torch.int32
+        sd = P.ShapeDtype
+        if shape.kind == "train":
+            specs = {"tokens": sd((B, S), i32), "labels": sd((B, S), i32)}
+        elif shape.kind == "prefill":
+            specs = {"tokens": sd((B, S), i32)}
+        else:  # decode: one new token against a cache of length S
+            return {"tokens": sd((B, 1), i32), "pos": sd((), i32)}
+        if cfg.frontend.kind == "vision":
+            specs["patches"] = sd((B, cfg.frontend.num_patches, cfg.d_model),
+                                  cdt)
+        if cfg.is_encoder_decoder:
+            Te = S // cfg.frontend.frame_ratio
+            specs["frames"] = sd((B, Te, cfg.d_model), cdt)
+        return specs
+
     def cache_specs(self, shape: Optional[ShapeConfig] = None) -> dict:
         """Dense decode-cache leaves as ShapeDtype, (periods, B, ...) per
-        block: k, v (.., S, K, hd) for attention; for mamba the conv tail
-        (.., conv-1, ch) in the compute dtype and the SSM state (.., heads,
-        hd, N) in fp32."""
+        block: k, v (.., S, K, hd) for attention, and an encoder-decoder's
+        cross xk, xv (.., S // frame_ratio, K, hd); for mamba the conv
+        tail (.., conv-1, ch) in the compute dtype and the SSM state (..,
+        heads, hd, N) in fp32; the mLSTM's C, n, m and the sLSTM's h, c,
+        n, m in fp32."""
         cfg = self.cfg
         shape = shape or self.run.shape
         B, S = shape.global_batch, shape.seq_len
         cdt = _dt(self.run.precision.compute)
         nper = cfg.num_layers // len(cfg.block_pattern)
+        K, hd, D = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+        f32 = torch.float32
 
         def sd(shp, dt=cdt):
             return P.ShapeDtype((nper,) + shp, dt)
@@ -458,22 +587,42 @@ class Model:
         tree = {}
         for j, kind in enumerate(cfg.block_pattern):
             if kind == ATTN:
-                kv = sd((B, S, cfg.num_kv_heads, cfg.head_dim))
-                tree[f"block{j}"] = {"k": kv, "v": kv}
-            else:                       # MAMBA (see check_supported)
+                c = {"k": sd((B, S, K, hd)), "v": sd((B, S, K, hd))}
+                if cfg.is_encoder_decoder:
+                    Te = S // cfg.frontend.frame_ratio
+                    c["xk"] = sd((B, Te, K, hd))
+                    c["xv"] = sd((B, Te, K, hd))
+            elif kind == MAMBA:
                 _, nh, _, ch = P.mamba_dims(cfg)
-                tree[f"block{j}"] = {
-                    "conv": sd((B, cfg.ssm.conv_dim - 1, ch)),
-                    "ssm": sd((B, nh, cfg.ssm.head_dim, cfg.ssm.d_state),
-                              torch.float32)}
+                c = {"conv": sd((B, cfg.ssm.conv_dim - 1, ch)),
+                     "ssm": sd((B, nh, cfg.ssm.head_dim, cfg.ssm.d_state),
+                               f32)}
+            elif kind == MLSTM:
+                _, nh = P.mlstm_dims(cfg)
+                hdm = cfg.xlstm.head_dim
+                c = {"mlstm": {"C": sd((B, nh, hdm, hdm), f32),
+                               "n": sd((B, nh, hdm), f32),
+                               "m": sd((B, nh), f32)}}
+            else:                       # SLSTM
+                c = {"slstm": {k_: sd((B, D), f32)
+                               for k_ in ("h", "c", "n", "m")}}
+            tree[f"block{j}"] = c
         return tree
 
     def init_cache(self, shape: Optional[ShapeConfig] = None,
                    device="cuda") -> dict:
+        """Zeros, except the exp-gate stabilizers (every leaf named "m")
+        at ``STATE_M0``, as in JAX."""
         dev = resolve_device(device)
-        return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                              device=dev),
-                        self.cache_specs(shape))
+        out = {}
+        for path, s in tree_items(self.cache_specs(shape)):
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            fill = STATE_M0 if path[-1] == "m" else 0.0
+            node[path[-1]] = torch.full(s.shape, fill, dtype=s.dtype,
+                                        device=dev)
+        return out
 
 
 def build_model(run: RunConfig) -> Model:

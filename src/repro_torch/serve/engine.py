@@ -15,21 +15,31 @@ cache layouts:
                     indirected (``kernels/csrc/paged_decode.cu``) and
                     costs only the pages a request has written
 
-A hybrid stack's mamba layers keep their conv and SSM state dense per
-slot beside either layout.
+A recurrent layer (mamba, mLSTM, sLSTM) keeps its state dense per slot
+beside either layout; an encoder-decoder's cross KV (xk, xv: the
+encoder's memory projected once at prefill, ``max_len // frame_ratio``
+rows a slot, attended unmasked as in the JAX engine) lives in the dense
+ring only, and an attention-free stack has no pages to borrow.
 
 Prefill is whole-prompt (B=1) through ``kernels/csrc/flash_attention.cu``
-and, in mamba layers, ``kernels/csrc/ssm_scan.cu``, whose chunk rule
-rejects a prompt longer than the SSM chunk that is not a multiple of it
-(the engine never pads a prompt); with ``fused_sampling`` the sampler
+and, in mamba layers, ``kernels/csrc/ssm_scan.cu``. A vision model's
+prompt follows ``num_patches`` patch rows (zeros, as the JAX engine
+passes them), so its logical length is ``num_patches + len(prompt)``; an
+encoder-decoder encodes ``max(1, len(prompt) // frame_ratio)`` zero
+frames. The engine never pads a prompt, so it rejects at admission a
+prompt that breaks a layer's sequence rule: the SSM chunk rule and the
+mLSTM chunk rule (at most one chunk, or a multiple of it) and the MoE
+group rule (at most 512 tokens, or a multiple of 512); with
+``fused_sampling`` the sampler
 runs on the device (``kernels/csrc/fused_sample.cu``) and only token ids
 come back. Sampling is per-request temperature / top-k with a
 counter-seeded RNG — a request's tokens are a pure function of (request,
 logits), so a pause or a migration mid-request cannot change its output
 (invariant I10).
 
-Prefill is chunked when ``prefill_chunk > 0`` on an all-attention stack
-(any other stack turns it off, as the JAX engine does): one prompt chunk
+Prefill is chunked when ``prefill_chunk > 0`` on a token-only
+all-attention stack (any other stack, an encoder-decoder and a vision
+model turn it off, as the JAX engine does): one prompt chunk
 is processed per engine step into a dense staging cache, interleaved
 with the running batch's decode, through the plain attention (a chunk's
 K is the whole staging cache, as in JAX). Request live migration ships
@@ -49,11 +59,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, MAMBA, RunConfig
+from repro_torch.configs.base import ATTN, MAMBA, MLSTM, RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import check_ssm_chunk
 from repro_torch.kernels.sampling import host_gumbel
 from repro_torch.models.model import build_model
+from repro_torch.models.moe import check_moe_groups
+from repro_torch.models.xlstm import check_mlstm_chunk
 from repro_torch.serve.paged import (BlockAllocator, CacheExhausted,
                                      RequestRejected, admit_kv,
                                      apply_page_moves, copy_page,
@@ -124,10 +136,13 @@ class ServeEngine:
                  fused_sampling: bool = False):
         self.device = resolve_device(device)
         # chunked prefill needs per-chunk attention continuation, which
-        # only an all-attention stack has; for any other stack the JAX
-        # engine turns it off (recurrent blocks would need their
+        # only a token-only all-attention stack has; for any other stack
+        # the JAX engine turns it off (recurrent blocks would need their
         # chunk-boundary state threaded through), and so does the port
-        chunkable = all(b == ATTN for b in run.model.block_pattern)
+        cfg = run.model
+        chunkable = (all(b == ATTN for b in cfg.block_pattern)
+                     and not cfg.is_encoder_decoder
+                     and cfg.frontend.kind == "none")
         self.prefill_chunk = prefill_chunk if chunkable else 0
         self.run = run
         self.model = build_model(run)
@@ -149,11 +164,14 @@ class ServeEngine:
         #: cache-pressure / sharing / migration counters, read by the
         #: fleet's telemetry; cumulative over the engine's lifetime
         self.stats = collections.Counter()
+        #: prefill launches (whole prompts and chunks), so a caller can
+        #: tell a decode-only step; kept beside ``stats``, which stays
+        #: equal to the JAX engine's
+        self.prefill_calls = 0
         # per-step dirty set: which export_state keys changed since the
         # last export (params stay the same tensors across exports)
         self._dirty = {"params", "cache", "pos", "last_token"}
 
-        cfg = run.model
         self.paged = paged
         if kv_dtype is not None and not paged:
             raise ValueError("kv_dtype requires the paged cache layout")
@@ -175,8 +193,13 @@ class ServeEngine:
             self.alloc = BlockAllocator(self.num_pages, page_size)
             self.tables = np.zeros((slots, maxp), np.int32)
             self._dirty.add("tables")
-        # prefix sharing maps block tables onto shared pages: paged only
-        self.share_prefix = paged and bool(share_prefix)
+        # prefix sharing keys on prompt tokens alone, so it is gated to
+        # token-only frontends (vision patch rows precede the token rows
+        # and differ per request)
+        self.share_prefix = (paged and bool(share_prefix)
+                             and cfg.frontend.kind == "none")
+        self.npatch = (cfg.frontend.num_patches
+                       if cfg.frontend.kind == "vision" else 0)
 
         self._prefill, _ = make_serve_steps(run)
         self._decode = make_decode_step(run, paged=paged,
@@ -199,18 +222,20 @@ class ServeEngine:
                 self._cache = self.model.init_cache(shape,
                                                     device=self.device)
 
-    def _insert(self, slot: int, req_cache):
+    def _insert(self, slot: int, req_cache, dst=None):
         """Write a (1, L, ...) request cache (a prefill's, or a chunked
         prefill's staging cache sliced to its prompt) into the dense
-        ring's ``slot``, in place: KV rows [0, L) of the slot, recurrent
-        state whole."""
-        for blk, node in req_cache.items():
-            for name, leaf in node.items():
-                dst = self._cache[blk][name]
-                if name in ("k", "v"):
-                    dst[:, slot, :leaf.shape[2]] = leaf[:, 0]
-                else:
-                    dst[:, slot] = leaf[:, 0]
+        ring's ``slot``, in place: KV and cross-KV rows [0, L) of the slot
+        (later rows keep their bytes, as JAX's dynamic_update_slice
+        leaves them), recurrent state whole."""
+        dst = self._cache if dst is None else dst
+        for name, leaf in req_cache.items():
+            if isinstance(leaf, dict):
+                self._insert(slot, leaf, dst[name])
+            elif name in ("k", "v", "xk", "xv"):
+                dst[name][:, slot, :leaf.shape[2]] = leaf[:, 0]
+            else:
+                dst[name][:, slot] = leaf[:, 0]
 
     def _set_params(self, params):
         # ``params`` is the master copy export_state hands out; the steps
@@ -235,16 +260,26 @@ class ServeEngine:
 
     # -- admission ------------------------------------------------------------
     def _validate(self, req: Request):
-        need = len(req.prompt) + req.max_new_tokens
-        if len(req.prompt) < 1:
+        cfg = self.run.model
+        plen = len(req.prompt)
+        need = self.npatch + plen + req.max_new_tokens
+        if plen < 1:
             raise RequestRejected(f"request {req.rid}: empty prompt")
-        if MAMBA in self.run.model.block_pattern:
-            # the SSD scan's chunk rule; the engine never pads a prompt,
-            # since pad tokens would enter the recurrent state
-            try:
-                check_ssm_chunk(len(req.prompt), self.run.model.ssm.chunk)
-            except ValueError as e:
-                raise RequestRejected(f"request {req.rid}: {e}") from e
+        # the sequence rules of the layers a whole-prompt prefill runs;
+        # the engine never pads a prompt, since pad tokens would enter the
+        # recurrent state or take MoE capacity from the real ones
+        try:
+            if MAMBA in cfg.block_pattern:
+                check_ssm_chunk(plen, cfg.ssm.chunk)
+            if MLSTM in cfg.block_pattern:
+                check_mlstm_chunk(plen, cfg.xlstm.chunk)
+            if cfg.moe is not None:
+                # a chunked prefill routes chunk by chunk
+                chunked = self.prefill_chunk and plen > self.prefill_chunk
+                check_moe_groups(1, self.prefill_chunk if chunked
+                                 else self.npatch + plen)
+        except ValueError as e:
+            raise RequestRejected(f"request {req.rid}: {e}") from e
         if need > self.max_len:
             raise RequestRejected(
                 f"request {req.rid}: prompt {len(req.prompt)} + "
@@ -272,7 +307,8 @@ class ServeEngine:
         if self.share_prefix:
             tokens = tuple(int(t) for t in req.prompt)
         return self.alloc.allocate(
-            req.rid, self.alloc.pages_needed(len(req.prompt)), tokens=tokens)
+            req.rid, self.alloc.pages_needed(self.npatch + len(req.prompt)),
+            tokens=tokens)
 
     def _admit(self):
         """Fill free slots from the queue. A request that is rejected or
@@ -313,15 +349,26 @@ class ServeEngine:
         """B=1 whole-prompt prefill. Returns True if the slot is occupied
         (request entered the decode batch), False if it finished at
         prefill (slot stays free — nothing was written into it)."""
-        tokens = self._tensor(req.prompt, torch.int64)[None]
-        req_cache, last_logits = self._prefill(self._cparams,
-                                               {"tokens": tokens})
+        cfg = self.run.model
+        plen = len(req.prompt)
+        batch = {"tokens": self._tensor(req.prompt, torch.int64)[None]}
+        if self.npatch:
+            batch["patches"] = torch.zeros(
+                (1, self.npatch, cfg.d_model), dtype=torch.bfloat16,
+                device=self.device)
+        if cfg.is_encoder_decoder:
+            Te = max(1, plen // cfg.frontend.frame_ratio)
+            batch["frames"] = torch.zeros((1, Te, cfg.d_model),
+                                          dtype=torch.bfloat16,
+                                          device=self.device)
+        req_cache, last_logits = self._prefill(self._cparams, batch)
+        self.prefill_calls += 1
         tok = self._emit(req, last_logits[0].cpu().numpy())
         if req.done:
             if pages is not None:
                 self.alloc.free(req.rid)
             return False
-        self._place(slot, req, req_cache, len(req.prompt), pages)
+        self._place(slot, req, req_cache, self.npatch + plen, pages)
         self.last_token[slot] = tok
         return True
 
@@ -354,6 +401,7 @@ class ServeEngine:
         job.cache, logits = self._chunk(
             self._cparams, job.cache, self._tensor(chunk, torch.int64)[None],
             self._tensor(job.offset, torch.int64))
+        self.prefill_calls += 1
         job.offset += real
         if job.offset < job.plen:
             return

@@ -377,6 +377,7 @@ def permutation_of(moves: dict[int, int], num_pages: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 _KV = ("k", "v")
 _KV_SCALE = ("k_scale", "v_scale")
+_CROSS_KV = ("xk", "xv")     # dense caches only: see paged_cache_supported
 
 
 def paged_cache_supported(cfg) -> tuple[bool, str]:
@@ -538,11 +539,15 @@ def apply_page_moves(cache: dict, moves: dict[int, int]) -> dict:
 
 
 def reset_slot_state(cache: dict, slot: int) -> dict:
-    """Zero a finished slot's dense (non-KV) recurrent state, in place;
-    paged KV (and its scales) needs no reset — its pages simply return to
-    the allocator."""
-    for node in cache.values():
-        for name, leaf in node.items():
-            if not _paged(name):
-                leaf[:, slot] = 0
+    """Reset a finished slot's dense recurrent state, in place: zeros,
+    and the exp-gate stabilizers (leaves named "m") at -1e30, as a fresh
+    cache holds them. KV needs no reset: paged KV (and its scales) pages
+    return to the allocator, dense KV rows are masked by the slot's
+    position, and an encoder-decoder's cross KV is overwritten from row 0
+    by the next prefill of the slot."""
+    for name, leaf in cache.items():
+        if isinstance(leaf, dict):
+            reset_slot_state(leaf, slot)
+        elif not _paged(name) and name not in _CROSS_KV:
+            leaf[:, slot] = -1e30 if name == "m" else 0
     return cache

@@ -104,8 +104,47 @@ def test_flash_attention_tensor_core_shapes(cuda, S, T, H, K, hd, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,T,H,K,hd,causal", [
+    (384, 384, 32, 32, 96, True),    # phi3-mini's prefill: hd 96, G = 1
+    (600, 600, 32, 32, 96, True),
+    (130, 130, 32, 32, 96, False),   # hd 96, not causal
+    (200, 50, 16, 16, 96, False),    # hd 96, a cross attention (T < S)
+    (300, 300, 16, 16, 64, False),   # seamless's encoder (S = T), G = 1
+    (300, 75, 16, 16, 64, False),    # seamless's cross attention, T = S/4
+    (356, 356, 14, 2, 64, True),     # internvl2: 256 patches + 100, G = 7
+    (200, 200, 56, 8, 128, True),    # arctic: G = 7 at hd 128
+    (256, 256, 16, 16, 128, True),   # olmoe: MHA at hd 128
+    (40, 40, 4, 4, 16, True),        # the smoke configs' hd 16
+])
+def test_flash_attention_family_shapes(cuda, S, T, H, K, hd, causal):
+    """The attention kernel at the other families' shapes: any hd that is
+    a multiple of 8 up to 128 (its columns at or past hd zero-filled in
+    the 128-wide tiles), G = 1 and G = 7, causal and not, T != S: within
+    two bf16 steps of the plain version, the same bits again."""
+    q, k, v = _attn_inputs(cuda, S + T + H + hd, 1, S, T, H, K, hd)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention(q, k, v, causal=causal, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=2 ** -6)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [4, 100, 136, 256])
+def test_flash_attention_refuses_other_head_dims(cuda, hd):
+    """A head dim that is no multiple of 8, or over 128, is refused before
+    any launch."""
+    q, k, v = _attn_inputs(cuda, hd, 1, 8, 8, 2, 2, hd)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="flash_attention kernel"):
+        ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("G,hd", [(1, 128), (2, 128), (8, 128), (8, 64),
-                                  (4, 72)])
+                                  (4, 72), (1, 96), (7, 96), (7, 64),
+                                  (7, 128)])
 @pytest.mark.parametrize("pos", [0, 63, 64, 1023])
 def test_flash_decode_tensor_core_shapes(cuda, G, hd, pos):
     """flash_decode with G query heads per KV head (the mma's N of 8, part
@@ -209,8 +248,15 @@ def _poison_unread(args, quant):
     dict(G=4, hd=64, page=1, NP=256, positions=(255, 128, 127, 0)),
     dict(G=2, hd=256, page=16, NP=32, positions=(511, 200, -1, 16)),
     dict(G=4, hd=32, page=16, NP=32, positions=(511, 129, 5, -1)),
+    # the other families: phi3's hd 96 at G 1, internvl2's G 7 at hd 64,
+    # arctic's G 7 at hd 128, hd 96 at G 7
+    dict(G=1, hd=96, page=16, NP=64, positions=(1023, 383, 0, -1)),
+    dict(G=7, hd=64, page=16, NP=64, positions=(1023, 356, 255, -1)),
+    dict(G=7, hd=128, page=16, NP=64, positions=(1023, 600, 16, -1)),
+    dict(G=7, hd=96, page=16, NP=32, positions=(511, 200, 15, -1)),
 ], ids=["edges", "edges2", "np128", "page8", "page32", "g1", "g8",
-        "g8_hd64", "hd64", "repeat", "page128", "page1", "hd256", "hd32"])
+        "g8_hd64", "hd64", "repeat", "page128", "page1", "hd256", "hd32",
+        "g1_hd96", "g7_hd64", "g7_hd128", "g7_hd96"])
 def test_paged_decode_split_shapes(cuda, quant, case):
     """The page-split kernels at the edges of their splits and tiles, pages
     of 1 to 128 rows, G 1/2/4/8 and hd 32 to 256: within two bf16 steps of
@@ -361,11 +407,16 @@ def _sample_case(cuda, B, V, seed, noisy=True):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 3, 8, 64])
-@pytest.mark.parametrize("V", [65_536, 151_936, 50_257, 7])
+@pytest.mark.parametrize("V", [65_536, 151_936, 50_257, 7, 256_256,
+                               128_256, 50_304, 32_128, 151_680])
 def test_fused_sample_split_rows(cuda, B, V):
     """Rows split over a cluster: bit-exact against the plain version at
-    the hybrid's and qwen's vocabularies and at odd ones (rows that start
-    off a 16-byte boundary), greedy and noisy rows alike."""
+    the hybrid's and qwen's vocabularies, at the other families' padded
+    vocabularies (seamless's 256,256, the widest; llama3's 128,256;
+    internvl2's 151,680; olmoe's and xlstm's 50,304; phi3's 32,128) and
+    at odd
+    ones (rows that start off a 16-byte boundary), greedy and noisy rows
+    alike."""
     z, keys = _sample_case(cuda, B, V, B * V)
     want = ops.sample_rows(z, keys, backend="ref")
     got = ops.sample_rows(z, keys)

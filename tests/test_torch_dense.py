@@ -107,7 +107,9 @@ def test_per_slot_decode_matches_jax(arch):
                 ring[blk][name][:, b, :L] = leaf[:, 0]
             else:
                 ring[blk][name][:, b] = leaf[:, 0]
-    jc = {blk: {n: jnp.asarray(t.numpy()) for n, t in node.items()}
+    # a copy: JAX may alias a numpy buffer, and its decode (dispatched
+    # asynchronously) must not read the port's in-place writes
+    jc = {blk: {n: jnp.asarray(t.numpy().copy()) for n, t in node.items()}
           for blk, node in ring.items()}
     before = {(blk, n): t[:, 1].clone() for blk, node in ring.items()
               for n, t in node.items()}

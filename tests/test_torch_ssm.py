@@ -463,7 +463,9 @@ def test_per_slot_dense_decode_still_raises(weights):
                 dst[:, b, :L] = leaf[:, 0]
             else:
                 dst[:, b] = leaf[:, 0]
-    jc = {blk: {n: jnp.asarray(t.numpy()) for n, t in node.items()}
+    # a copy: JAX may alias a numpy buffer, and its decode (dispatched
+    # asynchronously) must not read the port's in-place writes
+    jc = {blk: {n: jnp.asarray(t.numpy().copy()) for n, t in node.items()}
           for blk, node in dense.items()}
     before = {(blk, n): t[:, 1].clone() for blk, node in dense.items()
               for n, t in node.items()}
@@ -516,11 +518,25 @@ def test_param_shapes_and_count_match_jax(smoke):
 
 
 def test_full_config_with_experts_raises():
+    """The full config with experts builds since the MoE FFN is ported:
+    its params are JAX's (bf16 under the 30 B line) and its smoke model
+    raises only where the reference's rules do: a prompt of 528 tokens
+    keeps the SSM chunk rule (16) and breaks the MoE group rule (512)."""
     cfg = torch_model_config(JAX_ARCH)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tparams.param_shapes(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        torch_run_config(JAX_ARCH, "decode_32k")
+    jc = jax_model_config(JAX_ARCH)
+    want = {p: tuple(s.shape) for p, s in
+            tree_items(jparams.param_shapes(jc))}
+    assert {p: s.shape for p, s in
+            tree_items(tparams.param_shapes(cfg))} == want
+    assert cfg.param_count() == jc.param_count()
+    run = torch_run_config(JAX_ARCH, "decode_32k")
+    assert run.precision.params == "bfloat16"
+    smoke = torch_run_config(JAX_ARCH, "decode_32k", smoke=True)
+    model = torch_model(smoke)
+    params = model.init(seed=0, device="cpu")
+    with pytest.raises(ValueError, match="group rule"):
+        model.prefill(params, {"tokens": torch.zeros((1, 528),
+                                                     dtype=torch.int64)})
 
 
 def test_dense_variant_stores_bf16_params_and_init_overrides():

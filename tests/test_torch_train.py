@@ -572,12 +572,18 @@ def test_tables_give_the_jax_rows(capsys):
 
 
 def test_unported_data_families_raise():
-    _, trun = _runs("qwen3-0.6b")
-    from repro_torch.configs import FrontendConfig
-    vis = trun.replace(model=dataclasses.replace(
-        trun.model, frontend=FrontendConfig(kind="vision", num_patches=4)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SyntheticSource(vis).batch_at(0)
+    """The vision and encoder-decoder inputs are ported: a vision model's
+    batch carries the JAX pipeline's patches and an encoder-decoder's its
+    frames, bit for bit, where the port raised before."""
+    for arch in ("internvl2-1b", "seamless-m4t-medium"):
+        jrun = jax_run_config(arch, "train_4k", smoke=True)
+        trun = torch_run_config(arch, "train_4k", smoke=True)
+        want = JSource(jrun, batch_override=2, seq_override=16).batch_at(1)
+        got = SyntheticSource(trun, batch_override=2,
+                              seq_override=16).batch_at(1)
+        assert got.keys() == want.keys() and len(got) == 3
+        for k in want:
+            assert np.array_equal(got[k], want[k]), (arch, k)
     batch = to_device(SyntheticSource(trun, batch_override=2,
                                       seq_override=8).batch_at(0), "cpu")
     assert batch["tokens"].dtype == torch.int32

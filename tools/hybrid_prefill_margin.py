@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Readings behind ``chip_smoke.py``'s ``HYBRID_MARGIN``, on one NVIDIA
-GPU: the hybrid prefill check (``phase_hybrid_prefill``: the kernel path
-and the plain bf16 path, each against the plain path with fp32 compute)
+GPU: the hybrid prefill check (``phase_family_prefill`` with the SSM
+states: the kernel path and the plain bf16 path, each against the plain
+path with fp32 compute)
 at several seeds of weights and prompts, and at seed 0 with the kernel
 path perturbed in ways the check should reject.
 
@@ -110,7 +111,9 @@ def main(argv=None) -> int:
     def reading(params, seed):
         cs.HYBRID_MARGIN = float("inf")      # record; judged below
         try:
-            res = cs.phase_hybrid_prefill(torch, run, params, seed)
+            res = cs.phase_family_prefill(
+                torch, ops, run, params, seed, (100, 384), states=True,
+                floor=0.0)["rel_err"]
         finally:
             cs.HYBRID_MARGIN = margin
         rat = ratios(res)
