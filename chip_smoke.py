@@ -19,7 +19,15 @@ dense per-slot KV ring (``ServeEngine(paged=False)``) serving the same
 port's benchmarks (``bench.serve_path``, ``bench.prefix_share``,
 ``bench.decode_roofline`` at bf16 against the H100's data sheet,
 ``bench.throughput`` on svff-bench and a qwen3-0.6b train tenant). Then
-the hybrid Mamba-attention stack, jamba-1.5-large-398b-1p-dense (one
+the pipeline-parallel engines at the same width: ``PipelineServeEngine``
+at K = 1-4 stages (two microbatch groups, host sampling) serving the 16
+requests token-identically to the single-stage paged engine, a K=4 gang
+narrowed live to 3 and 2 mid-decode, an int8-KV gang at K=2, a
+``ServeFleet`` of gang engines whose ``attach_group``, ``reshape_engine``
+2 -> 3, ``handle_vf_loss`` 3 -> 2 and a gang lead's live pause leave
+every stream equal to the undisturbed fleet's (then two int8 pauses of
+gang leads), the sim plane's reshape scenarios, and
+``bench.pipeline_serve``. Then the hybrid Mamba-attention stack, jamba-1.5-large-398b-1p-dense (one
 period of Jamba-1.5-Large at every published width, 1 attention and 7
 mamba layers, dense FFNs, bf16 params, random weights from ``--seed``):
 prefill logits through the kernels against the plain versions, the paged
@@ -32,7 +40,7 @@ step through ``flash_attention`` against the plain train-mode loss, and
 the paper's Tables I and II. Last, the sim plane with every tenant's
 state on the card: the scenario sweep (24 ops, 16 devices, leaf 16, three
 policies; a default pass and a serve 0.3 / crash 0.1 pass, every
-invariant after every op), the 15 ported crash points x seeds 0-2 x three
+invariant after every op), the 19 crash points x seeds 0-2 x three
 policies, and the pause path (HC1-HC5) on the ~918 MB qwen3-100m-bench
 train state, whose int8 rows launch ``qdma_pack``, ``qdma_pack_rows``
 and ``qdma_unpack``. Then the other model families, one at a time with
@@ -57,7 +65,9 @@ checks on each engine.
 Phases: card, build, one phase per kernel, qwen serve (bf16, int8), SVFF
 (bit-exact staging, int8 staging), elastic (migration bf16 and int8,
 scale-in, recovery, elastic sweep), serve plane (dense ring, serve path,
-prefix share, decode roofline, throughput x2), hybrid prefill, hybrid
+prefix share, decode roofline, throughput x2), pipeline (gang engines
+K=1-4, live reshape, int8 gang, gang fleet, reshape scenarios, pipeline
+bench), hybrid prefill, hybrid
 serve (bf16, int8), hybrid generate, train launch, train tenant
 (bit-exact, int8), eval step, Tables I/II, sim sweep (two passes), crash
 matrix, pause path, families (per model: prefill, serve on its engines;
@@ -939,18 +949,22 @@ def hybrid_requests(Request, vocab: int, seed: int):
 
 def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
           pause_at=None, count=False, requests=make_requests, paged=True,
-          host_params=True):
+          host_params=True, engine=None, hook=None):
     """Serve the 16 requests (or those ``requests`` makes) to completion
     (paged, page 16, or through the dense ring); returns (token streams,
     metrics, launch counts). A step that ran no prefill is a decode step
-    of the median. With ``pause_at`` the engine is paused after that
-    step, its device state (the params too, unless ``host_params`` is
-    False) staged to host memory and dropped, restored and unpaused."""
+    of the median; ``decode_steps`` counts the steps that decoded. With
+    ``pause_at`` the engine is paused after that step, its device state
+    (the params too, unless ``host_params`` is False) staged to host
+    memory and dropped, restored and unpaused. ``engine()``, when given,
+    builds the engine in place of the single-stage one; ``hook(eng,
+    steps)`` runs before each step."""
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.tree import tree_to
-    eng = ServeEngine(run, params, device="cuda", slots=8, max_len=1024,
-                      paged=paged, page_size=16, kv_dtype=kv_dtype,
-                      fused_sampling=fused)
+    eng = (engine() if engine is not None else
+           ServeEngine(run, params, device="cuda", slots=8, max_len=1024,
+                       paged=paged, page_size=16, kv_dtype=kv_dtype,
+                       fused_sampling=fused))
     reqs = requests(Request, run.model.vocab_size, seed)
     for r in reqs:
         eng.submit(r)
@@ -958,14 +972,17 @@ def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
         ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    decode_ms, steps = [], 0
+    decode_ms, steps, decoded = [], 0, 0
     while steps < 2000:
+        if hook is not None:
+            hook(eng, steps)
         before = eng.prefill_calls
         ts = time.perf_counter()
         n = eng.step()
         torch.cuda.synchronize()
         if n and eng.prefill_calls == before:
             decode_ms.append((time.perf_counter() - ts) * 1e3)
+        decoded += bool(n)
         steps += 1
         if n == 0 and not eng.queue:
             break
@@ -989,7 +1006,7 @@ def serve(torch, ops, run, params, kv_dtype, seed, *, fused=True,
     metrics = {"steps": steps, "wall_s": wall, "tokens": toks,
                "tokens_per_s": toks / wall,
                "decode_step_ms_median": float(np.median(decode_ms)),
-               "decode_steps_timed": len(decode_ms)}
+               "decode_steps_timed": len(decode_ms), "decode_steps": decoded}
     del eng
     torch.cuda.empty_cache()
     return [list(r.out) for r in reqs], metrics, counts
@@ -2082,6 +2099,390 @@ def run_serve_plane(torch, ops, args, card, report, launches, params,
         release(torch)
 
 
+# ---------------------------------------------------------------------------
+# pipeline-parallel engines and the gang ops, at full width
+# ---------------------------------------------------------------------------
+PIPE_WIDTHS = (1, 2, 3, 4)
+PIPE_MICROBATCHES = 2
+PIPE_RESHAPE = {8: 3, 16: 2}   # engine step -> the width the live reshape sets
+RESHAPE_STALL_RATIO = 0.5      # the JAX benchmark's gate: reported, not hard
+PIPE_KERNELS = ("flash_attention", "paged_decode")
+GANG_AT = {"attach_group": 4, "reshape": 8, "vf_loss": 12, "pause": 16}
+
+
+def pipeline_engine(run, params, stages, kv_dtype=None, box=None):
+    """A factory of a ``PipelineServeEngine`` at width ``stages`` with the
+    serve phases' engine settings (8 slots, max_len 1024, page 16, host
+    sampling), templates to K=4; the engine lands in ``box["eng"]``."""
+    from repro_torch.serve.pipeline_engine import PipelineServeEngine
+
+    def make():
+        eng = PipelineServeEngine(
+            run, params, device="cuda", stages=stages,
+            max_stages=max(PIPE_WIDTHS), microbatches=PIPE_MICROBATCHES,
+            slots=8, max_len=1024, page_size=16, kv_dtype=kv_dtype)
+        if box is not None:
+            box["eng"] = eng
+        return eng
+    return make
+
+
+def pipe_row(eng, met, counts) -> dict:
+    """One gang run's numbers: the decode-step median, the measured bubble
+    beside the analytic one, the stage loads and the paged decode
+    launches a decoding step."""
+    from repro_torch.runtime.pipeline import bubble_fraction
+    paged = counts["paged_decode"] + counts["paged_decode_quant"]
+    return {"stages": eng.stage_width,
+            "decode_step_ms_median": met["decode_step_ms_median"],
+            "steps": met["steps"], "wall_s": met["wall_s"],
+            "tokens_per_s": met["tokens_per_s"],
+            "measured_bubble": eng.measured_bubble,
+            "analytic_bubble": bubble_fraction(PIPE_MICROBATCHES,
+                                               eng.stage_width),
+            "stage_loads": list(eng.stage_loads()),
+            "sched_ticks": eng.sched_ticks,
+            "paged_decode_per_step": paged / max(met["decode_steps"], 1),
+            "launches": counts}
+
+
+def phase_pipeline_serve(torch, ops, run, params, seed, card):
+    """qwen3-0.6b's 16 serve requests on a single-stage paged engine with
+    host sampling (the oracle), then on ``PipelineServeEngine`` at K = 1,
+    2, 3 and 4 (two microbatch groups): each K's streams equal the
+    oracle's. Then a K=4 gang narrowed live to 3 and 2 mid-decode (its
+    streams equal the oracle's; ``apply_reshape``'s wall beside a cold
+    construction at K=3), and an int8-KV gang at K=2 against the
+    single-stage int8 engine. The measured bubble is the GPipe recurrence
+    over the items' walls: on one card the stages run one after another,
+    so it is not idle time of the card. Each serve run sets the launch
+    counts to 0 before it and reads them after; ``launches`` sums them."""
+    res = {"widths": {}}
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    oracle, met, counts = serve(torch, ops, run, params, None, seed,
+                                fused=False, count=True)
+    add(counts)
+    res["oracle"] = dict(met, launches=counts)
+    for k in PIPE_WIDTHS:
+        box = {}
+        out, met, counts = serve(torch, ops, run, params, None, seed,
+                                 fused=False, count=True,
+                                 engine=pipeline_engine(run, params, k,
+                                                        box=box))
+        check(out == oracle, f"pipeline K={k}: the streams differ from the "
+                             "single-stage engine's")
+        add(counts)
+        row = pipe_row(box.pop("eng"), met, counts)
+        res["widths"][k] = row
+        release(torch)
+        log(f"pipeline qwen3-0.6b K={k}: 16 requests x 32 tokens == the "
+            f"single-stage engine's | decode step median "
+            f"{row['decode_step_ms_median']:.2f} ms (single stage "
+            f"{res['oracle']['decode_step_ms_median']:.2f}) | measured "
+            f"bubble {row['measured_bubble']:.4f} (GPipe recurrence over "
+            f"the item walls) vs analytic {row['analytic_bubble']:.4f} | "
+            f"stage loads {[round(x, 4) for x in row['stage_loads']]} | "
+            f"paged_decode {row['paged_decode_per_step']:.1f} a decoding "
+            f"step | {card}")
+
+    box, walls = {}, {}
+
+    def narrow(eng, step):
+        if step in PIPE_RESHAPE:
+            t0 = time.perf_counter()
+            eng.apply_reshape(PIPE_RESHAPE[step])
+            walls[PIPE_RESHAPE[step]] = time.perf_counter() - t0
+
+    out, met, counts = serve(torch, ops, run, params, None, seed,
+                             fused=False, count=True, hook=narrow,
+                             engine=pipeline_engine(run, params, 4, box=box))
+    eng = box.pop("eng")
+    add(counts)
+    check(out == oracle, "live reshape 4 -> 3 -> 2: the streams differ from "
+                         "the single-stage engine's")
+    check(eng.stage_width == 2 and eng.reshape_count == 2,
+          f"live reshape: width {eng.stage_width}, {eng.reshape_count} "
+          "reshapes")
+    del eng
+    release(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = pipeline_engine(run, params, 3)()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    del cold
+    release(torch)
+    res["live_reshape"] = {
+        "reshape_ms": {k: s * 1e3 for k, s in walls.items()},
+        "cold_construction_ms": cold_s * 1e3,
+        "stall_ratio": walls[3] / cold_s,
+        "stall_ratio_gate": RESHAPE_STALL_RATIO,
+        "stall_bounded": walls[3] / cold_s <= RESHAPE_STALL_RATIO,
+        "decode_step_ms_median": met["decode_step_ms_median"],
+        "launches": counts}
+    log(f"pipeline live reshape 4 -> 3 -> 2 mid-decode: streams == the "
+        f"single-stage engine's | apply_reshape {walls[3] * 1e3:.4f} ms "
+        f"(to 3), {walls[2] * 1e3:.4f} ms (to 2) vs a cold construction "
+        f"at K=3 {cold_s * 1e3:.2f} ms: ratio {walls[3] / cold_s:.6f} "
+        f"(JAX gate <= {RESHAPE_STALL_RATIO}: "
+        f"{'met' if res['live_reshape']['stall_bounded'] else 'missed'}) "
+        f"| {card}")
+
+    want8, met8, _ = serve(torch, ops, run, params, "int8", seed,
+                           fused=False)
+    box = {}
+    out, met, counts = serve(torch, ops, run, params, "int8", seed,
+                             fused=False, count=True,
+                             engine=pipeline_engine(run, params, 2, "int8",
+                                                    box=box))
+    check(out == want8, "int8 gang K=2: the streams differ from the "
+                        "single-stage int8 engine's")
+    check(counts["paged_decode_quant"] > 0,
+          "paged_decode_quant was never launched by the int8 gang")
+    add(counts)
+    res["int8_k2"] = dict(pipe_row(box.pop("eng"), met, counts),
+                          single_stage_decode_step_ms_median=met8[
+                              "decode_step_ms_median"])
+    release(torch)
+    log(f"pipeline int8 KV K=2: streams == the single-stage int8 engine's "
+        f"| decode step median {met['decode_step_ms_median']:.2f} ms "
+        f"(single stage {met8['decode_step_ms_median']:.2f}) | "
+        f"paged_decode_quant {counts['paged_decode_quant']} | {card}")
+    res["launches"] = total
+    return res
+
+
+def make_gang_fleet(run, params, device, workdir):
+    """Two gang engines of qwen3-0.6b (K=2, templates to K=3, 8 slots,
+    max_len 1024, page 16, host sampling) and a parked spare gang, on
+    seven logical slots: the two gangs take four, the spare's attach two,
+    the grow reshape the last."""
+    from repro_torch.serve.fleet import ServeFleet
+    return ServeFleet(run, params, num_engines=2, num_devices=7, num_vfs=7,
+                      stages=2, max_stages=3,
+                      microbatches=PIPE_MICROBATCHES, spare_engines=1,
+                      slots=8, max_len=1024, page_size=16, device=device,
+                      workdir=workdir)
+
+
+def phase_gang_fleet(torch, run, params, seed, device, workdir, ref, card):
+    """The gang fleet serves the SVFF phases' 32 requests while, mid-
+    traffic, the spare gang lead attaches whole (``attach_group``),
+    ``reshape_engine`` grows serve0 to K=3, ``handle_vf_loss`` sheds
+    serve0's first shell (K=2), and serve1, a gang lead, is live-paused
+    (two pre-copy rounds) and unpaused: every stream equals the
+    undisturbed single-stage fleet's (``ref``; fused sampling there, host
+    here, which give the same tokens), and the pause frees at least the
+    engine's params, compute copy and pools. After the traffic, serve0
+    and serve1 pause through the int8 staging engine (a live pause with
+    digest dirty tracking and stream transport, then a pause with
+    ``pipeline=False``): each restored leaf within its int8 bound."""
+    from repro_torch.core.staging import StagingEngine
+    from repro_torch.serve.engine import Request
+    fleet = make_gang_fleet(run, params, device, workdir)
+    slog = StagingLog(fleet.mgr.staging)
+    res = {}
+
+    def attach():
+        lead = fleet.tenants["serve2"]
+        t = fleet.mgr.attach_group(lead)
+        check(lead.status == "running" and lead.stage_width == 2,
+              "attach_group: the spare gang did not attach whole")
+        res["attach_group"] = {"ms": t.total * 1e3,
+                               "phases_ms": {k: v * 1e3
+                                             for k, v in t.phases.items()}}
+
+    def grow():
+        info = fleet.reshape_engine("serve0", 3)
+        check(fleet.tenants["serve0"].stage_width == 3,
+              "reshape_engine: serve0 is not at K=3")
+        res["reshape_engine"] = {"ms": info["reshape_s"] * 1e3,
+                                 "added": info["added"]}
+
+    def vf_loss():
+        tn = fleet.tenants["serve0"]
+        info = fleet.handle_vf_loss("serve0", tn.gang_shells[0].vf_id)
+        check(tn.stage_width == 2 and info["dropped"] == ["serve0.s1"],
+              f"handle_vf_loss: serve0 at K={tn.stage_width}, dropped "
+              f"{info['dropped']}")
+        res["handle_vf_loss"] = {"ms": info["reshape_s"] * 1e3,
+                                 "dropped": info["dropped"]}
+
+    def pause():
+        eng = fleet.tenants["serve1"].engine
+        state = engine_bytes(torch, eng)
+        m0 = allocated(torch, device)
+        n0, r0 = len(slog.saves), len(slog.restores)
+        t = fleet.pause_live("serve1", rounds=2)
+        m1 = allocated(torch, device)
+        check(eng.params is None and eng._cparams is None
+              and eng._cache is None and eng._sparams is None,
+              "a paused gang lead kept a device tree or its stage views")
+        fleet.step()                      # the other gangs serve meanwhile
+        tu = fleet.unpause("serve1")
+        m2 = allocated(torch, device)
+        check(m0 - m1 >= state, f"gang lead pause freed {m0 - m1} of the "
+                                f"engine's {state} device bytes")
+        res["pause_live"] = {
+            "stop_ms": t.stop_ms, "total_ms": t.total * 1e3,
+            "unpause_ms": tu.total * 1e3, "engine_bytes": state,
+            "freed_bytes": m0 - m1, "back_bytes": m2 - m1,
+            "saves": transfer_row(slog.saves[n0:]),
+            "restores": transfer_row(slog.restores[r0:])}
+
+    out = drive_fleet(fleet, fleet_requests(Request, run.model.vocab_size,
+                                            seed),
+                      {GANG_AT["attach_group"]: attach,
+                       GANG_AT["reshape"]: grow,
+                       GANG_AT["vf_loss"]: vf_loss,
+                       GANG_AT["pause"]: pause}, "gang fleet")
+    check(out == ref, "gang fleet: a gang op changed the tokens (I10)")
+    from repro_torch.sim import check_invariants
+    check_invariants(fleet.mgr)                            # I1-I14
+
+    for tid, live, engine in (
+            ("serve0", True, StagingEngine(
+                compression="int8", block=QDMA_BLOCK, incremental=True,
+                dirty="digest", transport="stream")),
+            ("serve1", False, StagingEngine(
+                compression="int8", block=QDMA_BLOCK, pipeline=False))):
+        fleet.mgr.staging = engine
+        ilog = StagingLog(engine, keep=True)
+        tn = fleet.tenants[tid]
+        t = (fleet.pause_live(tid, rounds=2) if live
+             else fleet.mgr.pause(tn))
+        exported, ilog.last_tree = ilog.last_tree, None
+        tu = fleet.unpause(tid)
+        share = int8_bound(torch, exported, tn.engine, engine, tid)
+        res[f"int8_pause_{tid}"] = {
+            "live": live, "stop_ms": t.stop_ms, "total_ms": t.total * 1e3,
+            "unpause_ms": tu.total * 1e3,
+            "saves": transfer_row(ilog.saves),
+            "restores": transfer_row(ilog.restores),
+            "int8_bound_share": share}
+    check(not fleet.mgr.journal.pending(), "gang fleet: journal entries "
+                                           "left pending")
+    p = res["pause_live"]
+    log(f"gang fleet qwen3-0.6b (2 gangs K=2, templates to 3, a spare): 32 "
+        f"requests == the undisturbed single-stage fleet's | attach_group "
+        f"{res['attach_group']['ms']:.2f} ms | reshape_engine 2 -> 3 "
+        f"{res['reshape_engine']['ms']:.2f} ms | handle_vf_loss 3 -> 2 "
+        f"{res['handle_vf_loss']['ms']:.2f} ms | pause_live stop "
+        f"{p['stop_ms']:.2f} ms of {p['total_ms']:.2f}, unpause "
+        f"{p['unpause_ms']:.2f} ms, freed {p['freed_bytes']:,} of "
+        f"{p['engine_bytes']:,} B, staging {p['saves']['gb_per_s']:.2f} "
+        f"GB/s save, {p['restores']['gb_per_s']:.2f} GB/s restore | int8 "
+        f"pauses within bound (shares "
+        f"{res['int8_pause_serve0']['int8_bound_share']:.4f}, "
+        f"{res['int8_pause_serve1']['int8_bound_share']:.4f}) | {card}")
+    return res
+
+
+def phase_sim_reshape(card, device, budget_s: float):
+    """Scenarios with the pipeline gang lead ``pg0`` (the JAX gang
+    scenarios' config: 45 ops, serve 0.3, reshape 0.25, crash 0.06, 8
+    VFs), three policies, seeds until ``budget_s``: I1-I14 after every op
+    inside the runner, every tenant's state on ``device``, and every
+    non-chaos op accepted."""
+    from repro_torch.sim import ScenarioConfig, ScenarioRunner
+    rows = {}
+    per = budget_s / len(SIM_POLICIES)
+    for policy in SIM_POLICIES:
+        t0 = time.perf_counter()
+        seeds = ops = reshapes = rejected = 0
+        while time.perf_counter() - t0 < per or seeds < 2:
+            res = ScenarioRunner(ScenarioConfig(
+                seed=seeds, policy=policy, num_ops=45, serve_rate=0.3,
+                reshape_rate=0.25, crash_rate=0.06, max_vfs=8),
+                device=device).run()
+            for r in res.ops:
+                check(r.status == "ok" or r.op.chaos,
+                      f"sim reshape seed {seeds} {policy}: a valid op was "
+                      f"rejected: {r.op} -> {r.error}")
+            ops += len(res.ops)
+            reshapes += sum(1 for r in res.ops
+                            if r.op.kind == "reshape" and r.status == "ok")
+            rejected += res.num_rejected
+            seeds += 1
+        wall = time.perf_counter() - t0
+        rows[policy] = {"seeds": seeds, "ops": ops, "reshapes": reshapes,
+                        "rejected": rejected, "wall_s": wall,
+                        "ops_per_sec": ops / wall}
+        check(reshapes > 0, f"sim reshape {policy}: no reshape op ran")
+        log(f"sim reshape {policy}: {seeds} seeds, {ops} ops ({reshapes} "
+            f"reshapes, {rejected} chaos rejections) in {wall:.2f} s, "
+            f"{ops / wall:.1f} ops/s | I1-I14 after every op, state on "
+            f"{device} | {card}")
+    return rows
+
+
+def phase_pipeline_bench(torch, card):
+    """``bench.pipeline_serve`` at the JAX driver's defaults on the card:
+    its identities hard (every K and the live reshape token-identical,
+    the modeled scaling monotonic), its wall-clock gates (bubble within
+    slack, reshape stall) reported."""
+    from repro_torch.bench import pipeline_serve
+    rows = pipeline_serve.bench(device="cuda", log=log)
+    summary = rows[-1]
+    check(pipeline_serve.identities_hold(summary),
+          f"bench.pipeline_serve: an identity failed ({summary})")
+    log(f"bench.pipeline_serve (deepseek-67b smoke, 4 layers): identities "
+        f"hold | bubble within slack at every K: "
+        f"{summary['bubble_within_slack_all_k']} | reshape stall ratio "
+        f"{summary['reshape_stall_ratio']} (bounded: "
+        f"{summary['reshape_stall_bounded']}) | {card}")
+    return {"rows": rows}
+
+
+def run_pipeline(torch, ops, args, card, report, launches, params, ref):
+    """The pipeline-parallel engines and the gang ops at qwen3-0.6b's full
+    width, each phase with the launch counts set to 0 just before it and
+    added to ``launches`` just after: the gang engines at K = 1-4, the
+    live reshape and the int8 gang; the gang fleet with its ops and int8
+    pauses (``ref``: the undisturbed fleet's streams); the reshape
+    scenarios; ``bench.pipeline_serve``."""
+    from repro_torch.configs import make_run_config
+    run = make_run_config("qwen3-0.6b", "decode_32k", seed=args.seed)
+    device = torch.device("cuda")
+    report["pipeline"] = {}
+    workdir = tempfile.mkdtemp(prefix="gang_smoke_")
+    phases = (
+        ("serve", lambda: phase_pipeline_serve(torch, ops, run, params,
+                                               args.seed, card),
+         PIPE_KERNELS + ("paged_decode_quant",)),
+        ("gang_fleet", lambda: phase_gang_fleet(torch, run, params,
+                                                args.seed, device, workdir,
+                                                ref, card),
+         PIPE_KERNELS + QDMA_KERNELS),
+        ("sim_reshape", lambda: phase_sim_reshape(card, device,
+                                                  SIM_SERVE_SWEEP_S), ()),
+        ("bench", lambda: phase_pipeline_bench(torch, card), PIPE_KERNELS))
+    try:
+        for name, phase, need in phases:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = phase()
+            # the serve phase sums its serve runs' counts itself
+            counts = res.setdefault("launches", ops.launch_counts())
+            res["phase_s"] = time.perf_counter() - t0
+            report["pipeline"][name] = res
+            log(f"pipeline {name}: {res['phase_s']:.1f} s | launches "
+                f"{json.dumps(counts)}")
+            for k in need:
+                check(counts[k] > 0, f"{k} was never launched on the "
+                                     f"pipeline {name} path")
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            release(torch)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def run_hybrid(torch, ops, args, card, report, launches):
     """The hybrid stack's phases at full width: its prefill, its serve
     path (bf16 and int8 KV) and its generate path (its kernels,
@@ -2500,13 +2901,16 @@ def phase_sim_sweep(torch, card, device, budget_s: float, **rates):
 
 
 def phase_sim_crash(card, device):
-    """The 15 ported crash points x seeds 0-2 x three policies, tenants on
-    ``device``: each cell recovers green (I1-I8 with I4 bit-identical, I9,
-    the catalogued outcome, liveness); a red cell raises."""
+    """The 19 crash points (the core ops', request migration's and the
+    gang ops') x seeds 0-2 x three policies, tenants on ``device``: each
+    cell recovers green (I1-I8 with I4 bit-identical, I9, the catalogued
+    outcome, I14 and the gang's width in a gang cell, liveness); a red
+    cell raises."""
     from repro_torch.bench.crash_matrix import run_matrix
     rep = run_matrix(None, SIM_CRASH_SEEDS, SIM_POLICIES, device=device)
     s = rep["summary"]
-    check(s["all_green"] and s["num_cases"]
+    check(len(rep["protocol"]["points"]) == 19 and s["all_green"]
+          and s["num_cases"]
           == len(rep["protocol"]["points"]) * SIM_CRASH_SEEDS * 3,
           f"crash matrix: {s['num_failures']} of {s['num_cases']} cells "
           f"failed ({rep['failures'][:2]})")
@@ -3055,6 +3459,7 @@ def main(argv=None) -> int:
     run_elastic(torch, ops, args, card, report, launches, params=params,
                 ref=ref)
     run_serve_plane(torch, ops, args, card, report, launches, params, paged)
+    run_pipeline(torch, ops, args, card, report, launches, params, ref)
     if args.profile:
         report["profile"] = phase_profile(torch, run, params, args.seed)
     del params

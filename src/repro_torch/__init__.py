@@ -8,7 +8,10 @@ position generate path (``train.step.make_serve_steps``), the SVFF
 core with ``serve.fleet.ServeFleet`` running engines as tenants, and the
 training path (``train.step.make_train_step``, the train
 ``core.Tenant``, ``launch.train`` and the Table I/II benchmarks in
-``bench``). Every
+``bench``), the sim plane (``sim``), the elastic fleet, every model
+family of the JAX package, and pipeline-parallel serving
+(``serve.pipeline_engine.PipelineServeEngine`` over the stage
+templates of ``serve.stages``, with the manager's gang ops). Every
 TPU kernel of the JAX package has a hand-written CUDA counterpart in
 ``kernels/csrc``: prefill attention, dense and paged decode (bf16 and
 int8 pages), fused sampling, the chunked SSD scan, and the four staging

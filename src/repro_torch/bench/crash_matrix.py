@@ -2,10 +2,10 @@
 and verified (mirrors ``benchmarks/crash_matrix.py``: the same report
 keys).
 
-For every ported crash point (``repro_torch.sim.PORTED_POINTS``, the 15
-windows of the core ops and request migration; the gang windows wait for
-ROADMAP Queue 1 item 13), for each seed and placement policy,
-the runner kills the manager at that point mid-operation, rebuilds it
+For every crash point (``repro_torch.sim.PORTED_POINTS``, the 19
+windows of the core ops, request migration and the gang ops, as the JAX
+benchmark runs them), for each seed and placement policy, the runner
+kills the manager at that point mid-operation, rebuilds it
 with ``SVFFManager.recover``, and asserts invariants I1-I8, recovery
 idempotence (I9) and the cataloged outcome (rolled back == op never
 issued, rolled forward == op fully applied), plus post-recovery
@@ -72,7 +72,7 @@ def main(argv=None):
     ap.add_argument("--policies", nargs="*",
                     default=["first_fit", "best_fit", "fair_share"])
     ap.add_argument("--points", nargs="*", default=None,
-                    help="crash points (default: the 15 ported ones)")
+                    help="crash points (default: all 19)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the tenants' state (cuda, or cpu)")
     ap.add_argument("--out", default=None, help="JSON report path")

@@ -21,7 +21,8 @@ from repro_torch.core.pause import (PauseError, PhaseTimings, pause_vf,
 from repro_torch.core.pool import DevicePool, PoolError
 from repro_torch.core.qmp import ControlPlane
 from repro_torch.core.records import RecordStore
-from repro_torch.core.scheduler import (AdmissionError, PlacementRequest,
+from repro_torch.core.scheduler import (AdmissionError, GangPlacementError,
+                                        PlacementRequest,
                                         POLICY_NAMES, Scheduler,
                                         make_scheduler)
 from repro_torch.core.snapshot import ConfigSpaceSnapshot
@@ -32,7 +33,7 @@ from repro_torch.core.vf import VFState, VFTransitionError, VirtualFunction
 __all__ = [
     "AdmissionError", "ConfigSpaceSnapshot", "ControlPlane", "CrashPlane",
     "DevicePausedError", "DevicePool", "DoubleFreeError", "FederationError",
-    "HeartbeatMonitor", "HostUnreachableError", "InjectedCrash",
+    "GangPlacementError", "HeartbeatMonitor", "HostUnreachableError", "InjectedCrash",
     "LeaseExpiredError", "ManagerError", "OpJournal", "PauseError",
     "PhaseTimings", "PlacementRequest", "POLICY_NAMES", "PoolError",
     "RecordStore", "SVFFManager", "Scheduler", "SplitBrainError",

@@ -20,13 +20,16 @@ The manager also owns the fault-tolerance paths (migrate a straggler's
 tenant via pause->rebind; detach snapshots double as restart checkpoints)
 and request-granular live migration (``migrate_request``: one in-flight
 request's KV block chain shipped between two serving tenants through
-the staging engine, journaled, with its four crash windows recovered).
+the staging engine, journaled, with its four crash windows recovered)
+and the gang ops of pipeline-parallel engines (``attach_group``,
+``detach_group``, ``reshape``: one engine spanning K VFs, attached whole
+or not at all and re-instantiated at another width live, with the crash
+windows ``gang_mid_member``, ``gang_before_commit``,
+``reshape_mid_members`` and ``reshape_before_commit`` recovered).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: the gang ops of pipeline-parallel engines
-(``attach_group``, ``detach_group``, ``reshape``, Queue 1 item 13), with
-their recovery, and cross-host migration (``migrate_request(...,
-dst_host=...)``, the federation, Queue 1 item 9).
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
+item: cross-host migration (``migrate_request(..., dst_host=...)``, the
+federation, Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -54,9 +57,6 @@ __all__ = ["ManagerError", "SVFFManager", "UnknownTenantError"]
 
 _FEDERATION = ("cross-host request migration (dst_host) is not ported yet "
                "(ROADMAP Queue 1 item 9: federation)")
-_GANG = ("gang ops of pipeline-parallel engines are not ported yet "
-         "(ROADMAP Queue 1 item 13, with the pipeline-parallel engines, "
-         "item 8)")
 
 
 class SVFFManager:
@@ -501,18 +501,175 @@ class SVFFManager:
                 "migrate_request_s": time.perf_counter() - t0}
 
     # ------------------------------------------------------------- gang ops
+    def _gang_shells(self, lead) -> tuple:
+        shells = tuple(getattr(lead, "gang_shells", ()) or ())
+        if not shells:
+            raise ManagerError(
+                f"{lead.tid} is not a gang lead (no gang_shells)")
+        return shells
+
     def attach_group(self, lead) -> PhaseTimings:
-        """All-or-nothing attach of a pipeline gang."""
-        raise NotImplementedError(_GANG)
+        """All-or-nothing attach of a pipeline gang: the lead (stage 0)
+        plus K-1 shell members, one VF each. Admission runs through the
+        scheduler's ``admit_gang`` BEFORE the WAL entry, so a capacity
+        rejection is a typed ``GangPlacementError`` with zero side
+        effects. Each member attach journals its own entry inside the
+        gang window; the gang entry's recovery predicate — every member
+        running — rolls the gang forward iff it fully formed, and
+        otherwise detaches whichever members bound (no leaked VFs, no
+        half-bound stages)."""
+        shells = self._gang_shells(lead)
+        k = int(getattr(lead, "stage_width", 1))
+        if not 1 <= k <= len(shells) + 1:
+            raise ManagerError(
+                f"attach_group: {lead.tid} width K={k} exceeds its "
+                f"{len(shells) + 1} gang slots")
+        members = [lead] + list(shells[:k - 1])
+        sched = self._scheduler_for(lead)
+        sched.admit_gang(self.pool, self.tenants,
+                         [PlacementRequest(tenant_id=m.tid)
+                          for m in members])
+        entry = self.journal.begin("attach_group", lead.tid, k=k,
+                                   members=[m.tid for m in members])
+        t = PhaseTimings()
+        try:
+            for i, m in enumerate(members):
+                tm = self.attach(m)
+                t.add("add_vf", tm.total)
+                if i == 0:
+                    # crash window: lead bound, shells not — recovery
+                    # rolls BACK (detach the lead, abort the gang)
+                    crashpoint("gang_mid_member")
+            # crash window: every member bound, gang entry still pending
+            # — recovery rolls FORWARD (commit)
+            crashpoint("gang_before_commit")
+            self.journal.commit(entry)
+        except InjectedCrash:
+            raise
+        except Exception:
+            # clean failure (e.g. a member's bind raised): the recovery
+            # predicate sees a partial gang and detaches the bound members
+            self._resolve_failed(entry)
+            raise
+        return t
 
     def detach_group(self, lead) -> PhaseTimings:
-        """Detach a whole pipeline gang."""
-        raise NotImplementedError(_GANG)
+        """Detach the whole gang (shells first, lead last). Recovery is
+        forward-only: a detach_group intent always completes — whichever
+        members survived the crash still bound are detached on recovery."""
+        shells = self._gang_shells(lead)
+        if getattr(lead, "status", None) != "running":
+            raise ManagerError(
+                f"detach_group: {lead.tid} is "
+                f"{getattr(lead, 'status', None)}, not running")
+        members = [s for s in shells
+                   if getattr(s, "status", None) == "running"] + [lead]
+        entry = self.journal.begin("detach_group", lead.tid,
+                                   members=[m.tid for m in members])
+        t = PhaseTimings()
+        try:
+            for m in members:
+                tm = self.detach(m)
+                t.add("remove_vf", tm.total)
+            self.journal.commit(entry)
+        except InjectedCrash:
+            raise
+        except Exception:
+            self._resolve_failed(entry)
+            raise
+        return t
 
-    def reshape(self, lead, k_new: int, *, drop: Optional[str] = None
-                ) -> dict:
-        """Re-instantiate a live gang at another width."""
-        raise NotImplementedError(_GANG)
+    def reshape(self, lead, k_new: int, *,
+                drop: Optional[str] = None) -> dict:
+        """Re-instantiate a live gang at width ``k_new`` by attaching idle
+        shells (grow) or detaching active ones (shrink), then selecting
+        the precomputed stage template via ``lead.apply_reshape``. The
+        lead keeps serving throughout — the KV cache and every request
+        byte are untouched, so token streams stay bit-identical (I10).
+        ``drop`` names the shell to shed first (the VF-loss fallback
+        path). Recovery predicate: the gang holds exactly ``k_new``
+        running members -> roll forward (re-select the template, commit);
+        otherwise undo the member deltas and abort — either way the gang
+        matches exactly one registered template (I14)."""
+        t0 = time.perf_counter()
+        shells = self._gang_shells(lead)
+        if getattr(lead, "status", None) != "running":
+            raise ManagerError(
+                f"reshape: {lead.tid} is "
+                f"{getattr(lead, 'status', None)}, not running")
+        k_old = int(getattr(lead, "stage_width", 1))
+        if k_new == k_old:
+            raise ManagerError(
+                f"reshape: {lead.tid} already at K={k_old}")
+        if not (hasattr(lead, "has_template") and lead.has_template(k_new)):
+            raise ManagerError(
+                f"reshape: {lead.tid} has no stage template for "
+                f"K={k_new}")
+        active = [s for s in shells
+                  if getattr(s, "status", None) == "running"]
+        added: list = []
+        dropped: list = []
+        if k_new > k_old:
+            if drop is not None:
+                raise ManagerError(
+                    "reshape: drop= only applies to a shrink")
+            need = k_new - k_old
+            idle = [s for s in shells
+                    if getattr(s, "status", None) != "running"]
+            if len(idle) < need:
+                raise ManagerError(
+                    f"reshape: {lead.tid} K={k_old}->{k_new} needs "
+                    f"{need} idle shell(s), has {len(idle)}")
+            added = idle[:need]
+            sched = self._scheduler_for(lead)
+            sched.admit_gang(self.pool, self.tenants,
+                             [PlacementRequest(tenant_id=s.tid)
+                              for s in added])
+        else:
+            need = k_old - k_new
+            order = list(reversed(active))       # shed highest stage first
+            if drop is not None:
+                victim = next((s for s in active if s.tid == drop), None)
+                if victim is None:
+                    raise ManagerError(
+                        f"reshape: {drop} is not an active shell of "
+                        f"{lead.tid}")
+                order = [victim] + [s for s in order if s.tid != drop]
+            if len(active) < need:
+                raise ManagerError(
+                    f"reshape: {lead.tid} K={k_old}->{k_new} sheds "
+                    f"{need} shell(s), only {len(active)} active")
+            dropped = order[:need]
+        entry = self.journal.begin(
+            "reshape", lead.tid, vf_id=getattr(lead, "vf_id", None),
+            k_old=k_old, k_new=k_new,
+            added=[s.tid for s in added],
+            dropped=[s.tid for s in dropped])
+        try:
+            # crash window: intent logged, no member touched — recovery
+            # rolls BACK (the gang still holds k_old members), so the
+            # outcome is deterministic for grow AND shrink directions
+            crashpoint("reshape_mid_members")
+            for s in added:
+                self.attach(s)
+            for s in dropped:
+                self.detach(s)
+            # crash window: member set already at k_new, template not yet
+            # selected — recovery rolls FORWARD (apply_reshape + commit)
+            crashpoint("reshape_before_commit")
+            lead.apply_reshape(k_new)
+            self.journal.commit(entry)
+        except InjectedCrash:
+            raise
+        except Exception:
+            # clean failure (e.g. a grow attach rejected): the recovery
+            # predicate counts a partial gang and undoes the member deltas
+            self._resolve_failed(entry)
+            raise
+        return {"k_old": k_old, "k_new": k_new,
+                "added": [s.tid for s in added],
+                "dropped": [s.tid for s in dropped],
+                "reshape_s": time.perf_counter() - t0}
 
     def query(self) -> dict:
         return {"pool": self.pool.query(),
@@ -725,8 +882,59 @@ class SVFFManager:
                     tn.abort_migration(rid)
                 self.journal.abort(seq, recovered="rollback")
 
-        elif op in ("attach_group", "detach_group", "reshape"):
-            raise NotImplementedError(f"recovery of entry {seq}: {_GANG}")
+        elif op == "attach_group":
+            # member attach entries are NEWER than the gang entry, so by
+            # newest-first order each member is already cleanly running or
+            # cleanly unbound. Predicate: the gang fully formed -> forward.
+            members = [self.tenants.get(m)
+                       for m in e["details"].get("members", [])]
+            if members and all(getattr(m, "status", None) == "running"
+                               for m in members):
+                self.journal.commit(seq, recovered="forward")
+            else:
+                # partial gang: detach whichever members bound — no leaked
+                # VFs, no half-bound stages (the lead ends detached, its
+                # state parked on disk like any failed single attach)
+                for m in members:
+                    if getattr(m, "status", None) == "running":
+                        self.detach(m)
+                self.journal.abort(seq, recovered="rollback")
+
+        elif op == "detach_group":
+            # forward-only: a detach_group intent always completes
+            for mid in e["details"].get("members", []):
+                mt = self.tenants.get(mid)
+                if getattr(mt, "status", None) == "running":
+                    self.detach(mt)
+            self.journal.commit(seq, recovered="forward")
+
+        elif op == "reshape":
+            # predicate: the gang holds exactly k_new running members ->
+            # the member deltas completed, roll forward by (re-)selecting
+            # the k_new template (idempotent); otherwise undo the deltas
+            # back to k_old. Either way the live gang matches exactly one
+            # registered template (I14).
+            det = e["details"]
+            k_old, k_new = det.get("k_old"), det.get("k_new")
+            shells = tuple(getattr(tn, "gang_shells", ()) or ())
+            alive = int(status == "running") + sum(
+                1 for s in shells
+                if getattr(s, "status", None) == "running")
+            if tn is not None and status == "running" and alive == k_new:
+                tn.apply_reshape(k_new)
+                self.journal.commit(seq, recovered="forward")
+            else:
+                for mid in det.get("added", []):
+                    mt = self.tenants.get(mid)
+                    if getattr(mt, "status", None) == "running":
+                        self.detach(mt)
+                for s in shells:
+                    if (s.tid in det.get("dropped", [])
+                            and getattr(s, "status", None) != "running"):
+                        self.attach(s)
+                if tn is not None and hasattr(tn, "apply_reshape"):
+                    tn.apply_reshape(k_old)       # no-op: width never moved
+                self.journal.abort(seq, recovered="rollback")
 
         else:                                     # unknown op: never applied
             self.journal.abort(seq, recovered="rollback")

@@ -36,6 +36,12 @@ class AdmissionError(PoolError):
     """Attach rejected by admission control (no capacity / bad request)."""
 
 
+class GangPlacementError(AdmissionError):
+    """Gang attach rejected: fewer than K placeable VFs. Raised BEFORE any
+    member binds, so a failed gang admission leaves no leaked VFs and no
+    half-bound stages."""
+
+
 @dataclasses.dataclass(frozen=True)
 class PlacementRequest:
     """What a tenant asks of the scheduler."""
@@ -86,6 +92,53 @@ class Scheduler:
         self.admit(pool, tenants, request)
         return self.choose(pool, tenants, request,
                            self.candidates(pool, request))
+
+    # -- gang placement -----------------------------------------------------
+    def admit_gang(self, pool: DevicePool, tenants: Dict[str, object],
+                   requests: Sequence[PlacementRequest]) -> None:
+        """Admission for an all-or-nothing gang of K attaches: every member
+        must be individually admissible AND there must be K DISTINCT
+        candidate VFs. Raises ``GangPlacementError`` without touching the
+        pool — atomicity by validation-before-mutation."""
+        if not requests:
+            raise GangPlacementError("empty gang placement request")
+        for req in requests:
+            try:
+                self.admit(pool, tenants, req)
+            except AdmissionError as e:
+                raise GangPlacementError(
+                    f"gang of {len(requests)}: member "
+                    f"{req.tenant_id} not admissible: {e}") from e
+        # K distinct VFs must exist for the WIDEST min_devices ordering:
+        # greedily match each request (largest demand first) to a distinct
+        # candidate; any unmatched request fails the whole gang
+        taken: set = set()
+        for req in sorted(requests, key=lambda r: -r.min_devices):
+            got = next((vf for vf in self.candidates(pool, req)
+                        if vf.vf_id not in taken), None)
+            if got is None:
+                raise GangPlacementError(
+                    f"gang of {len(requests)}: only {len(taken)} distinct "
+                    f"VF(s) placeable, member {req.tenant_id} "
+                    f"(min_devices={req.min_devices}) has none left")
+            taken.add(got.vf_id)
+
+    def select_gang(self, pool: DevicePool, tenants: Dict[str, object],
+                    requests: Sequence[PlacementRequest]
+                    ) -> list[VirtualFunction]:
+        """Pick K distinct VFs for a gang, in request order, using the
+        policy's ``choose`` restricted to not-yet-taken candidates. Calls
+        ``admit_gang`` first, so failure is typed and side-effect-free."""
+        self.admit_gang(pool, tenants, requests)
+        picks: list[VirtualFunction] = []
+        taken: set = set()
+        for req in requests:
+            cands = [vf for vf in self.candidates(pool, req)
+                     if vf.vf_id not in taken]
+            vf = self.choose(pool, tenants, req, cands)
+            picks.append(vf)
+            taken.add(vf.vf_id)
+        return picks
 
     def describe(self) -> dict:
         return {"policy": self.name}

@@ -243,6 +243,12 @@ class ServeEngine:
         self.params = tree_to(params, self.device)
         self._cparams = self.model.compute_params(self.params)
 
+    def drop_device_state(self):
+        """Let go of every device tensor the engine holds — params, their
+        compute-dtype copy and the page pools (a pause or a detach; an
+        ``import_state`` brings them back)."""
+        self.params = self._cparams = self._cache = None
+
     def _tensor(self, a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
 

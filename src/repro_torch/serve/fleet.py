@@ -47,10 +47,18 @@ compute copy and its page pools, and ``resume`` (or an attach from disk)
 rebuilds them from the snapshot. A parked spare engine (``spare_engines``)
 holds its params on the card, ready to attach.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: pipeline-stage engines and gang ops (``stages > 1``,
-``reshape_engine``, ``handle_vf_loss``: item 13) and the federation's
-view of the fleet (``federation_snapshot``: item 9).
+With ``stages > 1`` every engine is a ``PipelineServeEngine`` spanning
+``stages`` VFs: a gang of the lead tenant (stage 0, the engine) and
+``StageShellTenant`` members, one VF each, with shells up to the stage
+template ceiling (``max_stages``). ``reshape_engine`` changes a gang's
+width live through the journaled manager reshape, and ``handle_vf_loss``
+sheds a dead member's stage the same way. On one card every stage of a
+gang computes on the fleet's ``device``: a gang's VFs are logical slots,
+and the stages run one after another.
+
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
+item: the federation's view of the fleet (``federation_snapshot``: item
+9).
 """
 from __future__ import annotations
 
@@ -73,11 +81,9 @@ from repro_torch.core.vf import VFState, VirtualFunction
 from repro_torch.device import resolve_device
 from repro_torch.serve.engine import DrainResult, Request, ServeEngine
 from repro_torch.serve.paged import CacheExhausted, RequestRejected
+from repro_torch.serve.pipeline_engine import PipelineServeEngine
 from repro_torch.serve.telemetry import MetricsBus
 from repro_torch.tree import tree_map, tree_to
-
-_STAGES = ("is not ported yet (ROADMAP Queue 1 item 13: pipeline-stage "
-           "engines, gang ops and the reshape op)")
 
 
 def _template(x):
@@ -100,8 +106,9 @@ class EngineTenant:
         self.workload = "serve"
         self._exec_cache: dict = {}
         self._template = None
-        # a single-VF engine is no gang lead (the manager dispatches on
-        # the truthiness of gang_shells)
+        # pipeline gang: a stage-spanning engine's K-1 shell members
+        # (one VF each, stage 0 rides the lead's own VF). Empty for
+        # single-VF engines — the manager dispatches on truthiness.
         self.gang_shells: tuple = ()
         self.run = types.SimpleNamespace(
             model=types.SimpleNamespace(name=engine.run.model.name),
@@ -165,9 +172,8 @@ class EngineTenant:
         compute-dtype copy and the page pools — so that, with the exported
         tree and the staging memo dropped by the pause/detach path, the
         card's memory is free ("exit from the IOMMU group")."""
-        eng = self.engine
-        eng.pause()
-        eng.params = eng._cparams = eng._cache = None
+        self.engine.pause()
+        self.engine.drop_device_state()
 
     def suspend(self):
         # in-flight chunked prefills re-queue (they have emitted nothing
@@ -215,6 +221,24 @@ class EngineTenant:
     def reset_after_crash(self) -> None:
         self.engine.reset_after_crash()
 
+    # -- pipeline gang protocol (manager gang ops + I14) ---------------------
+    @property
+    def stage_width(self) -> int:
+        return getattr(self.engine, "stage_width", 1)
+
+    @property
+    def num_periods(self) -> int:
+        return self.engine.num_periods
+
+    def has_template(self, k: int) -> bool:
+        return self.engine.has_template(k)
+
+    def apply_reshape(self, k: int) -> None:
+        self.engine.apply_reshape(k)
+
+    def stage_bounds(self) -> tuple:
+        return self.engine.stage_bounds()
+
     # -- introspection -------------------------------------------------------
     @property
     def load(self) -> int:
@@ -234,6 +258,73 @@ class EngineTenant:
         tenant has no fault model, as in the reference."""
 
 
+class StageShellTenant:
+    """One pipeline stage's VF occupant. The LEAD's engine owns ALL
+    compute and state (params, KV pages, requests) — the shell exists so
+    invariant I1 (one tenant per attached VF) and every journaled manager
+    op see the gang's K VFs as K first-class tenants: a shell attaches,
+    detaches, pauses and recovers exactly like any tenant, it just has
+    (almost) no state of its own."""
+
+    def __init__(self, tid: str, lead: EngineTenant, stage_index: int, *,
+                 placement: str = "first_fit"):
+        self.tid = tid
+        self.lead = lead
+        self.stage_index = stage_index
+        self.status = "created"        # created|running|paused|detached
+        self.vf_id: Optional[str] = None
+        self.steps_done = 0
+        self.workload = "serve"
+        self._exec_cache: dict = {}    # pause snapshots its keys
+        self.run = types.SimpleNamespace(
+            model=lead.run.model, placement=placement, seed=lead.run.seed)
+
+    # -- lifecycle (the duck-typed tenant protocol, trivially) ---------------
+    def bind(self, vf: VirtualFunction, state=None, *,
+             flash: bool = True) -> float:
+        self.vf_id = vf.vf_id
+        self.status = "running"
+        vf.emulated.update({"tenant": self.tid, "status": "running",
+                            "steps_done": self.steps_done})
+        return 0.0
+
+    def export_state(self):
+        return {"stage": np.asarray(self.stage_index, np.int32)}
+
+    def state_template(self):
+        return {"stage": np.zeros((), np.int32)}
+
+    def export_specs(self):
+        return {}
+
+    def shardings_for(self, vf: VirtualFunction):
+        """Where a restore places the shell's (host) state: the lead
+        engine's device."""
+        return self.lead.shardings_for(vf)
+
+    def dirty_keys(self):
+        return set()
+
+    def suspend(self):
+        self.status = "paused"
+
+    def resume(self, state, vf: VirtualFunction):
+        self.bind(vf, state=state)
+
+    def detach(self):
+        self.vf_id = None
+        self.status = "detached"
+
+    def query(self) -> dict:
+        return {"tenant": self.tid, "status": self.status,
+                "vf": self.vf_id, "lead": self.lead.tid,
+                "stage_index": self.stage_index,
+                "workload": self.workload}
+
+    def inject_failure(self):
+        pass
+
+
 class ServeFleet:
     """Run ``num_engines`` ServeEngines as SVFF tenants over one pool."""
 
@@ -248,12 +339,18 @@ class ServeFleet:
                  devices=None, device="cuda",
                  autoscale: Optional[AutoscaleConfig] = None,
                  spare_engines: int = 0, num_vfs: Optional[int] = None,
-                 stages: int = 1):
-        if stages != 1:
-            raise NotImplementedError(f"stages={stages} {_STAGES}")
+                 stages: int = 1, max_stages: Optional[int] = None,
+                 microbatches: int = 2):
         self.run = run
         self.device = resolve_device(device)
         self.slo_max_load = slo_max_load
+        # stages > 1: every engine is a PipelineServeEngine spanning
+        # ``stages`` VFs (a gang of 1 lead + stages-1 shell tenants);
+        # ``max_stages`` bounds the reshape headroom (templates are
+        # precomputed up to it at engine construction)
+        self.stages = max(1, int(stages))
+        self.max_stages = max_stages
+        self.microbatches = microbatches
         devices = (tuple(devices) if devices is not None else
                    tuple(f"fleetdev{i}" for i in range(num_devices)))
         # the VF cap is the DEVICE budget (>= 1 device per VF), not the
@@ -278,7 +375,8 @@ class ServeFleet:
         # interrupts the running engines, whereas growing the partition
         # runs the paper's full reconf cycle (brief pause of every engine)
         tns = [self._spawn_tenant() for _ in range(num_engines)]
-        self.mgr.init(max(num_vfs or num_engines, num_engines), tns)
+        need = num_engines * self.stages      # every gang wants K VFs
+        self.mgr.init(max(num_vfs or need, need), tns)
         # parked standbys: spawned (own params copy on the card) but not
         # attached — the autoscaler's cheap scale-out pool
         for _ in range(spare_engines):
@@ -298,10 +396,24 @@ class ServeFleet:
         frees the engine's tensors, so engines must not share them —
         guest isolation, like VMs not sharing guest RAM."""
         i = len(self._order)
-        eng = ServeEngine(self.run, tree_to(self._params_src, self.device,
-                                            copy=True),
-                          device=self.device, **self._engine_kw)
+        params = tree_to(self._params_src, self.device, copy=True)
+        if self.stages > 1:
+            eng = PipelineServeEngine(self.run, params, stages=self.stages,
+                                      max_stages=self.max_stages,
+                                      microbatches=self.microbatches,
+                                      device=self.device, **self._engine_kw)
+        else:
+            eng = ServeEngine(self.run, params, device=self.device,
+                              **self._engine_kw)
         tn = EngineTenant(f"serve{i}", eng, placement=self._policy)
+        if self.stages > 1:
+            # shells up to the TEMPLATE ceiling, not the initial width:
+            # a grow-reshape needs idle shells ready to attach
+            # "." separator: tids become RecordStore file names, so no "/"
+            tn.gang_shells = tuple(
+                StageShellTenant(f"{tn.tid}.s{j}", tn, j,
+                                 placement=self._policy)
+                for j in range(1, eng.max_stage_width))
         self.tenants[tn.tid] = tn
         self._order[tn.tid] = i
         return tn
@@ -353,6 +465,10 @@ class ServeFleet:
                 tn.engine.stats["defrag_events"])
             self.telemetry.record_migration_stall(
                 tn.tid, tn.engine.stats["migration_stall_ticks"])
+            if getattr(tn.engine, "stage_width", 1) > 1:
+                self.telemetry.record_stage_load(
+                    tn.tid, tn.engine.stage_loads(),
+                    tn.engine.measured_bubble)
             # harvest only the suffix of _finished not yet scanned (drain
             # clears the list; rescanning it whole would make the hot
             # path O(completed history))
@@ -435,8 +551,7 @@ class ServeFleet:
 
     def telemetry_snapshot(self) -> TelemetrySnapshot:
         """One observation epoch: per-engine stats + the capacity facts
-        that gate scale-out. Cheap (counters + window percentiles). Every
-        engine is one stage wide (``stages > 1`` is item 13)."""
+        that gate scale-out. Cheap (counters + window percentiles)."""
         self._epoch += 1
         stats = []
         for tid, tn in self.tenants.items():
@@ -459,7 +574,12 @@ class ServeFleet:
                     self.telemetry.migrations_completed[tid]),
                 migrations_aborted=self.telemetry.migrations_aborted[tid],
                 migration_blocks_shipped=self.telemetry.migration_blocks[tid],
-                migration_stall_ticks=eng.stats["migration_stall_ticks"]))
+                migration_stall_ticks=eng.stats["migration_stall_ticks"],
+                stage_width=getattr(eng, "stage_width", 1),
+                stage_width_max=getattr(eng, "max_stage_width", 1),
+                stage_loads=(tuple(eng.stage_loads())
+                             if hasattr(eng, "stage_loads") else ()),
+                bubble_frac=getattr(eng, "measured_bubble", 0.0)))
         return TelemetrySnapshot(
             epoch=self._epoch, slo_max_load=self.slo_max_load,
             engines=tuple(stats), free_vfs=len(self._free_vfs()),
@@ -494,7 +614,9 @@ class ServeFleet:
         (running engines pause briefly — their queues hold — and resume
         on the new partition)."""
         free = self._free_vfs()
-        missing = 0 if free else 1
+        # gang-aware device budget: a K-stage engine consumes K VFs, so
+        # "is there room" counts the VFs a whole gang needs, not 1
+        missing = max(0, self.stages - len(free))
         n = len(self.pool.vfs) + missing
         if missing and n > self.pool.num_devices:
             # validate BEFORE spawning: a fresh tenant registered here
@@ -507,7 +629,10 @@ class ServeFleet:
                         key=lambda tn: self._order[tn.tid])
         tn = parked[0] if parked else self._spawn_tenant()
         if not missing:
-            self.mgr.attach(tn)
+            if tn.gang_shells:
+                self.mgr.attach_group(tn)
+            else:
+                self.mgr.attach(tn)
         else:
             self.mgr.reconf(n, new_tenants=[tn],
                             devices_per_vf=max(
@@ -659,15 +784,31 @@ class ServeFleet:
                 "autoscale_actions": (len(self.autoscaler.history)
                                       if self.autoscaler else 0)}
 
+    def reshape_engine(self, tid: str, width: int) -> dict:
+        """Re-instantiate a gang engine at ``width`` stages via the
+        journaled manager reshape — in-flight token streams unchanged
+        (I10), the gang matching exactly one registered template before
+        and after (I14)."""
+        tn = self.tenants[tid]
+        if not tn.gang_shells:
+            raise ManagerError(
+                f"reshape_engine: {tid} is not a pipeline gang")
+        return self.mgr.reshape(tn, width)
+
+    def handle_vf_loss(self, tid: str, vf_id: str) -> dict:
+        """A gang member's VF died (device failure): shed exactly that
+        stage and re-instantiate the engine at K-1 through the same
+        journaled reshape, so the fallback is crash-covered and the
+        surviving K-1 stages keep every request byte. The lead's own VF
+        dying is a full engine crash — that path is ``recover_engine``."""
+        tn = self.tenants[tid]
+        shell = next((s for s in tn.gang_shells if s.vf_id == vf_id), None)
+        if shell is None:
+            raise ManagerError(
+                f"handle_vf_loss: {vf_id} backs no active stage of {tid}")
+        return self.mgr.reshape(tn, tn.stage_width - 1, drop=shell.tid)
+
     # -- not ported yet -------------------------------------------------------
-    def reshape_engine(self, tid: str, width: int):
-        raise NotImplementedError(f"reshape_engine {_STAGES}")
-
-    def handle_vf_loss(self, tid: str, vf_id: str):
-        # a gang member's VF loss re-instantiates the engine at K-1
-        # through the manager's reshape
-        raise NotImplementedError(f"handle_vf_loss {_STAGES}")
-
     def federation_snapshot(self, now: float = 0.0):
         raise NotImplementedError(
             "federation_snapshot is not ported yet (ROADMAP Queue 1 item "

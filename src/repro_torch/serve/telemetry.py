@@ -8,9 +8,10 @@ per-token wall timestamps the engine already records on each ``Request``
 (``t_submit`` / ``t_tok``), so serving pays nothing extra for them.
 
 The autoscaler reads the bus once an epoch (``ServeFleet.
-telemetry_snapshot``). The JAX bus also carries pipeline-stage counters
-and a replica for the federation; those come with their slices (ROADMAP
-Queue 1 items 13 and 9).
+telemetry_snapshot``). A pipeline gang's per-stage loads and measured
+schedule bubble are mirrored here too (``record_stage_load``). The JAX
+bus also carries a replica for the federation; that comes with its slice
+(ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -57,6 +58,12 @@ class MetricsBus:
         self.migrations_aborted = collections.Counter()
         self.migration_blocks = collections.Counter()
         self.migration_stall_ticks = collections.Counter()
+        # pipeline-stage telemetry (mirror-overwrite like the cache
+        # counters): per-stage busy shares of the measured makespan and
+        # the measured GPipe bubble fraction, from the engine's schedule
+        # walls — empty/0 for single-VF engines
+        self.stage_loads: dict = {}
+        self.stage_bubble: dict = {}
         self._rejected_since_snapshot = 0
         # requests already harvested, keyed (rid, t_submit); pruned when
         # the owner engine's finished list is drained
@@ -95,6 +102,13 @@ class MetricsBus:
         """Mirror an engine's cumulative frozen-slot stall ticks (decode
         iterations a slot sat unservable mid-hand-off)."""
         self.migration_stall_ticks[tid] = ticks
+
+    def record_stage_load(self, tid: str, loads, bubble: float) -> None:
+        """Mirror a pipeline gang's per-stage busy shares and measured
+        schedule bubble (vs the analytic ``bubble_fraction(M, S)``) so
+        width actions are justified by evidence, not geometry."""
+        self.stage_loads[tid] = tuple(float(x) for x in loads)
+        self.stage_bubble[tid] = float(bubble)
 
     def harvest(self, tid: str, finished: Iterable) -> None:
         """Pull TTFT/ITL samples from finished requests' token walls.
@@ -145,9 +159,13 @@ class MetricsBus:
                           self.migration_stall_ticks[tid],
                       "load_p95": self.load_p95(tid),
                       "ttft_p95_ms": round(self.ttft_ms(tid), 3),
-                      "itl_p95_ms": round(self.itl_ms(tid), 3)}
+                      "itl_p95_ms": round(self.itl_ms(tid), 3),
+                      "stage_loads": list(self.stage_loads.get(tid, ())),
+                      "bubble_frac": round(
+                          self.stage_bubble.get(tid, 0.0), 4)}
                 for tid in sorted(set(self.submitted)
                                   | set(self.completed)
                                   | set(self.rejected)
                                   | set(self.cache_exhausted)
-                                  | set(self.migrations_attempted))}
+                                  | set(self.migrations_attempted)
+                                  | set(self.stage_bubble))}

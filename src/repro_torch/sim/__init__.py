@@ -18,29 +18,29 @@ Pieces
               to the JAX package's for every seed and config
   tenant      ``SimTenant`` — fp32 tensor state that is a pure function of
               ``(seed, steps_done)``; ``SimServeTenant`` — the toy paged
-              serving engine; ``ServeSimTenant`` — the pause-path
-              benchmark's serving-shaped stub
-  invariants  ``check_invariants`` (I1-I5, I8, I10, I12, I13) +
+              serving engine; ``SimPipelineTenant`` — a serving tenant
+              leading a pipeline gang of shell tenants; ``ServeSimTenant``
+              — the pause-path benchmark's serving-shaped stub
+  invariants  ``check_invariants`` (I1-I5, I8, I10, I12, I13, I14) +
               ``check_timings`` (I6) + ``check_pause_timings`` (I7),
               asserted after every op, and ``check_autoscale`` (I11)
               after every autoscale op
   chaos       crash-point catalogue (``CRASH_POINTS``), per-cell runner
-              (``run_crash_case``) and ``crash_matrix`` over the 15
-              ported points (``PORTED_POINTS``: the core ops' and the
-              four ``migrate_*`` windows); I9 (recovery idempotence)
-              lives in ``recover_manager``
+              (``run_crash_case``) and ``crash_matrix`` over all 19
+              points (``PORTED_POINTS``: the core ops', the four
+              ``migrate_*`` and the four gang windows); I9 (recovery
+              idempotence) lives in ``recover_manager``
   harness     ``ScenarioRunner`` / ``run_scenario`` — executes a scenario,
               records per-op outcomes (ok / atomically rejected) and the
               Table-II timing dict of every reconf; ``crash`` ops kill
               the manager at a crash point and rebuild it via
               ``SVFFManager.recover``; ``autoscale`` ops run the policy
               loop over the serving tenants, ``migrate_request`` ops
-              live-migrate a request between them
+              live-migrate a request between them, ``reshape`` ops change
+              the pipeline gang lead ``pg0``'s width
 
-Not ported yet (ROADMAP Queue 1): ``SimPipelineTenant``, ``reshape``, I14
-and the gang crash points (item 13), and the federation plane with
-I15/I16 (item 9). Each refuses with ``NotImplementedError`` naming its
-item.
+Not ported yet (ROADMAP Queue 1): the federation plane with I15/I16
+(item 9).
 
 Reproducing a failure
 ---------------------
@@ -65,12 +65,14 @@ from repro_torch.sim.invariants import (InvariantViolation, check_autoscale,
                                         check_pause_timings, check_timings)
 from repro_torch.sim.scenario import (ARRIVAL_PATTERNS, Op, OP_KINDS,
                                       ScenarioConfig, generate_scenario)
-from repro_torch.sim.tenant import ServeSimTenant, SimServeTenant, SimTenant
+from repro_torch.sim.tenant import (ServeSimTenant, SimPipelineTenant,
+                                    SimServeTenant, SimTenant)
 
 __all__ = [
     "ARRIVAL_PATTERNS", "CRASH_POINTS", "CrashSpec", "InvariantViolation",
     "Op", "OP_KINDS", "OpResult", "PORTED_POINTS", "ScenarioConfig",
-    "ScenarioResult", "ScenarioRunner", "ServeSimTenant", "SimServeTenant",
+    "ScenarioResult", "ScenarioRunner", "ServeSimTenant",
+    "SimPipelineTenant", "SimServeTenant",
     "SimTenant", "VirtualClock", "check_autoscale", "check_invariants",
     "check_pause_timings",
     "check_timings", "crash_matrix", "generate_scenario", "recover_manager",

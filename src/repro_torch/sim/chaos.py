@@ -27,14 +27,12 @@ liveness (the survivors still pause/unpause/step with bit-identical
 state). ``crash_matrix`` sweeps points x seeds x policies and
 ``repro_torch.bench.crash_matrix`` writes the JSON report.
 
-The catalogue keeps all 19 points of the JAX package as data (the
-scenario generator draws from ``sorted(CRASH_POINTS)``, so its op stream
-depends on every key). The port recovers 15 (``PORTED_POINTS``): the 11
-windows of the core ops and the four of request migration
-(``migrate_*``); ``run_crash_case`` refuses a ``gang_*`` or
-``reshape_*`` point (gang ops, ROADMAP Queue 1 item 13) with
-``NotImplementedError``. The sim tenants live on ``device`` (the card by
-default).
+The catalogue holds the 19 points of the JAX package, and the port
+recovers all of them (``PORTED_POINTS``): the 11 windows of the core ops,
+the four of request migration (``migrate_*``) and the four of the gang
+ops (``gang_*``, ``reshape_*``), whose cells run a pipeline gang lead
+with its shells and check I14 and the gang's width per cell. The sim
+tenants live on ``device`` (the card by default).
 """
 from __future__ import annotations
 
@@ -54,7 +52,8 @@ from repro_torch.core.staging import StagingEngine
 from repro_torch.device import resolve_device
 from repro_torch.sim.clock import VirtualClock
 from repro_torch.sim.invariants import InvariantViolation, check_invariants
-from repro_torch.sim.tenant import SimServeTenant, SimTenant
+from repro_torch.sim.tenant import (SimPipelineTenant, SimServeTenant,
+                                    SimTenant)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +107,7 @@ CRASH_POINTS: dict[str, CrashSpec] = {s.point: s for s in (
               "complete",
               "last instant before the only destructive step; same "
               "target-owns predicate rolls forward"),
-    # -- elastic pipeline gangs (ROADMAP Queue 1 item 13: kept as data,
-    # refused by run_crash_case). outcome names the GANG OP's
+    # -- elastic pipeline gangs. outcome names the GANG OP's
     # fate. attach_group "none" is the one rollback whose victim does
     # NOT return to its pre-op status: the lead was attached (and its
     # state recorded) before the window, so rolling the gang back
@@ -174,17 +172,8 @@ def recover_manager(mgr: SVFFManager, tenants: dict, *,
     return new
 
 
-#: the crash points the port recovers: the core ops' and request
-#: migration's; the four gang ones wait for gang ops (item 13)
-PORTED_POINTS = tuple(p for p in sorted(CRASH_POINTS)
-                      if not p.startswith(("gang_", "reshape_")))
-
-
-def _refuse_unported(point: str) -> None:
-    if point.startswith(("gang_", "reshape_")):
-        raise NotImplementedError(
-            f"crash point {point!r}: gang ops are not ported yet (ROADMAP "
-            "Queue 1 item 13)")
+#: the crash points the port recovers: all 19 of the catalogue
+PORTED_POINTS = tuple(sorted(CRASH_POINTS))
 
 
 def _fire(mgr: SVFFManager, trigger: str, point: str,
@@ -216,6 +205,11 @@ def _fire(mgr: SVFFManager, trigger: str, point: str,
                        and getattr(tn, "status", None) == "running"
                        and hasattr(tn, "admit_migrated"))
             mgr.migrate_request(victim, dst)
+        elif trigger == "attach_group":
+            mgr.attach_group(victim)
+        elif trigger == "reshape":
+            # the target width is staged on the lead by run_crash_case
+            mgr.reshape(victim, victim._crash_reshape_k)
         else:
             raise ValueError(f"unknown crash trigger {trigger!r}")
         raise InvariantViolation(
@@ -231,7 +225,6 @@ def run_crash_case(point: str, seed: int, policy: str = "first_fit",
                    workdir: Optional[str] = None, device="cuda") -> dict:
     """One crash-matrix cell. Raises ``InvariantViolation`` (tagged with
     point/seed/policy) on any recovery failure; returns a result row."""
-    _refuse_unported(point)
     spec = CRASH_POINTS[point]
     trigger = spec.triggers[seed % len(spec.triggers)]
     dev = resolve_device(device)
@@ -272,6 +265,26 @@ def run_crash_case(point: str, seed: int, policy: str = "first_fit",
             if mig_rid is None:
                 raise InvariantViolation(
                     "setup: sv0 never reached an in-flight request")
+        elif trigger in ("attach_group", "reshape"):
+            # gang-shaped cell: pg0 is a pipeline lead with shells up to
+            # width 3, vm0 the bystander. 8 devices / 4 VFs at 2 devices
+            # each: bystander + lead + one shell = 3 VFs, leaving one
+            # free so the grow direction of reshape is placeable.
+            victim = SimPipelineTenant("pg0", seed=seed * 13 + 2,
+                                       clock=clock, placement=policy,
+                                       width=2, max_width=3, device=dev)
+            tenants[victim.tid] = victim
+            for sh in victim.gang_shells:
+                tenants[sh.tid] = sh
+            mgr.init(num_vfs=4, tenants=[bystander], devices_per_vf=2)
+            bystander.run_steps(1 + seed % 3)
+            if trigger == "reshape":
+                # the gang must already be live, with traffic in flight
+                # so I10 is checked ACROSS the crashed width change
+                mgr.attach_group(victim)
+                victim.submit_burst(2)
+                victim.run_steps(2)
+                victim._crash_reshape_k = 1 if seed % 2 else 3
         else:
             other = make("vm1", seed * 13 + 2)
             mgr.init(num_vfs=3, tenants=[bystander, other],
@@ -301,6 +314,11 @@ def run_crash_case(point: str, seed: int, policy: str = "first_fit",
                 else _COMPLETED_STATUS[trigger])
         if trigger == "qmp":
             want = pre_status
+        if trigger == "attach_group" and spec.outcome == "none":
+            # the one rollback that does not restore the pre-op status:
+            # the lead was attached before the window, so rolling the
+            # gang back detaches it (state parked on disk, catalogued)
+            want = "detached"
         if victim.status != want:
             raise InvariantViolation(
                 f"outcome: {trigger} + {point} left {victim.tid} "
@@ -311,6 +329,32 @@ def run_crash_case(point: str, seed: int, policy: str = "first_fit",
                 raise InvariantViolation(
                     f"step counter drift for {tid} across crash+recover: "
                     f"{tenants[tid].steps_done} != {steps + add}")
+
+        if trigger in ("attach_group", "reshape"):
+            # I14 sharpened per-cell: the recovered gang is at exactly
+            # the cataloged width with exactly width-1 running shells —
+            # a half-attached gang or half-applied reshape fails here
+            # even before check_invariants would catch it
+            live = [sh.tid for sh in victim.gang_shells
+                    if sh.status == "running"]
+            if trigger == "attach_group" and spec.outcome == "none":
+                if live:
+                    raise InvariantViolation(
+                        f"gang rollback after {point} left shells "
+                        f"running: {live}")
+            else:
+                want_k = (victim._crash_reshape_k
+                          if trigger == "reshape"
+                          and spec.outcome == "complete" else 2)
+                if victim.stage_width != want_k:
+                    raise InvariantViolation(
+                        f"gang outcome: width {victim.stage_width} != "
+                        f"cataloged {want_k} after {point} recovery")
+                if len(live) != want_k - 1:
+                    raise InvariantViolation(
+                        f"gang outcome: {len(live)} running shells "
+                        f"{live} after {point} recovery, want "
+                        f"{want_k - 1}")
 
         if trigger == "migrate_request":
             # I13 sharpened per-cell: the request survives on exactly the
@@ -351,7 +395,10 @@ def run_crash_case(point: str, seed: int, policy: str = "first_fit",
         if victim.status == "paused":
             mgr.unpause(victim)
         elif victim.status == "detached":
-            mgr.attach(victim)
+            if getattr(victim, "gang_shells", None):
+                mgr.attach_group(victim)    # a parked gang re-attaches whole
+            else:
+                mgr.attach(victim)
         if victim.status == "running":
             victim.run_steps(1)
         mgr.pause(bystander)
@@ -376,10 +423,9 @@ def crash_matrix(points: Optional[Iterable[str]] = None,
                                             "fair_share"),
                  raise_on_fail: bool = True, device="cuda") -> dict:
     """The crash matrix: points x seeds x policies. The default points are
-    ``PORTED_POINTS``, the 15 windows the port recovers (attach, detach,
-    pause, pause_live, unpause, the QMP monitor and request migration);
-    the catalogue's gang windows are refused until ROADMAP Queue 1 item
-    13 lands. Returns the result table."""
+    ``PORTED_POINTS``, all 19 windows of the catalogue (attach, detach,
+    pause, pause_live, unpause, the QMP monitor, request migration and
+    the gang ops). Returns the result table."""
     points = list(points) if points is not None else list(PORTED_POINTS)
     cases, failures = [], []
     for point in points:
@@ -388,8 +434,6 @@ def crash_matrix(points: Optional[Iterable[str]] = None,
                 try:
                     cases.append(run_crash_case(point, seed, policy,
                                                 device=device))
-                except NotImplementedError:
-                    raise                     # an unported point: refused
                 except Exception as e:
                     # not only InvariantViolation: a red cell that dies
                     # with e.g. a recovery RuntimeError must still land

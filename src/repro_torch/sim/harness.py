@@ -20,11 +20,11 @@ leaves behind still satisfies every invariant.
 ``autoscale`` ops run one policy-loop epoch (``core.autoscaler``) over
 the serving tenants and execute its action through journaled manager ops,
 with I11 checked after the op; ``migrate_request`` ops live-migrate one
-in-flight request between two running serving tenants.
-
-Not ported yet, refused with ``NotImplementedError`` naming its ROADMAP
-item: ``reshape`` with the pipeline gang lead ``pg0`` (Queue 1 item 13).
-A config with a nonzero ``reshape_rate`` is refused at construction.
+in-flight request between two running serving tenants. The pipeline gang
+lead ``pg0`` (a ``SimPipelineTenant``, its shells registered beside it)
+attaches whole through ``attach_group``, and ``reshape`` ops change its
+width through the journaled ``SVFFManager.reshape``, with I14 checked
+after every op.
 """
 from __future__ import annotations
 
@@ -57,7 +57,8 @@ from repro_torch.sim.invariants import (InvariantViolation, check_autoscale,
                                         check_invariants,
                                         check_pause_timings, check_timings)
 from repro_torch.sim.scenario import Op, ScenarioConfig, generate_scenario
-from repro_torch.sim.tenant import SimServeTenant, SimTenant
+from repro_torch.sim.tenant import (SimPipelineTenant, SimServeTenant,
+                                    SimTenant)
 from repro_torch.tree import tree_leaves
 
 #: exception types an op may legally be rejected with (atomically).
@@ -66,12 +67,6 @@ from repro_torch.tree import tree_leaves
 #: ManagerError/UnknownTenantError for those paths instead.
 REJECTIONS = (PoolError, PauseError, VFTransitionError, DevicePausedError,
               RecordError, ManagerError)
-
-#: the ops (and the config rates that draw them) waiting for their items
-_UNPORTED = {
-    "reshape": ("reshape_rate", "the reshape op and the pipeline gang "
-                "lead are not ported yet (ROADMAP Queue 1 item 13)"),
-}
 
 
 @dataclasses.dataclass
@@ -126,10 +121,6 @@ SIM_AUTOSCALE = AutoscaleConfig(hysteresis=1, cooldown=1,
 class ScenarioRunner:
     def __init__(self, cfg: ScenarioConfig, workdir: Optional[str] = None,
                  device="cuda"):
-        for rate, msg in _UNPORTED.values():
-            if getattr(cfg, rate):
-                raise NotImplementedError(f"{rate}={getattr(cfg, rate)}: "
-                                          f"{msg}")
         self.cfg = cfg
         self.workdir = workdir
         self.device = resolve_device(device)
@@ -154,9 +145,18 @@ class ScenarioRunner:
     def _tenant(self, tid: str):
         if tid not in self.tenants:
             if tid.startswith("pg"):
-                raise NotImplementedError(f"tenant {tid}: "
-                                          f"{_UNPORTED['reshape'][1]}")
-            if tid.startswith("sv"):
+                # pipeline gang lead: a serving tenant that spans up to
+                # max_width VFs; its shell members register alongside it
+                # so crash recovery and the step-counter check see them
+                lead = SimPipelineTenant(
+                    tid, seed=self.cfg.seed, clock=self.clock,
+                    placement=self.cfg.policy,
+                    leaf_size=self.cfg.leaf_size, device=self.device)
+                self.tenants[tid] = lead
+                for sh in lead.gang_shells:
+                    self.tenants[sh.tid] = sh
+                    self.expected_steps[sh.tid] = 0
+            elif tid.startswith("sv"):
                 # serving tenants: paged toy engine, I10-checked outputs
                 self.tenants[tid] = SimServeTenant(
                     tid, seed=self.cfg.seed, clock=self.clock,
@@ -171,9 +171,6 @@ class ScenarioRunner:
 
     def _apply(self, op: Op) -> Optional[dict]:
         mgr, clock = self.mgr, self.clock
-        if op.kind in _UNPORTED:
-            raise NotImplementedError(f"op {op.kind}: "
-                                      f"{_UNPORTED[op.kind][1]}")
         if op.kind == "init":
             devices = tuple(f"simdev{i}"
                             for i in range(self.cfg.num_devices))
@@ -189,7 +186,16 @@ class ScenarioRunner:
             return None
         assert mgr is not None, "scenario must start with init"
         if op.kind == "attach":
-            mgr.attach(self._tenant(op.tenant))
+            tn = self._tenant(op.tenant)
+            if getattr(tn, "gang_shells", None):
+                mgr.attach_group(tn)     # lead + shells, atomically
+            else:
+                mgr.attach(tn)
+        elif op.kind == "reshape":
+            # journaled gang width change: attach/detach shell members
+            # to reach op.num_vfs stages, then apply the template
+            mgr.reshape(self._tenant(op.tenant), op.num_vfs)
+            clock.advance(0.02)
         elif op.kind == "detach":
             mgr.detach(self._tenant(op.tenant))
             clock.advance(0.02)

@@ -1,14 +1,14 @@
 """Invariant checker — asserted after EVERY op of every scenario (mirrors
 ``repro.sim.invariants``).
 
-Ported: I1-I5, I8, I10, I12 and I13 (``check_invariants``), I6
+Ported: I1-I5, I8, I10, I12, I13 and I14 (``check_invariants``), I6
 (``check_timings``), I7 (``check_pause_timings``) and I11
 (``check_autoscale``); I9 lives in
-``repro_torch.sim.chaos.recover_manager``. Not ported yet: the I14
-gang/template block (ROADMAP Queue 1 item 13) and ``check_federation``
-(I15, with I16, item 9). I4 reads each device leaf to the host once and compares it
-with ``expected_state`` bit for bit; I12 reads a serving tenant's block
-table to the host once.
+``repro_torch.sim.chaos.recover_manager``. Not ported yet:
+``check_federation`` (I15, with I16, ROADMAP Queue 1 item 9). I4 reads
+each device leaf to the host once and compares it with
+``expected_state`` bit for bit; I12 reads a serving tenant's block table
+to the host once.
 
   I1  exclusive ownership: a tenant owns at most one VF, a VF at most one
       tenant, and device sets of device-holding VFs are pairwise disjoint
@@ -76,6 +76,17 @@ table to the host once.
       a migrated request's token stream still equals its no-migration
       oracle, because extraction ships the exact page bytes plus
       pos/last_token and sampling is counter-seeded
+  I14 gang/template coherence: every RUNNING pipeline gang lead runs at
+      a width it has a registered stage template for, exactly width-1 of
+      its shell members are running (one VF per stage, so with the
+      lead's own VF the gang spans exactly ``width`` VFs), and the
+      active template's stage bounds strictly partition periods
+      0..num_periods into width non-empty stages — i.e. a live engine's
+      VF set always matches exactly one registered template and its
+      stage-resident state partitions cleanly. A crashed gang op
+      (attach_group / reshape) must recover to a state satisfying this,
+      so a half-attached gang or a half-applied width change is a
+      violation, not a transient
 
 Violations raise ``InvariantViolation`` tagged by the caller with the
 scenario seed and op index, which is all that is needed to reproduce.
@@ -319,6 +330,33 @@ def check_invariants(mgr) -> None:
                       f"with no live request on this engine (source "
                       f"pages not freed after a committed migration, or "
                       f"a leaked admission)")
+
+    # -- I14: gang/template coherence ------------------------------------------
+    # A pipeline gang lead that is RUNNING must be at a registered
+    # template width, with exactly width-1 running shells (one VF per
+    # stage counting the lead's own) and stage bounds that strictly
+    # partition its periods. Checked only at quiescent points, so a
+    # crashed gang op that recovers half-attached shows up here.
+    for tid, tn in mgr.tenants.items():
+        shells = getattr(tn, "gang_shells", None)
+        if not shells or getattr(tn, "status", None) != "running":
+            continue
+        k = getattr(tn, "stage_width", 1)
+        if not tn.has_template(k):
+            _fail(f"I14 {tid}: live at width {k} with no registered "
+                  f"stage template")
+        live = [sh.tid for sh in shells
+                if getattr(sh, "status", None) == "running"]
+        if len(live) != k - 1:
+            _fail(f"I14 {tid}: width {k} but {len(live)} running "
+                  f"shells {live} (want exactly {k - 1})")
+        bounds = tuple(tn.stage_bounds())
+        nper = getattr(tn, "num_periods", None)
+        if (len(bounds) != k + 1 or bounds[0] != 0
+                or bounds[-1] != nper
+                or any(b2 <= b1 for b1, b2 in zip(bounds, bounds[1:]))):
+            _fail(f"I14 {tid}: stage bounds {bounds} do not partition "
+                  f"{nper} periods into {k} non-empty stages")
 
 
 def check_timings(timings: dict) -> None:

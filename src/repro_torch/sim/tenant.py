@@ -25,8 +25,9 @@ round-trip without shadow bookkeeping.
 ``SimServeTenant`` (the toy paged serving engine) keeps its four state
 arrays on the device too, so pause and unpause move them through the
 staging engine; its request plane stays on the host, as in the JAX
-package. ``SimPipelineTenant`` (pipeline gangs) is not ported: it comes
-with the gang ops (ROADMAP Queue 1 item 13).
+package. ``SimPipelineTenant`` leads a pipeline gang: a serving tenant
+with shell members (``pg0.s1``, ``pg0.s2``, ...), one plain ``SimTenant``
+each.
 """
 from __future__ import annotations
 
@@ -663,6 +664,81 @@ class SimServeTenant:
 
     def inject_failure(self):
         self._fail_next = True
+
+
+class SimPipelineTenant(SimServeTenant):
+    """A serving tenant that LEADS a pipeline gang — the sim analogue of
+    the fleet's ``PipelineServeEngine`` + shell tenants.
+
+    The lead is a full ``SimServeTenant`` (queue, paged KV, I10 oracle)
+    that additionally carries ``gang_shells``: one plain ``SimTenant``
+    per extra stage, pre-built at MAX width so a grow-reshape attaches an
+    existing shell instead of minting one (mirrors the fleet, where
+    shells are created up to ``max_stage_width`` for headroom). Shell
+    tids use a ``.`` separator (``pg0.s1``) because tids become
+    RecordStore file names.
+
+    ``apply_reshape(k)`` only moves the width pointer: the toy model's
+    cells are pure functions of absolute indices, so token bit-identity
+    across a reshape (I10) holds by construction here — what the sim
+    adds on top is the MANAGEMENT-plane story (journaled gang ops, crash
+    windows, I14 gang coherence), which is exactly what the real engine
+    cannot exercise cheaply at scenario scale. The lead's arrays and the
+    shells' state live on ``device``."""
+
+    #: period count the stage templates partition (divisible by 1..3)
+    SIM_NPER = 12
+
+    def __init__(self, tid: str, seed: int = 0, *,
+                 clock: Optional[VirtualClock] = None,
+                 placement: str = "first_fit", width: int = 2,
+                 max_width: int = 3, leaf_size: int = 16, device="cuda"):
+        super().__init__(tid, seed=seed, clock=clock, placement=placement,
+                         device=device)
+        if not 1 <= width <= max_width <= self.SIM_NPER:
+            raise ValueError(f"{tid}: width {width}, max_width "
+                             f"{max_width}, periods {self.SIM_NPER}")
+        self._width = int(width)
+        self.max_stage_width = int(max_width)
+        self.num_periods = self.SIM_NPER
+        self.reshape_count = 0
+        # disjoint rid space: sv* engines mint rids from 0 and share one
+        # request plane (rebalance/migration moves rids between them);
+        # the gang lead never exchanges requests with them, but I13
+        # keys liveness by rid across ALL serve-shaped tenants
+        self._next_rid = 1_000_000
+        self.gang_shells = tuple(
+            SimTenant(f"{tid}.s{i}", seed=seed * 31 + i,
+                      leaf_size=leaf_size, clock=clock,
+                      placement=placement, device=self.device)
+            for i in range(1, max_width))
+        for sh in self.gang_shells:
+            sh.lead = self
+
+    # -- template / width protocol (manager gang ops + I14) ----------------
+    @property
+    def stage_width(self) -> int:
+        return self._width
+
+    def has_template(self, k: int) -> bool:
+        return 1 <= k <= self.max_stage_width
+
+    def stage_bounds(self) -> tuple:
+        base, rem = divmod(self.SIM_NPER, self._width)
+        bounds = [0]
+        for i in range(self._width):
+            bounds.append(bounds[-1] + base + (1 if i < rem else 0))
+        return tuple(bounds)
+
+    def apply_reshape(self, k: int) -> None:
+        """Pure width relayout, idempotent at the current width (the
+        manager's crash recovery re-applies it unconditionally)."""
+        if k == self._width:
+            return
+        if not self.has_template(k):
+            raise ValueError(f"no sim stage template for K={k}")
+        self._width = int(k)
+        self.reshape_count += 1
 
 
 class ServeSimTenant:

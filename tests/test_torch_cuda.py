@@ -950,3 +950,58 @@ def test_decode_roofline_rows_on_card_within_the_data_sheet(cuda):
     for k in ("flash_decode", "paged_decode", "paged_decode_quant",
               "fused_sample", "ssm_scan"):
         assert ops.LAUNCHES[k] > before[k], k
+
+
+# ---------------------------------------------------------------------------
+# pipeline-parallel serving
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_pipeline_gang_on_card_equals_single_stage(cuda, kv_dtype):
+    """deepseek-67b's smoke config with 4 layers (head_dim 16) on the card,
+    bf16: ``PipelineServeEngine`` at K = 1-4 and across a live reshape 4
+    -> 2 gives the single-stage paged engine's streams bit for bit
+    (greedy and sampled), launching the paged decode kernel; after
+    ``drop_device_state`` no stage view holds the card's memory."""
+    import dataclasses
+    from repro_torch.configs import make_run_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.pipeline_engine import PipelineServeEngine
+    run = make_run_config("deepseek-67b", "decode_32k", smoke=True)
+    run = run.replace(model=dataclasses.replace(run.model, num_layers=4))
+    params = build_model(run).init(seed=2, device=cuda)
+    kernel = "paged_decode_quant" if kv_dtype else "paged_decode"
+
+    def serve(eng, hook=None):
+        reqs = [Request(rid=i, prompt=(np.arange(n) * (i + 3) + 1) % 500,
+                        max_new_tokens=8, temperature=0.8 if i % 2 else 0.0,
+                        top_k=16 if i % 4 == 1 else 0, seed=3 + i)
+                for i, n in enumerate((5, 9, 3, 17, 12))]
+        for r in reqs:
+            eng.submit(r)
+        steps = 0
+        while (eng.step() or eng.queue) and steps < 200:
+            steps += 1
+            if hook is not None:
+                hook(eng, steps)
+        assert all(r.done for r in reqs)
+        return [list(r.out) for r in reqs]
+
+    kw = dict(device=cuda, slots=3, max_len=64, kv_dtype=kv_dtype)
+    want = serve(ServeEngine(run, params, paged=True, **kw))
+    for k in (1, 2, 3, 4):
+        before = ops.LAUNCHES[kernel]
+        assert serve(PipelineServeEngine(run, params, stages=k, **kw)) \
+            == want, k
+        assert ops.LAUNCHES[kernel] > before
+    gang = PipelineServeEngine(run, params, stages=4, **kw)
+    assert serve(gang, hook=lambda e, s: s == 4 and e.apply_reshape(2)) \
+        == want
+    assert gang.stage_width == 2 and gang.reshape_count == 1
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(cuda)
+    gang.drop_device_state()
+    torch.cuda.synchronize()
+    assert gang._sparams is None
+    assert m0 - torch.cuda.memory_allocated(cuda) > 0

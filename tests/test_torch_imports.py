@@ -69,6 +69,17 @@ def test_elastic_plane_modules_are_checked():
         assert mod in checked, mod
 
 
+def test_pipeline_modules_are_checked():
+    """The pipeline-parallel serving modules (the GPipe schedule, the
+    stage templates, the pipeline engine) and their driver are among the
+    files held free of JAX above."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    for mod in ("runtime/pipeline.py", "serve/stages.py",
+                "serve/pipeline_engine.py", "bench/pipeline_serve.py"):
+        assert mod in checked, mod
+
+
 def test_serve_plane_benchmarks_and_runtime_are_checked():
     """``runtime`` (the kernel half of the roofline model) and the
     throughput, prefix-share, decode-roofline and serve-path benchmarks are

@@ -4,18 +4,19 @@
 The JAX package is the oracle, run on the same seeds and configs:
 
 * ``generate_scenario`` emits the same op tuples, for every tested seed
-  and config (the rates the port's runner refuses included);
+  and config;
 * ``ScenarioRunner(cfg, device="cpu").run()`` gives the same
   ``fingerprint()``, ``num_ok``, ``num_rejected`` and ``virtual_seconds``,
   and every final ``SimTenant`` leaf is bit-equal to the JAX tenant's
   ``export_state()`` (exact: fp32 adds of the same numpy draws);
-* ``run_crash_case`` gives the same rows for each of the 15 ported crash
-  points (the four ``migrate_*`` windows included);
-* with nonzero autoscale and migrate rates the runners agree too, and the
-  serving sim tenant's migration methods match the JAX tenant's;
-* the checker bites (I4, I10, I12), and the unported reshape op, rate and
-  gang crash points raise ``NotImplementedError`` naming their ROADMAP
-  item;
+* ``run_crash_case`` gives the same rows for each of the 19 crash points
+  (the four ``migrate_*`` and the four gang windows included; the gang
+  windows at two more seeds too);
+* with nonzero autoscale, migrate and reshape rates the runners agree
+  too (the reshape op with the pipeline gang lead ``pg0``, I14 after
+  every op), and the serving sim tenant's migration methods match the
+  JAX tenant's;
+* the checker bites (I4, I10, I12);
 * the three benchmarks in ``repro_torch.bench`` run and print the JAX
   benchmarks' report keys (the committed ``BENCH_*.json`` of the JAX
   package).
@@ -82,17 +83,19 @@ def test_scenario_config_fields_match_jax():
 
 
 def test_crash_catalogue_matches_jax():
-    """All 19 points kept as data (the generator draws from them), the 15
-    of the core ops and request migration recovered."""
+    """All 19 points of the catalogue (the generator draws from them), and
+    all 19 recovered: the core ops', request migration's and the gang
+    ops'."""
     assert ({k: dataclasses.astuple(v) for k, v in tsim.CRASH_POINTS.items()}
             == {k: dataclasses.astuple(v)
                 for k, v in jsim.CRASH_POINTS.items()})
     assert len(tsim.CRASH_POINTS) == 19
-    assert len(tsim.PORTED_POINTS) == 15
+    assert len(tsim.PORTED_POINTS) == 19
+    assert sorted(tsim.PORTED_POINTS) == sorted(jsim.CRASH_POINTS)
     assert len([p for p in tsim.PORTED_POINTS
                 if p.startswith("migrate_")]) == 4
-    assert not [p for p in tsim.PORTED_POINTS
-                if p.startswith(("gang_", "reshape_"))]
+    assert len([p for p in tsim.PORTED_POINTS
+                if p.startswith(("gang_", "reshape_"))]) == 4
 
 
 def _leaves(tree) -> dict:
@@ -151,7 +154,7 @@ def test_crash_case_matches_jax(point):
 def test_crash_matrix_default_is_the_ported_points():
     out = tsim.crash_matrix(seeds=(0,), policies=("best_fit",),
                             device="cpu")
-    assert out["summary"]["num_cases"] == 15
+    assert out["summary"]["num_cases"] == 19
     assert out["summary"]["num_failures"] == 0
     assert sorted(c["point"] for c in out["cases"]) == sorted(
         tsim.PORTED_POINTS)
@@ -253,11 +256,33 @@ def test_serve_tenant_pause_live_round_trip(tmp_path):
 # ---------------------------------------------------------------------------
 # refusals, each naming its ROADMAP item
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("rate,item", [("reshape_rate", "item 13")])
-def test_runner_refuses_unported_rates(rate, item):
-    cfg = tsim.ScenarioConfig(seed=0, serve_rate=0.3, **{rate: 0.2})
-    with pytest.raises(NotImplementedError, match=item):
-        tsim.ScenarioRunner(cfg, device="cpu")
+@pytest.mark.parametrize("policy", POLICIES)
+def test_runner_refuses_unported_rates(policy):
+    """``reshape_rate`` runs (the pipeline gang lead ``pg0`` attached
+    whole, its width changed by ``reshape`` ops, I14 after every op): per
+    op outcomes, virtual time, statuses, the gang's width and every
+    serving tenant's stream equal the JAX runner's, seeds 0-3."""
+    for seed in range(4):
+        kw = dict(seed=seed, policy=policy, serve_rate=0.3,
+                  reshape_rate=0.25, crash_rate=0.06, max_vfs=8)
+        jr = jsim.ScenarioRunner(jsim.ScenarioConfig(**kw))
+        want = jr.run()
+        tr = tsim.ScenarioRunner(tsim.ScenarioConfig(**kw), device="cpu")
+        got = tr.run()
+        assert got.fingerprint() == want.fingerprint(), seed
+        assert got.virtual_seconds == want.virtual_seconds
+        assert [r.status for r in got.ops] == [r.status for r in want.ops]
+        assert sorted(tr.tenants) == sorted(jr.tenants)
+        assert "pg0" in tr.tenants
+        for tid, jt in jr.tenants.items():
+            tt = tr.tenants[tid]
+            assert (tt.status, tt.steps_done) == (jt.status, jt.steps_done)
+            if hasattr(jt, "requests"):
+                assert ([(r.rid, r.out, r.done) for r in tt.requests]
+                        == [(r.rid, r.out, r.done) for r in jt.requests])
+        assert (tr.tenants["pg0"].stage_width,
+                tr.tenants["pg0"].reshape_count) == (
+            jr.tenants["pg0"].stage_width, jr.tenants["pg0"].reshape_count)
 
 
 ELASTIC_CONFIGS = {"autoscale": {"autoscale_rate": 0.2},
@@ -300,11 +325,17 @@ def test_runner_elastic_rates_match_jax(name, policy):
                             jt.migration_stall_ticks))
 
 
-@pytest.mark.parametrize("point", sorted(
-    set(tsim.CRASH_POINTS) - set(tsim.PORTED_POINTS)))
+@pytest.mark.parametrize("point", [
+    "gang_before_commit", "gang_mid_member", "reshape_before_commit",
+    "reshape_mid_members"])
 def test_unported_crash_points_refused(point):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsim.run_crash_case(point, 0, device="cpu")
+    """The four gang windows recover: at seeds 2 and 3 (the grow and the
+    shrink reshape), each policy, the JAX rows."""
+    for seed in (2, 3):
+        for policy in POLICIES:
+            want = jax_crash_case(point, seed, policy)
+            got = tsim.run_crash_case(point, seed, policy, device="cpu")
+            assert got == want and got["ok"]
 
 
 def test_serve_tenant_migration_methods_refused(tmp_path):

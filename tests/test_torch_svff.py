@@ -245,25 +245,18 @@ def test_pause_drops_every_device_tensor(setup, tmp_path):
 
 def test_unported_fleet_paths_raise_naming_their_roadmap_item(setup,
                                                               tmp_path):
-    """What stays refused on the elastic fleet: the gang ops and the
-    reshape (item 13, ``handle_vf_loss`` among them, since it reshapes)
-    and the federation (item 9). Migration, recovery and the autoscaler
-    run: ``test_torch_migration.py``, ``test_torch_autoscaler.py``."""
+    """What stays refused on the elastic fleet: the federation (item 9).
+    Migration, recovery, the autoscaler and the gang ops run:
+    ``test_torch_migration.py``, ``test_torch_autoscaler.py``,
+    ``test_torch_gang.py``."""
     tf = _fleet(setup, PORT_SIDE, tmp_path, num_engines=2)
     s0, s1 = tf.tenants["serve0"], tf.tenants["serve1"]
-    for call, item in ((lambda: tf.reshape_engine("serve0", 2), "item 13"),
-                       (lambda: tf.handle_vf_loss("serve0", "vf1"),
-                        "item 13"),
-                       (lambda: tf.mgr.attach_group(s0), "item 13"),
-                       (lambda: tf.mgr.reshape(s0, 2), "item 13"),
-                       (lambda: tf.mgr.migrate_request(s0, s1,
+    for call, item in ((lambda: tf.mgr.migrate_request(s0, s1,
                                                        dst_host="host1"),
                         "item 9"),
                        (tf.federation_snapshot, "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             call()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _fleet(setup, PORT_SIDE, tmp_path / "b", num_engines=1, stages=2)
     # the autoscaler's paths run; without a config the step is a typed
     # refusal, as in the JAX fleet
     with pytest.raises(ValueError, match="autoscale"):
