@@ -27,9 +27,21 @@ narrowed live to 3 and 2 mid-decode, an int8-KV gang at K=2, a
 2 -> 3, ``handle_vf_loss`` 3 -> 2 and a gang lead's live pause leave
 every stream equal to the undisturbed fleet's (then two int8 pauses of
 gang leads), the sim plane's reshape scenarios, and
-``bench.pipeline_serve``. Then the hybrid Mamba-attention stack, jamba-1.5-large-398b-1p-dense (one
-period of Jamba-1.5-Large at every published width, 1 attention and 7
-mamba layers, dense FFNs, bf16 params, random weights from ``--seed``):
+``bench.pipeline_serve``. Then the federation at the same width: two
+``Host``s under one ``FederationCoordinator``, each with one paged bf16
+engine, requests moved between them mid-decode through the journaled
+cross-host ``migrate_request`` (8 clean in both directions, 3 under
+``fed_migrate_mid_ship`` rolled back and 3 under
+``fed_migrate_after_admit`` rolled forward after a heal and a recovery,
+an ownership witness at every step, the streams equal to the paged bf16
+engine's), a two-engine fleet's ``federation_snapshot``, federation
+scenarios and the 210-cell network-fault matrix with the sim state on
+the card (each scenario equal to its CPU run), and ``bench.federation``
+at the JAX artifact's scale (8 hosts x 256 engines, 120,000 requests; a
+host-side driver whose digests equal the JAX benchmark's). Then the
+hybrid Mamba-attention stack, jamba-1.5-large-398b-1p-dense (one period
+of Jamba-1.5-Large at every published width, 1 attention and 7 mamba
+layers, dense FFNs, bf16 params, random weights from ``--seed``):
 prefill logits through the kernels against the plain versions, the paged
 ``ServeEngine`` with bf16 and int8 KV pages, and the uniform-position
 generate path of ``make_serve_steps`` against the teacher-forced forward.
@@ -67,8 +79,9 @@ Phases: card, build, one phase per kernel, qwen serve (bf16, int8), SVFF
 scale-in, recovery, elastic sweep), serve plane (dense ring, serve path,
 prefix share, decode roofline, throughput x2), pipeline (gang engines
 K=1-4, live reshape, int8 gang, gang fleet, reshape scenarios, pipeline
-bench), hybrid prefill, hybrid
-serve (bf16, int8), hybrid generate, train launch, train tenant
+bench), federation (cross-host engines, federation snapshot, fed
+scenarios, network-fault matrix, federation bench), hybrid prefill,
+hybrid serve (bf16, int8), hybrid generate, train launch, train tenant
 (bit-exact, int8), eval step, Tables I/II, sim sweep (two passes), crash
 matrix, pause path, families (per model: prefill, serve on its engines;
 olmoe's group rule, xlstm's generate path), kernels line, result line. Any failed check exits
@@ -479,16 +492,25 @@ def one_kernel_each(torch, calls, name):
 #: before the window and are dropped (PERF.md §7). The sleeps take that
 #: loss, and the region's own events lie well inside.
 PROFILE_PAD_CYCLES = 40_000_000
+#: and short spins launched after that first sleep, then waited for: a
+#: session also drops the device records of the first few dozen launches
+#: after the sleep's synchronize, whatever the sleep's length (on the
+#: H100: 41-57 launches, ~4-5 ms, more in an older process; the hybrid's
+#: generate step then lost its flash_decode record). The spins take that
+#: loss: more launches, and a longer span, than it took.
+PROFILE_SPINS = 128
+PROFILE_SPIN_CYCLES = 150_000
 
 
 def profiled(torch, fn, pad: int = PROFILE_PAD_CYCLES):
     """Run ``fn`` in one torch.profiler session between two device
-    sleeps of ``pad`` cycles, the first waited for. Returns (fn's result,
+    sleeps of ``pad`` cycles, the first waited for and followed by
+    PROFILE_SPINS short spins, waited for too. Returns (fn's result,
     the names of the device events the region put on the card, kernels,
-    copies and memsets alike, the sleeps left out, and the card's lead in
-    ms: the most any device event's start precedes the start of its own
-    launch call on the host, matched by correlation id. fn's first
-    launches find the card idle, so their work starts microseconds after
+    copies and memsets alike, the sleeps and spins left out, and the
+    card's lead in ms: the most any of fn's device events' start precedes
+    the start of its own launch call on the host, matched by correlation
+    id. fn's first launches find the card idle, so their work starts microseconds after
     the call: the lead is that much below 0 where the two clocks agree,
     and above 0 by about their disagreement where the card's leads. None
     where no launch was matched)."""
@@ -496,6 +518,9 @@ def profiled(torch, fn, pad: int = PROFILE_PAD_CYCLES):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(pad)
+        torch.cuda.synchronize()
+        for _ in range(PROFILE_SPINS):
+            torch.cuda._sleep(PROFILE_SPIN_CYCLES)
         torch.cuda.synchronize()        # fn's launches find the card idle
         out = fn()
         torch.cuda._sleep(pad)
@@ -507,7 +532,8 @@ def profiled(torch, fn, pad: int = PROFILE_PAD_CYCLES):
     launch = {e.correlation_id(): e.start_ns() for e in raw
               if e.device_type() != dev and e.name().startswith("cuda")}
     leads = [launch[e.correlation_id()] - e.start_ns() for e in raw
-             if e.device_type() == dev and e.correlation_id() in launch]
+             if e.device_type() == dev and e.correlation_id() in launch
+             and "spin_kernel" not in e.name()]
     return out, names, (max(leads) / 1e6 if leads else None)
 
 
@@ -2483,6 +2509,476 @@ def run_pipeline(torch, ops, args, card, report, launches, params, ref):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the federation: hosts, cross-host request migration, the fed sim plane
+# ---------------------------------------------------------------------------
+FED_PLAN = ("clean", "clean", "mid_ship", "clean", "after_admit", "clean",
+            "mid_ship", "clean", "after_admit", "clean", "mid_ship",
+            "clean", "after_admit", "clean")   # 8 clean, 3 + 3 deferred
+FED_FROM = 3             # the first migration before this step,
+FED_EVERY = 2            # then the plan's next one every this many steps
+FED_WINDOWS = {"mid_ship": "fed_migrate_mid_ship",
+               "after_admit": "fed_migrate_after_admit"}
+FED_KERNELS = ("flash_attention", "paged_decode", "fused_sample")
+#: the JAX package's fault-soup rates (tests/test_federation.py:240-245)
+FED_SOUP = dict(num_ops=35, partition_rate=0.15, crash_rate=0.1,
+                handoff_rate=0.05, migrate_rate=0.15, autoscale_rate=0.1)
+FED_SCENARIO_S = 30.0    # the fed scenarios fill about this long
+FED_MATRIX_SEEDS = 10    # the JAX acceptance matrix's seeds, 0-9
+FED_MATRIX_CUT_S = 60.0  # past this, best_fit and fair_share take seeds 0-2
+FED_MATRIX_CUT_SEEDS = 3
+#: ``benchmarks/federation.py``'s defaults, the JAX artifact's scale
+FED_BENCH = dict(hosts=8, engines_per_host=256, requests=120_000,
+                 policy="fair_share", seed=0, partition_rate=0.05)
+#: the JAX benchmark's fleet digests at FED_BENCH (``python
+#: benchmarks/federation.py``; the committed BENCH_federation.json holds
+#: the same two)
+JAX_FED_DIGESTS = {"base": 1134344211, "faults": 521750552}
+#: the keys of the JAX fleet's ``federation_snapshot`` payload and of its
+#: bus replica (``src/repro/serve/fleet.py:572-579``,
+#: ``src/repro/serve/telemetry.py:158-160``)
+FED_SNAPSHOT_KEYS = ("capacity", "engines", "free_vfs", "host_id", "load",
+                     "max_load", "stamp", "telemetry")
+FED_REPLICA_KEYS = ("engines", "rejected_recent", "stamp")
+
+
+def port_federation_kit(device) -> dict:
+    """The port's classes for ``federation_engines``, engines on
+    ``device``."""
+    from repro_torch.core import (Fabric, FederationCoordinator, Host,
+                                  HostUnreachableError)
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.fleet import EngineTenant
+    from repro_torch.sim import (VirtualClock, check_invariants,
+                                 federation_fingerprint)
+    return dict(Host=Host, Coordinator=FederationCoordinator, Fabric=Fabric,
+                Clock=VirtualClock, Tenant=EngineTenant,
+                Unreachable=HostUnreachableError,
+                check_invariants=check_invariants,
+                fingerprint=federation_fingerprint,
+                engine=lambda run, params, **kw: ServeEngine(
+                    run, params, device=device, **kw))
+
+
+def _fed_ownership(tns, live, deferred):
+    """The I15 witness over the two engines (``check_federation`` cannot
+    see them: ``Host.serve_targets`` admits only tenants with
+    ``submit_request``): every live rid is served — queued, or active and
+    not frozen — by exactly one engine; a deferred mid-ship rid by none;
+    a deferred after-admit rid by its target alone (the target admitted
+    it before the partition struck)."""
+    serving = {}
+    for tn in tns:
+        eng = tn.engine
+        frozen = set(eng._migrating)
+        for r in list(eng.queue) + [r for r in eng.active if r is not None]:
+            if r.rid not in frozen:
+                serving.setdefault(r.rid, []).append(tn.tid)
+    for rid in live:
+        want = deferred.get(rid, "one")
+        got = serving.get(rid, [])
+        if want == "one":
+            check(len(got) == 1, f"federation: request {rid} served by "
+                                 f"{got}, not by exactly one engine (I15)")
+        else:
+            check(got == want, f"federation: deferred request {rid} served "
+                               f"by {got}, want {want} (I15)")
+
+
+def federation_engines(kit, run, params, workdir, reqs, *, slots=8,
+                       max_len=1024, page_size=16, fused=True,
+                       sync=lambda: None) -> dict:
+    """Two ``Host``s, h0 and h1, on one ``VirtualClock`` and one ``Fabric``,
+    each holding one paged engine tenant (``slots`` slots, bf16 KV,
+    ``fused`` sampling; the engines share ``params``) under its own
+    manager, adopted, under one ``FederationCoordinator``. Request i
+    arrives at h0's engine before step i * ARRIVE_EVERY. From step
+    FED_FROM, every FED_EVERY steps the next migration of FED_PLAN runs
+    through ``co.migrate_request(src_host, dst_host, rid, src_tid=,
+    dst_tid=)``: a clean one (h0 -> h1 and h1 -> h0 in turn, where the
+    turn's source has a migratable request and its target a free slot),
+    or one interrupted by an armed fault window (a request no window took
+    before): it must raise ``HostUnreachableError`` and leave one deferred
+    ``migrate_request`` entry carrying ``dst_host`` with the source slot
+    frozen; then heal, ``heartbeat_all`` and ``recover()``: a mid-ship
+    request resumes on the source, an after-admit one on the target, the
+    source's copy freed, no entry pending, and a second ``recover()``
+    leaves ``federation_fingerprint`` unchanged (I16). The ownership
+    witness runs at every quiescent point. ``kit`` holds the classes
+    (``port_federation_kit``, or the JAX package's in a CPU test).
+    Returns the token streams, the migrations and both journals."""
+    clock, fabric = kit["Clock"](), kit["Fabric"]()
+    hosts, tns = [], []
+    for i in range(2):
+        hid = f"h{i}"
+        host = kit["Host"](hid, workdir=os.path.join(workdir, hid),
+                           clock=clock, num_devices=2, max_vfs=2)
+        eng = kit["engine"](run, params, slots=slots, max_len=max_len,
+                            paged=True, page_size=page_size,
+                            fused_sampling=fused)
+        tn = kit["Tenant"](f"{hid}.serve0", eng)
+        host.mgr.init(num_vfs=1, tenants=[tn])
+        host.adopt({tn.tid: tn})
+        hosts.append(host)
+        tns.append(tn)
+    co = kit["Coordinator"](hosts, clock=clock, fabric=fabric)
+    co.heartbeat_all()
+    plan = list(FED_PLAN)
+    migrations, faulted = [], set()
+    arrived, steps, clean_turn = [], 0, 0
+
+    def live():
+        return [r.rid for r in arrived if not r.done]
+
+    def candidate(i, exclude=()):
+        """A migratable rid on engine i whose target has a free slot."""
+        dst = tns[1 - i].engine
+        if sum(r is not None for r in dst.active) >= slots:
+            return None
+        for r in tns[i].engine.active:
+            if (r is not None and r.rid not in exclude
+                    and tns[i].peek_migratable(r.rid) is not None):
+                return r.rid
+        return None
+
+    def migrate(kind) -> bool:
+        nonlocal clean_turn
+        if kind == "clean":
+            order = (clean_turn % 2, 1 - clean_turn % 2)
+            exclude = ()
+        else:
+            order, exclude = (0, 1), faulted
+        pick = next(((i, rid) for i in order
+                     if (rid := candidate(i, exclude)) is not None), None)
+        if pick is None:
+            return False
+        i, rid = pick
+        src, dst = hosts[i], hosts[1 - i]
+        kw = dict(src_tid=tns[i].tid, dst_tid=tns[1 - i].tid)
+        if kind == "clean":
+            clean_turn += 1
+            sync()
+            t0 = time.perf_counter()
+            out = co.migrate_request(src.host_id, dst.host_id, rid, **kw)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            last = src.mgr.journal.entries()[-1]
+            check(out["rid"] == rid and out["dst_host"] == dst.host_id
+                  and last["op"] == "migrate_request"
+                  and last["status"] == "committed"
+                  and last["details"].get("dst_host") == dst.host_id,
+                  f"federation: clean migration of {rid} {out} / {last}")
+            migrations.append({"kind": kind, "rid": rid, "src": src.host_id,
+                               "dst": dst.host_id, "ms": ms,
+                               "blocks": out["blocks"]})
+            return True
+        window = FED_WINDOWS[kind]
+        faulted.add(rid)
+        fabric.arm(window, [co.node_id, src.host_id], [dst.host_id])
+        try:
+            co.migrate_request(src.host_id, dst.host_id, rid, **kw)
+            check(False, f"federation: {window} never interrupted the "
+                         f"migration of {rid}")
+        except kit["Unreachable"]:
+            pass
+        check(fabric.fired[-1:] == [window],
+              f"federation: {window} never fired ({fabric.fired})")
+        deferred = [e for e in src.mgr.journal.pending()
+                    if e["details"].get("deferred_cross_host")]
+        check(len(deferred) == 1 and deferred[0]["op"] == "migrate_request"
+              and deferred[0]["details"].get("rid") == rid
+              and deferred[0]["details"].get("dst_host") == dst.host_id,
+              f"federation: {window}: no deferred entry for {rid} "
+              f"carrying dst_host ({deferred})")
+        check(rid in tns[i].engine._migrating,
+              f"federation: {window}: source slot of {rid} not frozen")
+        forward = kind == "after_admit"
+        _fed_ownership(tns, live(),
+                       {rid: [tns[1 - i].tid] if forward else []})
+        fabric.heal()
+        co.heartbeat_all()
+        co.recover()
+        fp = kit["fingerprint"](hosts, co)
+        co.recover()
+        check(kit["fingerprint"](hosts, co) == fp,
+              f"federation: {window}: a second recover changed the "
+              "fingerprint (I16)")
+        owner = tns[1 - i] if forward else tns[i]
+        owners = [tn.tid for tn in tns if tn.owns_request(rid)]
+        check(owners == [owner.tid],
+              f"federation: {window}: {rid} owned by {owners}, want "
+              f"[{owner.tid}]")
+        check(not any(h.mgr.journal.pending() for h in hosts)
+              and rid not in tns[i].engine._migrating,
+              f"federation: {window}: the deferred entry or the frozen "
+              "slot survived the post-heal recover")
+        if forward:
+            check(not tns[i].engine.alloc.pages_of(rid),
+                  f"federation: {window}: the source kept pages of {rid}")
+        migrations.append({"kind": kind, "rid": rid, "src": src.host_id,
+                           "dst": dst.host_id,
+                           "resumed_on": owner.tid})
+        return True
+
+    engines = [tn.engine for tn in tns]
+    while steps < 4000:
+        k = steps // ARRIVE_EVERY
+        if steps % ARRIVE_EVERY == 0 and k < len(reqs):
+            engines[0].submit(reqs[k])
+            arrived.append(reqs[k])
+        if (plan and steps >= FED_FROM
+                and (steps - FED_FROM) % FED_EVERY == 0):
+            if migrate(plan[0]):
+                plan.pop(0)
+        _fed_ownership(tns, live(), {})
+        for eng in engines:
+            eng.step()
+        co.heartbeat_all()
+        steps += 1
+        if (len(arrived) == len(reqs) and not plan
+                and not any(e.queue or any(r is not None for r in e.active)
+                            for e in engines)):
+            break
+    check(not plan, f"federation: the plan's migrations {plan} never found "
+                    "a migratable request")
+    check(all(r.done and r.error is None for r in reqs),
+          "federation: not every request completed")
+    for host in hosts:
+        kit["check_invariants"](host.mgr)
+    journals = {h.host_id: [(e["op"], e["tenant"], e["status"],
+                             e["details"].get("recovered"),
+                             e["details"].get("dst_host"),
+                             e["details"].get("rid"))
+                            for e in h.mgr.journal.entries()]
+                for h in hosts}
+    return {"streams": [list(r.out) for r in reqs], "steps": steps,
+            "migrations": migrations, "journals": journals,
+            "hosts": hosts, "tenants": tns}
+
+
+def phase_federation_engines(torch, run, params, seed, workdir, paged, card):
+    """``federation_engines`` at qwen3-0.6b's full width on the card, with
+    the 16 serve requests: every stream equals the undisturbed paged bf16
+    engine's (``paged``, the serve phase's), the clean migrations' ms
+    logged (median and range)."""
+    from repro_torch.serve.engine import Request
+    reqs = make_requests(Request, run.model.vocab_size, seed)
+    res = federation_engines(port_federation_kit(torch.device("cuda")), run,
+                             params, workdir, reqs,
+                             sync=torch.cuda.synchronize)
+    check(res["streams"] == paged["streams"],
+          "federation: a cross-host migration changed the tokens (the "
+          "streams differ from the undisturbed paged bf16 engine's)")
+    for tn in res["tenants"]:
+        check(all(t.device.type == "cuda" for blk in tn.engine._cache.values()
+                  for t in blk.values() if isinstance(t, torch.Tensor)),
+              f"federation: {tn.tid}'s pages left the card")
+    migs = res["migrations"]
+    clean = [m for m in migs if m["kind"] == "clean"]
+    ms = [m["ms"] for m in clean]
+    out = {"steps": res["steps"], "migrations": migs,
+           "journals": res["journals"],
+           "clean": len(clean),
+           "directions": sorted({(m["src"], m["dst"]) for m in clean}),
+           "rolled_back": sum(m["kind"] == "mid_ship" for m in migs),
+           "rolled_forward": sum(m["kind"] == "after_admit" for m in migs),
+           "migrate_ms_median": float(np.median(ms)),
+           "migrate_ms_min": min(ms), "migrate_ms_max": max(ms),
+           "streams_equal": len(reqs)}
+    check(out["clean"] >= 8 and len(out["directions"]) == 2
+          and out["rolled_back"] == 3 and out["rolled_forward"] == 3,
+          f"federation: migrations {out['clean']} clean in "
+          f"{out['directions']}, {out['rolled_back']} rolled back, "
+          f"{out['rolled_forward']} rolled forward")
+    log(f"federation qwen3-0.6b: {out['clean']} clean cross-host "
+        f"migrations ({', '.join('->'.join(d) for d in out['directions'])})"
+        f", cross-host migrate_request median {out['migrate_ms_median']:.2f}"
+        f" ms (range {out['migrate_ms_min']:.2f}-{out['migrate_ms_max']:.2f}"
+        f"); fed_migrate_mid_ship x3 deferred then rolled back, "
+        f"fed_migrate_after_admit x3 deferred then rolled forward; "
+        f"ownership witness at every step; {len(reqs)} streams equal the "
+        f"undisturbed engine's; I1-I14 on both managers | {card}")
+    return out
+
+
+def phase_federation_snapshot(torch, run, params, seed, workdir, card):
+    """``ServeFleet.federation_snapshot`` on a two-engine qwen3-0.6b fleet
+    mid-traffic: load, capacity, stamps and keys."""
+    from repro_torch.serve.engine import Request
+    fleet = make_fleet(run, params, torch.device("cuda"), workdir)
+    for r in make_requests(Request, run.model.vocab_size, seed)[:6]:
+        fleet.submit(r)
+    for _ in range(3):
+        fleet.step()
+    now = 12.5
+    snap = fleet.federation_snapshot(now)
+    running = [tn for tn in fleet.tenants.values() if tn.status == "running"]
+    check(snap["load"] == sum(tn.load for tn in running) > 0,
+          f"federation_snapshot: load {snap['load']}")
+    check(snap["capacity"] == fleet.slo_max_load * len(running),
+          f"federation_snapshot: capacity {snap['capacity']}")
+    check(snap["stamp"] == now and snap["telemetry"]["stamp"] == now,
+          f"federation_snapshot: stamps {snap['stamp']} / "
+          f"{snap['telemetry']['stamp']}, want {now}")
+    check(tuple(sorted(snap)) == FED_SNAPSHOT_KEYS
+          and tuple(sorted(snap["telemetry"])) == FED_REPLICA_KEYS,
+          f"federation_snapshot: keys {sorted(snap)} / "
+          f"{sorted(snap['telemetry'])}")
+    fleet.drain()
+    out = {k: snap[k] for k in ("host_id", "stamp", "load", "capacity",
+                                "max_load", "free_vfs", "engines")}
+    log(f"federation_snapshot: {json.dumps(out)} (load and capacity over "
+        f"{len(running)} running engines, the bus replica stamped "
+        f"{now}, the JAX payload's keys) | {card}")
+    del fleet
+    return out
+
+
+def phase_fed_scenarios(card, device, budget_s: float):
+    """``FedRunner`` over the three policies at the JAX fault-soup rates
+    with the sim state on ``device`` (I1-I15 after every op, I16 on every
+    host crash, every running tenant's state on ``device``), seeds until
+    ``budget_s``; each seed's fingerprint, counters and epoch equal a CPU
+    run of the same config."""
+    from repro_torch.sim import FedScenarioConfig, FedRunner
+    keys = ("fingerprint", "submitted", "rejected", "deferred", "epoch")
+    rows = {}
+    per = budget_s / len(SIM_POLICIES)
+    for policy in SIM_POLICIES:
+        t0 = time.perf_counter()
+        seeds = ops = 0
+        card_s = 0.0
+        while time.perf_counter() - t0 < per or seeds < 2:
+            cfg = FedScenarioConfig(seed=seeds, policy=policy, **FED_SOUP)
+            t1 = time.perf_counter()
+            got = FedRunner(cfg, device=device).run()
+            card_s += time.perf_counter() - t1
+            want = FedRunner(cfg, device="cpu").run()
+            check({k: got[k] for k in keys} == {k: want[k] for k in keys}
+                  and got["rows"] == want["rows"],
+                  f"fed scenario seed {seeds} {policy}: the card's run "
+                  f"{ {k: got[k] for k in keys} } != the CPU's "
+                  f"{ {k: want[k] for k in keys} }")
+            ops += got["ops"]
+            seeds += 1
+        rows[policy] = {"seeds": seeds, "ops": ops, "card_s": card_s,
+                        "ops_per_sec": ops / card_s}
+        log(f"fed scenarios {policy}: {seeds} seeds x {FED_SOUP['num_ops']} "
+            f"ops on {device} in {card_s:.2f} s, {ops / card_s:.1f} ops/s; "
+            f"fingerprints, counters and rows equal the CPU runs; I1-I15 "
+            f"after every op, I16 on every host crash | {card}")
+    return rows
+
+
+def phase_fed_matrix(card, device):
+    """Every window of ``NETWORK_FAULTS`` x seeds 0-9 x three policies on
+    ``device``, each cell green (the catalogued outcome, I15 during the
+    fault, I16 after the heal, I10 for every touched request). When
+    first_fit's 70 cells say the 210 would pass FED_MATRIX_CUT_S,
+    best_fit and fair_share take seeds 0-2 (112 cells)."""
+    from repro_torch.sim import NETWORK_FAULTS, network_fault_matrix
+    t0 = time.perf_counter()
+    rep = {"first_fit": network_fault_matrix(
+        seeds=range(FED_MATRIX_SEEDS), policies=("first_fit",),
+        device=device)}
+    first = time.perf_counter() - t0
+    seeds = (FED_MATRIX_SEEDS if first * len(SIM_POLICIES)
+             <= FED_MATRIX_CUT_S else FED_MATRIX_CUT_SEEDS)
+    for policy in SIM_POLICIES[1:]:
+        rep[policy] = network_fault_matrix(seeds=range(seeds),
+                                           policies=(policy,),
+                                           device=device)
+    wall = time.perf_counter() - t0
+    cells = sum(r["summary"]["num_cases"] for r in rep.values())
+    fails = sum(r["summary"]["num_failures"] for r in rep.values())
+    want = len(NETWORK_FAULTS) * (FED_MATRIX_SEEDS + 2 * seeds)
+    check(fails == 0 and cells == want,
+          f"network-fault matrix: {fails} of {cells} cells failed")
+    out = {"cells": cells, "failures": fails, "wall_s": wall,
+           "seeds": {"first_fit": FED_MATRIX_SEEDS, "best_fit": seeds,
+                     "fair_share": seeds},
+           "cut": seeds != FED_MATRIX_SEEDS}
+    log(f"network-fault matrix: {len(NETWORK_FAULTS)} windows x seeds "
+        f"{json.dumps(out['seeds'])} = {cells} cells green on {device} in "
+        f"{wall:.2f} s{' (cut: 210 cells would pass 60 s)' if out['cut'] else ''}"
+        f" | {card}")
+    return out
+
+
+def phase_fed_bench(card):
+    """``bench.federation`` at the JAX artifact's scale (8 hosts x 256
+    engines, 120,000 requests, fair_share, partition rate 0.05): every
+    gate and the scale floor hold, base digest == rerun digest, and the
+    base and faults digests equal the JAX benchmark's. The driver's
+    engines are dict-backed: it runs on the host, not on the card."""
+    from repro_torch.bench import federation
+    rows = federation.bench(**FED_BENCH, reduced=False)
+    base, rerun, faults, summary = rows
+    check(summary["all_gates"] and all(summary["gates"].values())
+          and all(summary["scale"].values()),
+          f"bench.federation: a gate failed ({summary})")
+    check(base["digest"] == rerun["digest"] == JAX_FED_DIGESTS["base"]
+          and faults["digest"] == JAX_FED_DIGESTS["faults"],
+          f"bench.federation: digests base {base['digest']} rerun "
+          f"{rerun['digest']} faults {faults['digest']}, the JAX "
+          f"benchmark's {JAX_FED_DIGESTS}")
+    for r in (base, rerun, faults):
+        log(f"bench.federation {r['run']}: {r['hosts']} hosts x "
+            f"{r['engines'] // r['hosts']} engines, {r['admitted']:,} "
+            f"admitted, {r['tokens']:,} tokens in {r['wall_s']:.3f} s: "
+            f"{r['admits_per_s']:.1f} admits/s, {r['tokens_per_s']:.1f} "
+            f"tokens/s on the host (the driver's engines hold no tensor); "
+            f"digest {r['digest']} | card {card}")
+    return {"rows": rows}
+
+
+def run_federation(torch, ops, args, card, report, launches, params, paged):
+    """The federation group at qwen3-0.6b's full width, each phase with the
+    launch counts set to 0 just before it and added to ``launches`` just
+    after: two hosts' engines with cross-host migrations (``paged``: the
+    undisturbed paged bf16 engine's streams), ``federation_snapshot``,
+    the fed scenarios and the network-fault matrix with the sim state on
+    the card, ``bench.federation``."""
+    from repro_torch.configs import make_run_config
+    run = make_run_config("qwen3-0.6b", "decode_32k", seed=args.seed)
+    device = torch.device("cuda")
+    report["federation"] = {}
+    workdir = tempfile.mkdtemp(prefix="fed_smoke_")
+    phases = (
+        ("engines", lambda: phase_federation_engines(
+            torch, run, params, args.seed, os.path.join(workdir, "fed"),
+            paged, card), FED_KERNELS),
+        ("snapshot", lambda: phase_federation_snapshot(
+            torch, run, params, args.seed, os.path.join(workdir, "snap"),
+            card), ()),
+        ("scenarios", lambda: phase_fed_scenarios(card, device,
+                                                  FED_SCENARIO_S), ()),
+        ("matrix", lambda: phase_fed_matrix(card, device), ()),
+        ("bench", lambda: phase_fed_bench(card), ()))
+    t_group = time.perf_counter()
+    try:
+        for name, phase, need in phases:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = phase()
+            counts = ops.launch_counts()
+            res["launches"] = counts
+            res["phase_s"] = time.perf_counter() - t0
+            report["federation"][name] = res
+            log(f"federation {name}: {res['phase_s']:.1f} s | launches "
+                f"{json.dumps(counts)}")
+            for k in need:
+                check(counts[k] > 0, f"{k} was never launched on the "
+                                     f"federation {name} path")
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            release(torch)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    report["federation"]["group_s"] = time.perf_counter() - t_group
+    log(f"federation group: {report['federation']['group_s']:.1f} s")
+
+
 def run_hybrid(torch, ops, args, card, report, launches):
     """The hybrid stack's phases at full width: its prefill, its serve
     path (bf16 and int8 KV) and its generate path (its kernels,
@@ -3460,6 +3956,8 @@ def main(argv=None) -> int:
                 ref=ref)
     run_serve_plane(torch, ops, args, card, report, launches, params, paged)
     run_pipeline(torch, ops, args, card, report, launches, params, ref)
+    run_federation(torch, ops, args, card, report, launches, params,
+                   paged)
     if args.profile:
         report["profile"] = phase_profile(torch, run, params, args.seed)
     del params

@@ -26,10 +26,10 @@ and the gang ops of pipeline-parallel engines (``attach_group``,
 or not at all and re-instantiated at another width live, with the crash
 windows ``gang_mid_member``, ``gang_before_commit``,
 ``reshape_mid_members`` and ``reshape_before_commit`` recovered).
-
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
-item: cross-host migration (``migrate_request(..., dst_host=...)``, the
-federation, Queue 1 item 9).
+A ``migrate_request`` whose target lives on another host
+(``dst_host``, the federation plane of ``core.federation``) resolves its
+target in recovery through ``peer_lookup`` and defers while that host is
+unreachable.
 """
 from __future__ import annotations
 
@@ -39,7 +39,8 @@ import time
 from typing import Optional, Sequence
 
 from repro_torch.checkpoint.store import CheckpointStore
-from repro_torch.core.errors import ManagerError, UnknownTenantError
+from repro_torch.core.errors import (HostUnreachableError, ManagerError,
+                                     UnknownTenantError)
 from repro_torch.core.fault import InjectedCrash, crashpoint
 from repro_torch.core.journal import OpJournal, PENDING
 from repro_torch.core.pause import (PauseError, PhaseTimings,
@@ -55,9 +56,6 @@ from repro_torch.core.vf import VFState, VirtualFunction
 
 __all__ = ["ManagerError", "SVFFManager", "UnknownTenantError"]
 
-_FEDERATION = ("cross-host request migration (dst_host) is not ported yet "
-               "(ROADMAP Queue 1 item 9: federation)")
-
 
 class SVFFManager:
     def __init__(self, pool: DevicePool, *,
@@ -66,7 +64,13 @@ class SVFFManager:
                  pause_enabled: bool = True,
                  scheduler: "Scheduler | str | None" = None,
                  records: Optional[RecordStore] = None,
-                 journal: Optional[OpJournal] = None):
+                 journal: Optional[OpJournal] = None,
+                 peer_lookup=None):
+        #: federation hook — ``peer_lookup(host_id, tid) -> tenant|None``
+        #: resolves a tenant living on ANOTHER host (raising
+        #: ``HostUnreachableError`` when the fabric is partitioned).
+        #: ``None`` keeps the single-host behaviour everywhere.
+        self.peer_lookup = peer_lookup
         self.pool = pool
         self.staging = staging or StagingEngine()
         self.pause_enabled = pause_enabled
@@ -438,9 +442,9 @@ class SVFFManager:
         before_source_free); ``recover`` rolls forward iff the target
         owns the request (invariant I13: live on exactly one engine,
         source pages freed iff target committed). The shipped state is
-        restored onto the target's device."""
-        if dst_host is not None:
-            raise NotImplementedError(_FEDERATION)
+        restored onto the target's device; a target on another host
+        (``dst_host``) names its device itself, this manager's pool holds
+        none of that host's VFs."""
         t0 = time.perf_counter()
         for role, tn in (("source", src), ("target", dst)):
             if getattr(tn, "status", None) != "running":
@@ -460,8 +464,16 @@ class SVFFManager:
             raise ManagerError(
                 f"migrate_request: {src.tid} has no migratable in-flight "
                 "request")
+        # ``dst_host`` marks a CROSS-HOST migration (federation plane):
+        # the destination tenant lives under another host's manager, so
+        # recovery resolves the entry through ``peer_lookup`` — and
+        # DEFERS it (entry stays pending) when that host is unreachable,
+        # because resolving blind risks serving the request twice (I15).
+        details = {"dst": dst.tid, "rid": rid}
+        if dst_host is not None:
+            details["dst_host"] = dst_host
         entry = self.journal.begin("migrate_request", src.tid,
-                                   vf_id=src.vf_id, dst=dst.tid, rid=rid)
+                                   vf_id=src.vf_id, **details)
         mig_key = f"{src.tid}/mig:{rid}"
         try:
             payload = src.extract_request(rid)
@@ -476,8 +488,9 @@ class SVFFManager:
             # crash window: descriptor pipeline mid-flight, target
             # untouched -> recovery rolls BACK
             crashpoint("migrate_mid_ship")
-            state = self.staging.restore(
-                shipped, dst.shardings_for(self.pool.vfs.get(dst.vf_id)))
+            vf = None if dst_host is not None else self.pool.vfs.get(
+                dst.vf_id)
+            state = self.staging.restore(shipped, dst.shardings_for(vf))
             dst.admit_migrated(payload, state)
             # crash window: target committed, source still frozen ->
             # recovery rolls FORWARD (source releases its copy)
@@ -690,8 +703,8 @@ class SVFFManager:
                 snapshots: Optional[dict] = None,
                 workdir: Optional[str] = None,
                 pause_enabled: bool = True,
-                scheduler: "Scheduler | str | None" = None
-                ) -> "SVFFManager":
+                scheduler: "Scheduler | str | None" = None,
+                peer_lookup=None) -> "SVFFManager":
         """Rebuild a manager after the previous one died mid-operation.
 
         What survives a manager crash — and is therefore handed in — is
@@ -720,7 +733,8 @@ class SVFFManager:
         staging = staging or StagingEngine()
         mgr = cls(pool, staging=staging, workdir=workdir,
                   pause_enabled=pause_enabled, scheduler=scheduler,
-                  records=records, journal=journal)
+                  records=records, journal=journal,
+                  peer_lookup=peer_lookup)
 
         # -- 1. sweep crash debris; a fresh process holds no device memos
         staging.clear()
@@ -866,8 +880,22 @@ class SVFFManager:
             # its copy); otherwise roll BACK (target drops any partial
             # admission, source thaws the frozen slot and keeps serving).
             # Every callee is idempotent, so double recovery (I9) holds.
+            # Cross-host entries (details carry ``dst_host``) resolve the
+            # target through ``peer_lookup``; when the destination host
+            # is unreachable the entry is DEFERRED — left pending with
+            # the frozen source slot intact — because the target may have
+            # admitted, and rolling back blind would serve the request on
+            # two hosts (I15). The next ``recover`` after the partition
+            # heals resolves it exactly once (I16).
             rid = e["details"].get("rid")
+            dst_host = e["details"].get("dst_host")
             dtn = self.tenants.get(e["details"].get("dst"))
+            if dtn is None and dst_host and self.peer_lookup is not None:
+                try:
+                    dtn = self.peer_lookup(dst_host, e["details"]["dst"])
+                except HostUnreachableError:
+                    self.journal.defer(seq, deferred_cross_host=True)
+                    return
             self.staging.clear(f"{tid}/mig:{rid}")
             dst_owns = (dtn is not None and hasattr(dtn, "owns_request")
                         and dtn.owns_request(rid))

@@ -189,3 +189,49 @@ def make_scheduler(policy: str) -> Scheduler:
         _INSTANCES[policy] = _POLICIES[policy]()
     return _INSTANCES[policy]
 
+
+
+# --------------------------------------------------------------------------
+# cross-host admission routing (federation plane)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class HostCandidate:
+    """One host's slice of the routing decision: built from its replicated
+    telemetry snapshot (``FederationCoordinator`` filters out hosts whose
+    lease lapsed or whose snapshot is older than the staleness bound, so
+    routing never acts on dead or stale evidence)."""
+    host_id: str
+    load: int                   # admitted work units (queued + in flight)
+    capacity: int               # serving slots across the host's engines
+
+    @property
+    def headroom(self) -> int:
+        return self.capacity - self.load
+
+
+def choose_host(policy: str, candidates: Sequence[HostCandidate],
+                need: int = 1) -> HostCandidate:
+    """Route one admission across hosts with the SAME three policy names
+    the VF scheduler uses, lifted to host granularity (deterministic,
+    ties break in the candidates' given order — the coordinator passes
+    hosts sorted by host_id):
+
+      first_fit   first host with ``headroom >= need``
+      best_fit    smallest sufficient headroom (pack hosts tightly; keeps
+                  big headroom free for bursts)
+      fair_share  largest headroom (spread load evenly)
+
+    Raises ``AdmissionError`` when no live host has room."""
+    if policy not in _POLICIES:
+        raise KeyError(f"unknown placement policy {policy!r}; "
+                       f"have {list(POLICY_NAMES)}")
+    fits = [c for c in candidates if c.headroom >= need]
+    if not fits:
+        raise AdmissionError(
+            f"no live host with headroom >= {need} "
+            f"(candidates {[(c.host_id, c.headroom) for c in candidates]})")
+    if policy == "first_fit":
+        return fits[0]
+    if policy == "best_fit":
+        return min(fits, key=lambda c: c.headroom)
+    return max(fits, key=lambda c: c.headroom)          # fair_share

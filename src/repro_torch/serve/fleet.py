@@ -56,9 +56,8 @@ sheds a dead member's stage the same way. On one card every stage of a
 gang computes on the fleet's ``device``: a gang's VFs are logical slots,
 and the stages run one after another.
 
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
-item: the federation's view of the fleet (``federation_snapshot``: item
-9).
+``federation_snapshot`` is the fleet's view as ONE host of a federation
+(``core.federation``), built from the bus replica.
 """
 from __future__ import annotations
 
@@ -340,9 +339,12 @@ class ServeFleet:
                  autoscale: Optional[AutoscaleConfig] = None,
                  spare_engines: int = 0, num_vfs: Optional[int] = None,
                  stages: int = 1, max_stages: Optional[int] = None,
-                 microbatches: int = 2):
+                 microbatches: int = 2, host_id: str = "host0"):
         self.run = run
         self.device = resolve_device(device)
+        #: this fleet's identity when it is one member of a federation
+        #: (``core.federation``); a standalone fleet keeps the default
+        self.host_id = host_id
         self.slo_max_load = slo_max_load
         # stages > 1: every engine is a PipelineServeEngine spanning
         # ``stages`` VFs (a gang of 1 lead + stages-1 shell tenants);
@@ -586,6 +588,24 @@ class ServeFleet:
             grow_budget=max(0, self.pool.num_devices - len(self.pool.vfs)),
             rejected_recent=self.telemetry.take_rejected_recent())
 
+    def federation_snapshot(self, now: float = 0.0) -> dict:
+        """This fleet as ONE host of a federation: the stamped replicated-
+        telemetry payload ``core.federation.FederationCoordinator`` keeps
+        per host (same shape as ``core.host.Host.snapshot``), built from
+        the serve-plane ``MetricsBus`` replica. ``now`` is the caller-
+        injected clock reading — wall time never leaks in."""
+        engines = {tid: {"load": tn.load,
+                         "slots": len(tn.engine.active)}
+                   for tid, tn in sorted(self.tenants.items())
+                   if tn.status == "running"}
+        return {"host_id": self.host_id, "stamp": float(now),
+                "load": sum(e["load"] for e in engines.values()),
+                "capacity": self.slo_max_load * len(engines),
+                "max_load": self.slo_max_load,
+                "free_vfs": len(self._free_vfs()),
+                "engines": engines,
+                "telemetry": self.telemetry.replicate(now)}
+
     def autoscale_step(self) -> Optional[AutoscaleAction]:
         """One policy-loop epoch: snapshot -> plan -> execute. Returns the
         executed action (None on a quiet/cooldown epoch). Every executed
@@ -807,9 +827,3 @@ class ServeFleet:
             raise ManagerError(
                 f"handle_vf_loss: {vf_id} backs no active stage of {tid}")
         return self.mgr.reshape(tn, tn.stage_width - 1, drop=shell.tid)
-
-    # -- not ported yet -------------------------------------------------------
-    def federation_snapshot(self, now: float = 0.0):
-        raise NotImplementedError(
-            "federation_snapshot is not ported yet (ROADMAP Queue 1 item "
-            "9: federation)")

@@ -9,9 +9,9 @@ per-token wall timestamps the engine already records on each ``Request``
 
 The autoscaler reads the bus once an epoch (``ServeFleet.
 telemetry_snapshot``). A pipeline gang's per-stage loads and measured
-schedule bubble are mirrored here too (``record_stage_load``). The JAX
-bus also carries a replica for the federation; that comes with its slice
-(ROADMAP Queue 1 item 9).
+schedule bubble are mirrored here too (``record_stage_load``). A stamped
+replica of the aggregated view (``replicate``) is what a federation
+coordinator keeps per host (``ServeFleet.federation_snapshot``).
 """
 from __future__ import annotations
 
@@ -144,6 +144,17 @@ class MetricsBus:
 
     def load_p95(self, tid: str) -> float:
         return percentile([s[0] for s in self._load[tid]], 0.95)
+
+    def replicate(self, now: float) -> dict:
+        """Stamped copy of the aggregated view for cross-host replication:
+        the federation coordinator keeps the newest replica it could pull
+        per host, and judges freshness by ``stamp`` age on ITS clock (so
+        host and coordinator clocks never need to agree). Everything in
+        the replica is already aggregated — replication cost is O(engines),
+        never O(requests)."""
+        return {"stamp": float(now),
+                "rejected_recent": self._rejected_since_snapshot,
+                "engines": self.describe()}
 
     def describe(self) -> dict:
         return {tid: {"submitted": self.submitted[tid],

@@ -23,8 +23,9 @@ Pieces
               — the pause-path benchmark's serving-shaped stub
   invariants  ``check_invariants`` (I1-I5, I8, I10, I12, I13, I14) +
               ``check_timings`` (I6) + ``check_pause_timings`` (I7),
-              asserted after every op, and ``check_autoscale`` (I11)
-              after every autoscale op
+              asserted after every op, ``check_autoscale`` (I11)
+              after every autoscale op, and ``check_federation`` (I15)
+              after every federation op
   chaos       crash-point catalogue (``CRASH_POINTS``), per-cell runner
               (``run_crash_case``) and ``crash_matrix`` over all 19
               points (``PORTED_POINTS``: the core ops', the four
@@ -38,9 +39,14 @@ Pieces
               loop over the serving tenants, ``migrate_request`` ops
               live-migrate a request between them, ``reshape`` ops change
               the pipeline gang lead ``pg0``'s width
-
-Not ported yet (ROADMAP Queue 1): the federation plane with I15/I16
-(item 9).
+  federation  the multi-host plane: ``FedScenarioConfig`` /
+              ``run_fed_scenario`` over a lease-based
+              ``FederationCoordinator``, the network-fault catalogue
+              (``NETWORK_FAULTS``: armed one-shot partitions instead of
+              crash points) with ``run_network_fault_case`` /
+              ``network_fault_matrix``, and ``federation_fingerprint``
+              (the I16 recovery-idempotence digest); sim tenant state on
+              ``device`` (the card by default), as in ``ScenarioRunner``
 
 Reproducing a failure
 ---------------------
@@ -58,10 +64,18 @@ from repro_torch.sim.chaos import (CRASH_POINTS, PORTED_POINTS, CrashSpec,
                                    crash_matrix, recover_manager,
                                    run_crash_case, state_fingerprint)
 from repro_torch.sim.clock import VirtualClock
+from repro_torch.sim.federation import (FED_OP_KINDS, FedOp, FedRunner,
+                                        FedScenarioConfig, NETWORK_FAULTS,
+                                        NetFaultSpec, build_fed_cell,
+                                        federation_fingerprint,
+                                        generate_fed_scenario,
+                                        network_fault_matrix,
+                                        run_fed_scenario,
+                                        run_network_fault_case)
 from repro_torch.sim.harness import (OpResult, ScenarioResult,
                                      ScenarioRunner, run_scenario)
 from repro_torch.sim.invariants import (InvariantViolation, check_autoscale,
-                                        check_invariants,
+                                        check_federation, check_invariants,
                                         check_pause_timings, check_timings)
 from repro_torch.sim.scenario import (ARRIVAL_PATTERNS, Op, OP_KINDS,
                                       ScenarioConfig, generate_scenario)
@@ -69,12 +83,15 @@ from repro_torch.sim.tenant import (ServeSimTenant, SimPipelineTenant,
                                     SimServeTenant, SimTenant)
 
 __all__ = [
-    "ARRIVAL_PATTERNS", "CRASH_POINTS", "CrashSpec", "InvariantViolation",
-    "Op", "OP_KINDS", "OpResult", "PORTED_POINTS", "ScenarioConfig",
-    "ScenarioResult", "ScenarioRunner", "ServeSimTenant",
-    "SimPipelineTenant", "SimServeTenant",
-    "SimTenant", "VirtualClock", "check_autoscale", "check_invariants",
-    "check_pause_timings",
-    "check_timings", "crash_matrix", "generate_scenario", "recover_manager",
-    "run_crash_case", "run_scenario", "state_fingerprint",
+    "ARRIVAL_PATTERNS", "CRASH_POINTS", "CrashSpec", "FED_OP_KINDS",
+    "FedOp", "FedRunner", "FedScenarioConfig", "InvariantViolation",
+    "NETWORK_FAULTS", "NetFaultSpec", "Op", "OP_KINDS", "OpResult",
+    "PORTED_POINTS", "ScenarioConfig", "ScenarioResult", "ScenarioRunner",
+    "ServeSimTenant", "SimPipelineTenant", "SimServeTenant", "SimTenant",
+    "VirtualClock", "build_fed_cell", "check_autoscale", "check_federation",
+    "check_invariants", "check_pause_timings", "check_timings",
+    "crash_matrix", "federation_fingerprint", "generate_fed_scenario",
+    "generate_scenario", "network_fault_matrix", "recover_manager",
+    "run_crash_case", "run_fed_scenario", "run_network_fault_case",
+    "run_scenario", "state_fingerprint",
 ]

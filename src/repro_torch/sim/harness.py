@@ -35,8 +35,6 @@ import time
 import zlib
 from typing import Optional
 
-import torch
-
 from repro_torch.core.autoscaler import (Autoscaler, AutoscaleConfig,
                                          EngineStats, TelemetrySnapshot)
 from repro_torch.core.errors import ManagerError
@@ -55,11 +53,11 @@ from repro_torch.sim.clock import VirtualClock
 from repro_torch.serve.paged import CacheExhausted
 from repro_torch.sim.invariants import (InvariantViolation, check_autoscale,
                                         check_invariants,
-                                        check_pause_timings, check_timings)
+                                        check_pause_timings, check_placement,
+                                        check_timings)
 from repro_torch.sim.scenario import Op, ScenarioConfig, generate_scenario
 from repro_torch.sim.tenant import (SimPipelineTenant, SimServeTenant,
                                     SimTenant)
-from repro_torch.tree import tree_leaves
 
 #: exception types an op may legally be rejected with (atomically).
 #: All TYPED: a blanket KeyError here once masked real bugs (e.g. a
@@ -432,17 +430,7 @@ class ScenarioRunner:
             virtual_seconds=self.clock.now(), final=final)
 
     def _check_placement(self):
-        """Every running tenant's state leaves are tensors on the runner's
-        device (an attribute read, no sync)."""
-        for tid, tn in self.tenants.items():
-            if tn.status != "running":
-                continue
-            for x in tree_leaves(tn.export_state()):
-                if (not isinstance(x, torch.Tensor)
-                        or x.device.type != self.device.type):
-                    raise InvariantViolation(
-                        f"{tid}: a state leaf is not a tensor on "
-                        f"{self.device}")
+        check_placement(self.tenants.values(), self.device)
 
     def _check_step_counters(self):
         for tid, want in self.expected_steps.items():

@@ -1,11 +1,11 @@
 """Invariant checker — asserted after EVERY op of every scenario (mirrors
 ``repro.sim.invariants``).
 
-Ported: I1-I5, I8, I10, I12, I13 and I14 (``check_invariants``), I6
-(``check_timings``), I7 (``check_pause_timings``) and I11
-(``check_autoscale``); I9 lives in
-``repro_torch.sim.chaos.recover_manager``. Not ported yet:
-``check_federation`` (I15, with I16, ROADMAP Queue 1 item 9). I4 reads
+I1-I5, I8, I10, I12, I13 and I14 (``check_invariants``), I6
+(``check_timings``), I7 (``check_pause_timings``), I11
+(``check_autoscale``) and I15 (``check_federation``); I9 lives in
+``repro_torch.sim.chaos.recover_manager`` and I16 in
+``repro_torch.sim.federation``. I4 reads
 each device leaf to the host once and compares it with
 ``expected_state`` bit for bit; I12 reads a serving tenant's block table
 to the host once.
@@ -87,6 +87,23 @@ to the host once.
       (attach_group / reshape) must recover to a state satisfying this,
       so a half-attached gang or a half-applied width change is a
       violation, not a transient
+  I15 federation single-serve + epoch fencing (``check_federation``):
+      across ALL hosts of a federation, every request is SERVED (queued,
+      or active in an unfrozen slot) by at most one engine on one host;
+      a slot frozen by an in-flight outbound migration serves nothing
+      and — at quiescent points — exists only under a PENDING journaled
+      migrate entry (the deferred cross-host case, where the partition
+      struck mid-ship and the source keeps the request frozen rather
+      than guessing); and every host's epoch fence is bounded by the
+      newest coordinator's epoch, so a coordinator that lost a handoff
+      is rejected (``SplitBrainError``) by any host the successor
+      reached — no request is ever admitted twice by racing coordinators
+  I16 federation recovery idempotence (checked by the network-fault
+      harness, not here): ``FederationCoordinator.recover`` over ANY
+      subset of hosts, applied twice in any order, equals once —
+      bit-identically under ``federation_fingerprint`` — including
+      deferred cross-host migrations, which resolve exactly once after
+      the partition heals (the multi-host lift of I9)
 
 Violations raise ``InvariantViolation`` tagged by the caller with the
 scenario seed and op index, which is all that is needed to reproduce.
@@ -101,7 +118,7 @@ import torch
 
 from repro_torch.core.journal import COMPLETED_STATUS
 from repro_torch.core.vf import VFState
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, tree_leaves
 
 TIMING_KEYS = frozenset({"rescan", "remove_vf", "change_num_vf", "add_vf",
                          "total"})
@@ -217,8 +234,14 @@ def check_invariants(mgr) -> None:
     # -- I8: journal <-> pool <-> records mutual consistency ------------------
     journal = getattr(mgr, "journal", None)
     if journal is not None:
+        # a DEFERRED cross-host migrate is the one legal pending entry at
+        # a quiescent point: the destination host was unreachable during
+        # recovery, so the entry stays pending (source slot frozen) until
+        # a post-heal recover resolves it — I15 separately checks that
+        # every frozen slot is covered by exactly such an entry
         pending = [e for e in journal.iter_entries()
-                   if e["status"] == "pending"]
+                   if e["status"] == "pending"
+                   and not e["details"].get("deferred_cross_host")]
         if pending:
             _fail(f"I8 journal has pending intents at a quiescent point: "
                   f"{[(e['seq'], e['op'], e['tenant']) for e in pending]}")
@@ -408,6 +431,83 @@ def check_pause_timings(t, live: bool = False) -> None:
     elif t.background:
         _fail(f"I7 stop-the-world pause has background phases "
               f"{sorted(t.background)}")
+
+
+def _serving_map(host) -> tuple:
+    """(serving, frozen): rid -> engine tid for requests an engine on
+    ``host`` is SERVING (queued, or active in an unfrozen slot), and for
+    requests frozen by an in-flight outbound migration (serving nobody)."""
+    serving: dict = {}
+    frozen_map: dict = {}
+    for tn in host.serve_targets():
+        tid = getattr(tn, "tid", repr(tn))
+        frozen = set(getattr(tn, "_migrating", ()))
+        for req in getattr(tn, "queue", ()):
+            serving.setdefault(req.rid, tid)
+        for req in getattr(tn, "active", ()):
+            if req is None:
+                continue
+            if req.rid in frozen:
+                frozen_map[req.rid] = tid
+            else:
+                serving.setdefault(req.rid, tid)
+    return serving, frozen_map
+
+
+def check_federation(hosts, coordinators=()) -> None:
+    """I15 — cross-host single-serve + epoch fencing, checked at every
+    quiescent point of a federation scenario:
+
+      1. every rid is served by at most one engine across ALL hosts;
+      2. every frozen (mid-migration) slot is covered by a PENDING
+         journaled migrate entry on its own host naming that rid — i.e. a
+         frozen request is accounted for, never silently stranded, and
+         only a deferred cross-host migration may survive quiescence;
+      3. no host's epoch fence exceeds the newest coordinator's epoch
+         (fences only come from coordinators, monotone), so exactly the
+         coordinators at the top epoch can drive fenced hosts.
+
+    Per-host invariants (I1..I14) are the per-manager checker's job —
+    run ``check_invariants(host.mgr)`` separately."""
+    owner: dict = {}                         # rid -> (host_id, tid)
+    for host in hosts:
+        serving, frozen_map = _serving_map(host)
+        for rid, tid in serving.items():
+            if rid in owner:
+                _fail(f"I15 request {rid} served by BOTH "
+                      f"{owner[rid][0]}/{owner[rid][1]} and "
+                      f"{host.host_id}/{tid} (dual-serve)")
+            owner[rid] = (host.host_id, tid)
+        if frozen_map:
+            pending_rids = {
+                e["details"].get("rid")
+                for e in host.mgr.journal.iter_entries()
+                if e["status"] == "pending"
+                and e["op"] == "migrate_request"}
+            for rid, tid in frozen_map.items():
+                if rid not in pending_rids:
+                    _fail(f"I15 {host.host_id}/{tid}: slot frozen for rid "
+                          f"{rid} with no pending journaled migrate entry "
+                          f"(stranded freeze)")
+    if coordinators:
+        top = max(c.epoch for c in coordinators)
+        for host in hosts:
+            if host.fence_epoch > top:
+                _fail(f"I15 {host.host_id}: fence epoch "
+                      f"{host.fence_epoch} exceeds newest coordinator "
+                      f"epoch {top} (fence from nowhere)")
+
+
+def check_placement(tenants, device) -> None:
+    """Every running tenant's state leaves are tensors on ``device`` (an
+    attribute read, no sync): no state fell back to another device."""
+    for tn in tenants:
+        if getattr(tn, "status", None) != "running":
+            continue
+        for x in tree_leaves(tn.export_state()):
+            if (not isinstance(x, torch.Tensor)
+                    or x.device.type != device.type):
+                _fail(f"{tn.tid}: a state leaf is not a tensor on {device}")
 
 
 def check_autoscale(action, cfg) -> None:

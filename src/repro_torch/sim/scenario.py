@@ -6,9 +6,8 @@ identical tuples, so any failing run is reproducible from its seed alone
 (see the ``repro_torch.sim`` package docstring). The generator is pure
 ``random`` code and emits the JAX package's op tuple exactly, for every
 seed and config, the ``autoscale``, ``migrate_request`` and ``reshape``
-ops included; the port's ``ScenarioRunner`` refuses configs that draw
-those (ROADMAP Queue 1 items 11-13). This module is SINGLE-host: one
-manager, one op stream (the multi-host plane is item 9).
+ops included. This module is SINGLE-host: one manager, one op stream
+(the multi-host plane is ``sim.federation``).
 
 Op kinds (the paper's management surface + fault injection):
 

@@ -365,6 +365,22 @@ class SimServeTenant:
             self.queue.append(req)
             self.requests.append(req)
 
+    def submit_request(self, rid: int, seed: Optional[int] = None):
+        """One request with an EXTERNAL identity arrives — the federation
+        routing path (``core.host.Host.submit``): the coordinator mints
+        the rid (epoch-salted, disjoint from the local ``submit_burst``
+        space) and the prompt/oracle derive from ``(seed, rid)`` exactly
+        like locally-minted traffic. Returns the request object."""
+        seed = self.seed if seed is None else int(seed)
+        req = types.SimpleNamespace(
+            rid=int(rid), seed=seed,
+            prompt=self.make_prompt(seed, rid),
+            max_new=self.make_max_new(seed, rid),
+            out=[], done=False)
+        self.queue.append(req)
+        self.requests.append(req)
+        return req
+
     # page-table helpers over the flat logical view (host copies) ----------
     def _cells_of(self, slot: int, upto: int):
         pages, row = self._h["pages"], self._h["tables"][slot]

@@ -1005,3 +1005,65 @@ def test_pipeline_gang_on_card_equals_single_stage(cuda, kv_dtype):
     torch.cuda.synchronize()
     assert gang._sparams is None
     assert m0 - torch.cuda.memory_allocated(cuda) > 0
+
+
+@pytest.mark.cuda
+def test_fed_scenario_and_fault_cells_on_card_match_cpu(cuda):
+    """A federation scenario at the JAX fault-soup rates, and a cell of
+    every network-fault window, with the sim tenants' state on the card:
+    the same fingerprint, counters and per-op rows, the same outcome
+    dicts, as on the CPU (the runner holds every running tenant's state
+    leaves on the card after every op)."""
+    from repro_torch.sim import (NETWORK_FAULTS, FedScenarioConfig,
+                                 run_fed_scenario, run_network_fault_case)
+    for policy in ("first_fit", "fair_share"):
+        cfg = FedScenarioConfig(seed=2, policy=policy, **CS.FED_SOUP)
+        assert run_fed_scenario(cfg, device=cuda) == \
+            run_fed_scenario(cfg, device="cpu")
+    for window in NETWORK_FAULTS:
+        assert run_network_fault_case(window, 1, device=cuda) == \
+            run_network_fault_case(window, 1, device="cpu")
+
+
+@pytest.mark.cuda
+def test_federation_engines_on_card_match_cpu(cuda, tmp_path):
+    """Two hosts' smoke-width qwen3-0.6b engines (head_dim 64) on the card
+    through ``chip_smoke.federation_engines``: 8 clean cross-host
+    migrations, 3 mid-ship and 3 after-admit deferrals recovered. The
+    migrations and both journals equal the same run's on the CPU, the
+    streams an undisturbed engine's on the card, and the launches include
+    ``flash_attention`` and ``paged_decode``."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.tree import tree_to
+    run = _mig_run("qwen3-0.6b")
+    params = build_model(run).init(seed=0, device=cuda)
+
+    def reqs():
+        return [Request(rid=i, prompt=(np.arange(5 + 3 * (i % 3)) * (i + 2)
+                                       + 1) % 300, max_new_tokens=16,
+                        temperature=0.8 if i % 2 else 0.0,
+                        top_k=16 if i % 4 == 1 else 0, seed=3 + i)
+                for i in range(10)]
+
+    kw = dict(slots=4, max_len=64, page_size=8)
+    ops.reset_launch_counts()
+    got = CS.federation_engines(CS.port_federation_kit(cuda), run, params,
+                                str(tmp_path / "card"), reqs(), **kw)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] > 0 and counts["paged_decode"] > 0
+    want = CS.federation_engines(CS.port_federation_kit(
+        torch.device("cpu")), run, tree_to(params, "cpu"),
+        str(tmp_path / "cpu"), reqs(), **kw)
+    assert [m["kind"] for m in got["migrations"]] == list(CS.FED_PLAN)
+    assert ([(m["kind"], m["rid"], m["src"]) for m in got["migrations"]]
+            == [(m["kind"], m["rid"], m["src"]) for m in want["migrations"]])
+    assert got["journals"] == want["journals"]
+    eng = ServeEngine(run, params, device=cuda, paged=True,
+                      fused_sampling=True, **kw)
+    plain = reqs()
+    for r in plain:
+        eng.submit(r)
+    while eng.queue or any(r is not None for r in eng.active):
+        eng.step()
+    assert [list(r.out) for r in plain] == got["streams"]

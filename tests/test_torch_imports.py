@@ -143,3 +143,32 @@ def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_federation_modules_are_checked():
+    """The federation's host, coordinator, scenario plane and benchmark are
+    among the files held free of JAX above."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    for mod in ("core/host.py", "core/federation.py", "sim/federation.py",
+                "bench/federation.py"):
+        assert mod in checked, mod
+
+
+def test_federation_entry_points_default_to_cuda(tmp_path):
+    """Every federation entry point that builds sim tenants places their
+    state on the card unless told otherwise."""
+    import inspect
+    from repro_torch.sim import federation as fed
+    for fn in (fed.build_fed_cell, fed.FedRunner, fed.run_fed_scenario,
+               fed.run_network_fault_case, fed.network_fault_matrix):
+        assert inspect.signature(fn).parameters["device"].default \
+            == "cuda", fn.__name__
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed.build_fed_cell(0, workdir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed.run_network_fault_case("fed_submit_route", 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed.run_fed_scenario(fed.FedScenarioConfig(seed=0, num_ops=5))

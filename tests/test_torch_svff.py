@@ -243,22 +243,37 @@ def test_pause_drops_every_device_tensor(setup, tmp_path):
     assert tf.drain().drained
 
 
-def test_unported_fleet_paths_raise_naming_their_roadmap_item(setup,
-                                                              tmp_path):
-    """What stays refused on the elastic fleet: the federation (item 9).
-    Migration, recovery, the autoscaler and the gang ops run:
-    ``test_torch_migration.py``, ``test_torch_autoscaler.py``,
-    ``test_torch_gang.py``."""
-    tf = _fleet(setup, PORT_SIDE, tmp_path, num_engines=2)
-    s0, s1 = tf.tenants["serve0"], tf.tenants["serve1"]
-    for call, item in ((lambda: tf.mgr.migrate_request(s0, s1,
-                                                       dst_host="host1"),
-                        "item 9"),
-                       (tf.federation_snapshot, "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+def test_fleet_dst_host_migration_and_federation_snapshot_match_jax(
+        setup, tmp_path):
+    """Nothing of the fleet stays refused. Both packages' fleets serve the
+    same requests; ``migrate_request(..., dst_host=...)`` between the two
+    engines journals the ``dst_host`` detail as JAX's does, and
+    ``federation_snapshot`` equals JAX's apart from the bus replica's
+    wall-clock latency percentiles (they time this host's steps). The
+    autoscaler's step without a config is a typed refusal, as in the JAX
+    fleet."""
+    seen = []
+    for side in (JAX_SIDE, PORT_SIDE):
+        fleet = _fleet(setup, side, tmp_path / str(len(seen)),
+                       num_engines=2)
+        for r in _requests(side["Request"], range(3)):
+            fleet.submit(r)
+        _steps(fleet, 2)
+        s0, s1 = fleet.tenants["serve0"], fleet.tenants["serve1"]
+        out = fleet.mgr.migrate_request(s0, s1, dst_host="host1")
+        entry = fleet.mgr.journal.entries()[-1]
+        snap = fleet.federation_snapshot(3.5)
+        for e in snap["telemetry"]["engines"].values():
+            e.pop("ttft_p95_ms")
+            e.pop("itl_p95_ms")
+        seen.append((out["rid"], out["src"], out["dst"], entry["op"],
+                     entry["status"], entry["details"], snap))
+    assert seen[1] == seen[0]
+    assert seen[1][5]["dst_host"] == "host1"
+    assert seen[1][6]["stamp"] == seen[1][6]["telemetry"]["stamp"] == 3.5
     # the autoscaler's paths run; without a config the step is a typed
     # refusal, as in the JAX fleet
+    tf = _fleet(setup, PORT_SIDE, tmp_path / "refusal", num_engines=2)
     with pytest.raises(ValueError, match="autoscale"):
         tf.autoscale_step()
 
