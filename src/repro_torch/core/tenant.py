@@ -11,7 +11,9 @@ actual I/O operations until the device is unpaused".
 One card is one torch device: the tenant computes on its ``device``
 whatever slots of the pool its VF holds (as ``serve.fleet.EngineTenant``
 does), so ``shardings_for`` names that device and a restore places the
-state there. PyTorch runs eagerly: ``bind`` has nothing to compile, and
+state there. The layout it exports into a pause snapshot's
+``sharding_desc`` is the JAX tenant's: the train state's specs under
+``ShardingRules`` for its VF's mesh. PyTorch runs eagerly: ``bind`` has nothing to compile, and
 keeps the executable-cache key per slice only so that ``query()`` and a
 pause snapshot's ``exec_keys`` read as the JAX tenant's. A paused or
 detached tenant holds no device tensor: ``suspend`` and ``detach`` drop
@@ -25,12 +27,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import MeshConfig, RunConfig
 from repro_torch.core.vf import VirtualFunction
 from repro_torch.data.pipeline import SyntheticSource, to_device
 from repro_torch.device import resolve_device
+from repro_torch.runtime.partitioning import ShardingRules
 from repro_torch.train.step import (init_train_state, make_train_step,
-                                    train_state_shapes)
+                                    train_state_shapes, train_state_specs)
 
 
 class DevicePausedError(RuntimeError):
@@ -50,12 +53,27 @@ class Tenant:
         self.vf_id: Optional[str] = None
         self.steps_done = 0
         self._state = None             # device tree while attached
+        self._rules: Optional[ShardingRules] = None
         self._step_fn = None
         self._exec_cache: dict = {}    # (kind, mesh_shape, slots) -> step
         self._source = SyntheticSource(self.run, batch_override=local_batch,
                                        seq_override=seq_len)
         self.step_times: list[float] = []
         self._fail_next = False        # fault-injection hook (tests)
+
+    # ------------------------------------------------------------------ utils
+    def _make_rules(self, vf: VirtualFunction) -> ShardingRules:
+        mesh_cfg = MeshConfig(tuple(vf.mesh_shape), tuple(vf.mesh_axes))
+        return ShardingRules(mesh_cfg, self.run)
+
+    def state_shardings(self, mesh):
+        """The train state's specs as DTensor placements on ``mesh``, a
+        ``DeviceMesh`` (the rules of ``_make_rules`` carry none: one card
+        holds the whole VF)."""
+        mesh_cfg = MeshConfig(tuple(mesh.mesh.shape),
+                              tuple(mesh.mesh_dim_names))
+        rules = ShardingRules(mesh_cfg, self.run, mesh)
+        return rules.named(train_state_specs(self.run, rules))
 
     # -- manager/pause protocol (duck-typed) --------------------------------
     def shardings_for(self, vf: VirtualFunction):
@@ -68,15 +86,15 @@ class Tenant:
         return train_state_shapes(self.run)
 
     def export_specs(self):
-        """The layout of the state (config-space save): one device, no
-        sharding."""
-        return {}
+        """Spec tree of the current layout (config-space save)."""
+        return train_state_specs(self.run, self._rules)
 
     # --------------------------------------------------------------- lifecycle
     def bind(self, vf: VirtualFunction, state=None) -> float:
         """Attach to a VF slice: adopt restored state, or initialize it from
         the seed on first bind. Returns the seconds spent building the
         slice's step (the JAX tenant's compile; here a closure)."""
+        self._rules = self._make_rules(vf)
         if state is not None:
             self._state = state
         elif self._state is None:

@@ -3,14 +3,15 @@
 Each exposes
   init(params)                      -> opt_state (a tree of tensors)
   update(grads, state, params, lr)  -> (params, opt_state)
+  state_specs(rules, param_specs, param_shapes) -> spec tree (the
+    optimizer state lays out like the params it mirrors; Adafactor's
+    factored moments drop the corresponding spec dims)
 
 with the JAX package's arithmetic, in fp32. JAX returns new trees; here
 ``update`` writes the params and the moments in place (under
 ``torch.no_grad()``), so a step holds one copy of the state on the card,
 and returns the same param tensors in a new tree beside the new state
-(whose ``count`` is a new 0-d tensor). ``state_specs`` (the sharding of
-the optimizer state) comes with ``runtime/partitioning`` (ROADMAP Queue 1
-item 10). Scalars (``lr``, ``count`` and the bias corrections) stay 0-d
+(whose ``count`` is a new 0-d tensor). Scalars (``lr``, ``count`` and the bias corrections) stay 0-d
 tensors on the params' device, so a step never waits on the host.
 
 Adafactor (factored second moments, no first moment) is the default of
@@ -25,6 +26,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
+from repro_torch.runtime.partitioning import P
 from repro_torch.tree import flatten, tree_map
 
 F32 = torch.float32
@@ -63,6 +65,7 @@ class Optimizer:
     cfg: OptimizerConfig
     init: Callable
     update: Callable                 # (grads, state, params, lr) -> (p, s)
+    state_specs: Callable            # (rules, param_specs, shapes) -> specs
 
 
 def _leaves(tree) -> list:
@@ -110,7 +113,10 @@ def make_adamw(cfg: OptimizerConfig) -> Optimizer:
         tree_map(upd, grads, state["m"], state["v"], params)
         return params, {"m": state["m"], "v": state["v"], "count": c}
 
-    return Optimizer(cfg, init, update)
+    def state_specs(rules, param_specs, shapes):
+        return {"m": param_specs, "v": param_specs, "count": P()}
+
+    return Optimizer(cfg, init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +166,16 @@ def make_adafactor(cfg: OptimizerConfig) -> Optimizer:
         tree_map(lambda p, g, s: upd(g, p, s), params, grads, state["f"])
         return params, {"f": state["f"], "count": c}
 
-    return Optimizer(cfg, init, update)
+    def state_specs(rules, param_specs, shapes):
+        def one(spec, shape):
+            dims = tuple(shape.shape)
+            sp = tuple(spec) + (None,) * (len(dims) - len(spec))
+            if len(dims) >= 2 and dims[-1] > 1 and dims[-2] > 1:
+                return {"vr": P(*sp[:-1]), "vc": P(*(sp[:-2] + sp[-1:]))}
+            return {"v": P(*sp)}
+        return {"f": tree_map(one, param_specs, shapes), "count": P()}
+
+    return Optimizer(cfg, init, update, state_specs)
 
 
 def make_sgd(cfg: OptimizerConfig) -> Optimizer:
@@ -173,7 +188,10 @@ def make_sgd(cfg: OptimizerConfig) -> Optimizer:
                                       .to(p.dtype)), grads, params)
         return params, {"count": state["count"] + 1}
 
-    return Optimizer(cfg, init, update)
+    def state_specs(rules, param_specs, shapes):
+        return {"count": P()}
+
+    return Optimizer(cfg, init, update, state_specs)
 
 
 def build_optimizer(cfg: OptimizerConfig) -> Optimizer:

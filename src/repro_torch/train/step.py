@@ -17,8 +17,9 @@ JAX package returns a function to ``jit``:
                     stacks)
 
 A train state is ``{"params", "opt", "step"}``, ``step`` a 0-d int32
-tensor. Sharding rules (``train_state_specs``, ``batch_specs``) come with
-``runtime/partitioning`` (ROADMAP Queue 1 item 10).
+tensor. ``train_state_specs`` and ``batch_specs`` give its layout and a
+batch's under ``runtime.partitioning.ShardingRules``, equal to the JAX
+package's specs.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import build_model, ops_backend
+from repro_torch.runtime.partitioning import P, ShardingRules
 from repro_torch.train.optim import (build_optimizer, clip_by_global_norm,
                                      lr_schedule)
 from repro_torch.tree import flatten, tree_map, unflatten
@@ -53,6 +55,28 @@ def train_state_shapes(run: RunConfig) -> dict:
     return {"params": params,
             "opt": build_optimizer(run.optimizer).init(params),
             "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def train_state_specs(run: RunConfig, rules: ShardingRules) -> dict:
+    """Spec tree matching ``train_state_shapes``."""
+    pshapes = build_model(run).param_shapes()
+    pspecs = rules.param_specs(pshapes)
+    opt = build_optimizer(run.optimizer)
+    return {"params": pspecs,
+            "opt": opt.state_specs(rules, pspecs, pshapes), "step": P()}
+
+
+def batch_specs(run: RunConfig, rules: ShardingRules) -> dict:
+    """A step's inputs: the batch dim over the data axes where it divides
+    them, every other dim replicated."""
+    out = {}
+    for k, v in build_model(run).input_specs().items():
+        if v.shape == ():
+            out[k] = P()
+        else:
+            out[k] = P(rules._fit(v.shape[0], rules.dp_axes),
+                       *([None] * (len(v.shape) - 1)))
+    return out
 
 
 def _mean(ms: list) -> dict:

@@ -21,7 +21,8 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "hybrid_prefill_margin.py",
         ROOT / "tools" / "attn_same_call.py",
-        ROOT / "tools" / "train_readings.py"]
+        ROOT / "tools" / "train_readings.py",
+        ROOT / "tools" / "gloo_cuda_probe.py"]
 
 
 def _imported_roots(path):
@@ -172,3 +173,35 @@ def test_federation_entry_points_default_to_cuda(tmp_path):
         fed.run_network_fault_case("fed_submit_route", 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         fed.run_fed_scenario(fed.FedScenarioConfig(seed=0, num_ops=5))
+
+
+def test_distributed_runtime_and_examples_are_checked():
+    """The distributed runtime (sharding rules, collectives, meshes) and the
+    examples are among the files held free of JAX above."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    for mod in ("runtime/partitioning.py", "runtime/collectives.py",
+                "launch/mesh.py", "examples/__init__.py",
+                "examples/quickstart.py", "examples/elastic_reconf.py",
+                "examples/serve_batched.py", "examples/train_100m.py"):
+        assert mod in checked, mod
+
+
+def test_examples_and_meshes_default_to_cuda():
+    """Every example runs on the card unless told otherwise, and so does
+    the local mesh; without a card they raise before any work."""
+    import inspect
+    from repro_torch.examples import (elastic_reconf, quickstart,
+                                      serve_batched, train_100m)
+    from repro_torch.launch import mesh
+    for mod in (quickstart, elastic_reconf, serve_batched, train_100m):
+        assert mod.parser().parse_args([]).device == "cuda", mod.__name__
+    assert inspect.signature(mesh.local_mesh_config).parameters[
+        "device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    for mod in (quickstart, elastic_reconf, serve_batched):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.local_mesh_config()

@@ -496,6 +496,37 @@ def test_pause_frees_every_tensor_of_the_train_state(tmp_path):
     assert tn.run_steps(1)["loss"] > 0
 
 
+@pytest.mark.parametrize("opt", ["adamw", "adafactor"])
+def test_paused_train_tenant_snapshot_specs_equal_jax(tmp_path, opt):
+    """The config-space snapshot of a train tenant paused on a 2-device
+    and on an 8-device VF of an 8-slot pool carries the JAX tenant's
+    ``sharding_desc`` for that VF's mesh, entry for entry, order
+    included (the port's tenant exported ``{}`` before)."""
+    from repro.configs import MeshConfig as JMesh
+    from repro.core.snapshot import serialize_specs as jax_serialize
+    from repro.runtime.partitioning import ShardingRules as JRules
+    from repro.train.step import train_state_specs as jax_state_specs
+    jrun, trun = _runs("qwen3-0.6b", optimizer=TOpt(name=opt))
+    mgr = SVFFManager(DevicePool([f"slot{i}" for i in range(8)], max_vfs=8),
+                      workdir=str(tmp_path))
+    tn = Tenant("vm0", trun, local_batch=2, seq_len=16, device="cpu")
+    mgr.init(num_vfs=4, tenants=[tn], devices_per_vf=2)
+    seen = []
+    for devices in (2, 8):
+        if devices == 8:
+            mgr.pool.set_num_vfs(1, devices_per_vf=8)
+            mgr.unpause(tn, num_devices=8)
+        mgr.pause(tn)
+        snap = mgr.snapshots["vm0"]
+        seen.append(tuple(snap.mesh_shape))
+        want = jax_serialize(jax_state_specs(jrun, JRules(
+            JMesh(tuple(snap.mesh_shape), tuple(snap.mesh_axes)), jrun)))
+        assert len(want) > 3
+        assert [tuple(e) for e in snap.sharding_desc] == \
+            [tuple(e) for e in want]
+    assert seen == [(2, 1), (4, 2)]
+
+
 # ---------------------------------------------------------------------------
 # launch.train
 # ---------------------------------------------------------------------------
