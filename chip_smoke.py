@@ -46,6 +46,12 @@ ranks bit-equal to each other and to the plain pack and unpack, each
 leaf within the JAX test's bound of the fp64 mean) and ``pipeline_apply``
 of qwen's 28 layers as 4 stages over 8 microbatches (bit-equal to the
 stages run one after another), then the port's four examples. Then the
+dry-run against the card: qwen3-0.6b's ``decode_32k`` at B = 8 (a 30 GB
+bf16 cache through ``flash_decode``), ``prefill_32k`` at B = 2 (through
+``flash_attention``) and ``train_4k`` at B = 2 (remat, AdamW), each
+counted on the unit mesh by the port's ``launch.dryrun.run_cell`` and
+then run for real: the step no faster than its counted bound and its
+peak memory at least the counted argument bytes. Then the
 hybrid Mamba-attention stack, jamba-1.5-large-398b-1p-dense (one period
 of Jamba-1.5-Large at every published width, 1 attention and 7 mamba
 layers, dense FFNs, bf16 params, random weights from ``--seed``):
@@ -90,7 +96,8 @@ prefix share, decode roofline, throughput x2), pipeline (gang engines
 K=1-4, live reshape, int8 gang, gang fleet, reshape scenarios, pipeline
 bench), federation (cross-host engines, federation snapshot, fed
 scenarios, network-fault matrix, federation bench), distributed
-(collectives, pipeline_apply, examples), hybrid prefill,
+(collectives, pipeline_apply, examples), dry-run (decode, prefill and
+train cells against their counts), hybrid prefill,
 hybrid serve (bf16, int8), hybrid generate, train launch, train tenant
 (bit-exact, int8), eval step, Tables I/II, families (per model: prefill,
 serve on its engines; olmoe's group rule, xlstm's generate path), crash
@@ -102,8 +109,10 @@ the port.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -277,8 +286,9 @@ def family_attention_shapes(get):
 def phase_flash_attention(torch, ops, timer, cfg, hcfg, families=()):
     """flash_attention at qwen3-0.6b's prompt lengths (S 7, 200, 384 and
     its longest, 600; 16/8 heads of 128), at the hybrid's prefill shape
-    (S 512, 64/8 heads of 128) and at the other families' (``families``:
-    hd 96, G 1 and 7, not causal, T != S)."""
+    (S 512, 64/8 heads of 128), at the other families' (``families``:
+    hd 96, G 1 and 7, not causal, T != S) and at the dry-run's prefill
+    cell's (``flash_attention_32k_row``)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(11)
     rows = []
@@ -322,7 +332,82 @@ def phase_flash_attention(torch, ops, timer, cfg, hcfg, families=()):
             f"of the limit) | kernel {ms:.4f}"
             f" ms | plain {plain:.4f} ms | sdpa {lib:.4f} ms | bound "
             f"{b_ms:.4f} ms ({b_by})")
+    rows.append(flash_attention_32k_row(torch, ops, timer, cfg))
     return rows
+
+
+#: the dry-run's prefill cell's attention: prefill_32k at B = 2; the plain
+#: version is held on the last PLAIN_ROWS query rows against every key
+#: (the whole plain attention would hold ~68 GB of fp32 scores)
+PREFILL_32K = (2, 32768)
+PLAIN_ROWS = 256
+
+
+def plain_attention_rows(torch, q, k, v, first: int):
+    """The plain causal attention (``flash_attention_ref``'s numerics:
+    fp32 scores, softmax and PV, one rounding to bf16) of query rows
+    ``first``.. of q against every key, row i seeing keys j <= i."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qg = q[:, first:].reshape(B, S - first, K, H // K, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                          k.float()) / math.sqrt(hd)
+    rows = torch.arange(first, S, device=q.device)[:, None]
+    logits = logits.masked_fill(torch.arange(T, device=q.device) > rows,
+                                -1e30)
+    o = torch.einsum("bkgst,btkh->bskgh", torch.softmax(logits, dim=-1),
+                     v.float())
+    return o.reshape(B, S - first, H, hd).to(q.dtype)
+
+
+def flash_attention_32k_row(torch, ops, timer, cfg):
+    """flash_attention at the dry-run prefill cell's shape, q (2,32768,16,
+    128) causal with 8 KV heads, its last ``PLAIN_ROWS`` rows held against
+    the plain version of those rows; the kernel and SDPA timed on the
+    whole, the plain version on those rows."""
+    import torch.nn.functional as F
+    (B, S), H, K, hd = PREFILL_32K, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(32)
+    q = torch.randn((B, S, H, hd), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((B, S, K, hd), generator=g, device="cuda")
+            .bfloat16() for _ in "kv")
+    first = S - PLAIN_ROWS
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = plain_attention_rows(torch, q, k, v, first)
+    torch.cuda.synchronize()
+    err, share = attn_err(got[:, first:], want)
+    label = f"q ({B},{S},{H},{hd}) k/v {K} heads"
+    check(share <= 1, f"flash_attention {label}: max_abs_err {err} on the "
+                      f"last {PLAIN_ROWS} rows, {share:.3g} of the limit")
+    check(bool(torch.isfinite(got).all()),
+          f"flash_attention {label}: non-finite output")
+    # SDPA on the KV heads repeated to H, its flash backend only: a
+    # fallback to the math backend would hold the whole score matrix
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        lib = timer.ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=5, warm=1)
+    del qt, kt, vt
+    ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=True),
+                  reps=5, warm=1)
+    plain = timer.ms(lambda: plain_attention_rows(torch, q, k, v, first),
+                     reps=5, warm=1)
+    nbytes = B * 2 * (2 * S * H * hd + 2 * S * K * hd)
+    flops = 4 * B * H * hd * S * (S + 1) / 2
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    log(f"flash_attention {label}: max_abs_err {err:.3g} ({share:.3g} of "
+        f"the limit, last {PLAIN_ROWS} rows) | kernel {ms:.4f} ms | plain "
+        f"{plain:.4f} ms ({PLAIN_ROWS} rows) | sdpa {lib:.4f} ms | bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return {"shape": f"{label} bf16, causal (prefill_32k, B={B}; plain on "
+                     f"the last {PLAIN_ROWS} rows)",
+            "max_abs_err": err, "share_of_limit": share, "ms": ms,
+            "plain_ms": plain, "plain_rows": PLAIN_ROWS, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib}
 
 
 #: the paged phase's positions: the full view, inactive, mid-page, a page
@@ -581,7 +666,8 @@ def phase_flash_decode(torch, ops, timer, cfg):
     tensor on the card. Each call of either form must put exactly one
     kernel on the card: no merge launch, and no fill or copy for the
     position (one profiler session over a call of each form at each
-    position)."""
+    position). Then the dry-run's decode cell's shape
+    (``flash_decode_32k_row``)."""
     import torch.nn.functional as F
     K, hd, B, T = cfg.num_kv_heads, cfg.head_dim, 4, 1024
     rows = []
@@ -627,7 +713,47 @@ def phase_flash_decode(torch, ops, timer, cfg):
                  for p in (pos, torch.tensor(pos, dtype=torch.int32,
                                              device="cuda"))]
         one_kernel_each(torch, calls, "flash_decode")
+    rows.append(flash_decode_32k_row(torch, ops, timer, cfg))
     return rows
+
+
+#: the dry-run's decode cell: decode_32k at B = 8, pos 32,767
+DECODE_32K = (8, 32768)
+
+
+def flash_decode_32k_row(torch, ops, timer, cfg):
+    """flash_decode at the dry-run decode cell's shape: q (8,1,16,128),
+    k/v (8,32768,8,128), pos 32,767 (an int, as ``decode_step`` passes
+    it)."""
+    import torch.nn.functional as F
+    (B, T), H, hd = DECODE_32K, 16, cfg.head_dim
+    K, pos = cfg.num_kv_heads, DECODE_32K[1] - 1
+    g = torch.Generator(device="cuda").manual_seed(33)
+    q = torch.randn((B, 1, H, hd), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((B, T, K, hd), generator=g, device="cuda")
+            .bfloat16() for _ in "kv")
+    got = ops.flash_decode(q, k, v, pos)
+    want = ops.flash_decode(q, k, v, pos, backend="ref")
+    torch.cuda.synchronize()
+    err, share = attn_err(got, want)
+    label = f"q ({B},1,{H},{hd}), k/v ({B},{T},{K},{hd})"
+    check(share <= 1, f"flash_decode {label}: max_abs_err {err}, "
+                      f"{share:.3g} of the limit")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True))
+    del qt, kt, vt
+    ms = timer.ms(lambda: ops.flash_decode(q, k, v, pos))
+    plain = timer.ms(lambda: ops.flash_decode(q, k, v, pos, backend="ref"))
+    nbytes = 2 * (2 * B * T * K * hd + 2 * B * H * hd)
+    b_ms, b_by = bound(nbytes, 4 * B * H * hd * T, BF16_FLOP_PER_S)
+    log(f"flash_decode {label} pos {pos}: max_abs_err {err:.3g} "
+        f"({share:.3g} of the limit) | kernel {ms:.4f} ms | plain "
+        f"{plain:.4f} ms | sdpa {lib:.4f} ms | bound {b_ms:.4f} ms ({b_by})")
+    return {"shape": f"{label} bf16, pos {pos} (int; decode_32k, B={B})",
+            "max_abs_err": err, "share_of_limit": share, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib}
 
 
 def ssm_scan_work(B, S, H, hd, N, Q, in_bytes):
@@ -3425,6 +3551,139 @@ def run_distributed(torch, ops, args, card, report, launches, params):
         f"(ranks {report['distributed']['ranks_s']:.1f} s)")
 
 
+#: the dry-run's one-card cells, qwen3-0.6b at full width: (shape, batch,
+#: the kernel its step must launch)
+DRYRUN_CELLS = (("decode_32k", DECODE_32K[0], "flash_decode"),
+                ("prefill_32k", PREFILL_32K[0], "flash_attention"),
+                ("train_4k", 2, None))
+DRYRUN_WARM, DRYRUN_STEPS = 2, 5
+
+
+def dryrun_step(torch, run, params, seed: int):
+    """The step of a cell of ``run`` on the card, as a closure that holds
+    its inputs: decode over a random bf16 cache at pos S - 1, prefill of
+    random tokens, or a train step of AdamW on a copy of ``params``."""
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optim import build_optimizer
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_map
+    model = build_model(run)
+    B, S = run.shape.global_batch, run.shape.seq_len
+    V = run.model.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if run.shape.kind == "decode":
+        cache = tree_map(lambda s: torch.randn(
+            s.shape, generator=g, device="cuda", dtype=s.dtype),
+            model.cache_specs())
+        tokens = torch.randint(0, V, (B, 1), generator=g, device="cuda",
+                               dtype=torch.int32)
+        return lambda: model.decode_step(params, cache, tokens, S - 1)[0]
+    tokens = torch.randint(0, V, (B, S), generator=g, device="cuda",
+                           dtype=torch.int32)
+    if run.shape.kind == "prefill":
+        return lambda: model.prefill(params, {"tokens": tokens})[1]
+    state = {"params": tree_map(torch.clone, params)}
+    state["opt"] = build_optimizer(run.optimizer).init(state["params"])
+    state["step"] = torch.zeros((), dtype=torch.int32, device="cuda")
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    step = make_train_step(run)
+
+    def train():
+        new, metrics = step(state, batch)
+        state.update(new)
+        return metrics["loss"]
+    return train
+
+
+def run_dryrun(torch, ops, args, card, report, launches, params):
+    """The dry-run against the card: each ``DRYRUN_CELLS`` cell counted on
+    the unit mesh by the port's ``run_cell`` (the kernel path, NVLink
+    ``Peaks``), then run for real with ``params`` (qwen3-0.6b at full
+    width, fp32): the median of ``DRYRUN_STEPS`` steps after
+    ``DRYRUN_WARM``, by CUDA events, and the peak memory of those steps.
+    A step faster than its bound, or a peak below the counted argument
+    bytes, means the count is wrong: both fail the script."""
+    from repro_torch.configs import make_run_config
+    from repro_torch.configs.base import SHAPES, UNIT_MESH, ShardingConfig
+    from repro_torch.launch.dryrun import run_cell
+    t_group = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out", "dryrun_torch")
+    report["dryrun"] = {}
+    for name, B, kernel in DRYRUN_CELLS:
+        shape = dataclasses.replace(SHAPES[name], global_batch=B)
+        t0 = time.perf_counter()
+        cell = run_cell("qwen3-0.6b", name, False, out_dir=out_dir,
+                        force=True, tag=f"b{B}", shape=shape,
+                        mesh=UNIT_MESH, overrides={"kernel_backend": "auto"})
+        count_s = time.perf_counter() - t0
+        check(cell["status"] == "ok", f"dry-run {name} B={B}: "
+                                      f"{cell.get('error')}")
+        rf = cell["roofline"]
+        run = make_run_config("qwen3-0.6b", shape, seed=args.seed,
+                              sharding=ShardingConfig(remat="full"))
+        fn = dryrun_step(torch, run, params, args.seed)
+        ops.reset_launch_counts()
+        times = []
+        for i in range(DRYRUN_WARM + DRYRUN_STEPS):
+            if i == DRYRUN_WARM:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()   # live before a step
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            if i >= DRYRUN_WARM:
+                times.append(start.elapsed_time(end))
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(torch.isfinite(out).all()),
+              f"dry-run {name} B={B}: non-finite output")
+        # the count's kernel path against the card's: each kernel launched
+        # as often as the count called it a step, the cell's own kernel
+        # once a layer
+        per_step = cell["cost_extrapolated"]["kernels"]
+        if kernel:
+            check(per_step.get(kernel) == run.model.num_layers,
+                  f"dry-run {name}: the count called {kernel} "
+                  f"{per_step.get(kernel)} times a step, not once a layer")
+        for k, n in counts.items():
+            want = (DRYRUN_WARM + DRYRUN_STEPS) * per_step.get(k, 0)
+            check(n == want, f"dry-run {name} B={B}: {k} launched {n} times,"
+                             f" the count says {want}")
+            launches[k] += n
+        ms = float(np.median(times))
+        bound_ms = rf["step_s"] * 1e3
+        arg = cell["memory"]["argument_bytes"]
+        row = {"batch": B, "step_ms_median": ms, "step_ms": times,
+               "bound_ms": bound_ms, "bound": rf["bound"],
+               "ratio_to_bound": ms / bound_ms, "peak_bytes": peak,
+               "argument_bytes": arg, "flops": rf["hlo_flops_per_dev"],
+               "bytes": rf["hlo_bytes_per_dev"], "count_s": count_s,
+               "temp_bytes": cell["memory"]["temp_bytes"],
+               "step_peak_bytes": peak - base, "launches": counts}
+        report["dryrun"][name] = row
+        log(f"dry-run qwen3-0.6b {name} B={B}: step {ms:.2f} ms (median of "
+            f"{DRYRUN_STEPS}) | bound {bound_ms:.2f} ms ({rf['bound']}; "
+            f"{rf['hlo_flops_per_dev']:.4g} flops, "
+            f"{rf['hlo_bytes_per_dev']:.4g} bytes) | ratio {ms / bound_ms:.3f}"
+            f" | peak {peak / 1e9:.3f} GB, arguments {arg / 1e9:.3f} GB, "
+            f"eager temp {cell['memory']['temp_bytes'] / 1e9:.3f} GB, the "
+            f"step's peak above what was live {(peak - base) / 1e9:.3f} GB"
+            f" | count {count_s:.1f} s | {card}")
+        check(ms >= bound_ms, f"dry-run {name} B={B}: the step ({ms:.3f} ms)"
+                              f" beats its bound ({bound_ms:.3f} ms): the "
+                              "count is wrong")
+        check(peak >= arg, f"dry-run {name} B={B}: peak memory {peak} below"
+                           f" the counted argument bytes {arg}")
+        del fn, out
+        release(torch)
+    report["dryrun"]["group_s"] = time.perf_counter() - t_group
+    log(f"dry-run group: {report['dryrun']['group_s']:.1f} s")
+
+
 def run_hybrid(torch, ops, args, card, report, launches):
     """The hybrid stack's phases at full width: its prefill, its serve
     path (bf16 and int8 KV) and its generate path (its kernels,
@@ -4433,6 +4692,8 @@ def main(argv=None) -> int:
                    paged, fed_bench)
     mark("distributed")
     run_distributed(torch, ops, args, card, report, launches, params)
+    mark("dry-run")
+    run_dryrun(torch, ops, args, card, report, launches, params)
     if args.profile:
         report["profile"] = phase_profile(torch, run, params, args.seed)
     del params

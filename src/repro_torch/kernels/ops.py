@@ -100,13 +100,9 @@ def _stream(device) -> int:
 
 
 # ---------------------------------------------------------------------------
-def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
-    """q: (B,S,H,hd); k,v: (B,T,K,hd); H % K == 0. Returns (B,S,H,hd).
-    The kernel takes bf16, any S and T, and any hd that is a multiple of
-    8 up to 128: its tiles are 128 columns wide, and it stages rows in
-    16-byte (8-column) chunks, zero-filling the columns at or past hd."""
-    if _plain(backend, q):
-        return _ref.flash_attention_ref(q, k, v, causal=causal)
+def check_flash_attention(q, k, v):
+    """The flash_attention kernel's contract, checked before each launch
+    (and by the dry-run before it counts the kernel's work)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     dev = q.device
@@ -118,6 +114,19 @@ def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
     _want("v", v, torch.bfloat16, (B, T, K, hd), dev)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _aligned(name, t)           # the kernel copies rows 16 bytes at a time
+
+
+def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
+    """q: (B,S,H,hd); k,v: (B,T,K,hd); H % K == 0. Returns (B,S,H,hd).
+    The kernel takes bf16, any S and T, and any hd that is a multiple of
+    8 up to 128: its tiles are 128 columns wide, and it stages rows in
+    16-byte (8-column) chunks, zero-filling the columns at or past hd."""
+    if _plain(backend, q):
+        return _ref.flash_attention_ref(q, k, v, causal=causal)
+    check_flash_attention(q, k, v)
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    dev = q.device
     out = torch.empty_like(q)
     if out.numel():
         _launch("flash_attention", "flash_attention", "launch_flash_attention",
@@ -138,16 +147,10 @@ FLASH_DECODE_MAX_SPLITS = 8
 FLASH_DECODE_TILE = 256
 
 
-def flash_decode(q, k, v, pos, *, backend: str = "auto"):
-    """q: (B,1,H,hd); k,v: (B,T,K,hd); pos: scalar int or 0-d integer
-    tensor, one position for the whole batch — attend to indices <= pos.
-    T must be a multiple of min(FLASH_DECODE_TILE, T), the reference
-    kernel's tile rule. The kernel takes bf16 and hd % 8 == 0 (at most
-    256), H / K <= 8. An int position is a kernel argument; a tensor one
-    (int32 or int64 on the device) is read by the kernel: a call launches
-    the one kernel and nothing else."""
-    B, _, H, hd = q.shape
-    T, K = k.shape[1], k.shape[2]
+def check_decode_call(k, pos):
+    """flash_decode's contract on either path: the tile rule and a scalar
+    position."""
+    T = k.shape[1]
     bk = min(FLASH_DECODE_TILE, T)
     if bk < 1 or T % bk:
         raise ValueError(f"flash_decode: cache length {T} is not a multiple "
@@ -155,8 +158,13 @@ def flash_decode(q, k, v, pos, *, backend: str = "auto"):
     if isinstance(pos, torch.Tensor) and pos.dim() != 0:
         raise ValueError(f"flash_decode: pos must be a scalar, got shape "
                          f"{tuple(pos.shape)}")
-    if _plain(backend, q):
-        return _ref.flash_decode_ref(q, k, v, pos)
+
+
+def check_flash_decode(q, k, v):
+    """The flash_decode kernel's contract, checked before each launch
+    (and by the dry-run before it counts the kernel's work)."""
+    B, _, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
     dev = q.device
     if H % K or hd % 8:
         raise ValueError(f"flash_decode kernel: H={H}, K={K}, hd={hd}")
@@ -165,6 +173,23 @@ def flash_decode(q, k, v, pos, *, backend: str = "auto"):
     _want("v", v, torch.bfloat16, (B, T, K, hd), dev)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _aligned(name, t)           # the kernel copies rows 16 bytes at a time
+
+
+def flash_decode(q, k, v, pos, *, backend: str = "auto"):
+    """q: (B,1,H,hd); k,v: (B,T,K,hd); pos: scalar int or 0-d integer
+    tensor, one position for the whole batch — attend to indices <= pos.
+    T must be a multiple of min(FLASH_DECODE_TILE, T), the reference
+    kernel's tile rule. The kernel takes bf16 and hd % 8 == 0 (at most
+    256), H / K <= 8. An int position is a kernel argument; a tensor one
+    (int32 or int64 on the device) is read by the kernel: a call launches
+    the one kernel and nothing else."""
+    check_decode_call(k, pos)
+    if _plain(backend, q):
+        return _ref.flash_decode_ref(q, k, v, pos)
+    check_flash_decode(q, k, v)
+    B, _, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    dev = q.device
     if isinstance(pos, torch.Tensor):
         pos_t = pos.to(device=dev)
         if pos_t.dtype not in (torch.int32, torch.int64):

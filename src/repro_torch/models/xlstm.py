@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.params import mlstm_dims, slstm_dims
+from repro_torch.models.params import mlstm_dims
 
 NEG = -1e30
 SLSTM_M0 = -30.0      # a fresh sLSTM carry's stabilizer
@@ -169,30 +169,15 @@ def mlstm_block(cfg: ModelConfig, p: dict, x, cdt, mode: str = "train",
 # ===========================================================================
 # sLSTM
 # ===========================================================================
-def slstm_block(cfg: ModelConfig, p: dict, x, cdt, mode: str = "train",
-                cache: dict | None = None, **_):
-    """x: (B,S,D). Returns (out, new_cache): {"slstm": {h, c, n, m}} fp32
-    in prefill and decode, None in train mode. A fresh carry is zeros with
-    m = ``SLSTM_M0``; decode (and a cache given to any mode) continues
-    from ``cache["slstm"]``."""
-    heads, dh, d_up = slstm_dims(cfg)
-    B, S, D = x.shape
-    f32 = torch.float32
-    xin = rms_norm(x, p["ln"], cfg.norm_eps).to(cdt)
-    # input projections for all tokens up front (the parallel part)
-    zx, ix, fx, ox = ((xin @ p[f"w_{g}"].to(cdt)).to(f32) for g in "zifo")
-
-    if cache and "slstm" in cache:
-        st = cache["slstm"]
-        hp, cp, npr, mp = st["h"], st["c"], st["n"], st["m"]
-    else:
-        hp = torch.zeros((B, D), dtype=f32, device=x.device)
-        cp, npr = torch.zeros_like(hp), torch.zeros_like(hp)
-        mp = torch.full((B, D), SLSTM_M0, dtype=f32, device=x.device)
-
-    # the four block-diagonal recurrent matmuls of a token as one einsum
-    r = torch.stack([p[f"r_{g}"].to(f32) for g in "zifo"])  # (4,heads,dh,dh)
-    bz, bi, bf, bo = (p[f"b_{g}"].to(f32) for g in "zifo")
+def slstm_scan(zx, ix, fx, ox, r, bias, state):
+    """The sLSTM recurrence over the tokens: zx, ix, fx, ox (B,S,D) fp32
+    input projections, r (4,heads,dh,dh) the z/i/f/o recurrent weights,
+    bias their four (D,) biases, state (h, c, n, m) each (B,D) fp32.
+    Returns (y (B,S,D), the final state)."""
+    B, S, D = zx.shape
+    heads, dh = r.shape[1], r.shape[2]
+    bz, bi, bf, bo = bias
+    hp, cp, npr, mp = state
     hs = []
     for t in range(S):
         rz, ri, rf, ro = torch.einsum(
@@ -209,7 +194,33 @@ def slstm_block(cfg: ModelConfig, p: dict, x, cdt, mode: str = "train",
         hp = o * cp / torch.clamp(npr, min=1e-6)
         mp = m
         hs.append(hp)
-    y = torch.stack(hs, dim=1)                                 # (B,S,D)
+    return torch.stack(hs, dim=1), (hp, cp, npr, mp)
+
+
+def slstm_block(cfg: ModelConfig, p: dict, x, cdt, mode: str = "train",
+                cache: dict | None = None, **_):
+    """x: (B,S,D). Returns (out, new_cache): {"slstm": {h, c, n, m}} fp32
+    in prefill and decode, None in train mode. A fresh carry is zeros with
+    m = ``SLSTM_M0``; decode (and a cache given to any mode) continues
+    from ``cache["slstm"]``."""
+    B, S, D = x.shape
+    f32 = torch.float32
+    xin = rms_norm(x, p["ln"], cfg.norm_eps).to(cdt)
+    # input projections for all tokens up front (the parallel part)
+    zx, ix, fx, ox = ((xin @ p[f"w_{g}"].to(cdt)).to(f32) for g in "zifo")
+
+    if cache and "slstm" in cache:
+        st = cache["slstm"]
+        state = (st["h"], st["c"], st["n"], st["m"])
+    else:
+        hp = torch.zeros((B, D), dtype=f32, device=x.device)
+        state = (hp, torch.zeros_like(hp), torch.zeros_like(hp),
+                 torch.full((B, D), SLSTM_M0, dtype=f32, device=x.device))
+
+    # the four block-diagonal recurrent matmuls of a token as one einsum
+    r = torch.stack([p[f"r_{g}"].to(f32) for g in "zifo"])  # (4,heads,dh,dh)
+    bias = tuple(p[f"b_{g}"].to(f32) for g in "zifo")
+    y, (hp, cp, npr, mp) = slstm_scan(zx, ix, fx, ox, r, bias, state)
     y = rms_norm(y.to(cdt), p["norm"], cfg.norm_eps).to(cdt)
     # GLU up/down
     g = F.silu((y @ p["up_wg"].to(cdt)).to(f32))

@@ -1067,3 +1067,49 @@ def test_federation_engines_on_card_match_cpu(cuda, tmp_path):
     while eng.queue or any(r is not None for r in eng.active):
         eng.step()
     assert [list(r.out) for r in plain] == got["streams"]
+
+
+@pytest.mark.cuda
+def test_dryrun_decode_cell_against_the_card(cuda):
+    """The dry-run's decode_32k cell at B = 8 (qwen3-0.6b at full width),
+    counted on the unit mesh by ``run_cell`` with the kernel path, then
+    run on the card: the step no faster than its bound, its peak memory
+    at least the counted argument bytes, flash_decode on every layer."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import make_run_config
+    from repro_torch.configs.base import SHAPES, UNIT_MESH
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.model import build_model
+    shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=8)
+    with tempfile.TemporaryDirectory() as out:
+        cell = run_cell("qwen3-0.6b", "decode_32k", False, out_dir=out,
+                        force=True, tag="b8", shape=shape, mesh=UNIT_MESH,
+                        overrides={"kernel_backend": "auto"})
+    assert cell["status"] == "ok", cell.get("error")
+    run = make_run_config("qwen3-0.6b", shape)
+    model = build_model(run)
+    params = model.init(seed=0, device=cuda)
+    cache = model.init_cache(device=cuda)
+    tokens = torch.zeros((8, 1), dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        model.decode_step(params, cache, tokens, 32767)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, _ = model.decode_step(params, cache, tokens, 32767)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    assert bool(torch.isfinite(logits).all())
+    assert ops.launch_counts()["flash_decode"] == 3 * run.model.num_layers
+    assert cell["cost_extrapolated"]["kernels"] == {
+        "flash_decode": run.model.num_layers}
+    assert float(np.median(times)) >= cell["roofline"]["step_s"] * 1e3
+    assert (torch.cuda.max_memory_allocated()
+            >= cell["memory"]["argument_bytes"])

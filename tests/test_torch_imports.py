@@ -205,3 +205,13 @@ def test_examples_and_meshes_default_to_cuda():
             mod.main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         mesh.local_mesh_config()
+
+
+def test_dryrun_modules_are_checked():
+    """The dry-run (its HLO parser copy, the roofline, the cost count and
+    its two drivers) is among the files held free of JAX above."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    for mod in ("runtime/hlo.py", "runtime/roofline.py", "launch/dryrun.py",
+                "bench/roofline_table.py", "bench/run.py"):
+        assert mod in checked, mod
