@@ -62,10 +62,16 @@ Then training at qwen3-0.6b's full width: 30 steps of
 ``repro_torch.launch.train``, a train ``Tenant`` paused, unpaused and reconfigured under the
 SVFF manager against its undisturbed twin, an int8 pause of it, the eval
 step through ``flash_attention`` against the plain train-mode loss, and
-the paper's Tables I and II. Then the other model families, one at a
+the paper's Tables I and II. Then the train tenant sharded over its VF's
+mesh: a ``RankPool`` of four gloo ranks on the card, a qwen3-0.6b tenant
+at full width cut to 4 layers on 2-rank VFs, paused, repartitioned and
+unpaused onto (2, 2) with plain staging, then back onto (2, 1) with int8
+staging (packed, digested and unpacked on the ranks), against the same
+tenant on one device, and ``launch.train`` on a 2-rank world against one
+rank. Then the other model families, one at a
 time with random weights from ``--seed``, each model's params freed
-before the next is built: olmoe-1b-7b at full width (16 layers, d_model 2,048, 16/16
-heads of 128, 64 experts top-8, 6.92 B fp32 params) on the dense ring,
+before the next is built: olmoe-1b-7b at full width cut to 4 of its 16
+layers (d_model 2,048, 16/16 heads of 128, 64 experts top-8) on the dense ring,
 paged bf16 and paged int8 engines (16 requests of 5-512 tokens, and a
 600-token prompt rejected by the MoE group rule), llama3-8b and
 phi3-mini-3.8b (head dim 96) on paged engines, xlstm-350m (its generate
@@ -99,7 +105,8 @@ scenarios, network-fault matrix, federation bench), distributed
 (collectives, pipeline_apply, examples), dry-run (decode, prefill and
 train cells against their counts), hybrid prefill,
 hybrid serve (bf16, int8), hybrid generate, train launch, train tenant
-(bit-exact, int8), eval step, Tables I/II, families (per model: prefill,
+(bit-exact, int8), eval step, Tables I/II, spmd (sharded tenant, plain
+and int8 reshards, launch.train on 2 ranks), families (per model: prefill,
 serve on its engines; olmoe's group rule, xlstm's generate path), crash
 matrix, pause path, sim sweep (two passes), kernels line, result line.
 Any failed check exits non-zero before the result line. Details go to
@@ -1902,16 +1909,27 @@ def phase_recovery(torch, run, params, seed, device, workdir, ref, card):
     return res
 
 
+ELASTIC_SWEEP_LAYERS = 4  # the sweep's qwen3-0.6b at full width, 4 of
+                          # its 28 layers: its gates and actions read loads
+                          # only, and at 28 layers it took 71-106 s of the
+                          # script's 1,200 on the H100 (PERF.md)
+
+
 def phase_elastic_sweep(torch, run, params, device, card):
     """The JAX elastic benchmark's protocol (60 ticks, peak 3, max_new 8,
     slots 8, slo_max_load 16, 8 logical devices; the elastic fleet 1
-    engine + 3 spares over 4 VFs) at full width on the card, then at the
+    engine + 3 spares over 4 VFs) at full width cut to
+    ELASTIC_SWEEP_LAYERS on the card (weights from the seed), then at the
     smoke width on the CPU: on spike and ramp elastic beats static on
     rejection and SLO-miss rate, and each trace's action kinds equal the
     CPU run's (the plan reads loads only). TTFT and ITL in ticks and ms."""
+    import dataclasses
     from repro_torch.bench.elastic_sweep import bench
     from repro_torch.configs import make_run_config
     from repro_torch.models.model import build_model
+    run = run.replace(model=dataclasses.replace(
+        run.model, num_layers=ELASTIC_SWEEP_LAYERS))
+    params = build_model(run).init(seed=run.seed, device=device)
     t0 = time.perf_counter()
     rows = bench(run, params, device, log=lambda s: None)
     wall = time.perf_counter() - t0
@@ -1934,7 +1952,9 @@ def phase_elastic_sweep(torch, run, params, device, card):
             f"p95 {r['itl_p95_ms']:.3f} ms | "
             f"{[a['kind'] for a in r['actions']]} | {r['wall_s']:.1f} s | "
             f"{card}")
-    log(f"elastic sweep: {wall:.1f} s on the card | gates "
+    del params
+    log(f"elastic sweep ({ELASTIC_SWEEP_LAYERS} layers): {wall:.1f} s on the "
+        f"card | gates "
         f"{summary['elastic_beats_static_spike_ramp']}, ITL within 1.1x "
         f"{summary.get('itl_within_target')} | actions equal the CPU run's "
         f"| {card}")
@@ -2082,21 +2102,35 @@ def phase_dense(torch, ops, run, params, seed, paged, card):
     return res
 
 
+SERVE_PATH_LAYERS = 4     # qwen3-0.6b at full width, 4 of its 28 layers:
+                          # the identities hold at any depth, and at 28
+                          # layers the bench took 111.6 s of the script's
+                          # 1,200 on the H100 (PERF.md)
+
+
 def phase_serve_path(torch, run, params, card):
-    """``bench.serve_path`` at full width with the JAX benchmark's defaults:
-    the fused-sampling bit identities are hard; the wall-clock gates are
-    reported (the fused int8 speedup against the JAX package's CPU
-    figure, and the within-run one beside it)."""
+    """``bench.serve_path`` at full width cut to SERVE_PATH_LAYERS (weights
+    from the seed) with the JAX benchmark's defaults: the fused-sampling
+    bit identities are hard; the wall-clock gates are reported (the fused
+    int8 speedup against the JAX package's CPU figure, and the within-run
+    one beside it)."""
+    import dataclasses
     from repro_torch.bench import serve_path
+    from repro_torch.models.model import build_model
+    run = run.replace(model=dataclasses.replace(
+        run.model, num_layers=SERVE_PATH_LAYERS))
+    params = build_model(run).init(seed=run.seed, device="cuda")
     t0 = time.perf_counter()
     rows = serve_path.bench(device="cuda", run=run, params=params,
                             log=log, **SERVE_PATH_KW)
+    del params
     s = rows[-1]
     gates = serve_path.wall_gates(s)
     res = {"rows": rows, "wall_gates": gates,
            "seconds": time.perf_counter() - t0}
     met = {k: "met" if v else "missed" for k, v in gates.items()}
-    log(f"serve_path qwen3-0.6b (slots 16, max_len 1024, page 32, 32 x 24 "
+    log(f"serve_path qwen3-0.6b, {SERVE_PATH_LAYERS} layers (slots 16, "
+        f"max_len 1024, page 32, 32 x 24 "
         f"tokens): paged_speedup_vs_dense {s['paged_speedup_vs_dense']} "
         f"(JAX gate >= 1.5: {met['paged_speedup_vs_dense >= 1.5']}) | "
         f"live_pause_itl_p95_ratio {s['live_pause_itl_p95_ratio']} (JAX "
@@ -2308,8 +2342,16 @@ def pipe_row(eng, met, counts) -> dict:
             "launches": counts}
 
 
+PIPE_LAYERS = 8          # the K = 1-4 engines' qwen3-0.6b at full width,
+                         # 8 of its 28 layers (2 a stage at K = 4): the
+                         # streams are held against a single-stage engine
+                         # on the same weights, and at 28 layers the group
+                         # took 147.8 s of the script's 1,200 (PERF.md)
+
+
 def phase_pipeline_serve(torch, ops, run, params, seed, card):
-    """qwen3-0.6b's 16 serve requests on a single-stage paged engine with
+    """qwen3-0.6b's 16 serve requests, at full width cut to PIPE_LAYERS
+    (weights from the seed), on a single-stage paged engine with
     host sampling (the oracle), then on ``PipelineServeEngine`` at K = 1,
     2, 3 and 4 (two microbatch groups): each K's streams equal the
     oracle's. Then a K=4 gang narrowed live to 3 and 2 mid-decode (its
@@ -2319,7 +2361,11 @@ def phase_pipeline_serve(torch, ops, run, params, seed, card):
     over the items' walls: on one card the stages run one after another,
     so it is not idle time of the card. Each serve run sets the launch
     counts to 0 before it and reads them after; ``launches`` sums them."""
-    res = {"widths": {}}
+    from repro_torch.models.model import build_model
+    run = run.replace(model=dataclasses.replace(
+        run.model, num_layers=PIPE_LAYERS))
+    params = build_model(run).init(seed=seed, device="cuda")
+    res = {"widths": {}, "layers": PIPE_LAYERS}
     total = {}
 
     def add(counts):
@@ -3792,7 +3838,7 @@ def phase_train_launch(torch, workdir, card, lr: str = TRAIN_LR):
         lines = [json.loads(line) for line in f]
     shutil.rmtree(wd, ignore_errors=True)
     losses = [m["loss"] for m in lines]
-    lnv = math.log(launch.build(args).model.vocab_size)
+    lnv = math.log(launch.build(args)[0].model.vocab_size)
     check(len(lines) == 30 and all(np.isfinite(losses)),
           f"train: {len(lines)} steps, losses {losses}")
     check(abs(lines[0]["ce"] - lnv) < CE_BAND * lnv,
@@ -4063,6 +4109,431 @@ def run_train(torch, ops, args, card, report, launches, workdir):
 
 
 # ---------------------------------------------------------------------------
+# the train tenant sharded over its VF's mesh: a rank pool on the card
+# ---------------------------------------------------------------------------
+SPMD_RANKS = 4
+SPMD_LAYERS = 4          # qwen3-0.6b at full width, 4 of its 28 layers: a
+                         # 28-layer step on four gloo ranks of one card
+                         # took 17-24 s (PERF.md), which would take this
+                         # phase and the script past their limits
+SPMD_LOSS_TOL = 1e-4     # a sharded step's loss (the eval loss, a step
+                         # after the int8 reshard, launch.train's) vs the
+                         # one-device run's, absolute on ~11.9, where a step
+                         # moves it ~5e-3: bf16 compute, the ranks' partial
+                         # sums in other orders (read: 1.53e-5, eval 9.5e-6,
+                         # after int8 1.72e-5, launch.train 1.34e-5)
+SPMD_GNORM_RTOL = 1e-3   # a sharded step's grad norm vs the twin's,
+                         # relative (read: 1.41e-4; a gradient summed
+                         # twice, or of half the batch, is off by tens of
+                         # percent)
+SPMD_PARAM_SHARE = 0.1   # per param leaf after 4 steps: |sharded - twin's|
+                         # over |twin's - init| (L2): AdamW's update is
+                         # about lr * sign(g), so a rounding difference
+                         # where g is near zero turns that element's step
+                         # (read: 0.021)
+SPMD_MEM_SHARE = 0.05    # a rank's allocated bytes vs its blocks' bytes
+SPMD_KERNELS = ("qdma_pack_rows", "qdma_unpack", "qdma_digest",
+                "flash_attention")
+
+
+def spmd_run(seed: int):
+    """qwen3-0.6b's train config at full width, cut to SPMD_LAYERS."""
+    from repro_torch.configs import make_run_config
+    return cut_layers(make_run_config(TRAIN_ARCH, "train_4k", seed=seed))
+
+
+def host_leaves(snap) -> dict:
+    """{path: CPU tensor or QuantizedLeaf} of a staged tree."""
+    from repro_torch.tree import flatten
+    return {p: getattr(x, "leaf", x) for p, x in flatten(
+        snap, is_leaf=lambda x: hasattr(x, "leaf"))[0]}
+
+
+def spmd_tenant(torch, rp, run, seed, workdir, twin, card):
+    """One train tenant on 2-rank VFs ((2, 1) meshes) of the rank pool: 2
+    steps, a pause with plain staging, ``set_num_vfs(1,
+    devices_per_vf=4)``, the unpause onto (2, 2), 2 steps, one eval step
+    through ``flash_attention`` on each rank's local heads; then a pause
+    with int8 staging (packed and digested on the ranks), ``set_num_vfs(2,
+    devices_per_vf=2)``, the unpause onto (2, 1) (unpacked there) and one
+    step. The plain reshard bit-equal to the paused snapshot, the int8
+    one within max|a|/64 of each leaf; every rank's allocated bytes
+    (above what it held without the state) within SPMD_MEM_SHARE of its
+    blocks' bytes on each mesh, below the whole state's."""
+    from repro_torch.core import DevicePool, StagingEngine, SVFFManager
+    from repro_torch.core import Tenant
+    pool = DevicePool(rp.ranks)
+    mgr = SVFFManager(pool, workdir=os.path.join(workdir, "spmd"))
+    tn = Tenant("spmd", run, local_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                seed=seed, device="cuda")
+    rp.reset_launch_counts()
+    base = rp.memory()
+    mgr.init(num_vfs=2, tenants=[tn], devices_per_vf=2)
+    res = {"meshes": [list(pool.find(tn.vf_id).mesh_shape)],
+           "rank_bytes": {}, "step_ms": {}}
+
+    def held(label, base):
+        """Each rank's allocated bytes above ``base`` (what it held
+        without the state: cuBLAS's workspaces once it ran a step)."""
+        st = tn.export_state()
+        mem, want = st.memory(), st.shardings.local_bytes()
+        for r, (local, alloc) in mem.items():
+            check(local == want[r], f"spmd {label}: rank {r} holds {local} "
+                                    f"B of blocks, the specs give {want[r]}")
+            grew = alloc - base[r]
+            check(abs(grew - want[r]) <= SPMD_MEM_SHARE * want[r]
+                  and want[r] < twin["state_bytes"],
+                  f"spmd {label}: rank {r} has {grew} B more allocated for "
+                  f"{want[r]} B of blocks (state {twin['state_bytes']})")
+        res["rank_bytes"][label] = {
+            str(r): {"blocks": want[r], "allocated": mem[r][1] - base[r]}
+            for r in mem}
+
+    def steps(n, label):
+        out = [tn.run_steps(1) for _ in range(n)]
+        res["step_ms"].setdefault(label, []).extend(
+            x * 1e3 for x in tn.step_times[-n:])
+        return out
+
+    def repartition(engine, vfs, per, label):
+        """Pause through ``engine``, repartition, unpause onto ``per``
+        ranks; returns (the snapshot's host leaves, pause ms, unpause
+        ms)."""
+        mgr.staging = engine
+        tp = mgr.pause(tn)
+        snap = host_leaves(mgr.snapshots[tn.tid].payload)
+        pool.set_num_vfs(vfs, devices_per_vf=per)
+        base = rp.memory()
+        tu = mgr.unpause(tn, num_devices=per)
+        res["meshes"].append(list(pool.find(tn.vf_id).mesh_shape))
+        held(label, base)
+        return snap, tp.total * 1e3, tu.total * 1e3
+
+    held("(2, 1)", base)
+    rp.traffic(reset=True)
+    rp.comm_counts(True)
+    ms = steps(2, "(2, 1)")
+    res["comm_counts_a_step"] = rp.comm_counts(False)[0][-1]
+    res["collective_bytes_2_steps"] = {
+        str(i): t for i, t in enumerate(rp.traffic(reset=True)[:2])}
+    snap, res["pause_ms"], res["unpause_ms"] = repartition(
+        StagingEngine(), 1, 4, "(2, 2)")
+    after = host_leaves(StagingEngine().save(tn.export_state()))
+    diff = [p for p in snap if not bits_equal(torch, snap[p], after[p])]
+    check(not diff, f"spmd plain: {len(diff)} leaves changed on the unpause "
+                    f"onto (2, 2) ({diff[:3]})")
+    res["leaves_changed_by_unpause"] = len(diff)
+    del snap, after
+    ms += steps(2, "(2, 2)")
+    ev = tn.export_state().eval(twin["eval_batch"])
+    after = host_leaves(StagingEngine().save(tn.export_state()))
+    drift = param_drift(after, twin)
+    _, res["int8_pause_ms"], res["int8_unpause_ms"] = repartition(
+        StagingEngine(compression="int8", block=QDMA_BLOCK), 2, 2,
+        "(2, 1) int8")
+    back = host_leaves(StagingEngine().save(tn.export_state()))
+    share = max(float((back[p].float() - a.float()).abs().max()
+                      / max(float(a.float().abs().max()), 1e-30))
+                for p, a in after.items() if a.numel())
+    res["int8_max_rel_move"] = share
+    del after, back
+    ms += steps(1, "(2, 1) int8")
+    counts = rp.launch_counts()
+    tn.export_state().release()
+    losses = [m["loss"] for m in ms]
+    dl = max(abs(a - b) for a, b in zip(losses[:4], twin["losses"]))
+    d8 = abs(losses[4] - twin["losses"][4])
+    de = abs(ev["loss"] - twin["eval_loss"])
+    dg = max(abs(m["grad_norm"] - g) / g
+             for m, g in zip(ms[:4], twin["grad_norms"]))
+    res.update(losses=losses, max_loss_diff=dl, int8_loss_diff=d8,
+               eval_loss=ev["loss"], eval_loss_diff=de,
+               grad_norm_rel_diff=dg, param_drift=drift, launches=counts)
+    log(f"spmd tenant, qwen3-0.6b full width {SPMD_LAYERS} layers, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: step ms " + " | ".join(
+            f"{k} {', '.join(f'{x:.0f}' for x in v)}"
+            for k, v in res["step_ms"].items())
+        + f" | plain pause {res['pause_ms']:.0f} ms, unpause "
+        f"{res['unpause_ms']:.0f} ms; int8 pause {res['int8_pause_ms']:.0f}"
+        f" ms, unpause {res['int8_unpause_ms']:.0f} ms (max rel move "
+        f"{share:.3g}) | losses {losses} vs twin max diff {dl:.3g}, after "
+        f"int8 {d8:.3g}, eval diff {de:.3g}, grad norms rel {dg:.3g}, "
+        f"params after 4 steps {drift:.3g} of their move | rank bytes "
+        f"{json.dumps(res['rank_bytes'])} | collectives rank 0, 2 steps "
+        f"(calls, input bytes) "
+        f"{json.dumps(res['collective_bytes_2_steps']['0'])} | CommDebugMode"
+        f" a step {json.dumps(res['comm_counts_a_step'])} | launches "
+        f"{json.dumps({k: counts[k] for k in SPMD_KERNELS})} | {card}")
+    check(share <= 1 / 64, f"spmd int8: a leaf moved by {share:.3g} of its "
+                           "max |a| (> 1/64)")
+    check(res["meshes"] == [[2, 1], [2, 2], [2, 1]],
+          f"spmd: meshes {res['meshes']}")
+    check(all(np.isfinite(losses)) and dl <= SPMD_LOSS_TOL,
+          f"spmd: losses {losses[:4]} vs the one-device twin's "
+          f"{twin['losses'][:4]} (max diff {dl:.3g} > {SPMD_LOSS_TOL})")
+    check(d8 <= SPMD_LOSS_TOL, f"spmd: the step after the int8 reshard "
+                               f"{losses[4]} vs the twin's "
+                               f"{twin['losses'][4]} (> {SPMD_LOSS_TOL})")
+    check(de <= SPMD_LOSS_TOL, f"spmd: eval loss {ev['loss']} vs the twin's "
+                               f"{twin['eval_loss']} (> {SPMD_LOSS_TOL})")
+    check(dg <= SPMD_GNORM_RTOL,
+          f"spmd: grad norms {[m['grad_norm'] for m in ms[:4]]} vs the "
+          f"twin's {twin['grad_norms'][:4]} (> {SPMD_GNORM_RTOL} relative)")
+    check(drift <= SPMD_PARAM_SHARE, f"spmd: after 4 steps a param leaf lies "
+                                     f"{drift:.3g} of its move from the "
+                                     f"twin's (> {SPMD_PARAM_SHARE})")
+    for k in SPMD_KERNELS:
+        check(counts[k] > 0, f"spmd: the ranks never launched {k}")
+    return res
+
+
+def spmd_attention_case(w, key, run, seed):
+    """On one worker of the mesh ``key``: the model's ``attention`` of
+    DTensor q, k, v laid out by the ``attn_q`` / ``attn_kv`` specs at the
+    tenant's shapes (the kernel on this rank's local batch and heads),
+    this rank's block of the output against the plain attention (the
+    kernel's plain version, ``flash_attention_ref``) on this rank's
+    blocks of q, k and v. Returns (the local q shape, max_abs_err, its
+    share of the attention limit)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.attention import attention
+    from repro_torch.runtime.partitioning import (ShardingRules, local_shard,
+                                                  placements, spmd_scope)
+    mesh = w.mesh(key)
+    shape, axes, _ = key
+    rules = ShardingRules(MeshConfig(tuple(shape), tuple(axes)), run, mesh)
+    cfg = run.model
+    g = torch.Generator(device=w.device).manual_seed(seed)
+
+    def make(heads, kind):
+        full = torch.randn((TRAIN_BATCH, TRAIN_SEQ, heads, cfg.head_dim),
+                           generator=g, device=w.device).to(torch.bfloat16)
+        pl = placements(rules.spec(kind, tuple(full.shape)), axes)
+        return DTensor.from_local(local_shard(full, mesh, pl), mesh, pl,
+                                  run_check=False)
+    q = make(cfg.num_heads, "attn_q")
+    k, v = (make(cfg.num_kv_heads, "attn_kv") for _ in "kv")
+    with spmd_scope(rules):
+        got = attention(q, k, v, causal=True).to_local()
+    want = kops.flash_attention(q.to_local(), k.to_local(), v.to_local(),
+                                causal=True, backend="ref")
+    err, share = attn_err(got, want)
+    return list(q.to_local().shape), err, share
+
+
+def phase_spmd_attention(rp, run, seed, card):
+    """``spmd_attention_case`` on every rank of a (2, 1) and a (2, 2) mesh
+    ("heads" mode: qwen's 8 kv heads split over the model axis), each
+    rank's block within the attention limit. Its launches come after the
+    tenant's were read and are not counted."""
+    out = {}
+    for shape, ranks in (((2, 1), rp.ranks[:2]), ((2, 2), rp.ranks)):
+        mesh = rp.mesh(shape, ("data", "model"), ranks)
+        rows = rp.run_on(mesh.ranks, spmd_attention_case, mesh.key, run,
+                         seed)
+        out[str(shape)] = [{"rank": str(r), "local_q": local,
+                            "max_abs_err": err, "share_of_limit": share}
+                           for r, (local, err, share) in zip(mesh.ranks,
+                                                             rows)]
+    log("spmd attention vs the plain attention on each rank's blocks: " + " | ".join(
+        f"{m} {row['rank']} q {tuple(row['local_q'])} err "
+        f"{row['max_abs_err']:.3g} ({row['share_of_limit']:.3g} of the "
+        f"limit)" for m, rows in out.items() for row in rows) + f" | {card}")
+    for m, rows in out.items():
+        for row in rows:
+            check(row["share_of_limit"] <= 1,
+                  f"spmd attention on {m}, {row['rank']}: max_abs_err "
+                  f"{row['max_abs_err']} ({row['share_of_limit']:.3g} of "
+                  "the limit)")
+    return out
+
+
+def param_drift(got, twin) -> float:
+    """The largest, over the param leaves, of |got - the twin's| over
+    |the twin's - its init| (L2 norms, after the same 4 steps): how far
+    the sharded run's params lie from the one-device run's, in units of
+    what the steps moved them."""
+    worst = 0.0
+    for p, want in twin["params4"].items():
+        move = float((want - twin["params0"][p]).norm())
+        d = float((got[p].float() - want).norm())
+        worst = max(worst, d / move if move else (0.0 if d == 0 else
+                                                  float("inf")))
+    return worst
+
+
+#: ``repro_torch.launch.train``'s ``main`` with its run cut by
+#: ``cut_layers`` (the launcher keeps the JAX launcher's flags; the depth
+#: is this script's cut), for ``python -c`` with this script's directory
+#: on the path
+SPMD_LAUNCH_CODE = """
+import sys
+import chip_smoke
+from repro_torch.launch import train
+make = train.make_run_config
+train.make_run_config = lambda *a, **k: chip_smoke.cut_layers(make(*a, **k))
+sys.exit(train.main(sys.argv[1:]))
+"""
+
+
+def cut_layers(run):
+    """``run`` at full width, its model cut to SPMD_LAYERS."""
+    return run.replace(model=dataclasses.replace(run.model,
+                                                 num_layers=SPMD_LAYERS))
+
+
+def spmd_launch_args(wd: str, steps: int = 3) -> list:
+    return ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(steps), "--lr", TRAIN_LR,
+            "--warmup", "5", "--workdir", wd, "--checkpoint-every", "0",
+            "--log-every", "0", "--device", "cuda"]
+
+
+def phase_spmd_launch(torch, workdir, card):
+    """``repro_torch.launch.train``'s ``main`` (``SPMD_LAUNCH_CODE``) as a
+    2-rank world on the card (gloo, the (2, 1) mesh; rank 0 writes the
+    metrics and the full-value checkpoint) against the same arguments
+    and cut on one rank in this process: 3 steps each, per-step losses
+    within SPMD_LOSS_TOL."""
+    import socket
+    from unittest import mock
+
+    from repro_torch.launch import train as launch
+    make = launch.make_run_config
+    out = {}
+    for world in (1, 2):
+        wd = os.path.join(workdir, f"launch_{world}")
+        t0 = time.perf_counter()
+        if world == 1:
+            with mock.patch.object(launch, "make_run_config",
+                                   lambda *a, **k: cut_layers(make(*a, **k))):
+                launch.train(launch.parser().parse_args(
+                    spmd_launch_args(wd)))
+        else:
+            with socket.socket() as sk:
+                sk.bind(("localhost", 0))
+                port = sk.getsockname()[1]
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", SPMD_LAUNCH_CODE,
+                 *spmd_launch_args(wd)],
+                env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                    (os.path.join(ROOT, "src"), ROOT)),
+                         RANK=str(r), LOCAL_RANK=str(r),
+                         WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                         MASTER_PORT=str(port)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for r in range(world)]
+            logs = [p.communicate(timeout=DIST_TIMEOUT_S)[0] for p in procs]
+            check(all(p.returncode == 0 for p in procs),
+                  "launch.train on 2 ranks: " + " | ".join(
+                      log_[-1500:] for log_ in logs))
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        out[world] = {"losses": [m["loss"] for m in lines],
+                      "step_ms": [m["step_s"] * 1e3 for m in lines],
+                      "wall_s": time.perf_counter() - t0}
+        release(torch)
+    diff = max(abs(a - b) for a, b in zip(out[1]["losses"],
+                                          out[2]["losses"]))
+    check(len(out[2]["losses"]) == 3 and diff <= SPMD_LOSS_TOL,
+          f"launch.train 2 ranks {out[2]['losses']} vs 1 rank "
+          f"{out[1]['losses']}")
+    log(f"launch.train qwen3-0.6b full width {SPMD_LAYERS} layers, 2-rank "
+        f"world (2, 1) vs 1 rank: losses {out[2]['losses']} vs "
+        f"{out[1]['losses']} (max diff {diff:.3g}) | step ms 2 ranks "
+        f"{', '.join(f'{x:.0f}' for x in out[2]['step_ms'])}, 1 rank "
+        f"{', '.join(f'{x:.0f}' for x in out[1]['step_ms'])} | wall "
+        f"{out[2]['wall_s']:.1f} s / {out[1]['wall_s']:.1f} s | {card}")
+    return {"by_world": {str(k): v for k, v in out.items()},
+            "max_loss_diff": diff}
+
+
+def start_spmd_pool():
+    """Start the ``RankPool`` of ``run_spmd`` on a thread, so that its
+    workers' start (a CUDA context and a gloo world, ~14-24 s) overlaps
+    the groups before it; ``run_spmd`` takes the job."""
+    import threading
+    job = {}
+
+    def start():
+        from repro_torch.core.ranks import RankPool
+        t0 = time.perf_counter()
+        try:
+            job["pool"] = RankPool(SPMD_RANKS, device="cuda")
+        except BaseException as e:     # surfaced by run_spmd
+            job["error"] = e
+        job["start_s"] = time.perf_counter() - t0
+    job["thread"] = threading.Thread(target=start, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def run_spmd(torch, ops, args, card, report, launches, workdir, job):
+    """The train tenant sharded over its VF's mesh: the ``RankPool`` of
+    SPMD_RANKS workers on the card (gloo) that ``start_spmd_pool``
+    started, one tenant through plain and int8 reshards
+    (``spmd_tenant``) held against the same tenant on one device of this
+    process; then ``launch.train`` over a 2-rank world. The workers'
+    launches go into ``launches``."""
+    from repro_torch.core import SVFFManager, Tenant
+    from repro_torch.data.pipeline import SyntheticSource, to_device
+    from repro_torch.train.step import make_eval_step
+    from repro_torch.tree import flatten
+    run = spmd_run(args.seed)
+    t_group = time.perf_counter()
+    twin = Tenant("spmd_twin", run, local_batch=TRAIN_BATCH,
+                  seq_len=TRAIN_SEQ, seed=args.seed, device="cuda")
+    SVFFManager(train_pool(), workdir=os.path.join(workdir, "twin")).init(
+        1, [twin])
+    eval_batch = SyntheticSource(run, batch_override=TRAIN_BATCH,
+                                 seq_override=TRAIN_SEQ).batch_at(
+                                     1000 + args.seed)
+
+    def params():
+        return {p: x.detach().to("cpu", torch.float32, copy=True)
+                for p, x in flatten(
+            twin.export_state())[0] if p.startswith("['params']")}
+    ref = {"params0": params(), "eval_batch": eval_batch,
+           "state_bytes": state_bytes(torch, twin.export_state())}
+    ms = [twin.run_steps(1) for _ in range(4)]
+    ref["params4"] = params()
+    ref["eval_loss"] = float(make_eval_step(run)(
+        twin.export_state()["params"], to_device(eval_batch, "cuda"))["loss"])
+    ms.append(twin.run_steps(1))
+    ref["losses"] = [m["loss"] for m in ms]
+    ref["grad_norms"] = [m["grad_norm"] for m in ms]
+    ref["step_ms"] = [x * 1e3 for x in twin.step_times]
+    del twin, params
+    release(torch)
+    res = {"layers": SPMD_LAYERS, "ranks": SPMD_RANKS,
+           "twin": {k: v for k, v in ref.items()
+                    if k not in ("eval_batch", "params0", "params4")}}
+    t0 = time.perf_counter()
+    job["thread"].join()
+    res["pool_wait_s"] = time.perf_counter() - t0
+    res["pool_start_s"] = job["start_s"]
+    if "error" in job:
+        raise job["error"]
+    with job["pool"] as rp:
+        res["tenant"] = spmd_tenant(torch, rp, run, args.seed, workdir, ref,
+                                    card)
+        for k in SPMD_KERNELS:
+            launches[k] = launches.get(k, 0) + res["tenant"]["launches"][k]
+        res["attention"] = phase_spmd_attention(rp, run, args.seed, card)
+    res["launch_train"] = phase_spmd_launch(torch, workdir, card)
+    res["group_s"] = time.perf_counter() - t_group
+    log(f"spmd group: {res['group_s']:.1f} s (rank pool start "
+        f"{res['pool_start_s']:.1f} s beside the earlier groups, "
+        f"{res['pool_wait_s']:.1f} s waited) | one-device twin step ms "
+        f"{', '.join(f'{x:.0f}' for x in ref['step_ms'])} | {card}")
+    report["spmd"] = res
+
+
+# ---------------------------------------------------------------------------
 # the sim plane: scenario sweep, crash matrix, pause path, state on the card
 # ---------------------------------------------------------------------------
 SIM_POLICIES = ("first_fit", "best_fit", "fair_share")
@@ -4248,6 +4719,11 @@ def run_sim(torch, ops, card, report, launches, elapsed):
 # the other model families
 # ---------------------------------------------------------------------------
 OLMOE, ARCTIC_1L = "olmoe-1b-7b", "arctic-480b-1l"
+OLMOE_LAYERS = 4         # olmoe-1b-7b at full width, 4 of its 16 layers:
+                         # its checks (margins, streams, the group rule)
+                         # hold at any depth, and at 16 layers the
+                         # families took 192.8 s of the script's 1,200,
+                         # which then ended at 1,247 s (PERF.md)
 JAMBA_MOE = "jamba-1.5-large-398b"
 FAMILY_SERVE_KERNELS = {"dense": ("flash_attention", "fused_sample"),
                         "paged": ("flash_attention", "paged_decode",
@@ -4480,7 +4956,7 @@ def slstm_loop_ms(torch, run, params) -> float:
 #: smoke); params are freed before the next model is built
 FAMILIES = (
     (OLMOE, (384, 512), family_requests(16, "moe"),
-     ("dense", "paged", "int8"), False),
+     ("dense", "paged", "int8"), False),  # depth OLMOE_LAYERS
     ("llama3-8b", (384,), family_requests(8, "any"), ("paged",), False),
     ("phi3-mini-3.8b", (384, 600), family_requests(8, "any"), ("paged",),
      False),
@@ -4509,6 +4985,9 @@ def run_families(torch, ops, args, card, report, launches):
     for arch, lengths, requests, layouts, smoke in FAMILIES:
         run = make_run_config(arch, "decode_32k", seed=args.seed,
                               smoke=smoke)
+        if arch == OLMOE:
+            run = run.replace(model=dataclasses.replace(
+                run.model, num_layers=OLMOE_LAYERS))
         cfg = run.model
         t0 = time.perf_counter()
         params = build_model(run).init(seed=args.seed, device="cuda")
@@ -4702,6 +5181,8 @@ def main(argv=None) -> int:
     mark("hybrid")
     run_hybrid(torch, ops, args, card, report, launches)
     mark("train")
+    # the sharded group's workers start beside the train group
+    spmd_pool = start_spmd_pool()
 
     workdir = tempfile.mkdtemp(prefix="train_smoke_")
     try:
@@ -4709,6 +5190,13 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    mark("spmd")
+    workdir = tempfile.mkdtemp(prefix="spmd_smoke_")
+    try:
+        run_spmd(torch, ops, args, card, report, launches, workdir,
+                 spmd_pool)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     mark("families")
     run_families(torch, ops, args, card, report, launches)
     mark("sim")

@@ -16,6 +16,13 @@ the same bytes, so a leaf's crc equals the JAX store's for the same
 values. Tensor leaves come back as tensors, numpy leaves as numpy. This
 store backs the detach path (a detached tenant's state parks here) and
 ``launch.train``'s periodic checkpoints (``save_async``, ``latest``).
+
+A tree of DTensors (``launch.train`` over a world of ranks) is saved as
+its full values in the same format: every rank gathers each leaf (a
+collective), and rank 0 alone writes. ``restore`` places each leaf as
+the template's leaf lies: a DTensor template leaf gets its mesh and
+placements (each rank keeping its block), and ``device`` may be a
+``core.ranks.RankShardings`` (a tenant on a VF of ranks).
 """
 from __future__ import annotations
 
@@ -29,17 +36,42 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.runtime.partitioning import is_dtensor, local_shard
 from repro_torch.tree import flatten, tree_map, unflatten
 
 
 def _host_tensor(leaf) -> tuple[torch.Tensor, str]:
-    """(contiguous CPU tensor with the leaf's bytes, "torch"|"numpy")."""
+    """(contiguous CPU tensor with the leaf's bytes, "torch"|"numpy"); a
+    DTensor's full value (a collective on its mesh)."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu").contiguous(), "torch"
     if isinstance(leaf, (np.ndarray, np.generic, int, float, bool)):
         return torch.from_numpy(np.ascontiguousarray(leaf)), "numpy"
     raise TypeError(f"CheckpointStore stores tensors and numpy arrays, "
                     f"not {type(leaf).__name__}")
+
+
+def _writer() -> bool:
+    """Rank 0 of an initialised ``torch.distributed`` world, or a lone
+    process."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) or \
+        dist.get_rank() == 0
+
+
+def _is_rank_target(device) -> bool:
+    from repro_torch.core.ranks import RankShardings
+    return isinstance(device, RankShardings)
+
+
+def _place_like(full: torch.Tensor, like):
+    """``full`` laid out as the DTensor ``like``: this rank's block."""
+    from torch.distributed.tensor import DTensor
+    mesh, pl = like.device_mesh, like.placements
+    local = local_shard(full.to(like.to_local().device), mesh, pl)
+    return DTensor.from_local(local, mesh, pl, run_check=False)
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -72,6 +104,11 @@ class CheckpointStore:
     # -- save ----------------------------------------------------------------
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None,
              verify: bool = True) -> str:
+        if not _writer():
+            # another rank writes; this one joins the gathers
+            for _, leaf in flatten(tree)[0]:
+                _host_tensor(leaf)
+            return os.path.join(self.dir, f"step_{step}")
         tmp = os.path.join(self.dir, f".tmp_step_{step}")
         final = os.path.join(self.dir, f"step_{step}")
         if os.path.exists(tmp):
@@ -108,7 +145,8 @@ class CheckpointStore:
         snapshot is consistent even if the caller then updates its
         tensors in place), the file I/O on a worker thread."""
         host_tree = tree_map(
-            lambda x: (x.detach().to("cpu", copy=True)
+            lambda x: (_host_tensor(x)[0].clone() if is_dtensor(x) else
+                       x.detach().to("cpu", copy=True)
                        if isinstance(x, torch.Tensor) else np.array(x)),
             tree)
         self.wait()
@@ -142,7 +180,11 @@ class CheckpointStore:
                 verify: bool = True) -> Any:
         """Restore into the structure of ``like`` (its values are ignored:
         tensors on the ``meta`` device will do). Tensor leaves land on
-        ``device`` when given, else on the CPU."""
+        ``device`` when given, else on the CPU; a leaf whose ``like`` is a
+        DTensor lands in that DTensor's placements on its mesh (on the
+        device of its local tensor). With a ``RankShardings`` as
+        ``device`` the state is placed on that VF of ranks (a
+        ``RankState`` comes back)."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "MANIFEST.json")) as f:
             manifest = json.load(f)
@@ -162,8 +204,15 @@ class CheckpointStore:
             t = t.reshape(meta["shape"])
             if meta.get("kind") == "numpy":
                 leaves.append(t.numpy())
+            elif is_dtensor(flat_like[len(leaves)][1]):
+                leaves.append(_place_like(t, flat_like[len(leaves)][1]))
+            elif device is None or _is_rank_target(device):
+                leaves.append(t)
             else:
-                leaves.append(t if device is None else t.to(device))
+                leaves.append(t.to(device))
+        if _is_rank_target(device):
+            return device.place({p: x for (p, _), x in zip(flat_like,
+                                                           leaves)})
         return unflatten(treedef, leaves)
 
     def metadata(self, step: int) -> dict:

@@ -2,9 +2,12 @@
 ``repro.core.pool``).
 
 The pool owns the host's accelerator device slots and carves them into
-VFs. The JAX package enumerates ``jax.devices()``; one H100 is one torch
-device, so the port's pool takes its slots from the caller (tokens such
-as ``"fleetdev0"``, or ``torch.device``s, which a rescan probes).
+VFs. The JAX package enumerates ``jax.devices()``; the port's pool takes
+its slots from the caller: tokens such as ``"fleetdev0"`` or
+``torch.device``s (one card holds every slot), or the ranks of a
+``core.ranks.RankPool``, worker processes that a VF's mesh really spans.
+A rescan probes the devices it can reach: a torch device, or a rank's
+worker.
 Like SR-IOV, changing the VF partition requires every VF to be host-
 detached (ATTACHED VFs block ``set_num_vfs`` — that is precisely the
 limitation the pause functionality works around: PAUSED VFs hold no
@@ -24,6 +27,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.core.ranks import Rank
 from repro_torch.core.vf import VFState, VirtualFunction
 
 
@@ -55,10 +59,13 @@ class DevicePool:
         t0 = time.perf_counter()
         # validation sweep: confirm every device answers (a one-element
         # round trip, like reading the vendor id of each function on the
-        # bus). Plain slot tokens have no bus to probe.
+        # bus). Plain slot tokens have no bus to probe; a rank's worker
+        # answers a ping.
         for d in self._devices:
             if isinstance(d, torch.device):
                 torch.zeros(1, device=d).cpu()
+            elif isinstance(d, Rank):
+                d.pool.probe(d)
         self._rescanned = True
         self.last_rescan_s = time.perf_counter() - t0
         return len(self._devices)

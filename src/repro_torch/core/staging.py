@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fault import crashpoint
+from repro_torch.core.ranks import RankShardings, RankState
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import row_view
@@ -351,14 +352,13 @@ class StagingEngine:
         return [q for q in queues if q]
 
     def _pack_eligible(self, x) -> bool:
-        return (self.compression == "int8" and x.dim() >= 1
-                and x.dtype in (torch.float32, torch.bfloat16)
-                and x.numel() >= self.min_quant_size
-                and x.shape[-1] % self.block == 0)
+        return self._pack_eligible_shape(tuple(x.shape), x.dtype)
 
     # -- device -> host (pause / checkpoint) -----------------------------------
     def save(self, tree: Any, tenant: Optional[str] = None,
              incremental: Optional[bool] = None) -> Any:
+        if isinstance(tree, RankState):
+            return self._save_ranks(tree, tenant, incremental)
         if not self.pipeline:
             return self._save_legacy(tree, tenant, incremental)
         incremental = self.incremental if incremental is None else incremental
@@ -490,9 +490,12 @@ class StagingEngine:
     # -- host -> device (unpause / restore) -------------------------------------
     def restore(self, staged: Any, device=None) -> Any:
         """Place a staged tree on ``device`` (a torch device or its name;
-        the card by default). Tensor leaves come back as fresh tensors
-        there, numpy leaves as fresh numpy copies, so the restored state
-        never aliases the snapshot."""
+        the card by default), or on a VF of ranks (``RankShardings``: a
+        ``RankState`` comes back). Tensor leaves come back as fresh
+        tensors there, numpy leaves as fresh numpy copies, so the
+        restored state never aliases the snapshot."""
+        if isinstance(device, RankShardings):
+            return self._restore_ranks(staged, device)
         if not self.pipeline:
             return self._restore_legacy(staged, device)
         dev = resolve_device("cuda" if device is None else device)
@@ -548,6 +551,114 @@ class StagingEngine:
             kops.qdma_unpack(qd, sd, dtype=ql.dtype,
                              out=row_view(out)[lo:hi])
         return out
+
+    # -- a state sharded over a VF of ranks -----------------------------------
+    def _save_ranks(self, rs: RankState, tenant: Optional[str],
+                    incremental: Optional[bool]) -> Any:
+        """The host snapshot of a sharded state: the global leaves, as the
+        JAX controller holds them. Each block owner (one rank per distinct
+        block) digests its block and copies it to host, or packs it to
+        int8 on its card when the block's last dim is a whole number of
+        int8 blocks (so the pack is bit-equal to the unsharded leaf's);
+        any other packed leaf is gathered to one member and packed whole.
+        With ``incremental`` the digests come first, and a leaf whose
+        blocks all digest as at the previous save reuses its host copy."""
+        from repro_torch.train.step import train_state_shapes
+        incremental = self.incremental if incremental is None else incremental
+        t0 = time.perf_counter()
+        sh = rs.shardings
+        owners = sh.owners()
+        memo = self._memo_for(tenant)
+        host: dict = {}
+        skipped = 0
+        if incremental:
+            dg = rs.digests(owners)
+            for path, own in owners.items():
+                e = memo.get(path)
+                if e is not None and e.digest == tuple(dg[r][path]
+                                                       for r in own):
+                    host[path] = e.host
+                    skipped += _nbytes(e.host)
+        plan = {}
+        for path, shape, dtype, _ in sh.leaves():
+            if path in host:
+                continue
+            own = owners[path]
+            mode = "plain"
+            if self._pack_eligible_shape(shape, dtype):
+                local_last = max(sl[-1].stop - sl[-1].start
+                                 for sl in own.values())
+                mode = "pack" if local_last % self.block == 0 else "gather"
+            plan[path] = (mode, own, sh.mesh.ranks[0], self.block)
+        got = rs.fetch(plan) if plan else {}
+        puts = []
+        for path, shape, dtype, _ in sh.leaves():
+            if path not in plan:
+                continue
+            mode, own, packer, block = plan[path]
+            if mode == "plain":
+                buf = torch.empty(shape, dtype=dtype)
+                for r, sl in own.items():
+                    buf[sl] = got[r][path][1][1]
+            else:
+                L = shape[-1]
+                buf = QuantizedLeaf(
+                    q=torch.empty(shape, dtype=torch.int8),
+                    scale=torch.empty(shape[:-1] + (L // block,),
+                                      dtype=torch.float32),
+                    dtype=str(dtype).removeprefix("torch."), block=block)
+                parts = ({packer: tuple(slice(0, n) for n in shape)}
+                         if mode == "gather" else own)
+                for r, sl in parts.items():
+                    _, q, scale = got[r][path][1]
+                    last = sl[-1]
+                    buf.q[sl] = q
+                    buf.scale[sl[:-1] + (slice(last.start // block,
+                                                last.stop // block),)] = \
+                        scale
+            host[path] = buf
+            if incremental:
+                puts.append((path, buf, tuple(got[r][path][0] for r in own)))
+        # transactional publication, as in the pipelined save
+        for path, buf, digest in puts:
+            memo[path] = _Memo(ref=None, version=0, digest=digest, host=buf)
+        flat, treedef = flatten(train_state_shapes(sh.run))
+        leaves = [host[path] for path, _ in flat]
+        dt = time.perf_counter() - t0
+        self.last_stats = TransferStats(
+            bytes_moved=sum(_nbytes(h) for h in leaves) - skipped,
+            logical_bytes=sum(math.prod(s) * torch.empty(
+                (), dtype=d).element_size() for _, s, d, _ in sh.leaves()),
+            seconds=dt, num_leaves=len(leaves), queues=self.num_queues,
+            skipped_bytes=skipped,
+            num_descriptors=sum(len(plan[p][1]) for p in plan),
+            transport="ranks")
+        return unflatten(treedef, [
+            _Opaque(h) if isinstance(h, QuantizedLeaf) else h
+            for h in leaves])
+
+    def _restore_ranks(self, staged: Any, sh: RankShardings) -> RankState:
+        """Place a host snapshot on a VF of ranks: each member receives
+        its blocks (int8 blocks unpacked on its card by ``qdma_unpack``)."""
+        t0 = time.perf_counter()
+        flat, _ = flatten(staged, is_leaf=lambda x: isinstance(x, _Opaque))
+        host = {path: (x.leaf if isinstance(x, _Opaque) else x)
+                for path, x in flat}
+        state = sh.place(host)
+        self.last_stats = TransferStats(
+            bytes_moved=sum(_nbytes(x) for x in host.values()),
+            logical_bytes=sum(math.prod(s) * torch.empty(
+                (), dtype=d).element_size() for _, s, d, _ in sh.leaves()),
+            seconds=time.perf_counter() - t0, num_leaves=len(host),
+            queues=self.num_queues, num_descriptors=len(host),
+            transport="ranks")
+        return state
+
+    def _pack_eligible_shape(self, shape, dtype) -> bool:
+        return (self.compression == "int8" and len(shape) >= 1
+                and dtype in (torch.float32, torch.bfloat16)
+                and math.prod(shape) >= self.min_quant_size
+                and shape[-1] % self.block == 0)
 
     # -- PR-1 baseline engine (whole-leaf round-robin) --------------------------
     def _save_legacy(self, tree: Any, tenant: Optional[str],

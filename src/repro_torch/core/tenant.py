@@ -8,14 +8,20 @@ queries from its emulated view (the guest still sees the device, fig. 2
 right panel) but actual work raises DevicePausedError — "can not do any
 actual I/O operations until the device is unpaused".
 
-One card is one torch device: the tenant computes on its ``device``
-whatever slots of the pool its VF holds (as ``serve.fleet.EngineTenant``
-does), so ``shardings_for`` names that device and a restore places the
-state there. The layout it exports into a pause snapshot's
-``sharding_desc`` is the JAX tenant's: the train state's specs under
-``ShardingRules`` for its VF's mesh. PyTorch runs eagerly: ``bind`` has nothing to compile, and
-keeps the executable-cache key per slice only so that ``query()`` and a
-pause snapshot's ``exec_keys`` read as the JAX tenant's. A paused or
+On a VF of ranks (``core.ranks``) the state lives on the VF's workers
+as DTensors laid out by ``train_state_specs`` for the VF's mesh, each
+rank holding its blocks, as the JAX tenant places it with
+``NamedSharding``s: ``bind`` initialises it there (bit-equal to the
+one-device init) or adopts a restored one, ``run_steps`` runs the
+sharded step on the workers, ``shardings_for`` names the target mesh and
+specs, and ``suspend`` / ``detach`` free every worker's tensors. On the
+logical slots of one card the tenant computes on its ``device`` whatever
+slots its VF holds (as ``serve.fleet.EngineTenant`` does), and a restore
+places the state there. The layout it exports into a pause snapshot's
+``sharding_desc`` is the JAX tenant's either way. PyTorch runs eagerly:
+``bind`` has nothing to compile, and keeps the executable-cache key per
+slice so that ``query()`` and a snapshot's ``exec_keys`` read as the JAX
+tenant's (the workers build a step per mesh, once). A paused or
 detached tenant holds no device tensor: ``suspend`` and ``detach`` drop
 its state, and the pause path drops the exported tree and the staging
 memo.
@@ -28,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import MeshConfig, RunConfig
+from repro_torch.core.ranks import RankShardings, RankState, is_rank_slice
 from repro_torch.core.vf import VirtualFunction
 from repro_torch.data.pipeline import SyntheticSource, to_device
 from repro_torch.device import resolve_device
@@ -68,8 +75,7 @@ class Tenant:
 
     def state_shardings(self, mesh):
         """The train state's specs as DTensor placements on ``mesh``, a
-        ``DeviceMesh`` (the rules of ``_make_rules`` carry none: one card
-        holds the whole VF)."""
+        ``DeviceMesh`` (a worker's: the controller holds none)."""
         mesh_cfg = MeshConfig(tuple(mesh.mesh.shape),
                               tuple(mesh.mesh_dim_names))
         rules = ShardingRules(mesh_cfg, self.run, mesh)
@@ -77,8 +83,12 @@ class Tenant:
 
     # -- manager/pause protocol (duck-typed) --------------------------------
     def shardings_for(self, vf: VirtualFunction):
-        """Where a restore places this tenant's state: its device (one card
-        holds every slot of the pool)."""
+        """Where a restore places this tenant's state: on a VF of ranks
+        the VF's mesh and the train state's specs for it, else the
+        tenant's device (one card holds every slot of the pool)."""
+        if is_rank_slice(vf.devices):
+            return RankShardings(vf.mesh(), self.run, train_state_specs(
+                self.run, self._make_rules(vf)), self.tid)
         return self.device
 
     def state_template(self):
@@ -97,6 +107,11 @@ class Tenant:
         self._rules = self._make_rules(vf)
         if state is not None:
             self._state = state
+        elif self._state is None and is_rank_slice(vf.devices):
+            mesh = vf.mesh()
+            self._state = mesh.pool.init_state(
+                mesh, self.tid, self.run, self.run.seed,
+                train_state_specs(self.run, self._rules))
         elif self._state is None:
             self._state = init_train_state(self.run, self.run.seed,
                                            self.device)
@@ -126,6 +141,13 @@ class Tenant:
         if self._fail_next:
             self._fail_next = False
             raise RuntimeError(f"{self.tid}: injected device failure")
+        if isinstance(self._state, RankState):
+            done = self._state.step([self._source.batch_at(self.steps_done
+                                                           + i)
+                                     for i in range(n)])
+            self.steps_done += n
+            self.step_times.extend(dt for _, dt in done)
+            return done[-1][0] if done else {}
         fn = self._exec_cache[self._active_key]
         metrics = {}
         for _ in range(n):
@@ -146,9 +168,15 @@ class Tenant:
     def suspend(self):
         """Paper step 2: unregister host-side handles; the guest keeps its
         emulated view (status queries still answered). The state's device
-        tensors go with this last reference."""
-        self._state = None
+        tensors go with this last reference (on ranks: every worker drops
+        its blocks)."""
+        self._release()
         self.status = "paused"
+
+    def _release(self):
+        if isinstance(self._state, RankState):
+            self._state.release()
+        self._state = None
 
     def resume(self, state, vf: VirtualFunction):
         self._state = state
@@ -156,7 +184,7 @@ class Tenant:
         self.bind(vf, state=state)
 
     def detach(self):
-        self._state = None
+        self._release()
         self.vf_id = None
         self.status = "detached"
 

@@ -2,10 +2,13 @@
 ``repro.core.vf``).
 
 A VF is a slice of the device pool: an ordered set of device slots plus
-the mesh shape/axes a tenant's state would be sharded over. One H100 is
-one torch device, so the pool's slots are logical (tokens such as
-``"fleetdev0"``, or torch devices) and the mesh is metadata. Its
-lifecycle mirrors the VFIO device states in the paper (fig. 2):
+the mesh shape/axes a tenant's state is sharded over. The slots are the
+ranks of a ``core.ranks.RankPool`` (worker processes, each a device; the
+VF's mesh is a ``DeviceMesh`` over them and a train tenant's state lives
+there as DTensors, each rank holding its blocks), or logical slots
+(tokens such as ``"fleetdev0"``, or torch devices) of one card, where
+the mesh is metadata. Its lifecycle mirrors the VFIO device states in
+the paper (fig. 2):
 
   DETACHED  — exists in the PF's VF table, bound to no tenant (left panel)
   ATTACHED  — bound to a tenant; tenant state lives on its devices (center)
@@ -57,14 +60,20 @@ class VirtualFunction:
     # emulated view survives pause (the guest's config-space mirror)
     emulated: dict = field(default_factory=dict)
 
-    def mesh(self) -> dict:
-        """The slice's mesh as metadata: the device slots laid out in
-        ``mesh_shape`` (nested lists) and the axis names. The JAX package
-        builds a ``jax.sharding.Mesh`` here; one card is one torch
-        device, so the port has nothing to shard over."""
+    def mesh(self):
+        """The slice's mesh. On ranks, a ``RankMesh``: every worker of the
+        pool builds the ``DeviceMesh`` of these ranks in ``mesh_shape``
+        (cached per slice), as the JAX package builds a
+        ``jax.sharding.Mesh`` here. On the logical slots of one card, the
+        metadata: the slots laid out in ``mesh_shape`` (nested lists) and
+        the axis names."""
         if not self.devices:
             raise VFTransitionError(
                 f"{self.vf_id} holds no devices ({self.state.value})")
+        from repro_torch.core.ranks import is_rank_slice
+        if is_rank_slice(self.devices):
+            return self.devices[0].pool.mesh(self.mesh_shape,
+                                             self.mesh_axes, self.devices)
         devs = list(self.devices)
         for n in reversed(self.mesh_shape[1:]):
             devs = [devs[i:i + n] for i in range(0, len(devs), n)]

@@ -45,8 +45,14 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def local_mesh_config(device="cuda") -> MeshConfig:
-    """What this host has: (n, 1) over its n cards, or the unit mesh for
-    one card or the CPU."""
+    """What this program has: (world, 1) over the ranks of an initialised
+    ``torch.distributed`` world of more than one rank (a ``torchrun``
+    launch: the JAX package's (n, 1) over its devices); else (n, 1) over
+    this host's n cards, or the unit mesh for one card or the CPU."""
+    import torch.distributed as dist
     dev = resolve_device(device)
-    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if dist.is_available() and dist.is_initialized():
+        n = dist.get_world_size()
+    else:
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
     return MeshConfig((n, 1), ("data", "model")) if n > 1 else UNIT_MESH

@@ -22,6 +22,8 @@ import math
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime.partitioning import (P, current_rules, is_dtensor,
+                                              placements)
 
 NEG_INF = -1e30
 
@@ -61,6 +63,8 @@ def attention(q, k, v, *, causal: bool, backend: str = "auto", q_offset=0,
     # even one holding 0, is a chunk of a chunked prefill whose K is
     # longer than its q), as in the JAX dispatch
     if kv_len is None and isinstance(q_offset, int) and q_offset == 0:
+        if is_dtensor(q):
+            return _sharded_attention(q, k, v, causal, backend)
         return kops.flash_attention(q, k, v, causal=causal, backend=backend)
     return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                          kv_len=kv_len)
@@ -95,3 +99,36 @@ def paged_decode_attention(q, k_pages, v_pages, tables, pos, *,
                                        v_scale, tables, pos, backend=backend)
     return kops.paged_decode(q, k_pages, v_pages, tables, pos,
                              backend=backend)
+
+
+def _sharded_attention(q, k, v, causal: bool, backend: str):
+    """``flash_attention`` on DTensors of a VF's mesh: each rank runs the
+    wrapper (the kernel on a card) on its local tensors, never on a
+    DTensor. In "heads" mode q, k and v keep their local heads (the
+    ``attn_q`` / ``attn_kv`` specs) and the batch its data shard; in
+    "seq" mode (the kv heads do not divide the model axis) q is gathered
+    over the model axis first, so the causal kernel sees the whole
+    sequence of the local batch, beside the replicated k and v."""
+    from torch.distributed.tensor.experimental import local_map
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        raise ValueError("attention on DTensors needs a sharding_scope "
+                         "with the mesh's rules")
+    axes = rules.mesh.mesh_dim_names
+    q_spec = rules.spec("attn_q", tuple(q.shape))
+    if rules.attn_mode(q.shape[2]) != "heads":
+        q_spec = P(q_spec[0], None, None, None)
+    qp = placements(q_spec, axes)
+    kp = placements(rules.spec("attn_kv", tuple(k.shape)), axes)
+
+    def local(ql, kl, vl):
+        return kops.flash_attention(ql.contiguous(), kl.contiguous(),
+                                    vl.contiguous(), causal=causal,
+                                    backend=backend)
+
+    # one output: its placements as a list (a tuple reads as one entry
+    # per output)
+    qp, kp = list(qp), list(kp)
+    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
+                     device_mesh=rules.mesh, redistribute_inputs=True)(
+                         q, k, v)

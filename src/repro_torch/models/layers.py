@@ -56,6 +56,16 @@ def swiglu(x, wi, wg, wo, cdt):
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, cdt):
+    from repro_torch.runtime.partitioning import is_dtensor
+    if is_dtensor(table):
+        # the vocab-split table gathered first (its gradient goes back
+        # split): a lookup into split rows leaves a masked partial sum
+        # whose backward DTensor cannot redistribute, and an index's
+        # backward (an index_put) has no rule torch 2.11 can follow
+        from torch.distributed.tensor import Replicate
+        table = table.redistribute(table.device_mesh, [
+            Replicate() if p.is_shard(0) else p for p in table.placements])
+        return F.embedding(tokens.to(torch.int64), table).to(cdt)
     return table[tokens.to(torch.int64)].to(cdt)
 
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, MAMBA, MLSTM, SLSTM,
@@ -43,6 +44,9 @@ from repro_torch.models.layers import (apply_rope, embed_lookup, rms_norm,
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_block
 from repro_torch.models.xlstm import mlstm_block, slstm_block
+from repro_torch.runtime.partitioning import (constrain, current_rules,
+                                              is_dtensor, settle,
+                                              sharding_scope)
 from repro_torch.tree import tree_items, tree_map
 
 _BLOCK_FNS = {MAMBA: mamba_block, MLSTM: mlstm_block, SLSTM: slstm_block}
@@ -71,19 +75,59 @@ def ops_backend(run: RunConfig) -> str:
 # ===========================================================================
 # attention mixer
 # ===========================================================================
+def _heads(t, n: int, hd: int):
+    """(B, S, n * hd) -> (B, S, n, hd). On a DTensor whose last dim is
+    sharded over more parts than ``n`` heads divide into (the kv heads of
+    "seq" mode), that dim is gathered first: a view cannot split a shard
+    across heads."""
+    if not is_dtensor(t):
+        return t.reshape(t.shape[0], t.shape[1], n, hd)
+    mesh = t.device_mesh
+    fix = [Replicate() if p.is_shard() and p.dim in (-1, t.dim() - 1)
+           and n % mesh.size(i) else p for i, p in enumerate(t.placements)]
+    if fix != list(t.placements):
+        t = t.redistribute(mesh, fix)
+    return _ContiguousGrad.apply(t.reshape(t.shape[0], t.shape[1], n, hd))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity on a DTensor, whose backward makes the gradient's
+    local tensor contiguous: the view in a reshape's backward fails on
+    the transposed local gradient the attention's backward hands over
+    (a DTensor reports its global strides, so ``.contiguous()`` on it
+    does not reach the local tensor)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(g.to_local().contiguous(), g.device_mesh,
+                                  g.placements, run_check=False,
+                                  shape=g.shape, stride=g.stride())
+
+
 def _attn_mixer(cfg: ModelConfig, p: dict, x, cdt, mode, cache, positions,
                 pos, backend, causal=True, tables=None, active=None):
     B, S, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = rms_norm(x, p["ln1"], cfg.norm_eps).to(cdt)
-    q = (h @ p["wq"].to(cdt)).reshape(B, S, H, hd)
-    k = (h @ p["wk"].to(cdt)).reshape(B, S, K, hd)
-    v = (h @ p["wv"].to(cdt)).reshape(B, S, K, hd)
+    if mode != "decode":
+        h = constrain(h, "hidden_full")   # SP: gather seq for TP qkv
+    q = _heads(h @ p["wq"].to(cdt), H, hd)
+    k = _heads(h @ p["wk"].to(cdt), K, hd)
+    v = _heads(h @ p["wv"].to(cdt), K, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if mode != "decode":
+        q = constrain(q, "attn_q")
+        k = constrain(k, "attn_kv")
+        v = constrain(v, "attn_kv")
 
     new_cache = None
     if mode == "decode" and tables is None:
@@ -115,7 +159,9 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, cdt, mode, cache, positions,
         else:
             cache["k"][:, pos:pos + 1] = k
             cache["v"][:, pos:pos + 1] = v
-        o = decode_attention(q, cache["k"], cache["v"], pos, backend=backend)
+        o = decode_attention(q, constrain(cache["k"], "kv_cache"),
+                             constrain(cache["v"], "kv_cache"), pos,
+                             backend=backend)
     elif mode == "decode":
         # paged KV: the cache leaf is this layer's view of the shared page
         # pool (P, page, K, hd); slot b's new token lands in page
@@ -164,9 +210,24 @@ def _attn_mixer(cfg: ModelConfig, p: dict, x, cdt, mode, cache, positions,
     else:                                   # train / prefill
         o = attention(q, k, v, causal=causal, backend=backend)
         if mode == "prefill":
-            new_cache = {"k": k, "v": v}
-    out = o.reshape(B, S, H * hd).to(cdt) @ p["wo"].to(cdt)
+            new_cache = {"k": constrain(k, "kv_cache"),
+                         "v": constrain(v, "kv_cache")}
+        o = constrain(o, "attn_q")
+    out = _seq_major_mm(o.reshape(B, S, H * hd).to(cdt), p["wo"].to(cdt))
+    if mode != "decode":
+        out = constrain(out, "hidden")
     return out, new_cache
+
+
+def _seq_major_mm(x, w):
+    """``x @ w``. A (B, S, F) DTensor split over its sequence (the "seq"
+    mode's attention output) is multiplied sequence-major: the product
+    flattens (B, S), which a view cannot do with S split (torch 2.11's
+    DTensor refuses), while (S, B) with S split flattens in place."""
+    if is_dtensor(x) and x.dim() == 3 and any(
+            p.is_shard(1) for p in x.placements):
+        return (x.transpose(0, 1) @ w).transpose(0, 1)
+    return x @ w
 
 
 def _cross_mixer(cfg: ModelConfig, p: dict, x, cdt, mode, cache, memory,
@@ -200,7 +261,10 @@ def _apply_ffn(cfg: ModelConfig, p: dict, x, cdt):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     y = None
     if "ffn" in p:
-        y = swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"], cdt)
+        # SP: the sequence gathered for the TP matmuls, scattered back at
+        # the block's "hidden" constraint
+        hf = constrain(h, "hidden_full")
+        y = swiglu(hf, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"], cdt)
     if "moe" in p:
         ym, aux = moe_ffn(h, p["moe"], cfg.moe, cdt)
         # JAX sums both terms onto zeros_like(x), so at x's dtype
@@ -256,7 +320,7 @@ def _apply_block(cfg, run: RunConfig, kind: str, p, x, mode, cache_j,
             nc = None
         x = x + out
     x, aux = _apply_ffn(cfg, p, x, cdt)
-    return x, nc, aux
+    return constrain(x, "hidden"), nc, aux
 
 
 # ===========================================================================
@@ -307,11 +371,18 @@ def run_stack(cfg: ModelConfig, run: RunConfig, layers: dict, x, mode,
     # policy but "none" saves nothing inside the period here)
     remat = (mode == "train" and run.sharding.remat != "none"
              and torch.is_grad_enabled())
+    # the recompute runs in the backward, on autograd's device thread on
+    # a card: it re-enters the forward's sharding scope itself
+    rules = current_rules()
+
+    def recompute(x, aux, i):
+        with sharding_scope(rules):
+            return period(x, aux, i)[:2]
+
     aux = dict(ZERO_AUX)
     for i in range(nper):
         if remat:
-            x, aux = checkpoint(lambda x, aux, i=i: period(x, aux, i)[:2],
-                                x, aux, use_reentrant=False)
+            x, aux = checkpoint(recompute, x, aux, i, use_reentrant=False)
             continue
         x, aux, ncs = period(x, aux, i)
         for name, nc in ncs.items():
@@ -382,13 +453,15 @@ class Model:
         ldt = _dt(self.run.precision.logits)
         if self.cfg.tie_embeddings:
             w = params["embed"]["tok"]
-            return x.to(ldt) @ w.to(ldt).T
-        return x.to(ldt) @ params["lm_head"].to(ldt)
+            out = x.to(ldt) @ w.to(ldt).T
+        else:
+            out = x.to(ldt) @ params["lm_head"].to(ldt)
+        return constrain(out, "logits")
 
     def _encode(self, params, frames, cdt):
         """The encoder over precomputed frames (B, Te, D): non-causal
         attention blocks, then the encoder's final norm."""
-        x = frames.to(cdt)
+        x = constrain(frames.to(cdt), "hidden")
         pos = torch.arange(x.shape[1], device=x.device)
         x, _, _ = run_stack(self.cfg, self.run, params["encoder"]["layers"],
                             x, "train", positions=pos, is_encoder=True)
@@ -407,6 +480,7 @@ class Model:
                            x], dim=1)
         if cfg.is_encoder_decoder:
             memory = self._encode(params, batch["frames"].to(x.device), cdt)
+        x = constrain(x, "hidden")
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux, cache = run_stack(cfg, run, params["decoder"]["layers"], x,
                                   mode, positions=positions, memory=memory)
@@ -439,7 +513,7 @@ class Model:
         valid = labels >= 0
         safe = labels.clamp(0, cfg.vocab_size - 1)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, safe[..., None])[..., 0]
+        gold = settle(logits.gather(-1, safe[..., None]))[..., 0]
         ce = torch.where(valid, lse - gold, torch.zeros_like(lse))
         ntok = valid.sum().clamp(min=1).to(torch.int32)
         ce_mean = ce.sum() / ntok
@@ -478,7 +552,8 @@ class Model:
             raise ValueError(f"{cfg.name}: chunked prefill needs a "
                              "decoder-only all-attention stack")
         offset = torch.as_tensor(offset, dtype=torch.int64)
-        x = self._embed(params, tokens, _dt(run.precision.compute))
+        x = constrain(self._embed(params, tokens, _dt(run.precision.compute)),
+                      "hidden")
         offset = offset.to(x.device)
         positions = offset + torch.arange(x.shape[1], device=x.device)
         x, _, cache = run_stack(cfg, run, params["decoder"]["layers"], x,
@@ -508,7 +583,8 @@ class Model:
         them) and their recurrent state stays bit-untouched. Their logits
         are garbage and must be discarded."""
         cfg, run = self.cfg, self.run
-        x = self._embed(params, tokens, _dt(run.precision.compute))
+        x = constrain(self._embed(params, tokens, _dt(run.precision.compute)),
+                      "hidden")
         if isinstance(pos, torch.Tensor) and pos.dim() == 1:
             # per-slot positions (paged, or the dense ring): rope positions
             # must be in-range even for inactive (-1) slots

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.runtime.partitioning import constrain
 
 GROUP_SIZE = 512  # tokens per routing group (capacity is per-group)
 
@@ -98,10 +99,12 @@ def moe_ffn(x: torch.Tensor, p: dict, moe: MoEConfig, cdt):
     probs, _, dispatch, combine = route(logits, moe, cdt)
 
     # expert computation over every expert
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)   # (E,G,C,D)
+    expert_in = constrain(torch.einsum("gsec,gsd->egcd", dispatch, xg),
+                          "expert")                            # (E,G,C,D)
     h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, p["wg"].to(cdt)))
     h = h * torch.einsum("egcd,edf->egcf", expert_in, p["wi"].to(cdt))
-    out = torch.einsum("egcf,efd->egcd", h, p["wo"].to(cdt))
+    out = constrain(torch.einsum("egcf,efd->egcd", h, p["wo"].to(cdt)),
+                    "expert")
     y = torch.einsum("gsec,egcd->gsd", combine, out)
 
     # aux losses: load balance E * sum_e mean_prob_e * mean_dispatch_frac_e

@@ -32,6 +32,7 @@ import torch
 from repro_torch.configs.base import ATTN, ModelConfig, RunConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.model import _dt, build_model, run_stack
+from repro_torch.runtime.partitioning import constrain
 from repro_torch.tree import tree_map
 
 
@@ -160,7 +161,8 @@ def make_stage_decode(run: RunConfig, lo: int, hi: int, *, first: bool,
     cdt = _dt(run.precision.compute)
 
     def step(params, cache, xin, pos, tables, active, positions=None):
-        x = model._embed(params, xin, cdt) if first else xin
+        x = constrain(model._embed(params, xin, cdt), "hidden") if first \
+            else xin
         if positions is None:
             positions = (pos.to(torch.int64).clamp(min=0)[:, None]
                          if pos.dim() == 1 else
@@ -189,7 +191,8 @@ def make_stage_prefill(run: RunConfig, lo: int, hi: int, *, first: bool,
     cdt = _dt(run.precision.compute)
 
     def step(params, xin):
-        x = model._embed(params, xin, cdt) if first else xin
+        x = constrain(model._embed(params, xin, cdt), "hidden") if first \
+            else xin
         positions = torch.arange(x.shape[1], device=x.device)
         x, _, cache = run_stack(scfg, run, params["decoder"]["layers"], x,
                                 "prefill", positions=positions)

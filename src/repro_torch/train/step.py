@@ -23,26 +23,42 @@ package's specs.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import build_model, ops_backend
-from repro_torch.runtime.partitioning import P, ShardingRules
+from repro_torch.runtime.partitioning import (P, ShardingRules, is_dtensor,
+                                              local_shard, place_tree,
+                                              placements, spmd_scope,
+                                              zeros_tree)
 from repro_torch.train.optim import (build_optimizer, clip_by_global_norm,
                                      lr_schedule)
 from repro_torch.tree import flatten, tree_map, unflatten
 
 
-def init_train_state(run: RunConfig, seed: int = 0, device="cuda") -> dict:
+def init_train_state(run: RunConfig, seed: int = 0, device="cuda",
+                     rules: Optional[ShardingRules] = None) -> dict:
     """Params from ``Model.init(seed)`` on ``device``, zeroed optimizer
-    state and step 0."""
+    state and step 0. With ``rules`` holding a ``DeviceMesh`` every member
+    rank draws the same full params and keeps its block of each, as
+    ``train_state_specs`` lays them out: the values are the one-device
+    init's, bit for bit."""
     dev = resolve_device(device)
     params = build_model(run).init(seed=seed, device=dev)
     opt = build_optimizer(run.optimizer)
-    return {"params": params, "opt": opt.init(params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if rules is None or rules.mesh is None:
+        return {"params": params, "opt": opt.init(params),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    places = rules.named(train_state_specs(run, rules))
+    shapes = train_state_shapes(run)
+    return {"params": place_tree(params, rules.mesh, places["params"]),
+            "opt": zeros_tree(shapes["opt"], rules.mesh, places["opt"], dev),
+            "step": zeros_tree(shapes["step"], rules.mesh, places["step"],
+                               dev)}
 
 
 def train_state_shapes(run: RunConfig) -> dict:
@@ -79,6 +95,34 @@ def batch_specs(run: RunConfig, rules: ShardingRules) -> dict:
     return out
 
 
+def place_batch(batch: dict, rules: ShardingRules, device) -> dict:
+    """A global batch (numpy arrays or tensors, the same on every rank) as
+    DTensors on ``rules.mesh``, laid out by its ACTUAL shapes as the JAX
+    tenant places it: the batch dim over the data axes where it divides
+    them, else replicated; each rank keeps its block."""
+    from torch.distributed.tensor import DTensor
+    mesh = rules.mesh
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v).to(device)
+        spec = P(rules._fit(t.shape[0], rules.dp_axes),
+                 *([None] * (t.dim() - 1)))
+        pl = placements(spec, mesh.mesh_dim_names)
+        out[k] = DTensor.from_local(local_shard(t, mesh, pl), mesh, pl,
+                                    run_check=False)
+    return out
+
+
+def _like(g, p):
+    """A gradient laid out as its param: a DTensor's pending sums reduced
+    once here (a reduce-scatter or an all-reduce), as JAX's gradients
+    take the params' shardings, rather than again at each later use (the
+    norm, each moment)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def _mean(ms: list) -> dict:
     """Metrics of the microbatches averaged key by key (an integer count
     averages to fp32, as ``jnp.mean`` gives)."""
@@ -86,7 +130,12 @@ def _mean(ms: list) -> dict:
             for k in ms[0]}
 
 
-def make_train_step(run: RunConfig, total_steps: int = 10000):
+def make_train_step(run: RunConfig, rules: Optional[ShardingRules] = None,
+                    total_steps: int = 10000):
+    """With ``rules`` holding a ``DeviceMesh`` the step runs SPMD on the
+    state's DTensors under ``spmd_scope(rules)``: the model's constraints
+    lay the activations out, the optimizer updates each rank's blocks in
+    place."""
     model = build_model(run)
     opt = build_optimizer(run.optimizer)
     sched = lr_schedule(run.optimizer, total_steps)
@@ -100,12 +149,16 @@ def make_train_step(run: RunConfig, total_steps: int = 10000):
         with torch.enable_grad():
             loss, metrics = model.loss(unflatten(treedef, leaves), batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _like(g, p)
                  for p, g in zip(leaves, grads)]
         return (unflatten(treedef, grads),
                 {k: v.detach() for k, v in metrics.items()})
 
     def train_step(state, batch):
+        with spmd_scope(rules):
+            return _train_step(state, batch)
+
+    def _train_step(state, batch):
         params = state["params"]
         if run.microbatch > 1:
             mb = run.microbatch
@@ -135,15 +188,17 @@ def make_train_step(run: RunConfig, total_steps: int = 10000):
     return train_step
 
 
-def make_eval_step(run: RunConfig):
+def make_eval_step(run: RunConfig, rules: Optional[ShardingRules] = None):
     """The loss's metrics with no gradient: on a card the forward launches
     ``flash_attention`` (and ``ssm_scan``), as JAX's eval step reaches the
-    Pallas kernels under ``kernel_backend="pallas"``."""
+    Pallas kernels under ``kernel_backend="pallas"``; on DTensors each
+    rank launches it on its local heads (``models.attention``)."""
     model = build_model(run)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        _, metrics = model.loss(params, batch)
+        with spmd_scope(rules):
+            _, metrics = model.loss(params, batch)
         return metrics
 
     return eval_step

@@ -32,9 +32,14 @@ def test_quickstart_runs_on_cpu(capsys):
 
 
 def test_elastic_reconf_layouts_equal_jax(capsys):
+    """On a pool of 8 CPU ranks: the tenant's state resharded bit-equal
+    onto (4, 2) and (2, 2), each rank holding the bytes the specs give
+    it, and the paused layouts equal to JAX's specs for each mesh."""
     out = elastic_reconf.main(["--device", "cpu"])
     assert out["events"] == ["failure", "migrated"]
     assert out["steps_done"] == 6
+    assert out["resharded"] == [(4, 2), (2, 2)]
+    assert len(out["rank_bytes"]) == 4
     descs = out["sharding_desc"]
     assert sorted(descs) == [(2, 1), (2, 2), (4, 2)]
     jrun = jax_run_config("qwen3-0.6b", "train_4k", smoke=True)

@@ -22,7 +22,9 @@ def _port_files():
         ROOT / "chip_smoke.py", ROOT / "tools" / "hybrid_prefill_margin.py",
         ROOT / "tools" / "attn_same_call.py",
         ROOT / "tools" / "train_readings.py",
-        ROOT / "tools" / "gloo_cuda_probe.py"]
+        ROOT / "tools" / "gloo_cuda_probe.py",
+        ROOT / "tools" / "spmd_comm_count.py",
+        ROOT / "tests" / "spmd_cases.py"]
 
 
 def _imported_roots(path):
@@ -91,6 +93,24 @@ def test_serve_plane_benchmarks_and_runtime_are_checked():
                 "bench/throughput.py", "bench/prefix_share.py",
                 "bench/decode_roofline.py", "bench/serve_path.py"):
         assert mod in checked, mod
+
+
+def test_spmd_modules_and_the_rank_worker_are_checked():
+    """The rank pool (its worker's entry, ``_worker_main``, lives in
+    ``core/ranks.py``), the sharded train step and the checks its workers
+    run are among the files held free of JAX above; a spawned worker
+    holds no module of JAX or of the JAX package."""
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in ("src/repro_torch/core/ranks.py",
+                "src/repro_torch/runtime/partitioning.py",
+                "src/repro_torch/train/step.py",
+                "src/repro_torch/launch/train.py",
+                "tests/spmd_cases.py", "tools/spmd_comm_count.py"):
+        assert mod in checked, mod
+    import spmd_cases
+    from repro_torch.core.ranks import RankPool
+    with RankPool(1, device="cpu") as rp:
+        assert rp.run_on(rp.ranks, spmd_cases.foreign_modules) == [[]]
 
 
 def test_port_imports_with_jax_blocked():

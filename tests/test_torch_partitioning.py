@@ -270,6 +270,12 @@ def test_placements_on_small_and_production_axes():
 
 
 def test_sharding_scope_is_thread_local_and_constrain_follows_jax():
+    """The identity with no scope, on the unit mesh and with the mesh-less
+    (``mesh=None``) rules of a 256-device mesh, as the dry-run's meta
+    trace holds them; with a real (2, 2) CPU mesh in scope a DTensor
+    takes the placements of ``rules.spec``."""
+    import spmd_cases
+    from repro_torch.core.ranks import RankPool
     x = torch.ones(4, 8, 16)
     assert current_rules() is None and constrain(x, "hidden") is x
     unit = ShardingRules(UNIT_MESH, make_run_config("llama3-8b",
@@ -284,10 +290,17 @@ def test_sharding_scope_is_thread_local_and_constrain_follows_jax():
         t.join(timeout=10)
         assert not t.is_alive()
         with sharding_scope(big):
-            with pytest.raises(NotImplementedError):
-                constrain(x, "hidden")
+            y = torch.ones(256, 8, 64)
+            assert big.mesh is None and constrain(x, "hidden") is x
+            assert constrain(y, "logits") is y
         assert current_rules() is unit
     assert seen == [None] and current_rules() is None
+    run = make_run_config("qwen3-0.6b", "train_4k", smoke=True)
+    with RankPool(4, device="cpu") as rp:
+        mesh = rp.mesh((2, 2), ("data", "model"), rp.ranks)
+        bad = rp.run_on(rp.ranks, spmd_cases.constrain_layouts, mesh.key,
+                        run, {"hidden": 3, "logits": 3, "attn_q": 4})
+    assert bad == [[]] * 4
 
 
 def test_mesh_configs_and_no_world():

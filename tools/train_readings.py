@@ -56,7 +56,7 @@ def lr_curves(torch, card, workdir) -> dict:
         loss = [m["loss"] for m in lines]
         r = {"loss": loss, "grad_norm": [m["grad_norm"] for m in lines],
              "first5": sum(loss[:5]) / 5, "last5": sum(loss[-5:]) / 5,
-             "ln_v": math.log(launch.build(args).model.vocab_size)}
+             "ln_v": math.log(launch.build(args)[0].model.vocab_size)}
         out[lr] = r
         cs.log(f"lr {lr}: first five {r['first5']:.4f}, last five "
                f"{r['last5']:.4f} (ln V {r['ln_v']:.4f}); losses "
