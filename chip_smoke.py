@@ -51,7 +51,14 @@ bf16 cache through ``flash_decode``), ``prefill_32k`` at B = 2 (through
 ``flash_attention``) and ``train_4k`` at B = 2 (remat, AdamW), each
 counted on the unit mesh by the port's ``launch.dryrun.run_cell`` and
 then run for real: the step no faster than its counted bound and its
-peak memory at least the counted argument bytes. Then the
+peak memory at least the counted argument bytes. Then fp32 compute:
+the four attention kernels on fp32 inputs (CUDA-core FMA) against their
+plain versions within JAX's fp32 tolerance 2e-5, and qwen3-0.6b at
+``PrecisionConfig(compute="float32")`` through them: prefill logits
+within 1e-3 of the plain fp32 path's, the 16 requests through the paged
+engine with fp32 pages, with int8 pages and through the dense ring (each
+stream the plain engine's, fused == host sampling), the generate path
+within 1e-3 and the eval loss within 1e-5 of the plain path. Then the
 hybrid Mamba-attention stack, jamba-1.5-large-398b-1p-dense (one period
 of Jamba-1.5-Large at every published width, 1 attention and 7 mamba
 layers, dense FFNs, bf16 params, random weights from ``--seed``):
@@ -103,7 +110,8 @@ K=1-4, live reshape, int8 gang, gang fleet, reshape scenarios, pipeline
 bench), federation (cross-host engines, federation snapshot, fed
 scenarios, network-fault matrix, federation bench), distributed
 (collectives, pipeline_apply, examples), dry-run (decode, prefill and
-train cells against their counts), hybrid prefill,
+train cells against their counts), fp32 (the four kernels at fp32,
+prefill, serve fp32/int8/dense, generate, eval), hybrid prefill,
 hybrid serve (bf16, int8), hybrid generate, train launch, train tenant
 (bit-exact, int8), eval step, Tables I/II, spmd (sharded tenant, plain
 and int8 reshards, launch.train on 2 ranks), families (per model: prefill,
@@ -252,11 +260,11 @@ class Timer:
         return float(np.median(times))
 
 
-def attn_err(got, want):
-    """(max |got - want|, the largest share of its limit ATTN_ATOL +
-    ATTN_RTOL * |want| that any element uses; the check is share <= 1)."""
+def attn_err(got, want, atol=ATTN_ATOL, rtol=ATTN_RTOL):
+    """(max |got - want|, the largest share of its limit atol + rtol *
+    |want| that any element uses; the check is share <= 1)."""
     d = (got.float() - want.float()).abs()
-    lim = ATTN_ATOL + ATTN_RTOL * want.float().abs()
+    lim = atol + rtol * want.float().abs()
     return float(d.max()), float((d / lim).max())
 
 
@@ -440,16 +448,19 @@ def paged_cases(cfg, hcfg, seed: int) -> list:
              paged_serve_positions(cfg.vocab_size, seed))]
 
 
-def paged_inputs(torch, H, K, hd, positions, seed, quant: bool):
+def paged_inputs(torch, H, K, hd, positions, seed, quant: bool,
+                 dtype=None):
     """The serve engine's pool at B=8, page 16, NP 64 (max_len 1,024) and
-    one page of garbage: q (8,1,H,hd) bf16, pages (513,16,K,hd), each
-    slot's table a distinct run of a seeded permutation. Returns the
-    kernel's arguments (int8 pages with their scales when ``quant``)."""
+    one page of garbage: q (8,1,H,hd) and the pages (513,16,K,hd) in
+    ``dtype`` (bf16 by default), each slot's table a distinct run of a
+    seeded permutation. Returns the kernel's arguments (int8 pages with
+    their fp32 scales when ``quant``)."""
     from repro_torch.kernels.ref import kv_quant_ref
     B, page, NP = 8, 16, 64
     P = 1 + B * NP
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((B, 1, H, hd), generator=g, device="cuda").bfloat16()
+    dtype = dtype or torch.bfloat16
+    q = torch.randn((B, 1, H, hd), generator=g, device="cuda").to(dtype)
     kp = torch.randn((P, page, K, hd), generator=g, device="cuda")
     vp = torch.randn((P, page, K, hd), generator=g, device="cuda")
     perm = np.random.default_rng(seed).permutation(np.arange(1, P))
@@ -460,18 +471,19 @@ def paged_inputs(torch, H, K, hd, positions, seed, quant: bool):
         kq, ks = kv_quant_ref(kp)
         vq, vs = kv_quant_ref(vp)
         return q, kq, vq, ks, vs, tables, pos
-    return q, kp.bfloat16(), vp.bfloat16(), tables, pos
+    return q, kp.to(dtype), vp.to(dtype), tables, pos
 
 
 def paged_work(q, kp, tables, pos, quant: bool):
     """(bytes, flops) of one call: q, the rows up to pos[b] of K and V
     (with their fp32 scales for int8 pages), tables and pos read once,
-    the output written once; 4 flops per query head and element read."""
+    the output written once, each at its width; 4 flops per query head
+    and element read."""
     B, _, H, hd = q.shape
     K = kp.shape[2]
     rows = int((pos + 1).clamp(min=0).sum())
-    row_bytes = 2 * (hd + 4) if quant else 2 * 2 * hd
-    nbytes = (rows * K * row_bytes + 2 * 2 * B * H * hd
+    row_bytes = 2 * (hd * kp.element_size() + (4 if quant else 0))
+    nbytes = (rows * K * row_bytes + 2 * q.element_size() * B * H * hd
               + tables.numel() * 4 + pos.numel() * 4)
     return nbytes, 4 * H * hd * rows
 
@@ -2164,12 +2176,13 @@ def phase_prefix_share(torch, run, params, card):
 
 
 def phase_decode_roofline(torch, card):
-    """``bench.decode_roofline`` at its full shapes, bf16, each row timed
-    by the ``Timer`` (median of 25 calls, L2 flushed) against the H100's
-    data sheet; the peaks the card reached (``measure_local_peaks``,
-    the JAX sizes) are kept beside it. Hard: the five rows, wall_s > 0,
-    the int8 pool at most 0.6x the bf16 pool's bytes, and no row above 1.0
-    of the data sheet; reported: the int8 wall ratio (JAX gate <= 2.5)."""
+    """``bench.decode_roofline`` at its full shapes, fp32 as the JAX rows,
+    each row timed by the ``Timer`` (median of 25 calls, L2 flushed)
+    against the H100's data sheet; the peaks the card reached
+    (``measure_local_peaks``, the JAX sizes) are kept beside it. Hard: the
+    five rows, wall_s > 0, the int8 pool at most 0.6x the fp32 pool's
+    bytes, and no row above 1.0 of the data sheet; reported: the int8
+    wall ratio (JAX gate <= 2.5)."""
     from repro_torch.bench import decode_roofline
     from repro_torch.runtime.roofline import Peaks, measure_local_peaks
     timer = Timer(torch)
@@ -2183,7 +2196,7 @@ def phase_decode_roofline(torch, card):
     res = {"rows": rows, "datasheet_peaks": Peaks().row(),
            "measured_peaks": measured.row(), "int8_wall_gate_met": ok,
            "seconds": time.perf_counter() - t0}
-    log(f"decode_roofline (bf16 pages; data sheet {Peaks().hbm_bw / 1e12:.2f}"
+    log(f"decode_roofline (fp32 pages; data sheet {Peaks().hbm_bw / 1e12:.2f}"
         f" TB/s, {Peaks().flops / 1e12:.0f} TFLOP/s; measured copy "
         f"{measured.hbm_bw / 1e12:.3f} TB/s, fp32 512^2 matmul "
         f"{measured.flops / 1e12:.3f} TFLOP/s): " + ", ".join(
@@ -2202,7 +2215,7 @@ def phase_decode_roofline(torch, card):
               f"({r['achieved_bw_frac']:.3f} of its bytes/s, "
               f"{r['peak_frac']:.3f} of its bound)")
     check(s["int8_bytes_vs_fp"] <= 0.6, "decode_roofline: the int8 pool's "
-          f"bytes are {s['int8_bytes_vs_fp']} of the bf16 pool's (> 0.6)")
+          f"bytes are {s['int8_bytes_vs_fp']} of the fp32 pool's (> 0.6)")
     return res
 
 
@@ -3730,6 +3743,331 @@ def run_dryrun(torch, ops, args, card, report, launches, params):
     log(f"dry-run group: {report['dryrun']['group_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# fp32 compute: qwen3-0.6b at compute="float32" through the attention
+# kernels' fp32 paths
+# ---------------------------------------------------------------------------
+FP32_TOL = 2e-5          # the fp32 attention kernels vs their plain
+                         # versions, elementwise atol = rtol: JAX's fp32
+                         # kernel tolerance (tests/test_kernels.py:21)
+FP32_LOGITS_TOL = 1e-3   # qwen's fp32 prefill logits and the generate
+                         # path's, kernel path vs plain path, of max |logit|
+                         # (the bf16 limit is LOGITS_REL_TOL, 1.5e-2)
+FP32_LOSS_RTOL = 1e-5    # the eval step's loss at fp32 vs the plain loss
+FP32_KERNELS = ("flash_attention", "flash_decode", "paged_decode",
+                "paged_decode_quant")
+
+
+def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
+    """The four attention kernels on fp32 inputs against their plain
+    versions on the card, timed: flash_attention at qwen's S 384 and 600,
+    phi3-mini's hd 96 and internvl2's G 7 (``families``); flash_decode
+    at q (8,1,16,128) over (8,1024,8,128), int pos 511 and 1023; both
+    paged kernels at the paged phase's pool and positions (fp32 pages;
+    int8 pages under fp32 q). Bound: bytes at 3.35 TB/s or the products
+    at the CUDA cores' 67 TFLOP/s fp32, the larger. Library: SDPA at fp32
+    (tf32 off) for the dense kernels."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(28)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    rows = {k: [] for k in FP32_KERNELS}
+
+    def row(name, label, fn, plain, nbytes, flops, lib=None):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err, share = attn_err(got, want, FP32_TOL, FP32_TOL)
+        check(got.dtype == torch.float32 and share <= 1,
+              f"{name} fp32 {label}: max_abs_err {err}, {share:.3g} of the "
+              "limit")
+        check(torch.equal(got, fn()), f"{name} fp32 {label}: not "
+                                      "deterministic")
+        ms, plain_ms = timer.ms(fn), timer.ms(plain)
+        lib_ms = timer.ms(lib) if lib is not None else None
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        rows[name].append({"shape": f"{label} fp32", "max_abs_err": err,
+                           "share_of_limit": share, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "library_ms": lib_ms})
+        log(f"{name} fp32 {label}: max_abs_err {err:.3g} ({share:.3g} of the"
+            f" limit) | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+            + (f"sdpa {lib_ms:.4f} ms | " if lib is not None else "")
+            + f"bound {b_ms:.4f} ms ({b_by})")
+
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = [(384, H, K, hd, None), (600, H, K, hd, None)]
+    shapes += [(S, h, k, d, who) for S, T, h, k, d, causal, who in families
+               if (who, S) in (("phi3-mini", 384),
+                               ("internvl2, 256 patches + 384", 640))]
+    for S, h, k, d, who in shapes:
+        q, kk, vv = randn(1, S, h, d), randn(1, S, k, d), randn(1, S, k, d)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, vv))
+        row("flash_attention", f"q (1,{S},{h},{d}) k/v {k} heads, causal"
+            + (f" ({who})" if who else ""),
+            lambda: ops.flash_attention(q, kk, vv),
+            lambda: ops.flash_attention(q, kk, vv, backend="ref"),
+            4 * 2 * S * d * (h + k), 4 * h * d * S * (S + 1) / 2,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True,
+                                                   enable_gqa=True))
+    B, T = 8, 1024
+    q, kk, vv = randn(B, 1, H, hd), randn(B, T, K, hd), randn(B, T, K, hd)
+    qt = q.transpose(1, 2).contiguous()
+    for pos in (511, 1023):
+        n = pos + 1
+        kt, vt = (x[:, :n].transpose(1, 2).contiguous() for x in (kk, vv))
+        row("flash_decode", f"q ({B},1,{H},{hd}), k/v ({B},{T},{K},{hd}), "
+            f"int pos {pos}",
+            lambda: ops.flash_decode(q, kk, vv, pos),
+            lambda: ops.flash_decode(q, kk, vv, pos, backend="ref"),
+            4 * (2 * B * n * K * hd + 2 * B * H * hd), 4 * B * H * hd * n,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   enable_gqa=True))
+    for quant in (False, True):
+        name = "paged_decode_quant" if quant else "paged_decode"
+        fn = getattr(ops, name)
+        a = paged_inputs(torch, H, K, hd, PAGED_POS, 12 + quant, quant,
+                         dtype=torch.float32)
+        nbytes, flops = paged_work(a[0], a[1], a[-2], a[-1], quant)
+        row(name, f"q {tuple(a[0].shape)}, pages (513,16,{K},{hd}) "
+            f"{'int8' if quant else 'fp32'}, NP=64, pos {list(PAGED_POS)}",
+            lambda: fn(*a), lambda: fn(*a, backend="ref"), nbytes, flops)
+    return rows
+
+
+def plain_streams(torch, ops, run, params, kv_dtype, seed):
+    """The 16 requests through the paged engine of ``run`` with host
+    sampling: (token streams, the logits row each token was sampled
+    from, by (rid, token index))."""
+    from repro_torch.serve.engine import ServeEngine
+    rows = {}
+
+    def engine():
+        eng = ServeEngine(run, params, device="cuda", slots=8, max_len=1024,
+                          paged=True, page_size=16, kv_dtype=kv_dtype,
+                          fused_sampling=False)
+        sample = eng._sample
+
+        def capture(req, row):
+            rows[req.rid, len(req.out)] = np.array(row, np.float32)
+            return sample(req, row)
+        eng._sample = capture
+        return eng
+    out, _, _ = serve(torch, ops, run, params, kv_dtype, seed, engine=engine)
+    return out, rows
+
+
+def stream_gaps(requests, got, want, rows, vocab: int) -> list:
+    """For each request whose stream ``got`` leaves ``want``: the first
+    token j that differs and how near a tie it was where ``want``
+    sampled token j, as the host sampler scores the logits row it drew
+    from (``rows``): the least rise of the got token's logit that would
+    make the sampler pick it, relative to max |logit|. Greedy: the
+    logits' gap. Sampled (scores logit / temperature + the request's
+    noise for token j, over the top-k): the got token's score must also
+    clear the top-k threshold (``where`` says which bound it)."""
+    from repro_torch.kernels.sampling import host_gumbel
+    out = []
+    for r, a, b in zip(requests, got, want):
+        if a == b:
+            continue
+        j = first_difference(a, b)
+        lg = rows[r.rid, j][:vocab].astype(np.float64)
+        ta, tb = a[j], b[j]
+        need, where = lg[tb] - lg[ta], "argmax"
+        if r.temperature > 0:
+            t = float(np.float32(r.temperature))
+            z = lg / t
+            g = host_gumbel(r.seed, r.rid, j, vocab).astype(np.float64)
+            need = (z[tb] + g[tb]) - (z[ta] + g[ta])
+            if 0 < r.top_k < vocab:
+                kth = np.partition(z, -r.top_k)[-r.top_k]
+                if kth - z[ta] > need:
+                    need, where = kth - z[ta], "top-k"
+            need *= t
+        out.append({"rid": r.rid, "token": j, "got": ta, "want": tb,
+                    "where": where,
+                    "gap_rel": float(max(need, 0.0) / np.abs(lg).max())})
+    return out
+
+
+def fp32_generate(torch, ops, run, params, seed) -> dict:
+    """``make_serve_steps``' generate path at fp32 compute, B = 4: prefill
+    384 tokens, widen the cache to a dense one of 1,024 positions, then 31
+    teacher-forced decode steps at one position for the batch (32 new
+    tokens' logits), through the kernels (flash_attention, flash_decode)
+    and through the plain versions; returns the distance of max |logit|
+    and the kernel path's launches."""
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import make_serve_steps
+    B, S0, new, T = 4, 384, 32, 1024
+    rng = np.random.default_rng(seed + 300)
+    toks = torch.tensor(rng.integers(0, run.model.vocab_size, (B, S0 + new)),
+                        device="cuda")
+    logits, counts = {}, None
+    for path, r in (("kernel", run),
+                    ("plain", run.replace(kernel_backend="reference"))):
+        model = build_model(r)
+        cparams = model.compute_params(params)
+        prefill, decode = make_serve_steps(r)
+        before = ops.launch_counts()
+        with torch.no_grad():
+            cache, last = prefill(cparams, {"tokens": toks[:, :S0]})
+            dense = model.init_cache(dataclasses.replace(
+                r.shape, seq_len=T, global_batch=B), device="cuda")
+            for blk, node in cache.items():
+                for name, leaf in node.items():
+                    dense[blk][name][:, :, :S0] = leaf
+            del cache
+            out = [last]
+            for t in range(S0, S0 + new - 1):
+                lg, dense = decode(cparams, dense, toks[:, t:t + 1], t)
+                out.append(lg)
+        logits[path] = torch.stack(out).float()
+        if path == "kernel":
+            counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        del dense, cparams, out
+    a, b = logits["kernel"], logits["plain"]
+    rel = float((a - b).abs().max() / b.abs().max())
+    check(bool(torch.isfinite(a).all()), "fp32 generate: non-finite logits")
+    return {"rel_err": rel, "steps": new, "launches": counts}
+
+
+def run_fp32(torch, ops, args, card, report, launches, params, kern):
+    """qwen3-0.6b at full width under ``PrecisionConfig(compute="float32")``
+    (fp32 params ``params``) through the attention kernels' fp32 paths:
+    the four kernels' rows (``fp32_kernel_rows``, appended to ``kern``);
+    then, with the counts set to 0, the prefill logits against the plain
+    fp32 path (within FP32_LOGITS_TOL of max |logit|); the serve traffic
+    through the paged engine with fp32 pages, with int8 pages (fp32 q)
+    and through the dense ring, each with fused == host sampling (I10)
+    and each stream equal to the plain engine's (reference kernels, the
+    same KV layout; the dense ring against the plain fp32 pages), a
+    stream that differs allowed only at a near tie (``stream_gaps``
+    within FP32_LOGITS_TOL); the generate path within FP32_LOGITS_TOL of
+    the plain path; the eval step's loss within FP32_LOSS_RTOL of the
+    plain loss. Each of the four kernels must have launched."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request
+    from repro_torch.train.step import make_eval_step
+    t_group = time.perf_counter()
+    run = make_run_config_fp32(args.seed)
+    cfg = run.model
+    plain = run.replace(kernel_backend="reference")
+    timer = Timer(torch)
+    fam = family_attention_shapes(
+        lambda arch: make_run_config_fp32(args.seed, arch).model)
+    for name, rows in fp32_kernel_rows(torch, ops, timer, cfg, fam).items():
+        kern[name].extend(rows)
+    del timer
+    release(torch)
+    res = {"kernel_rows_s": time.perf_counter() - t_group}
+
+    ops.reset_launch_counts()
+    fast, slow = build_model(run), build_model(plain)
+    rng = np.random.default_rng(args.seed + 100)
+    worst = 0.0
+    with torch.no_grad():
+        for S in (200, 384):
+            toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)),
+                                device="cuda")
+            _, a = fast.prefill(params, {"tokens": toks})
+            _, b = slow.prefill(params, {"tokens": toks})
+            check(a.dtype == torch.float32 and a.shape == b.shape
+                  and bool(torch.isfinite(a).all()),
+                  f"fp32 prefill S={S}: non-finite or misshapen logits")
+            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    del fast, slow, a, b
+    res["prefill_logits_rel_err"] = worst
+    log(f"fp32 prefill logits, kernel vs plain path (S=200, 384): max rel "
+        f"err {worst:.3g} (tolerance {FP32_LOGITS_TOL})")
+    check(worst <= FP32_LOGITS_TOL, f"fp32 prefill: kernel vs plain logits "
+                                    f"differ by {worst:.3g} of max |logit|")
+
+    reqs = make_requests(Request, cfg.vocab_size, args.seed)
+    want = {kv: plain_streams(torch, ops, plain, params, kv, args.seed)
+            for kv in (None, "int8")}
+    res["serve"] = {}
+    for label, kv, paged in (("fp32 pages", None, True),
+                             ("int8 pages", "int8", True),
+                             ("dense ring", None, False)):
+        out, met, _ = serve(torch, ops, run, params, kv, args.seed,
+                            paged=paged)
+        host, _, _ = serve(torch, ops, run, params, kv, args.seed,
+                           fused=False, paged=paged)
+        check(host == out, f"fp32 serve {label}: host sampling gives other "
+                           "tokens than fused sampling (I10)")
+        gaps = stream_gaps(reqs, out, *want[kv], cfg.vocab_size)
+        met["streams_equal_plain"] = len(reqs) - len(gaps)
+        met["diverged"] = gaps
+        res["serve"][label] = met
+        log(f"fp32 serve qwen3-0.6b {label}: 16 requests x 32 tokens in "
+            f"{met['steps']} steps, {met['wall_s']:.2f} s | decode step "
+            f"median {met['decode_step_ms_median']:.2f} ms | fused == host "
+            f"sampling | streams equal to the plain engine's: "
+            f"{len(reqs) - len(gaps)} of {len(reqs)}" + "".join(
+                f"; rid {d['rid']} first differs at token {d['token']} "
+                f"({d['got']} vs {d['want']}, {d['where']} gap "
+                f"{d['gap_rel']:.3g} of max |logit|)" for d in gaps)
+            + f" | {card}")
+        for d in gaps:
+            check(d["gap_rel"] <= FP32_LOGITS_TOL,
+                  f"fp32 serve {label}: rid {d['rid']} leaves the plain "
+                  f"engine's stream at token {d['token']} ({d['got']} vs "
+                  f"{d['want']}) where the sampler's scores differ by "
+                  f"{d['gap_rel']:.3g} of max |logit|: not a near tie")
+    del want
+    release(torch)
+
+    gen = fp32_generate(torch, ops, run, params, args.seed)
+    res["generate"] = gen
+    gl = {k: gen["launches"][k] for k in ("flash_attention", "flash_decode")}
+    log(f"fp32 generate B=4 prefill 384 + 31 decode steps: max rel err vs "
+        f"the plain path {gen['rel_err']:.3g} (tolerance {FP32_LOGITS_TOL})"
+        f" | launches {json.dumps(gl)}")
+    check(gen["rel_err"] <= FP32_LOGITS_TOL,
+          f"fp32 generate: kernel vs plain logits differ by "
+          f"{gen['rel_err']:.3g} of max |logit|")
+    check(gen["launches"]["flash_decode"] == (gen["steps"] - 1)
+          * cfg.num_layers, "fp32 generate: flash_decode not launched once "
+                            "a layer a step")
+
+    batch = train_batch(torch, run, 2000 + args.seed)
+    ev = make_eval_step(run)(params, batch)
+    with torch.no_grad():
+        _, pm = build_model(plain).loss(params, batch)
+    rel = abs(float(ev["loss"]) - float(pm["loss"])) / abs(float(pm["loss"]))
+    res["eval"] = {"loss": float(ev["loss"]), "loss_plain": float(pm["loss"]),
+                   "rel_diff": rel}
+    log(f"fp32 eval step: loss {float(ev['loss']):.7f} vs the plain "
+        f"{float(pm['loss']):.7f} (rel {rel:.3g}, tolerance "
+        f"{FP32_LOSS_RTOL})")
+    check(rel <= FP32_LOSS_RTOL, f"fp32 eval step: loss {float(ev['loss'])} "
+                                 f"vs the plain {float(pm['loss'])}")
+    del batch, ev, pm
+    counts = ops.launch_counts()
+    for k in FP32_KERNELS:
+        check(counts[k] > 0, f"{k} was never launched on fp32 inputs on the "
+                             "fp32 path")
+    for k, n in counts.items():
+        launches[k] += n
+    res["launches"] = counts
+    res["group_s"] = time.perf_counter() - t_group
+    report["fp32"] = res
+    log(f"fp32 group: {res['group_s']:.1f} s | launches "
+        f"{json.dumps({k: counts[k] for k in FP32_KERNELS})} | {card}")
+    release(torch)
+
+
+def make_run_config_fp32(seed: int, arch: str = "qwen3-0.6b"):
+    """``arch``'s full config at fp32 compute (fp32 params, as the port
+    inits them)."""
+    from repro_torch.configs import PrecisionConfig, make_run_config
+    return make_run_config(arch, "decode_32k", seed=seed,
+                           precision=PrecisionConfig(compute="float32"))
+
+
 def run_hybrid(torch, ops, args, card, report, launches):
     """The hybrid stack's phases at full width: its prefill, its serve
     path (bf16 and int8 KV) and its generate path (its kernels,
@@ -5173,6 +5511,8 @@ def main(argv=None) -> int:
     run_distributed(torch, ops, args, card, report, launches, params)
     mark("dry-run")
     run_dryrun(torch, ops, args, card, report, launches, params)
+    mark("fp32")
+    run_fp32(torch, ops, args, card, report, launches, params, kern)
     if args.profile:
         report["profile"] = phase_profile(torch, run, params, args.seed)
     del params

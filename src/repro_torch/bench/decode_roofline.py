@@ -14,13 +14,10 @@ the achieved fractions against the peaks the run was told to use.
   fused_sample     temperature/top-k Gumbel sampling over (B, V) logits
   ssm_scan         the chunked SSD recurrent-path scan
 
-What differs from the JAX benchmark: q, the cache and the pages are
-bf16 (the CUDA decode kernels take bf16, where the JAX rows are fp32),
-and every row's bytes are counted at the dtype that ran, which each row
-records (``dtype``); ``fused_sample``'s logits
-and ``ssm_scan``'s inputs are fp32 as in JAX (the scan kernel takes
-fp32). With bf16 pages the int8 pool's bytes are about (hd + 4) / 2 hd
-of the bf16 pool's (0.53 at hd 64). A caller may pass its own timer
+Every row runs at the JAX rows' dtypes: q, the dense cache and the page
+pool fp32, the int8 pool with fp32 scales under fp32 q, the sampler's
+logits and the scan's inputs fp32; each row records the dtype of its
+cache or inputs (``dtype``). A caller may pass its own timer
 (``time_fn``: a callable's seconds); the default is the best of ``reps``
 calls, synchronized on the card.
 
@@ -54,7 +51,6 @@ from repro_torch.runtime.roofline import (Peaks, kernel_roofline,
 
 ROWS = ("flash_decode", "paged_fp", "paged_int8", "fused_sample",
         "ssm_scan")
-KV_DTYPE = torch.bfloat16   # q, the dense cache and the page pool
 
 
 def timed_best(fn, reps=5):
@@ -121,18 +117,16 @@ def bench(reduced=False, reps=5, peaks=None, *, device="cuda",
     if time_fn is None:
         def time_fn(fn):
             return timed_best(fn, reps=reps)
-    dt = KV_DTYPE
-    kv_name = str(dt).removeprefix("torch.")
     sh = shapes(reduced)
-    cost = work(sh, torch.empty((), dtype=dt).element_size())
+    cost = work(sh, 4)
     B, H, K, hd = sh["B"], sh["H"], sh["K"], sh["hd"]
     page, NP, T, V, S, N = (sh[k] for k in ("page", "NP", "T", "V", "S",
                                             "N"))
     rng = np.random.default_rng(seed)
 
-    def normal(*shape, dtype=dt):
+    def normal(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
-            device=dev, dtype=dtype)
+            device=dev)
 
     rows = []
 
@@ -150,7 +144,7 @@ def bench(reduced=False, reps=5, peaks=None, *, device="cuda",
     q = normal(B, 1, H, hd)
     k = normal(B, T, K, hd)
     v = normal(B, T, K, hd)
-    row("flash_decode", lambda: ops.flash_decode(q, k, v, T - 1), kv_name)
+    row("flash_decode", lambda: ops.flash_decode(q, k, v, T - 1), "float32")
 
     # -- paged: pool of B*NP pages + garbage page 0 ------------------------
     P = 1 + B * NP
@@ -160,7 +154,7 @@ def bench(reduced=False, reps=5, peaks=None, *, device="cuda",
                                device=dev)).reshape(B, NP)
     pos = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
     fp = row("paged_fp", lambda: ops.paged_decode(q, kp, vp, tables, pos),
-             kv_name)
+             "float32")
 
     # -- paged int8: the same pool quantized, per-(row,head) fp32 scales ---
     kq, ksc = kv_quant_ref(kp)
@@ -170,7 +164,7 @@ def bench(reduced=False, reps=5, peaks=None, *, device="cuda",
                                             pos), "int8")
 
     # -- fused sampling: (B, V) fp32 logits -> (B,) tokens on the device ---
-    logits = normal(B, V, dtype=torch.float32)
+    logits = normal(B, V)
     ar = torch.arange(B, device=dev)
     temp = torch.where(ar % 2 == 0, 0.0, 0.8).to(torch.float32)
     topk = torch.where(ar % 2 == 0, 0, 40).to(torch.int32)
@@ -183,10 +177,10 @@ def bench(reduced=False, reps=5, peaks=None, *, device="cuda",
         "float32")
 
     # -- ssm_scan: the recurrent path's chunked SSD scan (fp32) ------------
-    xdt = normal(B, S, H, hd, dtype=torch.float32)
-    Bv = normal(B, S, N, dtype=torch.float32)
-    Cv = normal(B, S, N, dtype=torch.float32)
-    la = -torch.nn.functional.softplus(normal(B, S, H, dtype=torch.float32))
+    xdt = normal(B, S, H, hd)
+    Bv = normal(B, S, N)
+    Cv = normal(B, S, N)
+    la = -torch.nn.functional.softplus(normal(B, S, H))
     row("ssm_scan", lambda: ops.ssm_scan(xdt, Bv, Cv, la)[0], "float32")
 
     names = {r["name"] for r in rows}

@@ -255,9 +255,10 @@ class RunConfig:
     optimizer: OptimizerConfig = OptimizerConfig()
     sharding: ShardingConfig = ShardingConfig()
     precision: PrecisionConfig = PrecisionConfig()
-    # auto: a CUDA tensor launches the hand kernels, a CPU tensor takes
-    # their plain versions; reference: plain versions everywhere
-    kernel_backend: str = "auto"        # auto | reference
+    # auto (or pallas, the JAX package's name for its kernels): a CUDA
+    # tensor launches the hand kernels, a CPU tensor takes their plain
+    # versions; reference: plain versions everywhere
+    kernel_backend: str = "auto"        # auto | pallas | reference
     microbatch: int = 1                 # grad-accum microbatches
     seed: int = 0
     # VF placement policy the SVFFManager's scheduler uses for this tenant

@@ -34,18 +34,19 @@ _L = ctypes.c_longlong
 
 #: source stem -> (extra nvcc flags, {exported function: argtypes})
 KERNELS = {
+    # the attention launchers' last int: 1 for fp32 inputs, 0 for bf16
     "flash_attention": ((), {
-        "launch_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+        "launch_flash_attention": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     }),
     "flash_decode": ((), {
-        "launch_flash_decode": [_P] * 5 + [_I] * 8 + [_P],
+        "launch_flash_decode": [_P] * 5 + [_I] * 9 + [_P],
     }),
     "ssm_scan": ((), {
         "launch_ssm_scan": [_P] * 6 + [_I] * 7 + [_P],
     }),
     "paged_decode": ((), {
-        "launch_paged_decode": [_P] * 6 + [_I] * 6 + [_P],
-        "launch_paged_decode_quant": [_P] * 8 + [_I] * 6 + [_P],
+        "launch_paged_decode": [_P] * 6 + [_I] * 7 + [_P],
+        "launch_paged_decode_quant": [_P] * 8 + [_I] * 7 + [_P],
     }),
     # the sampler is bit-exact against numpy: no FMA contraction, IEEE
     # division and square root

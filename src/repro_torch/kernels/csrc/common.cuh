@@ -4,6 +4,7 @@
 // kernel_error_string.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,3 +130,306 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
+
+// ---------------------------------------------------------------------------
+// The decode kernels' shared parts (flash_decode.cu, paged_decode.cu): a
+// block of kDecWarps warps serves the G <= kDecMaxG query heads of one KV
+// head over one split of the cache rows; the splits of a (slot, KV head)
+// are one thread block cluster of at most kDecMaxSplits blocks.
+// ---------------------------------------------------------------------------
+constexpr int kDecThreads = 128;
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecMaxG = 8;
+constexpr int kDecMaxSplits = 8;
+
+// floats of the merges in a block's shared memory: the warps' (m, l, acc),
+// their weights, then the block's (m, l, acc)
+template <int HDP>
+struct DecMerge {
+  static constexpr int kFloats =
+      (kDecWarps + 1) * kDecMaxG * HDP + (3 * kDecWarps + 2) * kDecMaxG;
+  // where each warp writes its state: wm, wl (kDecWarps x kDecMaxG), then
+  // wacc (kDecWarps x kDecMaxG x HDP), the pad columns zero
+  __device__ static float* wm(float* s) { return s; }
+  __device__ static float* wl(float* s) { return s + kDecWarps * kDecMaxG; }
+  __device__ static float* wacc(float* s) {
+    return s + 2 * kDecWarps * kDecMaxG;
+  }
+};
+
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+
+// Merge the warps' states (written to DecMerge's wm, wl, wacc) into the
+// block's partial state, then, after a cluster barrier, merge a slice of
+// the G*hd outputs from the `nsplit` blocks' states (distributed shared
+// memory), in split order: out = sum_s e^(m_s - M) acc_s / max(sum_s
+// e^(m_s - M) l_s, 1e-30), M = max_s m_s; no valid row at all gives zeros.
+// `out` is this (slot, KV head)'s G x hd outputs. Every block of the
+// cluster that has not exited calls it.
+template <int HDP, typename OutT>
+__device__ __forceinline__ void decode_merge(float* smem, int G, int hd,
+                                             int split, int nsplit,
+                                             OutT* out) {
+  namespace cg = cooperative_groups;
+  __syncthreads();  // every warp's state is written
+  float* wm = DecMerge<HDP>::wm(smem);
+  float* wl = DecMerge<HDP>::wl(smem);
+  float* wacc = DecMerge<HDP>::wacc(smem);
+  // the block's partial state: per head the warps' weights e^(m_w - M),
+  // M (bm) and the denominator (bl), then bacc (kDecMaxG x HDP)
+  float* we = wacc + kDecWarps * kDecMaxG * HDP;  // kDecWarps x kDecMaxG
+  float* bm = we + kDecWarps * kDecMaxG;
+  float* bl = bm + kDecMaxG;
+  float* bacc = bl + kDecMaxG;
+  if (threadIdx.x < G) {
+    const int hq = threadIdx.x;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) M = fmaxf(M, wm[w * kDecMaxG + hq]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float mw = wm[w * kDecMaxG + hq];
+      // a warp with no rows (m = -inf) adds nothing
+      const float e = mw > -INFINITY ? fast_exp2(mw - M) : 0.f;
+      we[w * kDecMaxG + hq] = e;
+      L += e * wl[w * kDecMaxG + hq];
+    }
+    bm[hq] = M;
+    bl[hq] = L;
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < G * HDP; o += kDecThreads) {
+    const int hq = o / HDP;
+    float A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      A += we[w * kDecMaxG + hq] * wacc[w * kDecMaxG * HDP + o];
+    bacc[o] = A;
+  }
+
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's state is written
+  const int per = (G * HDP + nsplit - 1) / nsplit;
+  const int o_end = min(G * HDP, (split + 1) * per);
+  for (int o = split * per + static_cast<int>(threadIdx.x); o < o_end;
+       o += kDecThreads) {
+    const int hq = o / HDP, d = o % HDP;
+    if (d >= hd) continue;  // a pad column
+    float ms[kDecMaxSplits], ls[kDecMaxSplits], as[kDecMaxSplits];
+    float M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kDecMaxSplits; ++r) {
+      ms[r] = -INFINITY;
+      if (r < nsplit) {
+        const float* rm = cluster.map_shared_rank(bm, r);
+        ms[r] = rm[hq];
+        ls[r] = rm[kDecMaxG + hq];      // bl
+        as[r] = rm[2 * kDecMaxG + o];   // bacc
+        M = fmaxf(M, ms[r]);
+      }
+    }
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int r = 0; r < kDecMaxSplits; ++r) {
+      if (ms[r] > -INFINITY) {
+        const float e = fast_exp2(ms[r] - M);
+        L += e * ls[r];
+        A += e * as[r];
+      }
+    }
+    store_out(out + hq * hd + d, A / fmaxf(L, 1e-30f));
+  }
+  cluster.sync();  // the other blocks have read this block's state
+}
+
+// ---------------------------------------------------------------------------
+// fp32 decode on the CUDA cores (the decode kernels' fp32 q): one warp's
+// kR cache rows (in shared memory as the cache holds them: fp32, or int8
+// with fp32 row scales) against the G query heads of a KV head, every
+// product an fp32 FMA. Scores: lane = (row lane % kR, heads lane / kR +
+// (32 / kR) j); P V: lane = columns kVec lane + 32 kVec i. Between the
+// two, P and the heads' rescale factors pass through the warp's scratch.
+// ---------------------------------------------------------------------------
+// n values of a shared-memory row at p as floats (fp32 or int8 rows)
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float (&x)[N]) {
+  static_assert(N == 1 || N == 2 || N == 4, "vector of 1, 2 or 4");
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_f32(const int8_t* p, float (&x)[N]) {
+  static_assert(N == 1 || N == 2 || N == 4, "vector of 1, 2 or 4");
+  if constexpr (N == 4) {
+    const char4 v = *reinterpret_cast<const char4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else if constexpr (N == 2) {
+    const char2 v = *reinterpret_cast<const char2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int HDP, int kR>
+struct DecF32 {
+  static_assert(kR == 8 || kR == 16, "8 or 16 rows a warp");
+  static constexpr int kPairs = kDecMaxG * kR / 32;  // score pairs a lane
+  static constexpr int kHeadStep = 32 / kR;          // heads between pairs
+  static constexpr int kCols = HDP / 32;             // P V columns a lane
+  static constexpr int kVec = kCols < 4 ? kCols : 4;
+  // the warp's scratch, floats: P (kDecMaxG x kR), then the heads' rescale
+  static constexpr int kScratch = kDecMaxG * kR + kDecMaxG;
+
+  float m[kPairs], l[kPairs];  // the pairs' heads: running max, this
+                               // lane's part of the denominator
+  float acc[kDecMaxG][kCols];  // O: heads x this lane's columns
+
+  __device__ void init() {
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) m[j] = -INFINITY, l[j] = 0.f;
+#pragma unroll
+    for (int h = 0; h < kDecMaxG; ++h)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[h][c] = 0.f;
+  }
+
+  // One tile of the warp: rows kt/vt (`stride` elements apart, zero past
+  // hd), the first `nvalid` >= 1 of them valid; qs the heads' q (kDecMaxG
+  // x HDP fp32, zero past hd and past G); ksc/vsc the rows' scales (int8
+  // rows) or null; scale_log2 = log2(e) / sqrt(hd).
+  template <typename T>
+  __device__ void tile(const T* kt, const T* vt, int stride,
+                       const float* qs, float* scratch, int nvalid,
+                       const float* ksc, const float* vsc, float scale_log2,
+                       int G, int lane) {
+    constexpr int kV = 16 / sizeof(T);  // values per 16-byte chunk
+    const int r = lane % kR;
+    const T* kr = kt + r * stride;
+    float s[kPairs];
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) s[j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < HDP / kV; ++c) {
+      float kv[kV];
+      if constexpr (kV == 4) {
+        load_f32<4>(reinterpret_cast<const float*>(kr) + c * 4, kv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kV; e += 4) {
+          float x[4];
+          load_f32<4>(reinterpret_cast<const int8_t*>(kr) + c * kV + e, x);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) kv[e + i] = x[i];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) {
+        const int hq = lane / kR + kHeadStep * j;
+        if (hq < G) {
+          const float* qh = qs + hq * HDP + c * kV;
+#pragma unroll
+          for (int e = 0; e < kV; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qh + e);
+            s[j] = fmaf(qv.x, kv[e], s[j]);
+            s[j] = fmaf(qv.y, kv[e + 1], s[j]);
+            s[j] = fmaf(qv.z, kv[e + 2], s[j]);
+            s[j] = fmaf(qv.w, kv[e + 3], s[j]);
+          }
+        }
+      }
+    }
+    float sl = scale_log2;
+    if (ksc != nullptr) sl *= ksc[r];
+    const float pv = vsc != nullptr ? vsc[r] : 1.f;
+    float* ps = scratch;                    // kDecMaxG x kR
+    float* alpha = scratch + kDecMaxG * kR;  // kDecMaxG
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const int hq = lane / kR + kHeadStep * j;
+      float x = r < nvalid ? s[j] * sl : -INFINITY;
+      // max over the kR rows: the lanes that share the head
+      float mx = x;
+#pragma unroll
+      for (int off = 1; off < kR; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (hq < G) {
+        mx = fmaxf(m[j], mx);  // row 0 is valid: finite
+        const float a = fast_exp2(m[j] - mx);
+        const float p = fast_exp2(x - mx);
+        m[j] = mx;
+        l[j] = l[j] * a + p;
+        ps[hq * kR + r] = p * pv;  // the v scale rides on P
+        if (r == 0) alpha[hq] = a;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < kDecMaxG; ++h) {
+      if (h < G) {
+        const float a = alpha[h];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[h][c] *= a;
+      }
+    }
+#pragma unroll 2
+    for (int rr = 0; rr < kR; ++rr) {
+      const T* vr = vt + rr * stride;
+      float v[kCols];
+#pragma unroll
+      for (int i = 0; i < kCols / kVec; ++i) {
+        float x[kVec];
+        load_f32<kVec>(vr + kVec * lane + 32 * kVec * i, x);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) v[i * kVec + e] = x[e];
+      }
+#pragma unroll
+      for (int h = 0; h < kDecMaxG; ++h) {
+        if (h < G) {
+          const float p = ps[h * kR + rr];
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) acc[h][c] = fmaf(p, v[c], acc[h][c]);
+        }
+      }
+    }
+    __syncwarp();  // the scratch is read before the next tile writes it
+  }
+
+  // This warp's state into DecMerge's wm, wl, wacc.
+  __device__ void publish(float* smem, int warp, int lane) {
+    float* wm = DecMerge<HDP>::wm(smem);
+    float* wl = DecMerge<HDP>::wl(smem);
+    float* wa = DecMerge<HDP>::wacc(smem) + warp * kDecMaxG * HDP;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const int hq = lane / kR + kHeadStep * j;
+      float x = l[j];
+#pragma unroll
+      for (int off = 1; off < kR; off <<= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+      if (lane % kR == 0 && hq < kDecMaxG) {
+        wm[warp * kDecMaxG + hq] = m[j];
+        wl[warp * kDecMaxG + hq] = x;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kDecMaxG; ++h)
+#pragma unroll
+      for (int i = 0; i < kCols / kVec; ++i)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          wa[h * HDP + kVec * lane + 32 * kVec * i + e] =
+              acc[h][i * kVec + e];
+  }
+};

@@ -1,5 +1,5 @@
 // flash_attention: blocked GQA attention forward, causal or not, with an
-// fp32 online softmax; bf16 in and out.
+// fp32 online softmax; bf16 or fp32 in and out (q's dtype).
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (Pallas
 // _kernel at :25, pallas_call at :91). The Pallas kernel runs a grid (B,
@@ -48,6 +48,26 @@
 // top-left aligned (query i sees keys j <= i), which equals the plain
 // version's for the serve path's S == T. No atomics: the same inputs give
 // the same bits.
+//
+// fp32 inputs (a model at fp32 compute) take a second kernel on the CUDA
+// cores, every product an fp32 FMA: the tensor cores' fp32 routes miss
+// the fp32 limit 2e-5 + 2e-5 |plain| (JAX's, tests/test_kernels.py). Each
+// operand as a bf16 pair with three products a step reads 0.66-1.02 of
+// it at qwen's, phi3's and internvl2's shapes, four products 0.42, since
+// a pair holds a value to 2^-16 of it (tests/test_torch_fp32.py emulates
+// them); three bf16 pieces would need six products and three K and V
+// tiles a stage. So: one block of 128 threads (16 x 8) per 64 query rows
+// of one head; thread (ty, tx) holds the scores of rows ty + 16 i (i < 4)
+// and keys tx + 8 j (j < 8) of a 64-key tile (128 FMA per 12 16-byte
+// shared-memory reads), and the outputs of rows ty + 16 i, columns
+// 4 tx + 32 c .. + 3 (64 FMA per 8 reads a key at hd 128). q, two cp.async stages of K and V (rows padded by
+// 16 bytes: a quarter warp's eight rows land on eight bank quads) and P^T
+// (scores to P V through shared memory) take 182 KB at hd 128, one block
+// an SM. The same tiling of the causal loop, masks, order of the grid and
+// exp2-domain softmax as above; the output is fp32. What bounds it: the
+// operations, at the CUDA cores' 67 TFLOP/s (0.009 ms at qwen's S=384
+// against 0.0028 for the bytes); one block of four warps an SM hides
+// little of the shared-memory latency, and S=384 fills 96 of 132 SMs.
 #include "common.cuh"
 
 namespace {
@@ -481,16 +501,261 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// fp32: the same attention on the CUDA cores (see the note at the top)
+// ---------------------------------------------------------------------------
+namespace fp32 {
+
+constexpr int kThreads = 128;  // 16 (ty) x 8 (tx)
+
+template <int HDP>
+struct Smem {
+  static constexpr int kRow = HDP + 4;   // padded q, K, V row, floats
+  static constexpr int kPRow = kBQ + 4;  // padded P^T row (one key), floats
+  static constexpr int kTile = kBK * kRow;
+  // q, two stages of K, two of V, P^T
+  static constexpr int kBytes = (kBQ * kRow + 4 * kTile + kBK * kPRow) * 4;
+};
+
+// Stage rows [r0, r0 + 64) of a (rows, stride)-strided fp32 matrix of hd
+// columns into a padded tile; rows >= n and columns >= hd are zero-filled
+// and not read.
+template <int HDP>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           size_t stride, int r0, int n,
+                                           int hd) {
+  constexpr int kChunks = HDP / 4;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r0 + r < n && c * 4 < hd;
+    const float* g =
+        src + (ok ? static_cast<size_t>(r0 + r) * stride + c * 4 : 0);
+    cp_async16(dst + r * Smem<HDP>::kRow + c * 4, g, ok ? 16 : 0);
+  }
+}
+
+// q: (B,S,H,hd); k, v: (B,T,K,hd); o: (B,S,H,hd); all fp32, contiguous;
+// hd % 8 == 0, hd <= HDP. Block i: query tile nq - 1 - i / (H * B) (the
+// heaviest first), then head and batch.
+template <int HDP>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ o, int B, int S, int T, int H,
+                           int K, int hd, float scale_log2, int causal) {
+  using Sm = Smem<HDP>;
+  constexpr int kRow = Sm::kRow, kPRow = Sm::kPRow;
+  constexpr int kC = HDP / 32;  // 4-column groups of a thread's outputs
+  const int nq = (S + kBQ - 1) / kBQ;
+  const int hb = H * B;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x) / hb) * kBQ;
+  const int h = static_cast<int>(blockIdx.x) % hb % H;
+  const int b = static_cast<int>(blockIdx.x) % hb / H;
+  const int kh = h / (H / K);
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;
+  float* ks = qs + kBQ * kRow;     // two stages
+  float* vs = ks + 2 * Sm::kTile;  // two stages
+  float* ps = vs + 2 * Sm::kTile;  // P^T: ps[key * kPRow + query row]
+
+  const size_t q_stride = static_cast<size_t>(H) * hd;
+  const size_t kv_stride = static_cast<size_t>(K) * hd;
+  const float* qb = q + (static_cast<size_t>(b) * S * H + h) * hd;
+  const float* kb = k + (static_cast<size_t>(b) * T * K + kh) * hd;
+  const float* vb = v + (static_cast<size_t>(b) * T * K + kh) * hd;
+
+  const int kv_end = causal ? min(T, q0 + kBQ) : T;
+  const int ntiles = (kv_end + kBK - 1) / kBK;
+  // q and tile 0 in copy group 0, tile 1 in group 1
+  stage_rows<HDP>(qs, qb, q_stride, q0, S, hd);
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    if (st < ntiles) {
+      stage_rows<HDP>(ks + st * Sm::kTile, kb, kv_stride, st * kBK, T, hd);
+      stage_rows<HDP>(vs + st * Sm::kTile, vb, kv_stride, st * kBK, T, hd);
+    }
+    cp_async_commit();
+  }
+
+  float acc[4][4 * kC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * kC; ++c) acc[i][c] = 0.f;
+  float m[4], l[4];  // running max (log2 domain), this thread's part of
+                     // the sum, of rows ty + 16 i
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<1>();  // tile j (and q) has landed
+    __syncthreads();
+    const float* kt = ks + (j & 1) * Sm::kTile;
+    const float* vt = vs + (j & 1) * Sm::kTile;
+
+    // scores of rows ty + 16 i and keys tx + 8 jj
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) s[i][jj] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < HDP; d += 4) {
+      float4 qv[4], kv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kRow +
+                                                 d);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        kv[jj] = *reinterpret_cast<const float4*>(kt + (tx + 8 * jj) * kRow +
+                                                  d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
+          s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
+          s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
+          s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
+        }
+    }
+
+    // mask the diagonal and the ragged tile
+    const int k0 = j * kBK;
+    if ((causal && k0 + kBK - 1 > q0) || k0 + kBK > T) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = k0 + tx + 8 * jj, row = q0 + ty + 16 * i;
+          if (col >= T || (causal && col > row)) s[i][jj] = -INFINITY;
+        }
+    }
+
+    // online softmax of each row over the eight lanes that share it, in
+    // the exp2 domain; P^T to shared memory
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) mx = fmaxf(mx, s[i][jj]);
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      mx = fmaxf(m[i], mx * scale_log2);
+      // a row with no valid column yet keeps 2^(-inf - 0) = 0
+      const float base = mx == -INFINITY ? 0.f : mx;
+      const float alpha = fast_exp2(m[i] - base);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float p = fast_exp2(fmaf(s[i][jj], scale_log2, -base));
+        ps[(tx + 8 * jj) * kPRow + ty + 16 * i] = p;
+        sum += p;
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < 4 * kC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();  // P^T is written
+
+    // acc += P V over the tile's 64 keys
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = ps[c * kPRow + ty + 16 * i];
+#pragma unroll
+      for (int cc = 0; cc < kC; ++cc) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(vt + c * kRow + 4 * tx + 32 * cc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * cc] = fmaf(p[i], vv.x, acc[i][4 * cc]);
+          acc[i][4 * cc + 1] = fmaf(p[i], vv.y, acc[i][4 * cc + 1]);
+          acc[i][4 * cc + 2] = fmaf(p[i], vv.z, acc[i][4 * cc + 2]);
+          acc[i][4 * cc + 3] = fmaf(p[i], vv.w, acc[i][4 * cc + 3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage and P^T are consumed
+    if (j + 2 < ntiles) {
+      stage_rows<HDP>(ks + (j & 1) * Sm::kTile, kb, kv_stride,
+                      (j + 2) * kBK, T, hd);
+      stage_rows<HDP>(vs + (j & 1) * Sm::kTile, vb, kv_stride,
+                      (j + 2) * kBK, T, hd);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      li += __shfl_xor_sync(0xffffffffu, li, off);
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+    float* orow = o + (static_cast<size_t>(b) * S + row) * q_stride + h * hd;
+#pragma unroll
+    for (int cc = 0; cc < kC; ++cc) {
+      const int col = 4 * tx + 32 * cc;
+      if (col < hd)  // hd % 4 == 0: the group is wholly inside or out
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[i][4 * cc] * inv, acc[i][4 * cc + 1] * inv,
+                        acc[i][4 * cc + 2] * inv, acc[i][4 * cc + 3] * inv);
+    }
+  }
+}
+
+template <int HDP>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int T, int H, int K, int hd, int causal, cudaStream_t stream) {
+  constexpr int smem = Smem<HDP>::kBytes;
+  auto kernel = flash_attention_f32_kernel<HDP>;
+  const long long blocks =
+      static_cast<long long>((S + kBQ - 1) / kBQ) * H * B;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 =
+      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(hd)));
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), B, S, T, H, K, hd,
+      scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace fp32
+
 }  // namespace
 
 // hd % 8 == 0 and hd <= 128; heads: query heads per block, 1 or 2 (of
-// one KV group), 0 to choose
+// one KV group), 0 to choose (bf16); f32: q, k, v and o are fp32 (one
+// head a block; heads 0 or 1), else bf16
 extern "C" int launch_flash_attention(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int T, int H, int K, int hd, int causal,
-                                      int heads, void* stream) {
+                                      int heads, int f32, void* stream) {
   if (K < 1 || H % K != 0 || hd < 8 || hd > kHD || hd % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f32) {
+    if (heads > 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (hd <= 32) return fp32::launch<32>(q, k, v, o, B, S, T, H, K, hd,
+                                         causal, st);
+    if (hd <= 64) return fp32::launch<64>(q, k, v, o, B, S, T, H, K, hd,
+                                         causal, st);
+    return fp32::launch<128>(q, k, v, o, B, S, T, H, K, hd, causal, st);
+  }
   if (heads == 0) {
     // two heads a block (each K and V tile read once for both) while
     // that still gives every SM a block
@@ -504,7 +769,6 @@ extern "C" int launch_flash_attention(const void* q, const void* k,
         static_cast<long long>((S + kBQ - 1) / kBQ) * (H / 2) * B;
     heads = (H / K) % 2 == 0 && pairs >= sms ? 2 : 1;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (heads == 2 && (H / K) % 2 == 0)
     return launch<2>(q, k, v, o, B, S, T, H, K, hd, causal, st);
   if (heads == 1) return launch<1>(q, k, v, o, B, S, T, H, K, hd, causal, st);

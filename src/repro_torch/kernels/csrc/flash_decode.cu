@@ -1,5 +1,6 @@
 // flash_decode: single-token GQA attention over a dense KV cache at one
-// position shared by the whole batch, bf16 in and out, fp32 softmax.
+// position shared by the whole batch, bf16 or fp32 in and out (q's dtype),
+// fp32 softmax.
 //
 // Replaces src/repro/kernels/flash_decode.py::flash_decode (Pallas _kernel
 // at :22, pallas_call at :72). The Pallas kernel runs a grid (B, H, T /
@@ -51,29 +52,44 @@
 // holds it to about 2^-16 of its value; bf16 P alone would read 3-6 times
 // the elementwise limit (tests/test_torch_kernels.py). Output acc /
 // max(l, 1e-30) in bf16; no valid row (pos < 0) gives zeros.
-#include <cooperative_groups.h>
-
+//
+// fp32 inputs (a model at fp32 compute) take the same blocks, splits,
+// cluster and merges, with fp32 tiles of 32 rows (8 per warp, 34 KB a
+// stage at hd 128) and every product an fp32 FMA on the CUDA cores
+// (DecF32 in common.cuh). At G <= 8 a decode does 2 G flops per 4-byte
+// element read, at most 4 flops a byte, below the card's 20 (67 TFLOP/s
+// fp32 over 3.35 TB/s), so the bytes still bound it. The tensor cores
+// with each fp32 operand as a bf16 pair (2^-16 of its value) would use
+// 0.7-1.0 of the fp32 limit 2e-5 + 2e-5 |plain| (tests/test_torch_fp32.py
+// emulates it); fp32 FMA stays within the plain version's own rounding.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // four warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileRows = 64;  // cache rows per tile: 16 per warp
-constexpr int kMaxG = 8;       // query heads per KV head: the mma's N
+constexpr int kThreads = kDecThreads;  // four warps
+constexpr int kWarps = kDecWarps;
+constexpr int kMaxG = kDecMaxG;        // query heads per KV head: the mma's N
 constexpr int kMaxHd = 256;
-constexpr int kMaxSplits = 8;  // blocks of a cluster (the portable limit)
+constexpr int kMaxSplits = kDecMaxSplits;  // blocks of a cluster
 
-template <int HDP>
+// E: the element type of q, k, v and the output (bf16 or fp32)
+template <typename E, int HDP>
 struct Tile {
-  static constexpr int kStride = HDP + 8;  // padded row, bf16 elements
-  static constexpr int kElems = kTileRows * kStride;
+  static constexpr bool kF32 = sizeof(E) == 4;
+  static constexpr int kRows = kF32 ? 32 : 64;  // cache rows per tile
+  static constexpr int kWarpRows = kRows / kWarps;
+  static constexpr int kVals = 16 / sizeof(E);  // values per 16-byte chunk
+  static constexpr int kStride = HDP + kVals;   // padded row, elements
+  static constexpr int kElems = kRows * kStride;
   // two stages of K and V; the merges reuse them
-  static constexpr int kSmemBytes = 4 * kElems * 2;
-  // floats of the merges: the warps' (m, l, acc), then the block's
-  static constexpr int kMergeFloats =
-      (kWarps + 1) * kMaxG * HDP + (3 * kWarps + 2) * kMaxG;
-  static_assert(kMergeFloats * 4 <= kSmemBytes, "merges fit the tiles");
+  static constexpr int kTileBytes = 4 * kElems * static_cast<int>(sizeof(E));
+  // fp32: the heads' q and each warp's scratch after the tiles
+  using F32 = DecF32<HDP, 8>;
+  static constexpr int kExtraFloats =
+      kF32 ? kMaxG * HDP + kWarps * F32::kScratch : 0;
+  static constexpr int kSmemBytes = kTileBytes + kExtraFloats * 4;
+  static_assert(DecMerge<HDP>::kFloats * 4 <= kTileBytes,
+                "merges fit the tiles");
 };
 
 __device__ __forceinline__ int last_row(const void* pos_ptr, int pos_is64,
@@ -85,20 +101,20 @@ __device__ __forceinline__ int last_row(const void* pos_ptr, int pos_is64,
   return static_cast<int>(p < -1 ? -1 : (p > T - 1 ? T - 1 : p));
 }
 
-// q: (B,1,H,hd); k, v: (B,T,K,hd), bf16; hd <= HDP, columns hd..HDP are
-// zero in shared memory and in q's fragments. Block (bk = b*K + kh,
-// split); the gridDim.y splits of a bk are one cluster.
-template <int HDP>
+// q: (B,1,H,hd); k, v: (B,T,K,hd), all E; hd <= HDP, columns hd..HDP are
+// zero in shared memory and in q's fragments (or q's fp32 rows). Block
+// (bk = b*K + kh, split); the gridDim.y splits of a bk are one cluster.
+template <typename E, int HDP>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
+flash_decode_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v,
                     const void* __restrict__ pos_ptr, int pos_is64,
-                    int pos_val, __nv_bfloat16* __restrict__ out, int T,
-                    int K, int hd, int G, int split_rows, float scale_log2) {
-  constexpr int kStride = Tile<HDP>::kStride;
+                    int pos_val, E* __restrict__ out, int T, int K, int hd,
+                    int G, int split_rows, float scale_log2) {
+  using Tl = Tile<E, HDP>;
+  constexpr int kStride = Tl::kStride;
   constexpr int kKSteps = HDP / 16;  // k-steps of the scores, m-tiles of O^T
-  constexpr int kChunks = HDP / 8;   // 16-byte chunks of a padded row
+  constexpr int kChunks = HDP / Tl::kVals;  // 16-byte chunks of a row
   const int bk = blockIdx.x, split = blockIdx.y;
   const int b = bk / K, kh = bk % K, H = G * K;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -108,230 +124,197 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int r_begin = split * split_rows;
   const int r_end = min(r_begin + split_rows, last + 1);  // exclusive
 
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* ks = smem;                         // two stages
-  __nv_bfloat16* vs = smem + 2 * Tile<HDP>::kElems;  // two stages
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* ks = reinterpret_cast<E*>(smem_raw);  // two stages
+  E* vs = ks + 2 * Tl::kElems;             // two stages
+  float* smem_f = reinterpret_cast<float*>(smem_raw);
 
   auto stage = [&](int st, int r0) {
-    __nv_bfloat16* kd = ks + st * Tile<HDP>::kElems;
-    __nv_bfloat16* vd = vs + st * Tile<HDP>::kElems;
-    for (int i = threadIdx.x; i < kTileRows * kChunks; i += kThreads) {
+    E* kd = ks + st * Tl::kElems;
+    E* vd = vs + st * Tl::kElems;
+    for (int i = threadIdx.x; i < Tl::kRows * kChunks; i += kThreads) {
       const int r = i / kChunks, c = i % kChunks;
-      const bool ok = r0 + r < r_end && c * 8 < hd;
+      const bool ok = r0 + r < r_end && c * Tl::kVals < hd;
       const size_t off =
-          ok ? ((static_cast<size_t>(b) * T + r0 + r) * K + kh) * hd + c * 8
+          ok ? ((static_cast<size_t>(b) * T + r0 + r) * K + kh) * hd +
+                   c * Tl::kVals
              : 0;
-      cp_async16(kd + r * kStride + c * 8, k + off, ok ? 16 : 0);
-      cp_async16(vd + r * kStride + c * 8, v + off, ok ? 16 : 0);
+      cp_async16(kd + r * kStride + c * Tl::kVals, k + off, ok ? 16 : 0);
+      cp_async16(vd + r * kStride + c * Tl::kVals, v + off, ok ? 16 : 0);
     }
   };
 
   // a block past pos has no tiles, but stays for the cluster's merge
   const int ntiles =
-      max(0, (r_end - r_begin + kTileRows - 1) / kTileRows);
+      max(0, (r_end - r_begin + Tl::kRows - 1) / Tl::kRows);
   if (ntiles > 0) stage(0, r_begin);
   cp_async_commit();
-  if (ntiles > 1) stage(1, r_begin + kTileRows);
+  if (ntiles > 1) stage(1, r_begin + Tl::kRows);
   cp_async_commit();
 
-  // q as the B operand of S^T = K Q^T: head g, columns 2t.. of each step
-  uint32_t qf[kKSteps][2];
-  {
-    const __nv_bfloat16* qh = q + (static_cast<size_t>(b) * H + kh * G + g) * hd;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int d = kk * 16 + half * 8 + 2 * t;
-        qf[kk][half] = g < G && d < hd
-                           ? *reinterpret_cast<const uint32_t*>(qh + d)
-                           : 0u;
-      }
-  }
-
-  // acc[mt]: O^T rows (columns of the output) mt*16 + g and + 8, heads
-  // 2t and 2t + 1; m and l of heads 2t, 2t + 1 (l: this thread's rows)
-  float acc[kKSteps][4];
-#pragma unroll
-  for (int mt = 0; mt < kKSteps; ++mt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int j = 0; j < ntiles; ++j) {
-    const int st = j & 1;
-    cp_async_wait<1>();  // tile j has landed; tile j + 1 may still fly
-    __syncthreads();
-    const int r0 = r_begin + j * kTileRows + warp * 16;  // warp's first row
-    if (r0 < r_end) {
-      const __nv_bfloat16* kt = ks + st * Tile<HDP>::kElems + warp * 16 * kStride;
-      const __nv_bfloat16* vt = vs + st * Tile<HDP>::kElems + warp * 16 * kStride;
-      // s: rows g, g + 8 (of the warp's 16) x heads 2t, 2t + 1
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, kt + (lane & 15) * kStride + kk * 16 + (lane >> 4) * 8);
-        mma_bf16(s, a, qf[kk][0], qf[kk][1]);
-      }
-      const bool ok_a = r0 + g < r_end, ok_b = r0 + g + 8 < r_end;
-      s[0] = ok_a ? s[0] * scale_log2 : -INFINITY;
-      s[1] = ok_a ? s[1] * scale_log2 : -INFINITY;
-      s[2] = ok_b ? s[2] * scale_log2 : -INFINITY;
-      s[3] = ok_b ? s[3] * scale_log2 : -INFINITY;
-      // max over the 16 rows: the eight lanes sharing t
-      float mx0 = fmaxf(m0, fmaxf(s[0], s[2]));
-      float mx1 = fmaxf(m1, fmaxf(s[1], s[3]));
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      // row r0 is valid, so both maxima are finite
-      const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      s[0] = fast_exp2(s[0] - mx0);
-      s[1] = fast_exp2(s[1] - mx1);
-      s[2] = fast_exp2(s[2] - mx0);
-      s[3] = fast_exp2(s[3] - mx1);
-      l0 = l0 * alpha0 + s[0] + s[2];
-      l1 = l1 * alpha1 + s[1] + s[3];
-#pragma unroll
-      for (int mt = 0; mt < kKSteps; ++mt) {
-        acc[mt][0] *= alpha0;
-        acc[mt][1] *= alpha1;
-        acc[mt][2] *= alpha0;
-        acc[mt][3] *= alpha1;
-      }
-      // P^T as the B operand: rows 2t, 2t + 1 (and + 8) of head g
-      uint32_t hi_a, lo_a, hi_b, lo_b;
-      split_bf16x2(s[0], s[1], hi_a, lo_a);
-      split_bf16x2(s[2], s[3], hi_b, lo_b);
-      const uint32_t bh0 = movmatrix_trans(hi_a), bh1 = movmatrix_trans(hi_b);
-      const uint32_t bl0 = movmatrix_trans(lo_a), bl1 = movmatrix_trans(lo_b);
-#pragma unroll
-      for (int mt = 0; mt < kKSteps; ++mt) {
-        uint32_t a[4];  // V^T rows mt*16.., the warp's 16 cache rows
-        ldmatrix_x4_trans(a, vt + ((lane & 7) + (lane >> 4) * 8) * kStride +
-                                 mt * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[mt], a, bh0, bh1);
-        mma_bf16(acc[mt], a, bl0, bl1);
-      }
+  if constexpr (Tl::kF32) {
+    // the heads' q rows, zero past hd and past G; the loop's first
+    // barrier orders them
+    float* qs = smem_f + Tl::kTileBytes / 4;
+    float* scratch = qs + kMaxG * HDP + warp * Tl::F32::kScratch;
+    const float* qb = reinterpret_cast<const float*>(q) +
+                      (static_cast<size_t>(b) * H + kh * G) * hd;
+    for (int i = threadIdx.x; i < kMaxG * HDP; i += kThreads) {
+      const int hq = i / HDP, d = i % HDP;
+      qs[i] = hq < G && d < hd ? qb[hq * hd + d] : 0.f;
     }
-    __syncthreads();  // stage st is consumed before it is refilled
-    if (j + 2 < ntiles) stage(st, r_begin + (j + 2) * kTileRows);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
+    typename Tl::F32 st;
+    st.init();
+    for (int j = 0; j < ntiles; ++j) {
+      cp_async_wait<1>();  // tile j has landed; tile j + 1 may still fly
+      __syncthreads();
+      const int r0 = r_begin + j * Tl::kRows + warp * Tl::kWarpRows;
+      if (r0 < r_end) {
+        const int off = (j & 1) * Tl::kElems + warp * Tl::kWarpRows * kStride;
+        st.template tile<float>(reinterpret_cast<const float*>(ks) + off,
+                                reinterpret_cast<const float*>(vs) + off,
+                                kStride, qs, scratch, r_end - r0, nullptr,
+                                nullptr, scale_log2, G, lane);
+      }
+      __syncthreads();  // stage j & 1 is consumed before it is refilled
+      if (j + 2 < ntiles) stage(j & 1, r_begin + (j + 2) * Tl::kRows);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    st.publish(smem_f, warp, lane);
+  } else {
+    // q as the B operand of S^T = K Q^T: head g, columns 2t.. of each step
+    uint32_t qf[kKSteps][2];
+    {
+      const __nv_bfloat16* qh = reinterpret_cast<const __nv_bfloat16*>(q) +
+                                (static_cast<size_t>(b) * H + kh * G + g) * hd;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int d = kk * 16 + half * 8 + 2 * t;
+          qf[kk][half] = g < G && d < hd
+                             ? *reinterpret_cast<const uint32_t*>(qh + d)
+                             : 0u;
+        }
+    }
+
+    // acc[mt]: O^T rows (columns of the output) mt*16 + g and + 8, heads
+    // 2t and 2t + 1; m and l of heads 2t, 2t + 1 (l: this thread's rows)
+    float acc[kKSteps][4];
+#pragma unroll
+    for (int mt = 0; mt < kKSteps; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j & 1;
+      cp_async_wait<1>();  // tile j has landed; tile j + 1 may still fly
+      __syncthreads();
+      const int r0 = r_begin + j * Tl::kRows + warp * 16;  // warp's first row
+      if (r0 < r_end) {
+        const __nv_bfloat16* kt = reinterpret_cast<const __nv_bfloat16*>(
+            ks + st * Tl::kElems + warp * 16 * kStride);
+        const __nv_bfloat16* vt = reinterpret_cast<const __nv_bfloat16*>(
+            vs + st * Tl::kElems + warp * 16 * kStride);
+        // s: rows g, g + 8 (of the warp's 16) x heads 2t, 2t + 1
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < kKSteps; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4(a, kt + (lane & 15) * kStride + kk * 16 +
+                             (lane >> 4) * 8);
+          mma_bf16(s, a, qf[kk][0], qf[kk][1]);
+        }
+        const bool ok_a = r0 + g < r_end, ok_b = r0 + g + 8 < r_end;
+        s[0] = ok_a ? s[0] * scale_log2 : -INFINITY;
+        s[1] = ok_a ? s[1] * scale_log2 : -INFINITY;
+        s[2] = ok_b ? s[2] * scale_log2 : -INFINITY;
+        s[3] = ok_b ? s[3] * scale_log2 : -INFINITY;
+        // max over the 16 rows: the eight lanes sharing t
+        float mx0 = fmaxf(m0, fmaxf(s[0], s[2]));
+        float mx1 = fmaxf(m1, fmaxf(s[1], s[3]));
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        // row r0 is valid, so both maxima are finite
+        const float alpha0 = fast_exp2(m0 - mx0),
+                    alpha1 = fast_exp2(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        s[0] = fast_exp2(s[0] - mx0);
+        s[1] = fast_exp2(s[1] - mx1);
+        s[2] = fast_exp2(s[2] - mx0);
+        s[3] = fast_exp2(s[3] - mx1);
+        l0 = l0 * alpha0 + s[0] + s[2];
+        l1 = l1 * alpha1 + s[1] + s[3];
+#pragma unroll
+        for (int mt = 0; mt < kKSteps; ++mt) {
+          acc[mt][0] *= alpha0;
+          acc[mt][1] *= alpha1;
+          acc[mt][2] *= alpha0;
+          acc[mt][3] *= alpha1;
+        }
+        // P^T as the B operand: rows 2t, 2t + 1 (and + 8) of head g
+        uint32_t hi_a, lo_a, hi_b, lo_b;
+        split_bf16x2(s[0], s[1], hi_a, lo_a);
+        split_bf16x2(s[2], s[3], hi_b, lo_b);
+        const uint32_t bh0 = movmatrix_trans(hi_a),
+                       bh1 = movmatrix_trans(hi_b);
+        const uint32_t bl0 = movmatrix_trans(lo_a),
+                       bl1 = movmatrix_trans(lo_b);
+#pragma unroll
+        for (int mt = 0; mt < kKSteps; ++mt) {
+          uint32_t a[4];  // V^T rows mt*16.., the warp's 16 cache rows
+          ldmatrix_x4_trans(a, vt + ((lane & 7) + (lane >> 4) * 8) * kStride +
+                                   mt * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(acc[mt], a, bh0, bh1);
+          mma_bf16(acc[mt], a, bl0, bl1);
+        }
+      }
+      __syncthreads();  // stage st is consumed before it is refilled
+      if (j + 2 < ntiles) stage(st, r_begin + (j + 2) * Tl::kRows);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
 
 #pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  // merge the four warps in shared memory (the tiles are consumed)
-  float* wm = reinterpret_cast<float*>(smem);  // kWarps x kMaxG
-  float* wl = wm + kWarps * kMaxG;             // kWarps x kMaxG
-  float* wacc = wl + kWarps * kMaxG;           // kWarps x kMaxG x HDP
-  if (g == 0) {
-    wm[warp * kMaxG + 2 * t] = m0;
-    wm[warp * kMaxG + 2 * t + 1] = m1;
-    wl[warp * kMaxG + 2 * t] = l0;
-    wl[warp * kMaxG + 2 * t + 1] = l1;
-  }
-  float* wa = wacc + warp * kMaxG * HDP;
-#pragma unroll
-  for (int mt = 0; mt < kKSteps; ++mt) {
-    const int d = mt * 16 + g;
-    wa[(2 * t) * HDP + d] = acc[mt][0];
-    wa[(2 * t + 1) * HDP + d] = acc[mt][1];
-    wa[(2 * t) * HDP + d + 8] = acc[mt][2];
-    wa[(2 * t + 1) * HDP + d + 8] = acc[mt][3];
-  }
-  __syncthreads();
-  // the block's partial state: per head the warps' weights e^(m_w - M),
-  // M (bm) and the denominator (bl), then bacc (kMaxG x HDP); the pad
-  // columns of wacc hold zeros
-  float* we = wacc + kWarps * kMaxG * HDP;  // kWarps x kMaxG
-  float* bm = we + kWarps * kMaxG;
-  float* bl = bm + kMaxG;
-  float* bacc = bl + kMaxG;
-  if (threadIdx.x < G) {
-    const int hq = threadIdx.x;
-    float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * kMaxG + hq]);
-    float L = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float mw = wm[w * kMaxG + hq];
-      // a warp with no rows (m = -inf) adds nothing
-      const float e = mw > -INFINITY ? fast_exp2(mw - M) : 0.f;
-      we[w * kMaxG + hq] = e;
-      L += e * wl[w * kMaxG + hq];
+    for (int off = 4; off < 32; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    bm[hq] = M;
-    bl[hq] = L;
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < G * HDP; o += kThreads) {
-    const int hq = o / HDP;
-    float A = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      A += we[w * kMaxG + hq] * wacc[w * kMaxG * HDP + o];
-    bacc[o] = A;
-  }
-
-  // Each block of the cluster merges a slice of the G*hd outputs from
-  // every split's state: out = sum_s e^(m_s - M) acc_s / max(sum_s
-  // e^(m_s - M) l_s, 1e-30), M = max_s m_s, in split order; no valid
-  // row at all (pos < 0) gives zeros.
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();  // every split's state is written
-  const int nsplit = static_cast<int>(gridDim.y);
-  const int per = (G * HDP + nsplit - 1) / nsplit;
-  const int o_end = min(G * HDP, (split + 1) * per);
-  for (int o = split * per + static_cast<int>(threadIdx.x); o < o_end;
-       o += kThreads) {
-    const int hq = o / HDP, d = o % HDP;
-    if (d >= hd) continue;  // a pad column
-    float ms[kMaxSplits], ls[kMaxSplits], as[kMaxSplits];
-    float M = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < kMaxSplits; ++r) {
-      ms[r] = -INFINITY;
-      if (r < nsplit) {
-        const float* rm = cluster.map_shared_rank(bm, r);
-        ms[r] = rm[hq];
-        ls[r] = rm[kMaxG + hq];               // bl
-        as[r] = rm[2 * kMaxG + o];             // bacc
-        M = fmaxf(M, ms[r]);
-      }
+    // this warp's state for the merges (the tiles are consumed)
+    float* wm = DecMerge<HDP>::wm(smem_f);
+    float* wl = DecMerge<HDP>::wl(smem_f);
+    if (g == 0) {
+      wm[warp * kMaxG + 2 * t] = m0;
+      wm[warp * kMaxG + 2 * t + 1] = m1;
+      wl[warp * kMaxG + 2 * t] = l0;
+      wl[warp * kMaxG + 2 * t + 1] = l1;
     }
-    float L = 0.f, A = 0.f;
+    float* wa = DecMerge<HDP>::wacc(smem_f) + warp * kMaxG * HDP;
 #pragma unroll
-    for (int r = 0; r < kMaxSplits; ++r) {
-      if (ms[r] > -INFINITY) {
-        const float e = fast_exp2(ms[r] - M);
-        L += e * ls[r];
-        A += e * as[r];
-      }
+    for (int mt = 0; mt < kKSteps; ++mt) {
+      const int d = mt * 16 + g;
+      wa[(2 * t) * HDP + d] = acc[mt][0];
+      wa[(2 * t + 1) * HDP + d] = acc[mt][1];
+      wa[(2 * t) * HDP + d + 8] = acc[mt][2];
+      wa[(2 * t + 1) * HDP + d + 8] = acc[mt][3];
     }
-    out[(static_cast<size_t>(b) * H + kh * G + hq) * hd + d] =
-        __float2bfloat16(A / fmaxf(L, 1e-30f));
   }
-  cluster.sync();  // the other blocks have read this block's state
+  decode_merge<HDP>(smem_f, G, hd, split, static_cast<int>(gridDim.y),
+                    out + (static_cast<size_t>(b) * H + kh * G) * hd);
 }
 
-template <int HDP>
+template <typename E, int HDP>
 int launch(const void* q, const void* k, const void* v, const void* pos_ptr,
            int pos_is64, int pos_val, void* out, int B, int T, int K, int hd,
            int G, int split_rows, int nsplit, cudaStream_t st) {
-  constexpr int smem = Tile<HDP>::kSmemBytes;
-  auto kernel = flash_decode_kernel<HDP>;
+  constexpr int smem = Tile<E, HDP>::kSmemBytes;
+  auto kernel = flash_decode_kernel<E, HDP>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 =
@@ -348,14 +331,26 @@ int launch(const void* q, const void* k, const void* v, const void* pos_ptr,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel,
-                           static_cast<const __nv_bfloat16*>(q),
-                           static_cast<const __nv_bfloat16*>(k),
-                           static_cast<const __nv_bfloat16*>(v), pos_ptr,
-                           pos_is64, pos_val, static_cast<__nv_bfloat16*>(out),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const E*>(q),
+                           static_cast<const E*>(k), static_cast<const E*>(v),
+                           pos_ptr, pos_is64, pos_val, static_cast<E*>(out),
                            T, K, hd, G, split_rows, scale_log2);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int dispatch(const void* q, const void* k, const void* v, const void* pos_ptr,
+             int pos_is64, int pos_val, void* out, int B, int T, int K,
+             int hd, int G, int split_rows, int nsplit, cudaStream_t st) {
+#define FLASH_DECODE_LAUNCH(HDP)                                             \
+  launch<E, HDP>(q, k, v, pos_ptr, pos_is64, pos_val, out, B, T, K, hd, G,  \
+                 split_rows, nsplit, st)
+  if (hd <= 32) return FLASH_DECODE_LAUNCH(32);
+  if (hd <= 64) return FLASH_DECODE_LAUNCH(64);
+  if (hd <= 128) return FLASH_DECODE_LAUNCH(128);
+  return FLASH_DECODE_LAUNCH(256);
+#undef FLASH_DECODE_LAUNCH
 }
 
 }  // namespace
@@ -363,12 +358,13 @@ int launch(const void* q, const void* k, const void* v, const void* pos_ptr,
 // pos: pos_ptr, a 32-bit (pos_is64 = 0) or 64-bit integer in device
 // memory, or pos_val when pos_ptr is null. The cache splits into
 // ceil(T / split_rows) <= 8 blocks per (slot, KV head), one cluster; for
-// an int position only the blocks with rows <= pos are launched.
+// an int position only the blocks with rows <= pos are launched. f32: q,
+// k, v and out are fp32 (else bf16).
 extern "C" int launch_flash_decode(const void* q, const void* k, const void* v,
                                    const void* pos_ptr, void* out,
                                    int pos_val, int pos_is64, int B, int T,
                                    int K, int hd, int G, int split_rows,
-                                   void* stream) {
+                                   int f32, void* stream) {
   if (G < 1 || G > kMaxG || hd < 8 || hd > kMaxHd || hd % 8 != 0 || T < 1 ||
       K < 1 || split_rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -378,12 +374,9 @@ extern "C" int launch_flash_decode(const void* q, const void* k, const void* v,
   if (pos_ptr == nullptr)
     nsplit = pos_val < 0 ? 1 : min(nsplit, pos_val / split_rows + 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_DECODE_LAUNCH(HDP)                                             \
-  launch<HDP>(q, k, v, pos_ptr, pos_is64, pos_val, out, B, T, K, hd, G,     \
-              split_rows, nsplit, st)
-  if (hd <= 32) return FLASH_DECODE_LAUNCH(32);
-  if (hd <= 64) return FLASH_DECODE_LAUNCH(64);
-  if (hd <= 128) return FLASH_DECODE_LAUNCH(128);
-  return FLASH_DECODE_LAUNCH(256);
-#undef FLASH_DECODE_LAUNCH
+  if (f32)
+    return dispatch<float>(q, k, v, pos_ptr, pos_is64, pos_val, out, B, T, K,
+                           hd, G, split_rows, nsplit, st);
+  return dispatch<__nv_bfloat16>(q, k, v, pos_ptr, pos_is64, pos_val, out, B,
+                                 T, K, hd, G, split_rows, nsplit, st);
 }

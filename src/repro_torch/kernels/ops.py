@@ -80,6 +80,20 @@ def _want(name: str, t: torch.Tensor, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+#: the attention kernels' input dtypes: bf16, or fp32 (a model at fp32
+#: compute); q, k and v all one of them
+ATTN_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _attn_dtype(kernel: str, q: torch.Tensor):
+    """q's dtype where the attention kernels take it (``_want`` then holds
+    the other inputs to it), else ``TypeError``."""
+    if q.dtype not in ATTN_DTYPES:
+        raise TypeError(f"{kernel}: q is {q.dtype}, the kernel takes "
+                        "torch.bfloat16 or torch.float32")
+    return q.dtype
+
+
 def _aligned(name: str, t: torch.Tensor):
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
@@ -109,18 +123,20 @@ def check_flash_attention(q, k, v):
     _no_autograd("flash_attention", q, k, v)
     if H % K or hd % 8 or not 8 <= hd <= 128:
         raise ValueError(f"flash_attention kernel: H={H}, K={K}, hd={hd}")
-    _want("q", q, torch.bfloat16, (B, S, H, hd), dev)
-    _want("k", k, torch.bfloat16, (B, T, K, hd), dev)
-    _want("v", v, torch.bfloat16, (B, T, K, hd), dev)
+    dt = _attn_dtype("flash_attention", q)
+    _want("q", q, dt, (B, S, H, hd), dev)
+    _want("k", k, dt, (B, T, K, hd), dev)
+    _want("v", v, dt, (B, T, K, hd), dev)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _aligned(name, t)           # the kernel copies rows 16 bytes at a time
 
 
 def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
-    """q: (B,S,H,hd); k,v: (B,T,K,hd); H % K == 0. Returns (B,S,H,hd).
-    The kernel takes bf16, any S and T, and any hd that is a multiple of
-    8 up to 128: its tiles are 128 columns wide, and it stages rows in
-    16-byte (8-column) chunks, zero-filling the columns at or past hd."""
+    """q: (B,S,H,hd); k,v: (B,T,K,hd); H % K == 0. Returns (B,S,H,hd) in
+    q's dtype. The kernel takes q, k and v all bf16 or all fp32 (fp32 on
+    the CUDA cores), any S and T, and any hd that is a multiple of 8 up to
+    128: its tiles are 128 columns wide, and it stages rows in 16-byte
+    chunks, zero-filling the columns at or past hd."""
     if _plain(backend, q):
         return _ref.flash_attention_ref(q, k, v, causal=causal)
     check_flash_attention(q, k, v)
@@ -131,7 +147,8 @@ def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
     if out.numel():
         _launch("flash_attention", "flash_attention", "launch_flash_attention",
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, T, H, K, hd, int(causal), 0, _stream(dev))
+                B, S, T, H, K, hd, int(causal), 0,
+                int(q.dtype == torch.float32), _stream(dev))
     return out
 
 
@@ -168,9 +185,10 @@ def check_flash_decode(q, k, v):
     dev = q.device
     if H % K or hd % 8:
         raise ValueError(f"flash_decode kernel: H={H}, K={K}, hd={hd}")
-    _want("q", q, torch.bfloat16, (B, 1, H, hd), dev)
-    _want("k", k, torch.bfloat16, (B, T, K, hd), dev)
-    _want("v", v, torch.bfloat16, (B, T, K, hd), dev)
+    dt = _attn_dtype("flash_decode", q)
+    _want("q", q, dt, (B, 1, H, hd), dev)
+    _want("k", k, dt, (B, T, K, hd), dev)
+    _want("v", v, dt, (B, T, K, hd), dev)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _aligned(name, t)           # the kernel copies rows 16 bytes at a time
 
@@ -179,10 +197,11 @@ def flash_decode(q, k, v, pos, *, backend: str = "auto"):
     """q: (B,1,H,hd); k,v: (B,T,K,hd); pos: scalar int or 0-d integer
     tensor, one position for the whole batch — attend to indices <= pos.
     T must be a multiple of min(FLASH_DECODE_TILE, T), the reference
-    kernel's tile rule. The kernel takes bf16 and hd % 8 == 0 (at most
-    256), H / K <= 8. An int position is a kernel argument; a tensor one
-    (int32 or int64 on the device) is read by the kernel: a call launches
-    the one kernel and nothing else."""
+    kernel's tile rule. The kernel takes q, k and v all bf16 or all fp32,
+    hd % 8 == 0 (at most 256) and H / K <= 8; the output has q's dtype.
+    An int position is a kernel argument; a tensor one (int32 or int64 on
+    the device) is read by the kernel: a call launches the one kernel and
+    nothing else."""
     check_decode_call(k, pos)
     if _plain(backend, q):
         return _ref.flash_decode_ref(q, k, v, pos)
@@ -205,7 +224,7 @@ def flash_decode(q, k, v, pos, *, backend: str = "auto"):
         _launch("flash_decode", "flash_decode", "launch_flash_decode",
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_ptr,
                 out.data_ptr(), pos_val, pos_is64, B, T, K, hd, H // K, rows,
-                _stream(dev))
+                int(q.dtype == torch.float32), _stream(dev))
     return out
 
 
@@ -254,12 +273,14 @@ def ssm_scan(xdt, Bv, Cv, log_a, *, chunk: int = 128, backend: str = "auto"):
 
 
 def _check_paged(q, k_pages, v_pages, tables, pos, dtype):
+    """The paged kernels' contract: q bf16 or fp32, the pages ``dtype``
+    (q's, or int8 for the quantized kernel)."""
     B, _, H, hd = q.shape
     P, page, K = k_pages.shape[:3]
     dev = q.device
     if H % K:
         raise ValueError(f"paged_decode kernel: H={H}, K={K}")
-    _want("q", q, torch.bfloat16, (B, 1, H, hd), dev)
+    _want("q", q, _attn_dtype("paged_decode", q), (B, 1, H, hd), dev)
     _want("k_pages", k_pages, dtype, (P, page, K, hd), dev)
     _want("v_pages", v_pages, dtype, (P, page, K, hd), dev)
     _want("tables", tables, torch.int32, (B, tables.shape[1]), dev)
@@ -276,28 +297,30 @@ def _check_paged(q, k_pages, v_pages, tables, pos, dtype):
 def paged_decode(q, k_pages, v_pages, tables, pos, *, backend: str = "auto"):
     """q: (B,1,H,hd); k_pages,v_pages: (P,page,K,hd); tables: (B,NP) int32;
     pos: (B,) int32 — attend to logical indices <= pos[b] (< 0: none,
-    exactly-zero output row). The kernel takes bf16 pages, H / K <= 8 and
-    hd <= 256, and reads tables and pos on the card: a call launches the
-    one kernel and never waits on the host."""
+    exactly-zero output row). The kernel takes q and the pages all bf16 or
+    all fp32, H / K <= 8 and hd <= 256, and reads tables and pos on the
+    card: a call launches the one kernel and never waits on the host."""
     if _plain(backend, q):
         return _ref.paged_decode_ref(q, k_pages, v_pages, tables, pos)
     B, NP, page, K, hd, G = _check_paged(q, k_pages, v_pages, tables, pos,
-                                         torch.bfloat16)
+                                         q.dtype)
     out = torch.empty_like(q)
     if B:
         _launch("paged_decode", "paged_decode", "launch_paged_decode",
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                B, NP, page, K, hd, G, _stream(q.device))
+                B, NP, page, K, hd, G, int(q.dtype == torch.float32),
+                _stream(q.device))
     return out
 
 
 def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, tables, pos,
                        *, backend: str = "auto"):
     """paged_decode over an int8 page pool with per-(row,head) fp32 scales
-    (P,page,K). The kernel reads the pages at int8 width, widens them to
-    bf16 (exactly) for the products and applies the scales in fp32: the k
-    scale to the score, the v scale to the probability."""
+    (P,page,K); q bf16 or fp32, the output in q's dtype. The kernel reads
+    the pages at int8 width, widens them exactly (to bf16 for the tensor
+    cores under bf16 q, to fp32 under fp32 q) and applies the scales in
+    fp32: the k scale to the score, the v scale to the probability."""
     if _plain(backend, q):
         return _ref.paged_decode_quant_ref(q, k_pages, v_pages, k_scale,
                                            v_scale, tables, pos)
@@ -313,7 +336,8 @@ def paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, tables, pos,
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
                 pos.data_ptr(), out.data_ptr(),
-                B, NP, page, K, hd, G, _stream(q.device))
+                B, NP, page, K, hd, G, int(q.dtype == torch.float32),
+                _stream(q.device))
     return out
 
 

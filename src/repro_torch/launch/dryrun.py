@@ -174,12 +174,14 @@ class CostMode(TorchDispatchMode):
         self.devices: set = set()
         self.off_meta: set = set()
         self.kernels: dict = {}
+        self.kernel_bytes: dict = {}
         self._storages: dict = {}    # storage -> [bytes, tensors alive]
 
     def kernel(self, name: str, flops: float, nbytes: float):
         self.flops += flops
         self.bytes += nbytes
         self.kernels[name] = self.kernels.get(name, 0) + 1
+        self.kernel_bytes[name] = self.kernel_bytes.get(name, 0) + nbytes
 
     def _release(self, key):
         held = self._storages[key]
@@ -585,7 +587,8 @@ def _kernel_path(mode: CostMode):
     arguments as the wrapper does before a launch, report their kernel's
     work to ``mode.kernel`` and return the output's shape: no launch, no
     launch count. Flops are 4*hd a (query head, key) pair, bytes each
-    input read once and each output written once."""
+    input read once and each output written once, at the inputs' width
+    (bf16 2 bytes, fp32 4: the kernels take either)."""
     fa, fd = kops.flash_attention, kops.flash_decode
 
     def flash_attention(q, k, v, *, causal: bool = True,
@@ -638,7 +641,8 @@ def _cost_of(lowered) -> dict:
             "coll_by_op": dict(coll.bytes_by_op),
             "devices": sorted(mode.devices),
             "off_meta": sorted(mode.off_meta),
-            "kernels": dict(mode.kernels)}
+            "kernels": dict(mode.kernels),
+            "kernel_bytes": dict(mode.kernel_bytes)}
 
 
 _LINEAR = ("flops", "transcendentals", "bytes", "temp_bytes", "coll_bytes")

@@ -64,8 +64,10 @@ def _dt(name: str):
 
 
 def ops_backend(run: RunConfig) -> str:
-    """RunConfig.kernel_backend -> the ``backend`` of kernels.ops."""
-    backends = {"auto": "auto", "reference": "ref"}
+    """RunConfig.kernel_backend -> the ``backend`` of kernels.ops.
+    ``"pallas"`` is the JAX package's name for its kernels: here the hand
+    kernels on CUDA tensors, as ``"auto"``."""
+    backends = {"auto": "auto", "pallas": "auto", "reference": "ref"}
     if run.kernel_backend not in backends:
         raise ValueError(f"kernel_backend {run.kernel_backend!r}: the port "
                          f"takes {sorted(backends)}")

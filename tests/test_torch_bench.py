@@ -106,7 +106,7 @@ def test_decode_roofline_rows_and_byte_gate():
         assert r["wall_s"] > 0
     assert set(rows[-1]) == set(want["summary"])
     assert {r["name"]: r["dtype"] for r in rows[:-1]} == {
-        "flash_decode": "bfloat16", "paged_fp": "bfloat16",
+        "flash_decode": "float32", "paged_fp": "float32",
         "paged_int8": "int8", "fused_sample": "float32",
         "ssm_scan": "float32"}
     s = rows[-1]

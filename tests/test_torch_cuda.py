@@ -7,10 +7,12 @@ installed:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the attention kernels (``flash_attention``, ``flash_decode``,
-the paged decodes) within 1e-4 + 2**-6 * |plain| elementwise, two bf16
-steps of the value (kernel and plain version each round an fp32 result
-to bf16 once, after sums taken in other orders, so they may differ by
-one step); ``ssm_scan`` within 1e-4 * max |plain| for y and for the
+the paged decodes) within 1e-4 + 2**-6 * |plain| elementwise on bf16
+inputs, two bf16 steps of the value (kernel and plain version each round
+an fp32 result to bf16 once, after sums taken in other orders, so they
+may differ by one step), and within JAX's fp32 tolerance, atol = rtol =
+2e-5, on fp32 inputs (fp32 FMA on the CUDA cores, sums in other orders
+than the plain version's); ``ssm_scan`` within 1e-4 * max |plain| for y and for the
 state (the plain version computes in fp32; the kernel's tensor-core
 products take each fp32 operand as a bf16 pair and sum in fp32 in other
 orders, 0.03-0.08 of the limit in ``test_ssm_scan_numerics``); sampling
@@ -72,11 +74,12 @@ def test_flash_attention_kernel_on_card(cuda, S, causal):
                                rtol=2 ** -6)
 
 
-def _attn_inputs(cuda, seed, B, S, T, H, K, hd):
-    """bf16 q (B,S,H,hd), k and v (B,T,K,hd) on the card, from numpy."""
+def _attn_inputs(cuda, seed, B, S, T, H, K, hd, dtype=torch.bfloat16):
+    """q (B,S,H,hd), k and v (B,T,K,hd) on the card in ``dtype``, from
+    numpy."""
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(rng.standard_normal(shape, np.float32))
-                 .to(cuda).bfloat16()
+                 .to(cuda).to(dtype)
                  for shape in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
 
 
@@ -181,24 +184,25 @@ def test_paged_decode_kernel_on_card(cuda, quant):
 
 
 def _paged_args(cuda, quant, seed, B, G, K, hd, page, NP, positions,
-                P=None, distinct=False):
+                P=None, distinct=False, dtype=torch.bfloat16):
     """The wrapper's arguments on the card from ``_paged_inputs``: a pool
     of P pages (B * NP + 1 by default), table ids drawn with repeats
     across and within slots, or with ``distinct`` each slot's table a
-    run of a permutation; int8 pages with their scales when ``quant``."""
+    run of a permutation; q and the pages in ``dtype``, or int8 pages
+    with their scales when ``quant``."""
     P = P or B * NP + 1
     q, kp, vp, tables, pos = _paged_inputs(seed, B, G * K, K, hd, page, NP,
                                            P, positions)
     if distinct:
         tables = np.random.default_rng(seed).permutation(
             np.arange(1, P))[:B * NP].reshape(B, NP).astype(np.int32)
-    q = torch.from_numpy(q).bfloat16().to(cuda)
+    q = torch.from_numpy(q).to(dtype).to(cuda)
     t, p = torch.from_numpy(tables).to(cuda), torch.from_numpy(pos).to(cuda)
     kp, vp = torch.from_numpy(kp).to(cuda), torch.from_numpy(vp).to(cuda)
     if quant:
         (kq, ks), (vq, vs) = tref.kv_quant_ref(kp), tref.kv_quant_ref(vp)
         return (q, kq, vq, ks, vs, t, p)
-    return (q, kp.bfloat16(), vp.bfloat16(), t, p)
+    return (q, kp.to(dtype), vp.to(dtype), t, p)
 
 
 def _poison_unread(args, quant):
@@ -911,7 +915,8 @@ def test_dense_per_slot_decode_on_card_matches_cpu(cuda):
             assert torch.equal(ring_c[blk][name][:, 1],
                                before[blk, name]), (blk, name)
 
-    # the engine's prefill launches flash_attention, which takes bf16
+    # a smoke engine at bf16 compute (fp32 compute through the engines:
+    # chip_smoke.py's run_fp32)
     brun = run.replace(precision=PrecisionConfig())
     bparams = build_model(brun).init(seed=0, device=cuda)
 
@@ -933,10 +938,10 @@ def test_dense_per_slot_decode_on_card_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_decode_roofline_rows_on_card_within_the_data_sheet(cuda):
-    """``bench.decode_roofline`` at its full shapes on the card, bf16,
-    against the H100 data sheet (``Peaks()``): the five rows, each
-    reading at most the sheet's bytes a second, and the int8 pool's bytes
-    at most 0.6x the bf16 pool's."""
+    """``bench.decode_roofline`` at its full shapes on the card, fp32 as
+    the JAX rows, against the H100 data sheet (``Peaks()``): the five
+    rows, each reading at most the sheet's bytes a second, and the int8
+    pool's bytes at most 0.6x the fp32 pool's."""
     from repro_torch.bench import decode_roofline
     from repro_torch.runtime.roofline import Peaks
     before = dict(ops.LAUNCHES)
@@ -1113,3 +1118,157 @@ def test_dryrun_decode_cell_against_the_card(cuda):
     assert float(np.median(times)) >= cell["roofline"]["step_s"] * 1e3
     assert (torch.cuda.max_memory_allocated()
             >= cell["memory"]["argument_bytes"])
+
+
+# ---------------------------------------------------------------------------
+# fp32 inputs: the attention kernels on the CUDA cores, held to JAX's fp32
+# tolerance (tests/test_kernels.py: atol = rtol = 2e-5) against the plain
+# version on the card (fp32 matmuls in full fp32)
+# ---------------------------------------------------------------------------
+FP32_TOL = 2e-5
+
+
+@pytest.fixture
+def full_fp32():
+    """fp32 products in full fp32 (the plain versions' einsums)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal", [
+    # JAX's sweep (tests/test_kernels.py:26-32)
+    (1, 128, 128, 4, 4, 64, True),
+    (2, 256, 256, 4, 2, 64, True),
+    (1, 256, 256, 8, 1, 128, True),
+    (2, 128, 128, 2, 2, 64, False),
+    (1, 384, 384, 6, 3, 64, True),
+    # qwen's prompts, phi3's hd 96, internvl2's and arctic's G 7, the
+    # tiles' edges, T != S, the smallest hd
+    (1, 384, 384, 16, 8, 128, True),
+    (1, 600, 600, 16, 8, 128, True),
+    (1, 384, 384, 32, 32, 96, True),
+    (1, 640, 640, 14, 2, 64, True),
+    (1, 200, 200, 56, 8, 128, True),
+    (1, 65, 65, 8, 8, 32, True),
+    (1, 1, 1, 16, 8, 128, True),
+    (1, 100, 300, 16, 8, 128, False),
+    (1, 300, 75, 16, 16, 64, False),
+    (2, 63, 63, 4, 2, 8, True),
+])
+def test_flash_attention_fp32_on_card(cuda, full_fp32, B, S, T, H, K, hd,
+                                      causal):
+    """flash_attention on fp32 inputs launches its kernel and lies within
+    JAX's fp32 tolerance of the plain version; fp32 out, the same bits
+    again."""
+    q, k, v = _attn_inputs(cuda, S + T + H + hd, B, S, T, H, K, hd,
+                           torch.float32)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.float32
+    want = ops.flash_attention(q, k, v, causal=causal, backend="ref")
+    torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,K,hd,pos", [
+    # JAX's sweep (tests/test_kernels.py:61-66)
+    (1, 256, 4, 4, 64, 255),
+    (2, 512, 4, 2, 64, 17),
+    (1, 1024, 8, 2, 128, 700),
+    (2, 256, 2, 1, 64, 0),
+    # the generate path's and the serve shapes: qwen's G 2, G 8, 7, hd 96
+    # and 256, the longest split
+    (8, 1024, 16, 8, 128, 1023),
+    (4, 1024, 64, 8, 128, 511),
+    (2, 1024, 28, 4, 96, 1000),
+    (2, 512, 8, 4, 256, 300),
+    (1, 8192, 16, 8, 128, 8191),
+])
+def test_flash_decode_fp32_on_card(cuda, full_fp32, B, T, H, K, hd, pos):
+    """flash_decode on fp32 inputs: within JAX's fp32 tolerance of the
+    plain version for an int and a device-tensor position, the same bits
+    again, and NaN past pos changes nothing."""
+    q, k, v = _attn_inputs(cuda, T + H + hd + pos, B, 1, T, H, K, hd,
+                           torch.float32)
+    want = ops.flash_decode(q, k, v, pos, backend="ref")
+    before = ops.LAUNCHES["flash_decode"]
+    got = ops.flash_decode(q, k, v, pos)
+    assert ops.LAUNCHES["flash_decode"] == before + 1
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    p = torch.tensor(pos, dtype=torch.int64, device=cuda)
+    assert torch.equal(got, ops.flash_decode(q, k, v, p))
+    k[:, pos + 1:] = float("nan")
+    v[:, pos + 1:] = float("nan")
+    assert torch.equal(got, ops.flash_decode(q, k, v, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("B,G,K,hd,page,NP,P,positions", [
+    # JAX's sweep (tests/test_kernels.py:94-99)
+    (1, 1, 4, 64, 16, 4, 8, (63,)),
+    (3, 2, 2, 64, 8, 4, 16, (5, -1, 31)),
+    (2, 4, 2, 128, 32, 2, 5, (0, 40)),
+    (2, 2, 1, 64, 8, 8, 17, (-1, -1)),
+    # the serve engine's pool: qwen's heads at the paged phase's positions
+    (8, 2, 8, 128, 16, 64, 513, (1023, -1, 600, 15, 0, 384, 200, -1)),
+    # G 8 and 7, hd 96, 256 and 32, pages of 1 and 128 rows
+    (4, 8, 4, 128, 16, 64, 257, (1023, 600, 15, -1)),
+    (4, 7, 2, 96, 16, 32, 129, (511, 200, 16, -1)),
+    (2, 2, 4, 256, 16, 32, 65, (511, 129)),
+    (2, 4, 4, 32, 1, 256, 513, (255, 0)),
+    (2, 2, 4, 128, 128, 8, 17, (1023, 130)),
+])
+def test_paged_decode_fp32_on_card(cuda, full_fp32, quant, B, G, K, hd,
+                                   page, NP, P, positions):
+    """The paged kernels under fp32 q (fp32 pages, or int8 pages with their
+    fp32 scales): within JAX's fp32 tolerance of the plain version,
+    inactive rows exactly zero, the same bits again."""
+    args = _paged_args(cuda, quant, 31 + NP + G + hd, B, G, K, hd, page, NP,
+                       positions, P, dtype=torch.float32)
+    name = "paged_decode_quant" if quant else "paged_decode"
+    fn = getattr(ops, name)
+    before = ops.LAUNCHES[name]
+    got = fn(*args)
+    assert ops.LAUNCHES[name] == before + 1
+    assert got.dtype == torch.float32
+    want = fn(*args, backend="ref")
+    torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    for b, p in enumerate(positions):
+        if p < 0:
+            assert torch.all(got[b] == 0)
+    assert torch.equal(got, fn(*args))
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_mixed_and_fp16_on_card(cuda):
+    """q, k and v all bf16 or all fp32: a mixed or an fp16 call raises
+    TypeError before any launch (no fallback to the plain version)."""
+    q, k, _ = _attn_inputs(cuda, 1, 1, 64, 64, 4, 2, 64, torch.float32)
+    qd, kd, _ = _attn_inputs(cuda, 2, 2, 1, 256, 4, 2, 64, torch.float32)
+    pq = qd
+    pk = torch.ones((9, 16, 2, 64), device=cuda)
+    t = torch.ones((2, 4), dtype=torch.int32, device=cuda)
+    p = torch.tensor([10, 20], dtype=torch.int32, device=cuda)
+    sc = torch.ones((9, 16, 2), device=cuda)
+    i8 = torch.zeros((9, 16, 2, 64), dtype=torch.int8, device=cuda)
+    calls = [
+        lambda: ops.flash_attention(q, k.bfloat16(), k.bfloat16()),
+        lambda: ops.flash_attention(q.half(), k.half(), k.half()),
+        lambda: ops.flash_decode(qd.bfloat16(), kd, kd, 5),
+        lambda: ops.flash_decode(qd.half(), kd.half(), kd.half(), 5),
+        lambda: ops.paged_decode(pq, pk.bfloat16(), pk.bfloat16(), t, p),
+        lambda: ops.paged_decode(pq.half(), pk.half(), pk.half(), t, p),
+        lambda: ops.paged_decode_quant(pq.half(), i8, i8, sc, sc, t, p),
+    ]
+    before = dict(ops.LAUNCHES)
+    for call in calls:
+        with pytest.raises(TypeError):
+            call()
+    assert ops.LAUNCHES == before

@@ -397,21 +397,34 @@ def test_kernel_path_counts_the_kernels_work():
 
 @pytest.mark.parametrize("name", ["prefill_32k", "decode_32k"])
 def test_kernel_path_fails_where_the_card_would(name):
-    """At fp32 compute the kernels' bf16 contract fails: the count of the
-    kernel path raises as the launch would, and the kernel layer itself
-    has no kernels for meta tensors."""
+    """At fp32 compute the kernels take fp32, as on the card: the count of
+    the kernel path succeeds, the same kernel calls as at bf16 compute,
+    each element at 4 bytes (the kernels' bytes twice the bf16 cell's).
+    An fp16 input still fails the kernels' contract as the launch would,
+    and the kernel layer itself has no kernels for meta tensors."""
     from repro_torch.kernels import ops as kops
     shape = dataclasses.replace(SHAPES[name], global_batch=2, seq_len=512)
-    ov = {"smoke": True, "kernel_backend": "auto",
-          "precision": PrecisionConfig(compute="float32")}
-    low, _, _ = D.lower_cell("qwen3-0.6b", name, False, ov, shape=shape,
-                             mesh=UNIT_MESH)
-    with pytest.raises(TypeError, match="the kernel takes torch.bfloat16"):
-        D._cost_of(low)
-    q = torch.empty((1, 1, 4, 8), dtype=torch.bfloat16, device="meta")
-    k = torch.empty((1, 256, 2, 8), dtype=torch.bfloat16, device="meta")
+    got = {}
+    for compute in ("bfloat16", "float32"):
+        ov = {"smoke": True, "kernel_backend": "auto",
+              "precision": PrecisionConfig(compute=compute)}
+        low, _, _ = D.lower_cell("qwen3-0.6b", name, False, ov, shape=shape,
+                                 mesh=UNIT_MESH)
+        got[compute] = D._cost_of(low)
+    bf, fp = got["bfloat16"], got["float32"]
+    assert fp["kernels"] == bf["kernels"] and sum(fp["kernels"].values())
+    assert fp["kernel_bytes"] == {k: 2 * v
+                                  for k, v in bf["kernel_bytes"].items()}
+    kernel = "flash_attention" if name == "prefill_32k" else "flash_decode"
+    q = torch.empty((1, 1, 4, 8), dtype=torch.float16, device="meta")
+    k = torch.empty((1, 256, 2, 8), dtype=torch.float16, device="meta")
+    pos = () if name == "prefill_32k" else (3,)
+    with D._kernel_path(D.CostMode()):
+        with pytest.raises(TypeError, match="torch.bfloat16 or torch.float32"):
+            getattr(kops, kernel)(q, k, k, *pos)
+    q, k = q.bfloat16(), k.bfloat16()
     with pytest.raises(ValueError, match="no kernels for device meta"):
-        kops.flash_decode(q, k, k, 3)
+        getattr(kops, kernel)(q, k, k, *pos)
 
 
 def test_allocations_count_as_live_memory():

@@ -1,0 +1,279 @@
+"""fp32 compute through the attention kernels, against the JAX package.
+
+The Pallas kernels are generic in dtype, and JAX's suite holds each of
+them at fp32 to atol = rtol = 2e-5 (tests/test_kernels.py). Here the
+port's four attention wrappers (``flash_attention``, ``flash_decode``,
+``paged_decode``, ``paged_decode_quant``) take fp32 on the CPU, where they
+run their plain versions, against JAX's kernels in interpret mode on the
+same numpy inputs at that tolerance; a smoke qwen3 engine at
+``compute="float32"`` (paged, int8 pages, dense ring) gives the greedy
+tokens of the JAX engine with ``kernel_backend="pallas"``, its prefill
+logits within 1e-4 (the fp32 model tolerance of test_torch_model.py);
+``kernel_backend="pallas"`` is the port's kernel path; the kernels'
+dtype contract holds on meta tensors (what the dry-run counts); and the
+reason the CUDA kernels take fp32 on the CUDA cores: the tensor cores
+with each fp32 operand as a bf16 pair leave no margin under 2e-5
+(emulated here). The card's side of this is in tests/test_torch_cuda.py
+(``*_fp32_on_card``) and chip_smoke.py's ``run_fp32``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import PrecisionConfig as JPrecision
+from repro.configs import make_run_config as jax_run_config
+from repro.kernels.flash_attention import flash_attention as jax_fa
+from repro.kernels.flash_decode import flash_decode as jax_fd
+from repro.kernels.paged_decode import paged_decode as jax_pd
+from repro.kernels.paged_decode import paged_decode_quant as jax_pdq
+from repro.models.model import build_model as jax_model
+from repro.serve.engine import Request as JRequest
+from repro.serve.engine import ServeEngine as JEngine
+from repro_torch import interop
+from repro_torch.configs import PrecisionConfig as TPrecision
+from repro_torch.configs import make_run_config as torch_run_config
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import kv_quant_ref
+from repro_torch.models.model import build_model as torch_model
+from repro_torch.serve.engine import Request, ServeEngine
+
+TOL = 2e-5          # JAX's fp32 kernel tolerance (tests/test_kernels.py)
+MODEL_TOL = 1e-4    # fp32 logits across the frameworks (test_torch_model)
+ARCH = "qwen3-0.6b"
+
+
+def _normal(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s, np.float32) for s in shapes]
+
+
+def _close(port, jax_out):
+    np.testing.assert_allclose(port.numpy(), np.asarray(jax_out),
+                               atol=TOL, rtol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# the four wrappers at fp32 against the Pallas kernels (interpret mode), on
+# the shapes of JAX's sweeps (tests/test_kernels.py:25-118)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,S,H,K,hd,causal", [
+    (1, 128, 4, 4, 64, True), (2, 256, 4, 2, 64, True),
+    (1, 256, 8, 1, 128, True), (2, 128, 2, 2, 64, False),
+    (1, 384, 6, 3, 64, True)])
+def test_flash_attention_fp32_matches_pallas(B, S, H, K, hd, causal):
+    q, k, v = _normal(S + H, (B, S, H, hd), (B, S, K, hd), (B, S, K, hd))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal)
+    assert got.dtype == torch.float32
+    _close(got, jax_fa(q, k, v, causal=causal, interpret=True))
+
+
+@pytest.mark.parametrize("B,T,H,K,hd,pos", [
+    (1, 256, 4, 4, 64, 255), (2, 512, 4, 2, 64, 17),
+    (1, 1024, 8, 2, 128, 700), (2, 256, 2, 1, 64, 0)])
+def test_flash_decode_fp32_matches_pallas(B, T, H, K, hd, pos):
+    q, k, v = _normal(T + pos, (B, 1, H, hd), (B, T, K, hd), (B, T, K, hd))
+    got = ops.flash_decode(*map(torch.from_numpy, (q, k, v)), pos)
+    assert got.dtype == torch.float32
+    _close(got, jax_fd(q, k, v, pos, interpret=True))
+
+
+PAGED = [(1, 4, 4, 64, 16, 4, 8, (63,)),
+         (3, 4, 2, 64, 8, 4, 16, (5, -1, 31)),
+         (2, 8, 2, 128, 32, 2, 5, (0, 40)),
+         (2, 2, 1, 64, 8, 8, 17, (-1, -1))]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("B,H,K,hd,page,NP,P,positions", PAGED)
+def test_paged_decode_fp32_matches_pallas(quant, B, H, K, hd, page, NP, P,
+                                          positions):
+    """fp32 q over fp32 pages, and over int8 pages with their fp32 scales
+    (quantized once, by the port's rule: the JAX engine's bits)."""
+    q, kp, vp = _normal(NP * page + H, (B, 1, H, hd), (P, page, K, hd),
+                        (P, page, K, hd))
+    tables = np.random.default_rng(0).integers(1, P, (B, NP)).astype(
+        np.int32)
+    pos = np.asarray(positions, np.int32)
+    t = [torch.from_numpy(x) for x in (q, kp, vp, tables, pos)]
+    if quant:
+        (kq, ks), (vq, vs) = kv_quant_ref(t[1]), kv_quant_ref(t[2])
+        got = ops.paged_decode_quant(t[0], kq, vq, ks, vs, t[3], t[4])
+        want = jax_pdq(q, kq.numpy(), vq.numpy(), ks.numpy(), vs.numpy(),
+                       tables, pos, interpret=True)
+    else:
+        got = ops.paged_decode(*t)
+        want = jax_pd(q, kp, vp, tables, pos, interpret=True)
+    assert got.dtype == torch.float32
+    _close(got, want)
+    for b, p in enumerate(positions):
+        if p < 0:
+            assert torch.all(got[b] == 0)
+
+
+# ---------------------------------------------------------------------------
+# the smoke qwen3 engine at fp32 compute against JAX's Pallas path
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def qwen():
+    jrun = jax_run_config(ARCH, "decode_32k", smoke=True,
+                          precision=JPrecision(compute="float32"),
+                          kernel_backend="pallas")
+    trun = torch_run_config(ARCH, "decode_32k", smoke=True,
+                            precision=TPrecision(compute="float32"),
+                            kernel_backend="pallas")
+    jp = jax_model(jrun).init(jax.random.key(0))
+    tp = interop.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return jrun, jp, trun, tp
+
+
+def _greedy(cls):
+    return [cls(rid=i, prompt=(np.arange(5 + 7 * i) * (i + 2) + 1) % 500,
+                max_new_tokens=8, temperature=0.0, seed=3 + i)
+            for i in range(3)]
+
+
+@pytest.mark.parametrize("paged,kv_dtype", [(True, None), (True, "int8"),
+                                            (False, None)],
+                         ids=["paged", "int8", "dense"])
+def test_fp32_engine_greedy_tokens_equal_jax_pallas(qwen, paged, kv_dtype):
+    jrun, jp, trun, tp = qwen
+    kw = dict(slots=2, max_len=48, paged=paged, page_size=8,
+              kv_dtype=kv_dtype, fused_sampling=True)
+    out = []
+    for eng, cls in ((JEngine(jrun, jp, **kw), JRequest),
+                     (ServeEngine(trun, tp, device="cpu", **kw), Request)):
+        reqs = _greedy(cls)
+        for r in reqs:
+            eng.submit(r)
+        assert eng.run_until_idle().drained
+        assert all(r.done and not r.error for r in reqs)
+        out.append([list(r.out) for r in reqs])
+    assert out[1] == out[0]
+
+
+@pytest.mark.parametrize("S", [13, 40])
+def test_fp32_prefill_logits_match_jax_pallas(qwen, S):
+    jrun, jp, trun, tp = qwen
+    toks = np.random.default_rng(S).integers(0, 512, (1, S))
+    _, jlog = jax_model(jrun).prefill(jp, {"tokens": jnp.asarray(toks,
+                                                                 jnp.int32)})
+    _, tlog = torch_model(trun).prefill(tp, {"tokens": torch.tensor(toks)})
+    assert tlog.dtype == torch.float32
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                               atol=MODEL_TOL, rtol=MODEL_TOL)
+
+
+def test_pallas_backend_is_the_kernel_path(qwen):
+    """``kernel_backend="pallas"`` (the JAX package's name for its kernels)
+    builds the port's kernel path: the smoke prefill equals the "auto"
+    one bit for bit, and ops take "auto"; an unknown name is refused."""
+    from repro_torch.models.model import ops_backend
+    _, _, trun, tp = qwen
+    assert ops_backend(trun) == "auto"
+    toks = torch.tensor(np.random.default_rng(5).integers(0, 512, (1, 17)))
+    _, a = torch_model(trun).prefill(tp, {"tokens": toks})
+    _, b = torch_model(trun.replace(kernel_backend="auto")).prefill(
+        tp, {"tokens": toks})
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="kernel_backend"):
+        ops_backend(trun.replace(kernel_backend="triton"))
+
+
+# ---------------------------------------------------------------------------
+# the dtype contract, on meta tensors (as the dry-run checks it)
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _contract(name, dq, dkv):
+    """Call the kernel's check with q of ``dq`` and the cache or pages of
+    ``dkv`` (qwen's smoke heads)."""
+    if name == "flash_attention":
+        return ops.check_flash_attention(
+            _meta((1, 40, 4, 32), dq), _meta((1, 40, 2, 32), dkv),
+            _meta((1, 40, 2, 32), dkv))
+    if name == "flash_decode":
+        return ops.check_flash_decode(
+            _meta((2, 1, 4, 32), dq), _meta((2, 256, 2, 32), dkv),
+            _meta((2, 256, 2, 32), dkv))
+    tables = _meta((2, 4), torch.int32)
+    pos = _meta((2,), torch.int32)
+    return ops._check_paged(_meta((2, 1, 4, 32), dq),
+                            _meta((9, 16, 2, 32), dkv),
+                            _meta((9, 16, 2, 32), dkv), tables, pos,
+                            dq)     # the pages of q's dtype, as the wrapper
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_decode",
+                                  "paged_decode"])
+def test_kernel_contract_takes_bf16_and_fp32_only(name):
+    for dt in (torch.bfloat16, torch.float32):
+        _contract(name, dt, dt)
+    for dq, dkv in ((torch.float16, torch.float16),
+                    (torch.float32, torch.bfloat16),
+                    (torch.bfloat16, torch.float32),
+                    (torch.float64, torch.float64)):
+        with pytest.raises(TypeError):
+            _contract(name, dq, dkv)
+
+
+def test_quant_contract_takes_bf16_and_fp32_q():
+    pages = _meta((9, 16, 2, 32), torch.int8)
+    tables, pos = _meta((2, 4), torch.int32), _meta((2,), torch.int32)
+    for dq in (torch.bfloat16, torch.float32):
+        ops._check_paged(_meta((2, 1, 4, 32), dq), pages, pages, tables,
+                         pos, torch.int8)
+    with pytest.raises(TypeError):
+        ops._check_paged(_meta((2, 1, 4, 32), torch.float16), pages, pages,
+                         tables, pos, torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# why the fp32 kernels run on the CUDA cores: the tensor cores' bf16 pairs
+# ---------------------------------------------------------------------------
+def _pair(x):
+    """x (fp32) as hi + lo, each rounded to bf16, as float64."""
+    hi = x.to(torch.bfloat16).float()
+    lo = (x - hi).to(torch.bfloat16).float()
+    return hi.double(), lo.double()
+
+
+@pytest.mark.parametrize("S,H,K,hd", [(384, 16, 8, 128), (384, 32, 32, 96)],
+                         ids=["qwen", "phi3"])
+def test_fp32_attention_bf16_pairs_leave_no_margin(S, H, K, hd):
+    """Causal attention with q, k, v and P each entered as a bf16 pair and
+    three products a step (hi hi + hi lo + lo hi, fp32 sums), emulated in
+    float64, against the plain fp32 version: it uses more than half of
+    the fp32 limit 2e-5 + 2e-5 |plain| at qwen's and phi3's prompts (a
+    pair holds a value to 2^-16 of it), while exact products of the fp32
+    inputs (the CUDA cores' FMA) use under a tenth."""
+    q, k, v = (torch.from_numpy(x) for x in _normal(
+        hd, (1, S, H, hd), (1, S, K, hd), (1, S, K, hd)))
+    want = ops.flash_attention(q, k, v)
+    G = H // K
+    mask = torch.ones((S, S), dtype=torch.bool).tril()
+
+    def attend(scores, pv):
+        s = (scores / hd ** 0.5).masked_fill(~mask, float("-inf"))
+        return pv(torch.softmax(s, -1).float())
+
+    kk, vv = (x.repeat_interleave(G, 2) for x in (k, v))
+    qk = "bshd,bthd->bhst"
+    ov = "bhst,bthd->bshd"
+
+    def pair3(a, b, eq):
+        (ah, al), (bh, bl) = _pair(a), _pair(b)
+        return (torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl)
+                + torch.einsum(eq, al, bh)).float().double()
+
+    paired = attend(pair3(q, kk, qk), lambda p: pair3(p, vv, ov)).float()
+    exact = attend(torch.einsum(qk, q.double(), kk.double()),
+                   lambda p: torch.einsum(ov, p.double(),
+                                          vv.double())).float()
+    lim = TOL + TOL * want.abs()
+    assert float(((paired - want).abs() / lim).max()) > 0.5
+    assert float(((exact - want).abs() / lim).max()) < 0.1

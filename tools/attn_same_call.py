@@ -222,7 +222,7 @@ def time_attention(torch, cs, old, turns, stream):
         lib = build.library("flash_attention")
         rc = lib.launch_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            T, H, K, hd, 1, heads, stream)
+            T, H, K, hd, 1, heads, 0, stream)
         if rc:
             raise RuntimeError(lib.kernel_error_string(rc))
         return out
