@@ -52,10 +52,12 @@ bf16 cache through ``flash_decode``), ``prefill_32k`` at B = 2 (through
 counted on the unit mesh by the port's ``launch.dryrun.run_cell`` and
 then run for real: the step no faster than its counted bound and its
 peak memory at least the counted argument bytes. Then fp32 compute:
-the four attention kernels on fp32 inputs (CUDA-core FMA) against their
+the four attention kernels on fp32 inputs (flash_attention as 3xTF32
+products on the tensor cores, the decodes' CUDA-core FMA) against their
 plain versions within JAX's fp32 tolerance 2e-5, and qwen3-0.6b at
 ``PrecisionConfig(compute="float32")`` through them: prefill logits
-within 1e-3 of the plain fp32 path's, the 16 requests through the paged
+within 1e-3 of the plain fp32 path's (every layer's attention the
+tensor-core kernel, by its device name), the 16 requests through the paged
 engine with fp32 pages, with int8 pages and through the dense ring (each
 stream the plain engine's, fused == host sampling), the generate path
 within 1e-3 and the eval loss within 1e-5 of the plain path. Then the
@@ -143,7 +145,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 FP32_FLOP_PER_S = 67e12
+# fp32 flash_attention's rate: each product as three TF32 products on the
+# tensor cores (3xTF32)
+FP32_ATTN_FLOP_PER_S = TF32_FLOP_PER_S / 3
 
 # tolerances, each with its reason (the readings they were set from are
 # in PERF.md)
@@ -3756,17 +3762,33 @@ FP32_LOGITS_TOL = 1e-3   # qwen's fp32 prefill logits and the generate
 FP32_LOSS_RTOL = 1e-5    # the eval step's loss at fp32 vs the plain loss
 FP32_KERNELS = ("flash_attention", "flash_decode", "paged_decode",
                 "paged_decode_quant")
+#: the device's name for fp32 flash_attention's tensor-core kernel
+FP32_ATTN_KERNEL = "flash_attention_tf32x3_kernel"
+
+
+def fp32_attention_shapes(cfg, families) -> list:
+    """fp32 flash_attention's timed shapes, (S, H, K, hd, who): qwen's S
+    384 and 600 (``cfg``), phi3-mini's hd 96 at 384 and internvl2's G 7
+    at 640 (``families``); causal, S = T."""
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = [(384, H, K, hd, None), (600, H, K, hd, None)]
+    return shapes + [(S, h, k, d, who) for S, T, h, k, d, causal, who
+                     in families
+                     if (who, S) in (("phi3-mini", 384),
+                                     ("internvl2, 256 patches + 384", 640))]
 
 
 def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
     """The four attention kernels on fp32 inputs against their plain
-    versions on the card, timed: flash_attention at qwen's S 384 and 600,
-    phi3-mini's hd 96 and internvl2's G 7 (``families``); flash_decode
-    at q (8,1,16,128) over (8,1024,8,128), int pos 511 and 1023; both
-    paged kernels at the paged phase's pool and positions (fp32 pages;
-    int8 pages under fp32 q). Bound: bytes at 3.35 TB/s or the products
-    at the CUDA cores' 67 TFLOP/s fp32, the larger. Library: SDPA at fp32
-    (tf32 off) for the dense kernels."""
+    versions on the card, timed: flash_attention at
+    ``fp32_attention_shapes``; flash_decode at q (8,1,16,128) over
+    (8,1024,8,128), int pos 511 and 1023; both paged kernels at the paged
+    phase's pool and positions (fp32 pages; int8 pages under fp32 q).
+    Bound: bytes at 3.35 TB/s or the products at the rate each kernel
+    runs them, the larger: flash_attention's as 3xTF32 on the tensor
+    cores (FP32_ATTN_FLOP_PER_S), the decodes' at the CUDA cores' 67
+    TFLOP/s fp32. Library: SDPA at fp32 (tf32 off) for the dense
+    kernels."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(28)
 
@@ -3774,7 +3796,8 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
         return torch.randn(shape, generator=g, device="cuda")
     rows = {k: [] for k in FP32_KERNELS}
 
-    def row(name, label, fn, plain, nbytes, flops, lib=None):
+    def row(name, label, fn, plain, nbytes, flops, lib=None,
+            rate=FP32_FLOP_PER_S):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err, share = attn_err(got, want, FP32_TOL, FP32_TOL)
@@ -3785,7 +3808,7 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
                                       "deterministic")
         ms, plain_ms = timer.ms(fn), timer.ms(plain)
         lib_ms = timer.ms(lib) if lib is not None else None
-        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        b_ms, b_by = bound(nbytes, flops, rate)
         rows[name].append({"shape": f"{label} fp32", "max_abs_err": err,
                            "share_of_limit": share, "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -3795,12 +3818,7 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
             + (f"sdpa {lib_ms:.4f} ms | " if lib is not None else "")
             + f"bound {b_ms:.4f} ms ({b_by})")
 
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    shapes = [(384, H, K, hd, None), (600, H, K, hd, None)]
-    shapes += [(S, h, k, d, who) for S, T, h, k, d, causal, who in families
-               if (who, S) in (("phi3-mini", 384),
-                               ("internvl2, 256 patches + 384", 640))]
-    for S, h, k, d, who in shapes:
+    for S, h, k, d, who in fp32_attention_shapes(cfg, families):
         q, kk, vv = randn(1, S, h, d), randn(1, S, k, d), randn(1, S, k, d)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, vv))
         row("flash_attention", f"q (1,{S},{h},{d}) k/v {k} heads, causal"
@@ -3810,7 +3828,9 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
             4 * 2 * S * d * (h + k), 4 * h * d * S * (S + 1) / 2,
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=True,
-                                                   enable_gqa=True))
+                                                   enable_gqa=True),
+            FP32_ATTN_FLOP_PER_S)
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B, T = 8, 1024
     q, kk, vv = randn(B, 1, H, hd), randn(B, T, K, hd), randn(B, T, K, hd)
     qt = q.transpose(1, 2).contiguous()
@@ -3939,7 +3959,9 @@ def run_fp32(torch, ops, args, card, report, launches, params, kern):
     (fp32 params ``params``) through the attention kernels' fp32 paths:
     the four kernels' rows (``fp32_kernel_rows``, appended to ``kern``);
     then, with the counts set to 0, the prefill logits against the plain
-    fp32 path (within FP32_LOGITS_TOL of max |logit|); the serve traffic
+    fp32 path (within FP32_LOGITS_TOL of max |logit|), and the device's
+    names for one prefill's launches (each layer's attention
+    FP32_ATTN_KERNEL, the 3xTF32 kernel); the serve traffic
     through the paged engine with fp32 pages, with int8 pages (fp32 q)
     and through the dense ring, each with fused == host sampling (I10)
     and each stream equal to the plain engine's (reference kernels, the
@@ -3978,6 +4000,18 @@ def run_fp32(torch, ops, args, card, report, launches, params, kern):
                   and bool(torch.isfinite(a).all()),
                   f"fp32 prefill S={S}: non-finite or misshapen logits")
             worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+        # the device's names for one S=384 prefill's launches: its fp32
+        # attention is the tensor-core kernel in every layer
+        names, _ = device_kernels(
+            torch, [lambda: fast.prefill(params, {"tokens": toks})])
+    attn = [n for n in names if "flash_attention" in n]
+    res["prefill_attention_kernels"] = sorted(set(attn))
+    log(f"fp32 prefill S=384: {len(attn)} flash_attention launches on the "
+        f"card, as {sorted(set(attn))}")
+    check(len(attn) == cfg.num_layers
+          and all(FP32_ATTN_KERNEL in n for n in attn),
+          f"fp32 prefill: the card ran {attn}, not {cfg.num_layers} "
+          f"launches of {FP32_ATTN_KERNEL}")
     del fast, slow, a, b
     res["prefill_logits_rel_err"] = worst
     log(f"fp32 prefill logits, kernel vs plain path (S=200, 384): max rel "

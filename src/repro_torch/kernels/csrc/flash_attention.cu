@@ -49,25 +49,50 @@
 // version's for the serve path's S == T. No atomics: the same inputs give
 // the same bits.
 //
-// fp32 inputs (a model at fp32 compute) take a second kernel on the CUDA
-// cores, every product an fp32 FMA: the tensor cores' fp32 routes miss
-// the fp32 limit 2e-5 + 2e-5 |plain| (JAX's, tests/test_kernels.py). Each
-// operand as a bf16 pair with three products a step reads 0.66-1.02 of
-// it at qwen's, phi3's and internvl2's shapes, four products 0.42, since
-// a pair holds a value to 2^-16 of it (tests/test_torch_fp32.py emulates
-// them); three bf16 pieces would need six products and three K and V
-// tiles a stage. So: one block of 128 threads (16 x 8) per 64 query rows
-// of one head; thread (ty, tx) holds the scores of rows ty + 16 i (i < 4)
-// and keys tx + 8 j (j < 8) of a 64-key tile (128 FMA per 12 16-byte
-// shared-memory reads), and the outputs of rows ty + 16 i, columns
-// 4 tx + 32 c .. + 3 (64 FMA per 8 reads a key at hd 128). q, two cp.async stages of K and V (rows padded by
-// 16 bytes: a quarter warp's eight rows land on eight bank quads) and P^T
-// (scores to P V through shared memory) take 182 KB at hd 128, one block
-// an SM. The same tiling of the causal loop, masks, order of the grid and
-// exp2-domain softmax as above; the output is fp32. What bounds it: the
-// operations, at the CUDA cores' 67 TFLOP/s (0.009 ms at qwen's S=384
-// against 0.0028 for the bytes); one block of four warps an SM hides
-// little of the shared-memory latency, and S=384 fills 96 of 132 SMs.
+// fp32 inputs (a model at fp32 compute) take a second kernel, on the tensor
+// cores as 3xTF32 products (CUTLASS's mma_tensor_op_fast_f32.h): each fp32
+// operand x enters as hi = tf32(x) and lo = tf32(x - hi), both rounded to
+// nearest (ties away, as cvt.rna; the tensor core would truncate), and a
+// product a b as a_lo b_hi + a_hi b_lo + a_hi b_hi, in Q K^T and in P V alike
+// (P split in registers; the denominator sums P itself in fp32). A pair holds
+// a value to about 2^-22, so the outputs keep JAX's fp32 limit 2e-5 + 2e-5
+// |plain| (tests/test_kernels.py) with a wide margin: 0.03-0.06 of it on the
+// card at qwen's, phi3's and internvl2's prompts (0.03-0.06 emulated), where
+// TF32 alone reads 41-70 times it and bf16 pairs 0.66-1.02
+// (tests/test_torch_fp32.py). The tensor core aligns the addends of a sum to
+// the largest and truncates, so a product added into a long running sum loses
+// up to 2^-23 of that sum, always toward zero: one sum of all three products
+// over a tile read 0.11-0.15 of the limit. So the hi hi products and the cross
+// terms go to separate sums, added in fp32 (see the kernel).
+//
+// The route is mma.sync.m16n8k8.tf32 from raw fp32 tiles, split in registers.
+// wgmma (m64nNk8 .tf32, 32-bit operands K-major only) was tried: 32-key tiles
+// split once into hi and lo K and a transposed V^T in shared memory (q hi/lo,
+// the raw ring and the splits: 193 KB at hd 128), one warpgroup; it read
+// 0.0499 ms against 0.0445 for this kernel's 64-row grid at qwen's S=384, its
+// splits in series with the tensor work (overlapping them needs producer warps
+// and a second split stage, which do not fit beside q's hi and lo). Here, one
+// block of eight warps per 32 or 64 query rows of one head: two (four) warps
+// of 16 rows, each against one of four (two) key groups of every 64-key tile,
+// with an online softmax of its own; the groups merge at the end (two warps on
+// each of the SM's schedulers). 32 rows halve the longest query tile's walk
+// and double the grid, but split every K and V tile twice as often: the
+// launcher takes the grid whose estimated span (longest walk, or all tiles
+// over the SMs) is shorter: at S=384 qwen's 16 heads take 32 rows (0.0323 ms
+// against 0.0452), phi3's 32 heads 64 (0.0363 against 0.0452). q and two
+// cp.async stages of K and V stay raw fp32 (rows padded against bank
+// conflicts: 156 or 172 KB at hd 128, one block an SM); hd 96 runs 96 columns,
+// hd <= 32 and <= 64 their own widths. The contraction axes are walked in an
+// order both operands share, so q and K fragments are float2 loads and the
+// scores' C fragments are P's A fragments without a shuffle. The same causal
+// tiling, masks, order of the grid (heaviest query tiles first) and
+// exp2-domain softmax as above; the output is fp32. What bounds it: three TF32
+// products per product. At the data sheet's 495 TFLOP/s that is 0.0037 ms at
+// qwen's S=384 (the bytes 0.0028 ms), but what holds this kernel is the
+// mma.sync issue of those products: cutting the splits' ALU work or their
+// registers moved its time by under 1%, one product in place of three ran 1.7x
+// faster (the same kernel at four warps), and the longest query tile walks its
+// KV tiles one by one.
 #include "common.cuh"
 
 namespace {
@@ -502,64 +527,140 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: the same attention on the CUDA cores (see the note at the top)
+// fp32: the same attention on the tensor cores as 3xTF32 products (see the
+// note at the top): mma.sync.m16n8k8 on TF32 pairs split in registers
 // ---------------------------------------------------------------------------
-namespace fp32 {
+namespace tf32x3 {
 
-constexpr int kThreads = 128;  // 16 (ty) x 8 (tx)
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+// a block's time per 64-key tile with 32 query rows (2 row warps x 4 key
+// groups), relative to 64 rows (4 x 2): qwen3-0.6b's S=384, whose grids
+// are both held by the longest query tile's 6 tiles, read 0.0323 against
+// 0.0452 ms (NVIDIA H100 80GB HBM3, 700 W)
+constexpr double kRows32Cost = 0.7;
 
-template <int HDP>
-struct Smem {
-  static constexpr int kRow = HDP + 4;   // padded q, K, V row, floats
-  static constexpr int kPRow = kBQ + 4;  // padded P^T row (one key), floats
-  static constexpr int kTile = kBK * kRow;
-  // q, two stages of K, two of V, P^T
-  static constexpr int kBytes = (kBQ * kRow + 4 * kTile + kBK * kPRow) * 4;
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
+// cvt.rna.tf32.f32's rounding, as an integer add and mask (cvt.rna
+// compiles to a longer sequence with NaN and infinity checks). The tensor
+// core itself would ignore the low 13 bits, which truncates.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x as hi + lo, both TF32: x - hi is exact in fp32, and hi + lo holds x
+// to about 2^-22 of its value
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - __uint_as_float(hi));
+}
+
+// c += a b, TF32 inputs, fp32 accumulator. Fragments (PTX ISA, mma.m16n8k8
+// .tf32), lane = 4 g + t: A (16 x 8) a0 = (g, t), a1 = (g + 8, t), a2 =
+// (g, t + 4), a3 = (g + 8, t + 4); B (8 x 8, k x n) b0 = (t, g), b1 = (t +
+// 4, g); C as mma.m16n8k16's
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// RW row warps of 16 query rows each, 8 / RW key groups
+template <int RW>
+struct Warps {
+  static constexpr int kRows = 16 * RW;           // query rows a block
+  static constexpr int kGroups = kWarps / RW;     // key groups
+  static constexpr int kGroupKeys = kBK / kGroups;  // a group's keys a tile
 };
 
-// Stage rows [r0, r0 + 64) of a (rows, stride)-strided fp32 matrix of hd
-// columns into a padded tile; rows >= n and columns >= hd are zero-filled
-// and not read.
-template <int HDP>
+// Tiles hold raw fp32 rows of HDP columns, padded so that the fragment
+// loads meet no bank conflict: q and K rows by 8 floats (a half warp's
+// float2 loads, rows g < 4 at columns 2t, land on 8 g + 2t), V rows by 4
+// (a warp's scalar loads, rows 2t at column g, land on 8 t + g)
+template <int HDP, int RW>
+struct Smem {
+  static constexpr int kRows = Warps<RW>::kRows;
+  static constexpr int kGroups = Warps<RW>::kGroups;
+  static constexpr int kQKRow = HDP + 8;
+  static constexpr int kVRow = HDP + 4;
+  static constexpr int kKTile = kBK * kQKRow;
+  static constexpr int kVTile = kBK * kVRow;
+  // q, two stages of K, two of V; after the loop the K stages hold the
+  // (acc, m, l) of key groups 1 and up for the merge
+  static constexpr int kBytes = (kRows * kQKRow + 2 * kKTile + 2 * kVTile) * 4;
+  static_assert((kGroups - 1) * kRows * (kVRow + 2) <= 2 * kKTile,
+                "the merge fits");
+};
+
+// Stage rows [r0, r0 + R) of a (rows, stride)-strided fp32 matrix of hd
+// columns into a tile of ROW-float rows; rows >= n and columns >= hd are
+// zero-filled and not read.
+template <int HDP, int ROW, int R>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            size_t stride, int r0, int n,
                                            int hd) {
   constexpr int kChunks = HDP / 4;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const bool ok = r0 + r < n && c * 4 < hd;
     const float* g =
         src + (ok ? static_cast<size_t>(r0 + r) * stride + c * 4 : 0);
-    cp_async16(dst + r * Smem<HDP>::kRow + c * 4, g, ok ? 16 : 0);
+    cp_async16(dst + r * ROW + c * 4, g, ok ? 16 : 0);
   }
 }
 
 // q: (B,S,H,hd); k, v: (B,T,K,hd); o: (B,S,H,hd); all fp32, contiguous;
-// hd % 8 == 0, hd <= HDP. Block i: query tile nq - 1 - i / (H * B) (the
-// heaviest first), then head and batch.
-template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_f32_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           float* __restrict__ o, int B, int S, int T, int H,
-                           int K, int hd, float scale_log2, int causal) {
-  using Sm = Smem<HDP>;
-  constexpr int kRow = Sm::kRow, kPRow = Sm::kPRow;
-  constexpr int kC = HDP / 32;  // 4-column groups of a thread's outputs
-  const int nq = (S + kBQ - 1) / kBQ;
+// hd % 8 == 0, hd <= HDP. Block i: query tile nq - 1 - i / (H * B) of
+// kRows rows (the heaviest first), then head and batch. Warp w: query
+// rows 16 (w % kRowWarps) .. + 15 against key group w / kRowWarps (keys
+// kGroupKeys (w / kRowWarps) .. of every 64-key tile), with an online
+// softmax of its own; the groups merge at the end.
+// The contraction axes are walked in a permuted order that both operands
+// share: in Q K^T, the mma's k index t (t + 4) of k-step kk is head dim
+// 8 kk + 2 t (+ 1), so q and K fragments are float2 loads; in P V it is
+// key 8 kk + 2 t (+ 1), so the scores' C fragments are P's A fragments.
+// Sums: the tensor core aligns each addend to the largest and truncates,
+// so every mma into a running sum loses up to 2^-23 of it, toward zero.
+// The hi hi products therefore go to two sums of alternate k-steps and
+// the cross terms to a third, added in fp32 at the end of the tile; P V
+// sums a tile in two such sums from zero and adds them to acc (rescaled)
+// in fp32. One sum of all three products read 0.11-0.15 of the fp32
+// limit at the main shapes, these sums 0.03-0.05.
+template <int HDP, int RW>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_tf32x3_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              float* __restrict__ o, int B, int S, int T,
+                              int H, int K, int hd, float scale_log2,
+                              int causal) {
+  using Sm = Smem<HDP, RW>;
+  constexpr int kRowWarps = RW, kRows = Warps<RW>::kRows;
+  constexpr int kGroups = Warps<RW>::kGroups;
+  constexpr int kGroupKeys = Warps<RW>::kGroupKeys;
+  constexpr int kQK = Sm::kQKRow, kVR = Sm::kVRow;
+  constexpr int kKSteps = HDP / 8;       // k-steps of Q K^T, n-tiles of P V
+  constexpr int kNT = kGroupKeys / 8;    // a group's score n-tiles, P V k-steps
+  constexpr int kDG = 4;                 // P V n-tiles a group
+  static_assert(kKSteps % kDG == 0, "whole groups");
+  const int nq = (S + kRows - 1) / kRows;
   const int hb = H * B;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x) / hb) * kBQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x) / hb) * kRows;
   const int h = static_cast<int>(blockIdx.x) % hb % H;
   const int b = static_cast<int>(blockIdx.x) % hb / H;
   const int kh = h / (H / K);
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int warp = threadIdx.x / 32 % kRowWarps;
+  const int grp = threadIdx.x / 32 / kRowWarps;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
 
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;
-  float* ks = qs + kBQ * kRow;     // two stages
-  float* vs = ks + 2 * Sm::kTile;  // two stages
-  float* ps = vs + 2 * Sm::kTile;  // P^T: ps[key * kPRow + query row]
+  float* ks = qs + kRows * kQK;     // two stages
+  float* vs = ks + 2 * Sm::kKTile;  // two stages
 
   const size_t q_stride = static_cast<size_t>(H) * hd;
   const size_t kv_stride = static_cast<size_t>(K) * hd;
@@ -567,161 +668,277 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const float* kb = k + (static_cast<size_t>(b) * T * K + kh) * hd;
   const float* vb = v + (static_cast<size_t>(b) * T * K + kh) * hd;
 
-  const int kv_end = causal ? min(T, q0 + kBQ) : T;
+  const int kv_end = causal ? min(T, q0 + kRows) : T;
   const int ntiles = (kv_end + kBK - 1) / kBK;
   // q and tile 0 in copy group 0, tile 1 in group 1
-  stage_rows<HDP>(qs, qb, q_stride, q0, S, hd);
+  stage_rows<HDP, kQK, kRows>(qs, qb, q_stride, q0, S, hd);
 #pragma unroll
   for (int st = 0; st < 2; ++st) {
     if (st < ntiles) {
-      stage_rows<HDP>(ks + st * Sm::kTile, kb, kv_stride, st * kBK, T, hd);
-      stage_rows<HDP>(vs + st * Sm::kTile, vb, kv_stride, st * kBK, T, hd);
+      stage_rows<HDP, kQK, kBK>(ks + st * Sm::kKTile, kb, kv_stride,
+                                st * kBK, T, hd);
+      stage_rows<HDP, kVR, kBK>(vs + st * Sm::kVTile, vb, kv_stride,
+                                st * kBK, T, hd);
     }
     cp_async_commit();
   }
 
-  float acc[4][4 * kC];
+  // this thread's rows of the warp's 16: g and g + 8
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const float* qa = qs + (warp * 16 + g) * kQK + 2 * t;
+  float acc[kKSteps][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int d = 0; d < kKSteps; ++d)
 #pragma unroll
-    for (int c = 0; c < 4 * kC; ++c) acc[i][c] = 0.f;
-  float m[4], l[4];  // running max (log2 domain), this thread's part of
-                     // the sum, of rows ty + 16 i
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY;  // running max, log2 domain
+  float l_a = 0.f, l_b = 0.f;              // this thread's part of the sum
 
   for (int j = 0; j < ntiles; ++j) {
     cp_async_wait<1>();  // tile j (and q) has landed
     __syncthreads();
-    const float* kt = ks + (j & 1) * Sm::kTile;
-    const float* vt = vs + (j & 1) * Sm::kTile;
+    const float* kt = ks + (j & 1) * Sm::kKTile + grp * kGroupKeys * kQK;
+    const float* vt = vs + (j & 1) * Sm::kVTile + grp * kGroupKeys * kVR;
 
-    // scores of rows ty + 16 i and keys tx + 8 jj
-    float s[4][8];
+    // scores: s[n] holds the group's keys 8n + 2t, 8n + 2t + 1 of rows g,
+    // g + 8; the hi hi products of even and odd k-steps in s and s1, the
+    // cross terms in s2
+    float s[kNT][4], s1[kNT][4], s2[kNT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < kNT; ++n)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) s[i][jj] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < HDP; d += 4) {
-      float4 qv[4], kv[8];
+      for (int e = 0; e < 4; ++e) s[n][e] = s1[n][e] = s2[n][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kRow +
-                                                 d);
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      const float2 xa = *reinterpret_cast<const float2*>(qa + 8 * kk);
+      const float2 xb =
+          *reinterpret_cast<const float2*>(qa + 8 * kQK + 8 * kk);
+      uint32_t ah[4], al[4];
+      split_tf32(xa.x, ah[0], al[0]);
+      split_tf32(xb.x, ah[1], al[1]);
+      split_tf32(xa.y, ah[2], al[2]);
+      split_tf32(xb.y, ah[3], al[3]);
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        kv[jj] = *reinterpret_cast<const float4*>(kt + (tx + 8 * jj) * kRow +
-                                                  d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
-          s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
-          s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
-          s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
-        }
+      for (int n = 0; n < kNT; ++n) {
+        const float2 x = *reinterpret_cast<const float2*>(
+            kt + (8 * n + g) * kQK + 8 * kk + 2 * t);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(x.x, bh0, bl0);
+        split_tf32(x.y, bh1, bl1);
+        mma_tf32(s2[n], al, bh0, bh1);
+        mma_tf32(s2[n], ah, bl0, bl1);
+        mma_tf32(kk % 2 ? s1[n] : s[n], ah, bh0, bh1);
+      }
     }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += s1[n][e] + s2[n][e];
 
     // mask the diagonal and the ragged tile
-    const int k0 = j * kBK;
-    if ((causal && k0 + kBK - 1 > q0) || k0 + kBK > T) {
+    const int k0 = j * kBK + grp * kGroupKeys;
+    if ((causal && k0 + kGroupKeys - 1 > q0) || k0 + kGroupKeys > T) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < kNT; ++n)
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int col = k0 + tx + 8 * jj, row = q0 + ty + 16 * i;
-          if (col >= T || (causal && col > row)) s[i][jj] = -INFINITY;
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + n * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row_a : row_b;
+          if (col >= T || (causal && col > row)) s[n][e] = -INFINITY;
         }
     }
 
-    // online softmax of each row over the eight lanes that share it, in
-    // the exp2 domain; P^T to shared memory
+    // online softmax over the quad's columns of each row, in the exp2
+    // domain: the scale rides in the exponent's fma
+    float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) mx = fmaxf(mx, s[i][jj]);
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      mx = fmaxf(m[i], mx * scale_log2);
-      // a row with no valid column yet keeps 2^(-inf - 0) = 0
-      const float base = mx == -INFINITY ? 0.f : mx;
-      const float alpha = fast_exp2(m[i] - base);
-      m[i] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float p = fast_exp2(fmaf(s[i][jj], scale_log2, -base));
-        ps[(tx + 8 * jj) * kPRow + ty + 16 * i] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int c = 0; c < 4 * kC; ++c) acc[i][c] *= alpha;
+    for (int n = 0; n < kNT; ++n) {
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
     }
-    __syncthreads();  // P^T is written
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    mx_a = fmaxf(m_a, mx_a * scale_log2);
+    mx_b = fmaxf(m_b, mx_b * scale_log2);
+    // a row with no valid column yet keeps 2^(-inf - 0) = 0
+    const float base_a = mx_a == -INFINITY ? 0.f : mx_a;
+    const float base_b = mx_b == -INFINITY ? 0.f : mx_b;
+    const float alpha_a = fast_exp2(m_a - base_a);
+    const float alpha_b = fast_exp2(m_b - base_b);
+    m_a = mx_a;
+    m_b = mx_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      s[n][0] = fast_exp2(fmaf(s[n][0], scale_log2, -base_a));
+      s[n][1] = fast_exp2(fmaf(s[n][1], scale_log2, -base_a));
+      s[n][2] = fast_exp2(fmaf(s[n][2], scale_log2, -base_b));
+      s[n][3] = fast_exp2(fmaf(s[n][3], scale_log2, -base_b));
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
 
-    // acc += P V over the tile's 64 keys
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float p[4];
+    // acc = alpha acc + P V: key step kk's A fragment is the score n-tile
+    // kk, split; its B fragments are V rows 8 kk + 2t and + 1 at column
+    // 8 d + g. A group of kDG output n-tiles sums the tile's hi hi
+    // products in pb and the cross terms in px, from zero.
+    uint32_t ph[kNT][4], pl[kNT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[c * kPRow + ty + 16 * i];
+    for (int kk = 0; kk < kNT; ++kk) {
+      split_tf32(s[kk][0], ph[kk][0], pl[kk][0]);
+      split_tf32(s[kk][2], ph[kk][1], pl[kk][1]);
+      split_tf32(s[kk][1], ph[kk][2], pl[kk][2]);
+      split_tf32(s[kk][3], ph[kk][3], pl[kk][3]);
+    }
 #pragma unroll
-      for (int cc = 0; cc < kC; ++cc) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vt + c * kRow + 4 * tx + 32 * cc);
+    for (int d0 = 0; d0 < kKSteps; d0 += kDG) {
+      float pb[kDG][4], px[kDG][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * cc] = fmaf(p[i], vv.x, acc[i][4 * cc]);
-          acc[i][4 * cc + 1] = fmaf(p[i], vv.y, acc[i][4 * cc + 1]);
-          acc[i][4 * cc + 2] = fmaf(p[i], vv.z, acc[i][4 * cc + 2]);
-          acc[i][4 * cc + 3] = fmaf(p[i], vv.w, acc[i][4 * cc + 3]);
+      for (int d = 0; d < kDG; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pb[d][e] = px[d][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kNT; ++kk) {
+        const float* v0 = vt + (8 * kk + 2 * t) * kVR + 8 * d0 + g;
+#pragma unroll
+        for (int d = 0; d < kDG; ++d) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(v0[8 * d], bh0, bl0);
+          split_tf32(v0[kVR + 8 * d], bh1, bl1);
+          mma_tf32(px[d], pl[kk], bh0, bh1);
+          mma_tf32(px[d], ph[kk], bl0, bl1);
+          mma_tf32(pb[d], ph[kk], bh0, bh1);
         }
       }
+#pragma unroll
+      for (int d = 0; d < kDG; ++d) {
+        acc[d0 + d][0] = fmaf(acc[d0 + d][0], alpha_a, pb[d][0] + px[d][0]);
+        acc[d0 + d][1] = fmaf(acc[d0 + d][1], alpha_a, pb[d][1] + px[d][1]);
+        acc[d0 + d][2] = fmaf(acc[d0 + d][2], alpha_b, pb[d][2] + px[d][2]);
+        acc[d0 + d][3] = fmaf(acc[d0 + d][3], alpha_b, pb[d][3] + px[d][3]);
+      }
     }
-    __syncthreads();  // the stage and P^T are consumed
+    __syncthreads();  // the stage is consumed
     if (j + 2 < ntiles) {
-      stage_rows<HDP>(ks + (j & 1) * Sm::kTile, kb, kv_stride,
-                      (j + 2) * kBK, T, hd);
-      stage_rows<HDP>(vs + (j & 1) * Sm::kTile, vb, kv_stride,
-                      (j + 2) * kBK, T, hd);
+      stage_rows<HDP, kQK, kBK>(ks + (j & 1) * Sm::kKTile, kb, kv_stride,
+                                (j + 2) * kBK, T, hd);
+      stage_rows<HDP, kVR, kBK>(vs + (j & 1) * Sm::kVTile, vb, kv_stride,
+                                (j + 2) * kBK, T, hd);
     }
     cp_async_commit();
   }
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  // merge: key groups 1.. leave (acc, m, l) of their rows in the K stages,
+  // group i - 1's at slot i - 1: kRows rows x kVR, then kRows x (m, l)
+  constexpr int kSlot = kRows * (kVR + 2);
+  const int ra = warp * 16 + g, rb = ra + 8;  // the block's rows
+  __syncthreads();  // every warp is done with the stages
+  if (grp > 0) {
+    float* macc = ks + (grp - 1) * kSlot;
+    float* mml = macc + kRows * kVR;
 #pragma unroll
-    for (int off = 1; off < 8; off <<= 1)
-      li += __shfl_xor_sync(0xffffffffu, li, off);
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-    const float inv = 1.f / fmaxf(li, 1e-30f);
-    float* orow = o + (static_cast<size_t>(b) * S + row) * q_stride + h * hd;
-#pragma unroll
-    for (int cc = 0; cc < kC; ++cc) {
-      const int col = 4 * tx + 32 * cc;
-      if (col < hd)  // hd % 4 == 0: the group is wholly inside or out
-        *reinterpret_cast<float4*>(orow + col) =
-            make_float4(acc[i][4 * cc] * inv, acc[i][4 * cc + 1] * inv,
-                        acc[i][4 * cc + 2] * inv, acc[i][4 * cc + 3] * inv);
+    for (int d = 0; d < kKSteps; ++d) {
+      *reinterpret_cast<float2*>(macc + ra * kVR + 8 * d + 2 * t) =
+          make_float2(acc[d][0], acc[d][1]);
+      *reinterpret_cast<float2*>(macc + rb * kVR + 8 * d + 2 * t) =
+          make_float2(acc[d][2], acc[d][3]);
     }
+    if (t == 0) {
+      mml[2 * ra] = m_a, mml[2 * ra + 1] = l_a;
+      mml[2 * rb] = m_b, mml[2 * rb + 1] = l_b;
+    }
+  }
+  __syncthreads();
+  if (grp > 0) return;
+  // o = sum_i e_i acc_i / max(sum_i e_i l_i, 1e-30), e_i = 2^(m_i - M), M
+  // = max_i m_i; a group with no valid key weighs 0
+  float mm_a = m_a, mm_b = m_b;
+#pragma unroll
+  for (int i = 1; i < kGroups; ++i) {
+    const float* mml = ks + (i - 1) * kSlot + kRows * kVR;
+    mm_a = fmaxf(mm_a, mml[2 * ra]);
+    mm_b = fmaxf(mm_b, mml[2 * rb]);
+  }
+  const float base_a = mm_a == -INFINITY ? 0.f : mm_a;
+  const float base_b = mm_b == -INFINITY ? 0.f : mm_b;
+  float e_a[kGroups], e_b[kGroups];
+  e_a[0] = fast_exp2(m_a - base_a);
+  e_b[0] = fast_exp2(m_b - base_b);
+  float den_a = e_a[0] * l_a, den_b = e_b[0] * l_b;
+#pragma unroll
+  for (int i = 1; i < kGroups; ++i) {
+    const float* mml = ks + (i - 1) * kSlot + kRows * kVR;
+    e_a[i] = fast_exp2(mml[2 * ra] - base_a);
+    e_b[i] = fast_exp2(mml[2 * rb] - base_b);
+    den_a += e_a[i] * mml[2 * ra + 1];
+    den_b += e_b[i] * mml[2 * rb + 1];
+  }
+  const float inv_a = 1.f / fmaxf(den_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(den_b, 1e-30f);
+#pragma unroll
+  for (int d = 0; d < kKSteps; ++d) {
+    const int col = d * 8 + 2 * t;
+    if (col >= hd) break;  // hd % 8 == 0: the n-tile is wholly inside or out
+    float2 xa = make_float2(e_a[0] * acc[d][0], e_a[0] * acc[d][1]);
+    float2 xb = make_float2(e_b[0] * acc[d][2], e_b[0] * acc[d][3]);
+#pragma unroll
+    for (int i = 1; i < kGroups; ++i) {
+      const float* macc = ks + (i - 1) * kSlot;
+      const float2 ya = *reinterpret_cast<const float2*>(macc + ra * kVR + col);
+      const float2 yb = *reinterpret_cast<const float2*>(macc + rb * kVR + col);
+      xa.x = fmaf(e_a[i], ya.x, xa.x);
+      xa.y = fmaf(e_a[i], ya.y, xa.y);
+      xb.x = fmaf(e_b[i], yb.x, xb.x);
+      xb.y = fmaf(e_b[i], yb.y, xb.y);
+    }
+    if (row_a < S)
+      *reinterpret_cast<float2*>(
+          o + (static_cast<size_t>(b) * S + row_a) * q_stride + h * hd + col) =
+          make_float2(xa.x * inv_a, xa.y * inv_a);
+    if (row_b < S)
+      *reinterpret_cast<float2*>(
+          o + (static_cast<size_t>(b) * S + row_b) * q_stride + h * hd + col) =
+          make_float2(xb.x * inv_b, xb.y * inv_b);
   }
 }
 
-template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int T, int H, int K, int hd, int causal, cudaStream_t stream) {
-  constexpr int smem = Smem<HDP>::kBytes;
-  auto kernel = flash_attention_f32_kernel<HDP>;
+// The grid's time in 64-key tiles of a 64-row block, with blocks of rows
+// query rows: the longest query tile's walk, or the tiles of the whole
+// grid over the SMs, whichever is longer (blocks run heaviest first)
+static double grid_span(int rows, int S, int T, int H, int B, int causal,
+                        int sms) {
+  long long total = 0;
+  int most = 0;
+  for (int q0 = 0; q0 < S; q0 += rows) {
+    const int end = causal && q0 + rows < T ? q0 + rows : T;
+    const int n = (end + kBK - 1) / kBK;
+    total += n;
+    most = n > most ? n : most;
+  }
+  const double span = fmax(most, static_cast<double>(total) * H * B / sms);
+  return rows == 32 ? kRows32Cost * span : span;
+}
+
+template <int HDP, int RW>
+int launch_grid(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int T, int H, int K, int hd, int causal,
+                cudaStream_t stream) {
+  constexpr int smem = Smem<HDP, RW>::kBytes;
+  constexpr int rows = Warps<RW>::kRows;
+  auto kernel = flash_attention_tf32x3_kernel<HDP, RW>;
   const long long blocks =
-      static_cast<long long>((S + kBQ - 1) / kBQ) * H * B;
+      static_cast<long long>((S + rows - 1) / rows) * H * B;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -734,43 +951,71 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace fp32
+// rows: query rows a block, 32 or 64
+template <int HDP>
+int launch(int rows, const void* q, const void* k, const void* v, void* o,
+           int B, int S, int T, int H, int K, int hd, int causal,
+           cudaStream_t stream) {
+  if (rows == 32)
+    return launch_grid<HDP, 2>(q, k, v, o, B, S, T, H, K, hd, causal, stream);
+  return launch_grid<HDP, 4>(q, k, v, o, B, S, T, H, K, hd, causal, stream);
+}
+
+}  // namespace tf32x3
 
 }  // namespace
 
-// hd % 8 == 0 and hd <= 128; heads: query heads per block, 1 or 2 (of
-// one KV group), 0 to choose (bf16); f32: q, k, v and o are fp32 (one
-// head a block; heads 0 or 1), else bf16
+// the card's SM count, read once
+static int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// hd % 8 == 0 and hd <= 128; f32: q, k, v and o are fp32, else bf16.
+// block, 0 to choose (ops.FLASH_ATTENTION_AUTO): bf16, query heads per
+// block, 1 or 2 of one KV group (ops.FLASH_ATTENTION_BF16_HEADS); fp32,
+// query rows per block, 32 or 64 (ops.FLASH_ATTENTION_FP32_ROWS)
 extern "C" int launch_flash_attention(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int T, int H, int K, int hd, int causal,
-                                      int heads, int f32, void* stream) {
+                                      int block, int f32, void* stream) {
   if (K < 1 || H % K != 0 || hd < 8 || hd > kHD || hd % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f32) {
-    if (heads > 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (hd <= 32) return fp32::launch<32>(q, k, v, o, B, S, T, H, K, hd,
-                                         causal, st);
-    if (hd <= 64) return fp32::launch<64>(q, k, v, o, B, S, T, H, K, hd,
-                                         causal, st);
-    return fp32::launch<128>(q, k, v, o, B, S, T, H, K, hd, causal, st);
+    if (block == 0)  // the shorter estimated span (tf32x3::grid_span)
+      block = tf32x3::grid_span(32, S, T, H, B, causal, sm_count()) <
+                      tf32x3::grid_span(64, S, T, H, B, causal, sm_count())
+                  ? 32
+                  : 64;
+    if (block != 32 && block != 64)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (hd <= 32)
+      return tf32x3::launch<32>(block, q, k, v, o, B, S, T, H, K, hd, causal,
+                                st);
+    if (hd <= 64)
+      return tf32x3::launch<64>(block, q, k, v, o, B, S, T, H, K, hd, causal,
+                                st);
+    if (hd <= 96)
+      return tf32x3::launch<96>(block, q, k, v, o, B, S, T, H, K, hd, causal,
+                                st);
+    return tf32x3::launch<128>(block, q, k, v, o, B, S, T, H, K, hd, causal,
+                               st);
   }
-  if (heads == 0) {
+  if (block == 0) {
     // two heads a block (each K and V tile read once for both) while
     // that still gives every SM a block
-    static int sms = 0;
-    if (sms == 0) {
-      int dev = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
     const long long pairs =
         static_cast<long long>((S + kBQ - 1) / kBQ) * (H / 2) * B;
-    heads = (H / K) % 2 == 0 && pairs >= sms ? 2 : 1;
+    block = (H / K) % 2 == 0 && pairs >= sm_count() ? 2 : 1;
   }
-  if (heads == 2 && (H / K) % 2 == 0)
+  if (block == 2 && (H / K) % 2 == 0)
     return launch<2>(q, k, v, o, B, S, T, H, K, hd, causal, st);
-  if (heads == 1) return launch<1>(q, k, v, o, B, S, T, H, K, hd, causal, st);
+  if (block == 1) return launch<1>(q, k, v, o, B, S, T, H, K, hd, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -131,12 +131,23 @@ def check_flash_attention(q, k, v):
         _aligned(name, t)           # the kernel copies rows 16 bytes at a time
 
 
+#: launch_flash_attention's ``block`` argument: FLASH_ATTENTION_AUTO lets
+#: the launcher choose (the wrapper's call). A forced value means one thing
+#: for each dtype: query heads a block of one KV group for bf16
+#: (FLASH_ATTENTION_BF16_HEADS), query rows a block for fp32
+#: (FLASH_ATTENTION_FP32_ROWS)
+FLASH_ATTENTION_AUTO = 0
+FLASH_ATTENTION_BF16_HEADS = (1, 2)
+FLASH_ATTENTION_FP32_ROWS = (32, 64)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
     """q: (B,S,H,hd); k,v: (B,T,K,hd); H % K == 0. Returns (B,S,H,hd) in
     q's dtype. The kernel takes q, k and v all bf16 or all fp32 (fp32 on
-    the CUDA cores), any S and T, and any hd that is a multiple of 8 up to
-    128: its tiles are 128 columns wide, and it stages rows in 16-byte
-    chunks, zero-filling the columns at or past hd."""
+    the tensor cores as 3xTF32 products, within JAX's fp32 tolerance),
+    any S and T, and any hd that is a multiple of 8 up to 128: its tiles
+    are at most 128 columns wide, and it stages rows in 16-byte chunks,
+    zero-filling the columns at or past hd."""
     if _plain(backend, q):
         return _ref.flash_attention_ref(q, k, v, causal=causal)
     check_flash_attention(q, k, v)
@@ -147,7 +158,7 @@ def flash_attention(q, k, v, *, causal: bool = True, backend: str = "auto"):
     if out.numel():
         _launch("flash_attention", "flash_attention", "launch_flash_attention",
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, T, H, K, hd, int(causal), 0,
+                B, S, T, H, K, hd, int(causal), FLASH_ATTENTION_AUTO,
                 int(q.dtype == torch.float32), _stream(dev))
     return out
 

@@ -11,8 +11,10 @@ the paged decodes) within 1e-4 + 2**-6 * |plain| elementwise on bf16
 inputs, two bf16 steps of the value (kernel and plain version each round
 an fp32 result to bf16 once, after sums taken in other orders, so they
 may differ by one step), and within JAX's fp32 tolerance, atol = rtol =
-2e-5, on fp32 inputs (fp32 FMA on the CUDA cores, sums in other orders
-than the plain version's); ``ssm_scan`` within 1e-4 * max |plain| for y and for the
+2e-5, on fp32 inputs (``flash_attention`` as 3xTF32 products on the
+tensor cores, at most a quarter of that limit; the decodes' fp32 FMA on
+the CUDA cores; sums in other orders than the plain version's);
+``ssm_scan`` within 1e-4 * max |plain| for y and for the
 state (the plain version computes in fp32; the kernel's tensor-core
 products take each fp32 operand as a bf16 pair and sum in fp32 in other
 orders, 0.03-0.08 of the limit in ``test_ssm_scan_numerics``); sampling
@@ -1121,11 +1123,23 @@ def test_dryrun_decode_cell_against_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# fp32 inputs: the attention kernels on the CUDA cores, held to JAX's fp32
-# tolerance (tests/test_kernels.py: atol = rtol = 2e-5) against the plain
-# version on the card (fp32 matmuls in full fp32)
+# fp32 inputs: the attention kernels' fp32 paths (flash_attention's on the
+# tensor cores as 3xTF32 products, the decodes' on the CUDA cores), held to
+# JAX's fp32 tolerance (tests/test_kernels.py: atol = rtol = 2e-5) against
+# the plain version on the card (fp32 matmuls in full fp32)
 # ---------------------------------------------------------------------------
 FP32_TOL = 2e-5
+#: flash_attention's 3xTF32 products hold a value to about 2^-22: the
+#: largest share of the fp32 limit any output may use (0.03-0.06 emulated,
+#: tests/test_torch_fp32.py)
+FP32_ATTN_SHARE = 0.25
+
+
+def _fp32_share(got, want):
+    """The largest share of the fp32 limit 2e-5 + 2e-5 |want| any element
+    of ``got`` uses."""
+    lim = FP32_TOL + FP32_TOL * want.abs()
+    return float(((got - want).abs() / lim).max())
 
 
 @pytest.fixture
@@ -1161,17 +1175,155 @@ def full_fp32():
 def test_flash_attention_fp32_on_card(cuda, full_fp32, B, S, T, H, K, hd,
                                       causal):
     """flash_attention on fp32 inputs launches its kernel and lies within
-    JAX's fp32 tolerance of the plain version; fp32 out, the same bits
-    again."""
+    JAX's fp32 tolerance of the plain version, using at most
+    FP32_ATTN_SHARE of it; fp32 out, the same bits again."""
     q, k, v = _attn_inputs(cuda, S + T + H + hd, B, S, T, H, K, hd,
                            torch.float32)
+    _check_fp32_attention(q, k, v, causal)
+
+
+def _check_fp32_attention(q, k, v, causal):
+    """One fp32 flash_attention launch within the fp32 limit, using at
+    most FP32_ATTN_SHARE of it, and the same bits again; returns its
+    output."""
     before = ops.LAUNCHES["flash_attention"]
     got = ops.flash_attention(q, k, v, causal=causal)
     assert ops.LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == torch.float32
     want = ops.flash_attention(q, k, v, causal=causal, backend="ref")
     torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    share = _fp32_share(got, want)
+    print(f"flash_attention fp32 q {tuple(q.shape)} k/v {tuple(k.shape)} "
+          f"causal={causal}: {share:.4f} of the fp32 limit")
+    assert share <= FP32_ATTN_SHARE
     assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+    return got
+
+
+def _tf32_ties(x):
+    """x with the low 13 bits of each fp32 value set to 0x1000: its TF32
+    rounding falls exactly at a tie (and its remainder lo is a power of
+    two)."""
+    bits = x.view(torch.int32)
+    return ((bits & ~0x1FFF) | 0x1000).view(torch.float32)
+
+
+def _attention_f64(q, k, v):
+    """Causal GQA attention with every step in float64 (the exact answer
+    the fp32 versions approximate), in fp32."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kk, vv = (x.double().repeat_interleave(G, 2) for x in (k, v))
+    s = torch.einsum("bshd,bthd->bhst", q.double(), kk) / hd ** 0.5
+    mask = torch.ones((S, k.shape[1]), dtype=torch.bool,
+                      device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+    return torch.einsum("bhst,bthd->bshd", p, vv).float()
+
+
+#: q alone scaled by 4 and by 16: the kernel's largest share of the fp32
+#: limit around the float64 answer (the plain fp32 version itself uses
+#: 0.22-0.32 of it at 4 and 1.1-1.7 at 16, emulated; tests/test_torch_fp32.py)
+SHARP_SCORES_SHARE = {4.0: FP32_ATTN_SHARE, 16.0: 1.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["scaled_16", "scaled_1_16", "q_4", "q_16",
+                                  "near_equal", "tf32_ties"])
+@pytest.mark.parametrize("S,H,K,hd", [(384, 16, 8, 128), (384, 32, 32, 96),
+                                      (640, 14, 2, 64)],
+                         ids=["qwen", "phi3", "internvl2"])
+def test_flash_attention_fp32_split_on_card(cuda, full_fp32, case, S, H, K,
+                                            hd):
+    """The 3xTF32 split under stress, causal, at qwen's, phi3's and
+    internvl2's prompts; each launch the same bits again. Scaled: q and v
+    by f = 16 (1/16) and k by 1/f, so the operands' exponents move while
+    the scores stay as at unit scale. Scaling by a power of two is exact,
+    so the split must give f times the unit-scale output bit for bit,
+    and that output is held to FP32_ATTN_SHARE of the limit. q_4, q_16: q
+    alone scaled, so every score grows by 4 (16) and the softmax
+    sharpens. The plain fp32 version then leaves the exact answer by up
+    to 1.7 times the limit itself, so the kernel is held against the
+    attention in float64: at most SHARP_SCORES_SHARE of the fp32 limit
+    around it, and no farther from it than the plain fp32 version.
+    Near-equal: every key one shared row plus noise of 1e-3, so each
+    row's scores are near-equal and the outputs near zero. Ties: every
+    value of q, k and v at a TF32 rounding tie. Both at most
+    FP32_ATTN_SHARE."""
+    q, k, v = _attn_inputs(cuda, S + H + hd, 1, S, S, H, K, hd,
+                           torch.float32)
+    if case in ("scaled_16", "scaled_1_16"):
+        f = 16.0 if case == "scaled_16" else 1 / 16
+        unit = _check_fp32_attention(q, k, v, True)
+        got = ops.flash_attention(q * f, k / f, v * f)
+        assert torch.equal(got, unit * f)
+        return
+    if case in ("q_4", "q_16"):
+        f = float(case[2:])
+        q = q * f
+        got = ops.flash_attention(q, k, v)
+        exact = _attention_f64(q, k, v)
+        share = _fp32_share(got, exact)
+        plain = _fp32_share(ops.flash_attention(q, k, v, backend="ref"),
+                            exact)
+        print(f"flash_attention fp32 q x{f:g} q {tuple(q.shape)} k/v "
+              f"{tuple(k.shape)}: {share:.4f} of the fp32 limit around "
+              f"float64, plain fp32 {plain:.4f}")
+        assert share <= SHARP_SCORES_SHARE[f]
+        assert share <= plain
+        assert torch.equal(got, ops.flash_attention(q, k, v))
+        return
+    if case == "near_equal":
+        k = (k[:, :1] + 1e-3 * k).contiguous()
+    else:
+        q, k, v = (_tf32_ties(x) for x in (q, k, v))
+    _check_fp32_attention(q, k, v, True)
+
+
+def _fp32_attention_rows(q, k, v, causal, rows):
+    """The fp32 flash_attention kernel with its query rows a block forced
+    (one of ops.FLASH_ATTENTION_FP32_ROWS; the wrapper lets the launcher
+    choose)."""
+    from repro_torch.kernels import build
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    rc = build.library("flash_attention").launch_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T,
+        H, K, hd, int(causal), rows, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal", [
+    (1, 65, 65, 8, 8, 32, True),
+    (2, 63, 63, 4, 2, 8, True),
+    (1, 384, 384, 32, 32, 96, True),
+    (1, 600, 600, 16, 8, 128, True),
+    (1, 640, 640, 14, 2, 64, True),
+    (1, 100, 300, 16, 8, 128, False),
+    (1, 300, 75, 16, 16, 64, False),
+])
+def test_flash_attention_fp32_block_rows_on_card(cuda, full_fp32, B, S, T,
+                                                 H, K, hd, causal):
+    """The fp32 kernel's two grids, 32 query rows a block (two row warps x
+    four key groups) and 64 (four x two), each forced: within the fp32
+    limit, at most FP32_ATTN_SHARE of it, the same bits again; the
+    wrapper's launch is one of the two."""
+    q, k, v = _attn_inputs(cuda, S + T + H + hd + 1, B, S, T, H, K, hd,
+                           torch.float32)
+    want = ops.flash_attention(q, k, v, causal=causal, backend="ref")
+    outs = {}
+    for rows in ops.FLASH_ATTENTION_FP32_ROWS:
+        got = _fp32_attention_rows(q, k, v, causal, rows)
+        torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+        assert _fp32_share(got, want) <= FP32_ATTN_SHARE
+        assert torch.equal(got, _fp32_attention_rows(q, k, v, causal, rows))
+        outs[rows] = got
+    auto = ops.flash_attention(q, k, v, causal=causal)
+    assert any(torch.equal(auto, got) for got in outs.values())
 
 
 @pytest.mark.cuda

@@ -11,10 +11,13 @@ tokens of the JAX engine with ``kernel_backend="pallas"``, its prefill
 logits within 1e-4 (the fp32 model tolerance of test_torch_model.py);
 ``kernel_backend="pallas"`` is the port's kernel path; the kernels'
 dtype contract holds on meta tensors (what the dry-run counts); and the
-reason the CUDA kernels take fp32 on the CUDA cores: the tensor cores
-with each fp32 operand as a bf16 pair leave no margin under 2e-5
-(emulated here). The card's side of this is in tests/test_torch_cuda.py
-(``*_fp32_on_card``) and chip_smoke.py's ``run_fp32``.
+numerics of fp32 ``flash_attention``'s CUDA kernel, emulated here: its
+tensor-core products take each fp32 operand as a TF32 pair with three
+products a product (3xTF32), well under 2e-5, where a bf16 pair leaves
+no margin and TF32 alone misses it (the decodes' fp32 kernels are FMA on
+the CUDA cores). The card's side of this is in tests/test_torch_cuda.py
+(``*_fp32_on_card``, ``*_fp32_split_on_card``) and chip_smoke.py's
+``run_fp32``.
 """
 import jax
 import jax.numpy as jnp
@@ -233,7 +236,9 @@ def test_quant_contract_takes_bf16_and_fp32_q():
 
 
 # ---------------------------------------------------------------------------
-# why the fp32 kernels run on the CUDA cores: the tensor cores' bf16 pairs
+# why fp32 flash_attention's tensor-core products are 3xTF32: the numerics
+# of the kernel's pieces, emulated (fp32 pieces, products in float64, each
+# product's three-term sum rounded to fp32)
 # ---------------------------------------------------------------------------
 def _pair(x):
     """x (fp32) as hi + lo, each rounded to bf16, as float64."""
@@ -277,3 +282,96 @@ def test_fp32_attention_bf16_pairs_leave_no_margin(S, H, K, hd):
     lim = TOL + TOL * want.abs()
     assert float(((paired - want).abs() / lim).max()) > 0.5
     assert float(((exact - want).abs() / lim).max()) < 0.1
+
+
+def _tf32(x):
+    """x (fp32) rounded to TF32 as the kernel rounds it (cvt.rna's
+    rounding): add 0x1000 to the bit pattern, clear the low 13 bits."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_pair(x):
+    """x (fp32) as hi + lo, each rounded to TF32, as float64."""
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    return hi.double(), lo.double()
+
+
+def _emulated_attention(S, H, K, hd, split, three, q_scale=1.0):
+    """Causal attention on seeded fp32 inputs (q times ``q_scale``) with
+    q, k, v and P each entered as the pieces hi, lo of ``split``, a
+    product as hi hi (+ hi lo + lo hi if ``three``) in float64, its sum
+    rounded to fp32, the softmax in float64; returns (it, the port's
+    plain fp32 version, the same attention in float64 throughout)."""
+    q, k, v = (torch.from_numpy(x) for x in _normal(
+        hd, (1, S, H, hd), (1, S, K, hd), (1, S, K, hd)))
+    q = q * q_scale
+    want = ops.flash_attention(q, k, v)
+    G = H // K
+    mask = torch.ones((S, S), dtype=torch.bool).tril()
+    kk, vv = (x.repeat_interleave(G, 2) for x in (k, v))
+
+    def split64(x):
+        return x.double(), torch.zeros((), dtype=torch.float64)
+
+    def product(a, b, eq, split=split, three=three):
+        (ah, al), (bh, bl) = split(a), split(b)
+        terms = [(ah, bh)] + ([(ah, bl), (al, bh)] if three else [])
+        return sum(torch.einsum(eq, x, y) for x, y in terms)
+
+    def attend(product):
+        s = product(q, kk, "bshd,bthd->bhst").double() / hd ** 0.5
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+        return product(p, vv, "bhst,bthd->bshd")
+
+    def emulated(a, b, eq):
+        return product(a.float(), b, eq).float()
+
+    exact = attend(lambda a, b, eq: product(a, b, eq, split64, False))
+    return attend(emulated), want, exact
+
+
+def _share(got, want):
+    """The largest share of the fp32 limit 2e-5 + 2e-5 |want| used."""
+    return float(((got - want).abs() / (TOL + TOL * want.abs())).max())
+
+
+@pytest.mark.parametrize("S,H,K,hd", [(384, 16, 8, 128), (384, 32, 32, 96),
+                                      (640, 14, 2, 64)],
+                         ids=["qwen", "phi3", "internvl2"])
+def test_fp32_attention_tf32_triples_hold_the_limit(S, H, K, hd):
+    """The fp32 kernel's numerics: q, k, v and P each entered as a TF32
+    pair (hi = tf32(x), lo = tf32(x - hi), rounded to nearest with ties
+    away) and three products a product (lo hi + hi lo + hi hi), emulated
+    in float64, use under a fifth of the fp32 limit at qwen's, phi3's and
+    internvl2's prompts (a TF32 pair holds a value to about 2^-22; the
+    card reads 0.03-0.05 of it), while TF32 alone, one product of the hi
+    pieces, misses the limit many times over."""
+    triple, want, _ = _emulated_attention(S, H, K, hd, _tf32_pair, True)
+    alone, _, _ = _emulated_attention(S, H, K, hd, _tf32_pair, False)
+    assert _share(triple, want) < 0.2
+    assert _share(alone, want) > 1
+
+
+@pytest.mark.parametrize("q_scale,bound", [(4.0, 0.2), (16.0, 0.5)])
+@pytest.mark.parametrize("S,H,K,hd", [(384, 16, 8, 128), (384, 32, 32, 96),
+                                      (640, 14, 2, 64)],
+                         ids=["qwen", "phi3", "internvl2"])
+def test_fp32_attention_tf32_triples_under_sharp_scores(S, H, K, hd,
+                                                        q_scale, bound):
+    """The same emulated 3xTF32 products with q alone scaled by 4 and by
+    16, so every score grows by that factor and the softmax sharpens
+    (each score's error through exp2 grows with it). Held against the
+    attention in float64 throughout: under ``bound`` of the fp32 limit
+    2e-5 + 2e-5 |exact| (0.06-0.09 read at 4, 0.26-0.36 at 16) and no
+    farther from it than the plain fp32 version, which itself uses
+    0.22-0.32 of that limit at 4 and 1.1-1.7 at 16. So under sharp
+    softmaxes the limit against the plain version cannot hold for any
+    fp32 implementation; the card's cases hold the kernel against
+    float64 the same way (tests/test_torch_cuda.py)."""
+    triple, want, exact = _emulated_attention(S, H, K, hd, _tf32_pair,
+                                              True, q_scale)
+    exact_share = _share(triple.double(), exact)
+    assert exact_share < bound
+    assert exact_share <= _share(want.double(), exact)

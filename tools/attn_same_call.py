@@ -10,6 +10,13 @@ one call on one NVIDIA GPU, in turns.
     python3 tools/attn_same_call.py --old build/old_csrc \\
         [--kernels attention paged ssm sample qdma]
 
+    # fp32 flash_attention against the CUDA-core kernel of 44abb8d (alone)
+    mkdir -p build/old_fp32
+    for f in flash_attention.cu common.cuh; do
+        git show 44abb8d:src/repro_torch/kernels/csrc/$f > build/old_fp32/$f
+    done
+    python3 tools/attn_same_call.py --old build/old_fp32 --kernels fp32
+
 Builds the chosen kernels' old sources with nvcc beside the current ones
 (into ``build/attn_same_call/``; the old sources share the old
 ``common.cuh``, so kernels compared against different revisions take one
@@ -29,6 +36,19 @@ of 128; 64 and 16 query heads; pos 0, 511, 1,023), with the position an
 int and a 0-d int32 tensor on the card. The old ``flash_decode`` runs as
 its wrapper ran it: an int position became a tensor by ``torch.full``
 inside the call, splits of 64 rows.
+
+``fp32``: ``flash_attention`` on fp32 inputs at ``chip_smoke.py``'s
+four fp32 rows (``fp32_attention_shapes``: qwen3-0.6b's S 384 and 600,
+phi3-mini's hd 96, internvl2's G 7; causal), with SDPA at fp32 (tf32
+off) beside them, held to JAX's fp32 limit 2e-5 + 2e-5 |plain|; each row
+carries the bound by its bytes or its products at the 3xTF32
+tensor-core rate (``FP32_ATTN_FLOP_PER_S``), the larger, and the new
+kernel is also timed with each of ``FLASH_ATTENTION_FP32_ROWS`` query
+rows a block forced. Then the same four shapes in bf16
+through both libraries (the old revision's bf16 kernel against the
+current one). Its old sources are a revision whose launcher already
+takes the heads and fp32 arguments (``OLD_FP32_ARGTYPES``), so it runs
+in a call of its own.
 
 ``paged``: ``paged_decode`` and ``paged_decode_quant`` at
 ``chip_smoke.py``'s paged shapes (``paged_cases``: qwen3-0.6b's 16/8
@@ -70,6 +90,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the sources each kernel group builds
 GROUPS = {"attention": ("flash_attention", "flash_decode"),
+          "fp32": ("flash_attention",),
           "paged": ("paged_decode",), "ssm": ("ssm_scan",),
           "sample": ("fused_sample",), "qdma": ("qdma_pack",)}
 #: the earlier launchers' C signatures, by source
@@ -83,6 +104,9 @@ OLD_ARGTYPES = {
     "qdma_pack": {"launch_qdma_pack": [P, P, P, LL, I, I, P],
                   "launch_qdma_unpack": [P, P, P, LL, I, I, P],
                   "launch_qdma_digest": [P, LL, P, P]}}
+#: the fp32 set's old launcher (44abb8d's: heads and fp32 arguments)
+OLD_FP32_ARGTYPES = {
+    "flash_attention": {"launch_flash_attention": [P] * 4 + [I] * 9 + [P]}}
 OLD_DECODE_SPLIT = 64
 
 
@@ -96,10 +120,11 @@ def ptxas(text: str, label: str):
             print(f"{label} ptxas {name}: {line.strip()}", flush=True)
 
 
-def build_old(old_dir: str, stems) -> dict:
+def build_old(old_dir: str, stems, argtypes=OLD_ARGTYPES) -> dict:
     """nvcc each old source into a library of its own, with the port's
     flags (the sampler's bit-exact ones too), all at once; returns {stem:
-    ctypes library} and prints ptxas's lines."""
+    ctypes library}, its launchers bound with ``argtypes``, and prints
+    ptxas's lines."""
     from repro_torch.kernels import build
     out_dir = os.path.join(ROOT, "build", "attn_same_call")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -122,9 +147,9 @@ def build_old(old_dir: str, stems) -> dict:
                                + text[-4000:])
         ptxas(text, f"old {stem}")
         cdll = ctypes.CDLL(lib)
-        for name, argtypes in OLD_ARGTYPES[stem].items():
+        for name, types in argtypes[stem].items():
             fn = getattr(cdll, name)
-            fn.argtypes, fn.restype = argtypes, I
+            fn.argtypes, fn.restype = types, I
         cdll.kernel_error_string.argtypes = [I]
         cdll.kernel_error_string.restype = ctypes.c_char_p
         libs[stem] = cdll
@@ -179,10 +204,28 @@ class Turns:
               f"{share['old']:.3g} new {share['new']:.3g}", flush=True)
 
 
+def current_attention(torch, stream, q, k, v, block):
+    """The current flash_attention kernel, causal, with its block forced:
+    one of ops.FLASH_ATTENTION_BF16_HEADS (query heads a block) for bf16,
+    of ops.FLASH_ATTENTION_FP32_ROWS (query rows a block) for fp32; the
+    wrapper passes FLASH_ATTENTION_AUTO, the launcher's choice."""
+    from repro_torch.kernels import build
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = build.library("flash_attention")
+    rc = lib.launch_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H,
+        K, hd, 1, block, int(q.dtype == torch.float32), stream)
+    if rc:
+        raise RuntimeError(lib.kernel_error_string(rc).decode())
+    return out
+
+
 def time_attention(torch, cs, old, turns, stream):
     import torch.nn.functional as F
     from repro_torch.configs import make_run_config
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
 
     def old_attention(q, k, v):
         B, S, H, hd = q.shape
@@ -213,20 +256,6 @@ def time_attention(torch, cs, old, turns, stream):
             raise RuntimeError(old["flash_decode"].kernel_error_string(rc))
         return out
 
-    def new_attention(q, k, v, heads):
-        """The current kernel with its query heads per block forced (1 or
-        2; the wrapper passes 0, the launcher's choice)."""
-        B, S, H, hd = q.shape
-        T, K = k.shape[1], k.shape[2]
-        out = torch.empty_like(q)
-        lib = build.library("flash_attention")
-        rc = lib.launch_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            T, H, K, hd, 1, heads, 0, stream)
-        if rc:
-            raise RuntimeError(lib.kernel_error_string(rc))
-        return out
-
     qwen = make_run_config("qwen3-0.6b", "decode_32k").model
     hyb = make_run_config(cs.HYBRID, "decode_32k").model
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -239,14 +268,16 @@ def time_attention(torch, cs, old, turns, stream):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         want = ops.flash_attention(q, k, v, backend="ref")
         forced = {}
-        for heads in (1, 2):
-            got = new_attention(q, k, v, heads)
+        for heads in ops.FLASH_ATTENTION_BF16_HEADS:
+            got = current_attention(torch, stream, q, k, v, heads)
             cs.check(cs.attn_err(got, want)[1] <= 1,
                      f"flash_attention S={S} heads={heads}: off the limit")
             forced[heads] = turns.timer.ms(
-                lambda: new_attention(q, k, v, heads), reps=turns.reps)
-        print(f"flash_attention S={S} H={H}: query heads per block 1 "
-              f"{forced[1]:.4f} ms, 2 {forced[2]:.4f} ms", flush=True)
+                lambda: current_attention(torch, stream, q, k, v, heads),
+                reps=turns.reps)
+        print(f"flash_attention S={S} H={H}: query heads per block "
+              + ", ".join(f"{n} {ms:.4f} ms" for n, ms in forced.items()),
+              flush=True)
         turns(f"flash_attention q (1,{S},{H},{hd}) k/v {K} heads, causal",
               {"old": lambda: old_attention(q, k, v),
                "new": lambda: ops.flash_attention(q, k, v)},
@@ -277,6 +308,71 @@ def time_attention(torch, cs, old, turns, stream):
                       lib=lambda: F.scaled_dot_product_attention(
                           qt, kt, vt, enable_gqa=True),
                       kernel="flash_decode")
+
+
+def time_fp32(torch, cs, old, turns, stream):
+    """fp32 flash_attention, old against new, at chip_smoke.py's fp32
+    rows; then the bf16 kernel of both revisions at the same shapes."""
+    import torch.nn.functional as F
+    from repro_torch.configs import make_run_config
+    from repro_torch.kernels import ops
+    lib = old["flash_attention"]
+
+    def old_attention(q, k, v):
+        B, S, H, hd = q.shape
+        T, K = k.shape[1], k.shape[2]
+        out = torch.empty_like(q)
+        rc = lib.launch_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            T, H, K, hd, 1, 0, int(q.dtype == torch.float32), stream)
+        if rc:
+            raise RuntimeError(lib.kernel_error_string(rc).decode())
+        return out
+
+    def fp32_share(got, want):
+        return cs.attn_err(got, want, cs.FP32_TOL, cs.FP32_TOL)[1]
+
+    def get(arch):
+        return make_run_config(arch, "decode_32k").model
+    shapes = cs.fp32_attention_shapes(get("qwen3-0.6b"),
+                                      cs.family_attention_shapes(get))
+    g = torch.Generator(device="cuda").manual_seed(28)
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "fp32" if dtype == torch.float32 else "bf16"
+        for S, H, K, hd, who in shapes:
+            q, k, v = (torch.randn((1, S, n, hd), generator=g,
+                                   device="cuda").to(dtype)
+                       for n in (H, K, K))
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            nbytes = q.element_size() * 2 * S * hd * (H + K)
+            flops = 4 * H * hd * S * (S + 1) / 2
+            fp32 = dtype == torch.float32
+            want = ops.flash_attention(q, k, v, backend="ref")
+            forced = {}
+            for rows in ops.FLASH_ATTENTION_FP32_ROWS if fp32 else ():
+                got = current_attention(torch, stream, q, k, v, rows)
+                cs.check(fp32_share(got, want) <= 1,
+                         f"flash_attention fp32 S={S} rows={rows}: off the "
+                         "limit")
+                forced[rows] = turns.timer.ms(
+                    lambda: current_attention(torch, stream, q, k, v, rows),
+                    reps=turns.reps)
+            if forced:
+                print(f"flash_attention fp32 S={S} H={H} hd={hd}: query rows "
+                      "per block " + ", ".join(f"{n} {ms:.4f} ms"
+                                               for n, ms in forced.items()),
+                      flush=True)
+            turns(f"flash_attention {kind} q (1,{S},{H},{hd}) k/v {K} "
+                  f"heads, causal" + (f" ({who})" if who else ""),
+                  {"old": lambda: old_attention(q, k, v),
+                   "new": lambda: ops.flash_attention(q, k, v)},
+                  want, nbytes, flops,
+                  lib=lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True, enable_gqa=True),
+                  share_fn=fp32_share if fp32 else None,
+                  rate=cs.FP32_ATTN_FLOP_PER_S if fp32 else None,
+                  kernel="flash_attention", dtype=kind,
+                  new_ms_by_rows_per_block=forced)
 
 
 def time_paged(torch, cs, old, turns, stream, seed):
@@ -524,12 +620,18 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
+    if "fp32" in args.kernels and len(args.kernels) > 1:
+        ap.error("--kernels fp32 compares against another revision: run it "
+                 "alone")
+    # fp32 products in full fp32 (the plain versions' einsums, SDPA)
+    torch.backends.cuda.matmul.allow_tf32 = False
     stems = [s for g in args.kernels for s in GROUPS[g]]
     build.build(stems)
     for stem in stems:
         ptxas(build.library_path(stem).with_suffix(".log").read_text(),
               f"new {stem}")
-    old = build_old(args.old, stems)
+    old = build_old(args.old, stems, OLD_FP32_ARGTYPES
+                    if args.kernels == ["fp32"] else OLD_ARGTYPES)
     stream = torch.cuda.current_stream().cuda_stream
     turns = Turns(torch, cs, args.reps)
     one = torch.zeros(1, device="cuda")
@@ -537,6 +639,8 @@ def main(argv=None) -> int:
     print(f"the timer's floor, a one-float fill: {floor:.4f} ms", flush=True)
     if "attention" in args.kernels:
         time_attention(torch, cs, old, turns, stream)
+    if "fp32" in args.kernels:
+        time_fp32(torch, cs, old, turns, stream)
     if "paged" in args.kernels:
         time_paged(torch, cs, old, turns, stream, args.seed)
     if "ssm" in args.kernels:
