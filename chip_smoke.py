@@ -52,8 +52,10 @@ bf16 cache through ``flash_decode``), ``prefill_32k`` at B = 2 (through
 counted on the unit mesh by the port's ``launch.dryrun.run_cell`` and
 then run for real: the step no faster than its counted bound and its
 peak memory at least the counted argument bytes. Then fp32 compute:
-the four attention kernels on fp32 inputs (flash_attention as 3xTF32
-products on the tensor cores, the decodes' CUDA-core FMA) against their
+the four attention kernels on fp32 inputs (flash_attention and the
+paged decode over fp32 pages as 3xTF32 products on the tensor cores, the
+paged decode over int8 pages as three bf16 pieces of q and P on them,
+flash_decode as CUDA-core FMA) against their
 plain versions within JAX's fp32 tolerance 2e-5, and qwen3-0.6b at
 ``PrecisionConfig(compute="float32")`` through them: prefill logits
 within 1e-3 of the plain fp32 path's (every layer's attention the
@@ -98,9 +100,19 @@ path (HC1-HC5) on the ~918 MB qwen3-100m-bench train state, whose int8
 rows launch ``qdma_pack``, ``qdma_pack_rows`` and ``qdma_unpack``, and
 the scenario sweep (24 ops, 16 devices, leaf 16, three policies; a
 default pass and a serve 0.3 / crash 0.1 pass, every invariant after
-every op), whose seed counts fill their budgets or, on a host slow
-enough that the script would otherwise pass ``SMOKE_END_S``, what is
-left up to it.
+every op), whose seed counts fill their budgets.
+
+The groups are read in that order, but not all run in this process one
+after another. Two lanes, each a spawned process, start beside the qwen
+serve group: the host lane runs the host-bound sim and federation jobs
+(the elastic sweep's CPU run, reshape scenarios, fed scenarios,
+network-fault matrix, ``bench.federation``, crash matrix, sweeps), the model lane the hybrid
+group and then the families group; each group reads its lane's results
+where it stands in the order, with the lane's launch counts. The
+distributed group's four ranks start beside the federation group, the
+elastic example beside the serve plane group, ``launch.train`` on 2
+ranks and the sharded group's ``RankPool`` beside the train group. The per-kernel
+timings run before anything starts beside them.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -126,6 +138,7 @@ the port.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import json
@@ -147,9 +160,12 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 TF32_FLOP_PER_S = 495e12
 FP32_FLOP_PER_S = 67e12
-# fp32 flash_attention's rate: each product as three TF32 products on the
-# tensor cores (3xTF32)
+# fp32 flash_attention's and the fp32 paged decode's rate: each product as
+# three TF32 products on the tensor cores (3xTF32)
 FP32_ATTN_FLOP_PER_S = TF32_FLOP_PER_S / 3
+# the int8 paged decode's under fp32 q: three bf16 products a product (q's
+# and P's three bf16 pieces against exact int8 values)
+FP32_QUANT_FLOP_PER_S = BF16_FLOP_PER_S / 3
 
 # tolerances, each with its reason (the readings they were set from are
 # in PERF.md)
@@ -223,8 +239,16 @@ def check(ok: bool, msg: str):
         raise SmokeFailure(msg)
 
 
+#: (seconds on this process's clock, the line's start) of every logged
+#: line, into ``chip_smoke.json`` as "log_times": where the script's time
+#: goes
+LOG_TIMES = []
+LOG_T0 = time.perf_counter()
+
+
 def log(msg: str):
     print(msg, flush=True)
+    LOG_TIMES.append((round(time.perf_counter() - LOG_T0, 1), msg[:72]))
 
 
 # ---------------------------------------------------------------------------
@@ -1933,17 +1957,31 @@ ELASTIC_SWEEP_LAYERS = 4  # the sweep's qwen3-0.6b at full width, 4 of
                           # script's 1,200 on the H100 (PERF.md)
 
 
-def phase_elastic_sweep(torch, run, params, device, card):
+def elastic_cpu_actions() -> dict:
+    """The elastic benchmark at the smoke width on the CPU (a host lane
+    job): {"actions": its action kinds per trace}."""
+    import torch
+    from repro_torch.bench.elastic_sweep import bench
+    from repro_torch.configs import make_run_config
+    from repro_torch.models.model import build_model
+    srun = make_run_config("qwen3-0.6b", "decode_32k", smoke=True)
+    rows = bench(srun, build_model(srun).init(seed=0, device="cpu"),
+                 torch.device("cpu"), log=lambda s: None)
+    return {"actions": rows[-1]["actions_per_trace"]}
+
+
+def phase_elastic_sweep(torch, run, params, device, card, lane=None):
     """The JAX elastic benchmark's protocol (60 ticks, peak 3, max_new 8,
     slots 8, slo_max_load 16, 8 logical devices; the elastic fleet 1
     engine + 3 spares over 4 VFs) at full width cut to
-    ELASTIC_SWEEP_LAYERS on the card (weights from the seed), then at the
-    smoke width on the CPU: on spike and ramp elastic beats static on
-    rejection and SLO-miss rate, and each trace's action kinds equal the
-    CPU run's (the plan reads loads only). TTFT and ITL in ticks and ms."""
+    ELASTIC_SWEEP_LAYERS on the card (weights from the seed), and at the
+    smoke width on the CPU (``elastic_cpu_actions``, from the host lane
+    ``lane`` where there is one): on spike and ramp elastic beats static
+    on rejection and SLO-miss rate, and each trace's action kinds equal
+    the CPU run's (the plan reads loads only). TTFT and ITL in ticks and
+    ms."""
     import dataclasses
     from repro_torch.bench.elastic_sweep import bench
-    from repro_torch.configs import make_run_config
     from repro_torch.models.model import build_model
     run = run.replace(model=dataclasses.replace(
         run.model, num_layers=ELASTIC_SWEEP_LAYERS))
@@ -1952,15 +1990,14 @@ def phase_elastic_sweep(torch, run, params, device, card):
     rows = bench(run, params, device, log=lambda s: None)
     wall = time.perf_counter() - t0
     summary = rows[-1]
-    srun = make_run_config("qwen3-0.6b", "decode_32k", smoke=True)
-    cpu_rows = bench(srun, build_model(srun).init(seed=0, device="cpu"),
-                     torch.device("cpu"), log=lambda s: None)
+    cpu_actions = (elastic_cpu_actions() if lane is None
+                   else lane_result(lane, "elastic_cpu")[0])["actions"]
     check(summary["elastic_beats_static_spike_ramp"],
           "elastic sweep: elastic does not beat static on spike and ramp "
           f"({json.dumps({k: v for k, v in summary.items() if 'spike' in k or 'ramp' in k})})")
-    check(summary["actions_per_trace"] == cpu_rows[-1]["actions_per_trace"],
+    check(summary["actions_per_trace"] == cpu_actions,
           f"elastic sweep: actions {summary['actions_per_trace']} != the "
-          f"CPU run's {cpu_rows[-1]['actions_per_trace']}")
+          f"CPU run's {cpu_actions}")
     for r in rows[1:-1]:
         log(f"elastic sweep {r['trace']}/{r['mode']}: offered {r['offered']}"
             f", rejected {r['rejection_rate']:.4f}, SLO miss "
@@ -1976,18 +2013,18 @@ def phase_elastic_sweep(torch, run, params, device, card):
         f"{summary['elastic_beats_static_spike_ramp']}, ITL within 1.1x "
         f"{summary.get('itl_within_target')} | actions equal the CPU run's "
         f"| {card}")
-    return {"rows": rows, "wall_s": wall,
-            "cpu_actions": cpu_rows[-1]["actions_per_trace"]}
+    return {"rows": rows, "wall_s": wall, "cpu_actions": cpu_actions}
 
 
 def run_elastic(torch, ops, args, card, report, launches, params=None,
-                ref=None):
+                ref=None, lane=None):
     """The elastic fleet's phases at qwen3-0.6b's full width: request
     migration (bf16, int8), scale-in under load, engine recovery and the
-    elastic sweep, each with the launch counts set to 0 just before it
-    and added to ``launches`` just after. ``ref`` is the undisturbed
-    fleet's token streams (``phase_svff``'s reference); alone (from a
-    script under ``build/``) it is served here once."""
+    elastic sweep (its CPU run from the host lane ``lane``, if given),
+    each with the launch counts set to 0 just before it and added to
+    ``launches`` just after. ``ref`` is the undisturbed fleet's token
+    streams (``phase_svff``'s reference); alone (from a script under
+    ``build/``) it is served here once."""
     from repro_torch.configs import make_run_config
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import Request
@@ -2022,7 +2059,7 @@ def run_elastic(torch, ops, args, card, report, launches, params=None,
                 launches[k] = launches.get(k, 0) + counts[k]
         ops.reset_launch_counts()
         report["elastic"]["sweep"] = phase_elastic_sweep(torch, run, params,
-                                                         device, card)
+                                                         device, card, lane)
         counts = ops.launch_counts()
         report["elastic"]["sweep"]["launches"] = counts
         for k in ("flash_attention", "paged_decode"):
@@ -2666,13 +2703,14 @@ def phase_pipeline_bench(torch, card):
     return {"rows": rows}
 
 
-def run_pipeline(torch, ops, args, card, report, launches, params, ref):
+def run_pipeline(torch, ops, args, card, report, launches, params, ref,
+                 lane):
     """The pipeline-parallel engines and the gang ops at qwen3-0.6b's full
     width, each phase with the launch counts set to 0 just before it and
     added to ``launches`` just after: the gang engines at K = 1-4, the
     live reshape and the int8 gang; the gang fleet with its ops and int8
     pauses (``ref``: the undisturbed fleet's streams); the reshape
-    scenarios; ``bench.pipeline_serve``."""
+    scenarios (from the host lane, ``lane``); ``bench.pipeline_serve``."""
     from repro_torch.configs import make_run_config
     run = make_run_config("qwen3-0.6b", "decode_32k", seed=args.seed)
     device = torch.device("cuda")
@@ -2686,15 +2724,15 @@ def run_pipeline(torch, ops, args, card, report, launches, params, ref):
                                                 args.seed, device, workdir,
                                                 ref, card),
          PIPE_KERNELS + QDMA_KERNELS),
-        ("sim_reshape", lambda: phase_sim_reshape(card, device,
-                                                  SIM_SERVE_SWEEP_S), ()),
+        ("sim_reshape", lambda: lane_phase(lane, "sim_reshape"), ()),
         ("bench", lambda: phase_pipeline_bench(torch, card), PIPE_KERNELS))
     try:
         for name, phase, need in phases:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             res = phase()
-            # the serve phase sums its serve runs' counts itself
+            # the serve phase sums its serve runs' counts itself, the
+            # lane's phase brings its own
             counts = res.setdefault("launches", ops.launch_counts())
             res["phase_s"] = time.perf_counter() - t0
             report["pipeline"][name] = res
@@ -3106,75 +3144,267 @@ def phase_fed_matrix(card, device):
     return out
 
 
-FED_BENCH_TIMEOUT_S = 900.0
+# ---------------------------------------------------------------------------
+# the lanes: groups in processes of their own beside this process's groups.
+# The host lane runs the phases whose work is Python on the host; the model
+# lane the hybrid and families groups, whose models hold no state of the
+# groups here.
+# ---------------------------------------------------------------------------
+LANE_TIMEOUT_S = 900.0   # the most a group waits for one of a lane's jobs
+LANES = {"host": "the host lane", "models": "the model lane"}
+LANE_END = "end"          # what a lane puts after its last job
 
 
-def fed_bench_worker(results):
-    """``bench.federation`` at ``FED_BENCH`` in a spawned process: puts
-    (rows, the driver's printed lines, seconds) on ``results``, or the
-    traceback. The driver's engines hold no tensor: nothing here touches
-    the card."""
+def model_group(torch, ops, args, card, run_group) -> dict:
+    """``run_group`` (``run_hybrid`` or ``run_families``) as a model lane
+    job: its report and the launch counts of its paths."""
+    report, launches = {}, {}
+    run_group(torch, ops, args, card, report, launches)
+    return {"report": report, "launches": launches}
+
+
+def lane_jobs(torch, ops, card, which: str, args):
+    """The jobs of the lane ``which`` in the order it runs them, each
+    (name, call). The host lane: the elastic sweep's CPU run, the sim
+    plane's scenarios, matrices and sweeps (their small state on the
+    card, every invariant checked on the host) and ``bench.federation``
+    (its engines hold no tensor); no kernel of the port runs in them. The model lane: the hybrid group, then the
+    families group (``args``: this script's arguments)."""
+    device = torch.device("cuda")
+    if which == "models":
+        return (("hybrid", lambda: model_group(torch, ops, args, card,
+                                               run_hybrid)),
+                ("families", lambda: model_group(torch, ops, args, card,
+                                                 run_families)))
+    return (
+        ("elastic_cpu", elastic_cpu_actions),
+        ("sim_reshape", lambda: phase_sim_reshape(card, device,
+                                                  SIM_SERVE_SWEEP_S)),
+        ("fed_scenarios", lambda: phase_fed_scenarios(card, device,
+                                                      FED_SCENARIO_S)),
+        ("fed_matrix", lambda: phase_fed_matrix(card, device)),
+        ("fed_bench", lambda: fed_bench_rows()),
+        ("sim_crash", lambda: phase_sim_crash(card, device)),
+        ("sim_sweep", lambda: phase_sim_sweep(torch, card, device,
+                                              SIM_SWEEP_S)),
+        ("sim_sweep_serve_crash", lambda: phase_sim_sweep(
+            torch, card, device, SIM_SERVE_SWEEP_S, serve_rate=0.3,
+            crash_rate=0.1)))
+
+
+def lane_worker(card, which, args, results):
+    """The jobs of the lane ``which`` (``lane_jobs``) one after another in
+    a spawned process, each with the launch counts set to 0 just before
+    it: puts (name, result, its printed lines, its launch counts, seconds)
+    on ``results``, or (name, the traceback, ...) and stops."""
     import contextlib
     import io
     import traceback
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    try:
-        from repro_torch.bench import federation
+    import torch
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # one thread: the lanes share the host's cores with this process
+    torch.set_num_threads(1)
+    for name, job in lane_jobs(torch, ops, card, which, args):
         buf = io.StringIO()
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rows = federation.bench(**FED_BENCH, reduced=False)
-        results.put((rows, buf.getvalue(), time.perf_counter() - t0))
-    except BaseException:
-        results.put(traceback.format_exc())
-        raise
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = job()
+        except BaseException:
+            results.put((name, traceback.format_exc(), buf.getvalue(), {},
+                         time.perf_counter() - t0))
+            raise
+        results.put((name, res, buf.getvalue(), ops.launch_counts(),
+                     time.perf_counter() - t0))
+    results.put((LANE_END, None, "", {}, 0.0))
 
 
-def start_fed_bench():
-    """Start ``fed_bench_worker`` beside the groups that use the card (the
-    bench runs on the host alone, ~70-100 s of one core); returns the
-    (process, queue) that ``phase_fed_bench`` reads and joins."""
+def start_lane(card, which: str = "host", args=None) -> dict:
+    """Start ``lane_worker`` for the lane ``which`` beside this process's
+    groups (~1 core each: the host lane for ~4-5 minutes, the model lane
+    ~2-3); returns the job that ``lane_result`` reads and ``close_lane``
+    joins."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    # daemonic: ended with this process if a check fails before the read
-    proc = ctx.Process(target=fed_bench_worker, args=(results,), daemon=True)
+    # daemonic: ended with this process if a check fails before the close
+    proc = ctx.Process(target=lane_worker, args=(card, which, args, results),
+                       daemon=True)
     proc.start()
-    return proc, results
+    return {"proc": proc, "results": results, "got": {},
+            "what": LANES[which]}
 
 
-def phase_fed_bench(card, job):
-    """``bench.federation`` at the JAX artifact's scale (8 hosts x 256
-    engines, 120,000 requests, fair_share, partition rate 0.05), from the
-    process ``job`` that ``start_fed_bench`` started: every gate and the
-    scale floor hold, base digest == rerun digest, and the base and faults
-    digests equal the JAX benchmark's. The driver's engines are
-    dict-backed: it runs on the host, not on the card."""
+def lane_take(lane, name: str):
+    """Read the lane's results until its job ``name`` has put its own (or,
+    for ``LANE_END``, every job has), keeping them unread."""
     import queue
-    proc, results = job
+    proc, results, got = lane["proc"], lane["results"], lane["got"]
+    what = lane["what"]
     t0 = time.perf_counter()
+    while name not in got:
+        try:
+            item = results.get(timeout=5.0)
+        except queue.Empty:
+            check(proc.exitcode in (None, 0), f"{what}'s process exited "
+                  f"{proc.exitcode} before its {name} job's end")
+            check(time.perf_counter() - t0 < LANE_TIMEOUT_S,
+                  f"{what}'s {name} job took over "
+                  f"{LANE_TIMEOUT_S:.0f} s more")
+            continue
+        check(not isinstance(item[1], str),
+              f"{what}'s {item[0]} job failed:\n{item[1]}")
+        got[item[0]] = item[1:]
+
+
+def lane_wait(lane) -> float:
+    """Wait until every job of the lane has ended; the seconds waited."""
+    t0 = time.perf_counter()
+    lane_take(lane, LANE_END)
+    return time.perf_counter() - t0
+
+
+def lane_result(lane, name: str):
+    """(result, launch counts, {"lane_s", "waited_s"}) of the lane's job
+    ``name``, its printed lines logged here; waits for it."""
+    t0 = time.perf_counter()
+    lane_take(lane, name)
+    what = lane["what"]
+    res, printed, counts, secs = lane["got"].pop(name)
+    for line in printed.splitlines():
+        log(line)
+    waited = time.perf_counter() - t0
+    log(f"{name}: {secs:.1f} s in {what}, waited {waited:.1f} s for it "
+        "here")
+    return res, counts, {"lane_s": secs, "waited_s": waited}
+
+
+def lane_phase(lane, name: str) -> dict:
+    """The host lane's job ``name`` as a group's phase: its result (a
+    dict) with its launch counts and seconds."""
+    res, counts, secs = lane_result(lane, name)
+    return dict(res, launches=counts, **secs)
+
+
+def lane_group(lane, name: str, report: dict, launches: dict):
+    """The model lane's group ``name``: its report into ``report``, the
+    launch counts of its paths added to ``launches``."""
+    res, _, secs = lane_result(lane, name)
+    report.update(res["report"])
+    report[f"{name}_lane"] = secs
+    for k, n in res["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+
+
+def close_lane(lane):
+    proc = lane["proc"]
     try:
-        while True:
-            try:
-                got = results.get(timeout=5.0)
-                break
-            except queue.Empty:
-                check(proc.exitcode in (None, 0),
-                      f"bench.federation's process exited {proc.exitcode}")
-                check(time.perf_counter() - t0 < FED_BENCH_TIMEOUT_S,
-                      "bench.federation took over "
-                      f"{FED_BENCH_TIMEOUT_S:.0f} s more")
-        check(not isinstance(got, str), f"bench.federation failed:\n{got}")
         proc.join(timeout=60)
         check(proc.exitcode == 0,
-              f"bench.federation's process exited {proc.exitcode}")
+              f"{lane['what']}'s process exited {proc.exitcode}")
     finally:
         if proc.is_alive():
             proc.terminate()
             proc.join(timeout=30)
-    rows, printed, secs = got
-    for line in printed.splitlines():
-        log(line)
+
+
+#: the commands started beside the groups (``start_command``), each ended
+#: with every process it started if this process exits before reading it
+COMMANDS = []
+
+
+def start_command(argvs, what: str) -> dict:
+    """Each argv of ``argvs`` as a process of its own session on the card,
+    beside this process's groups, its output and errors to files; returns
+    the job that ``finish_command`` reads."""
+    import threading
+    tmp = tempfile.mkdtemp(prefix="smoke_cmd_")
+    job = {"what": what, "tmp": tmp, "procs": [], "outs": [],
+           "t0": time.perf_counter()}
+    # one thread a process: the commands share the host's cores
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        (os.path.join(ROOT, "src"), ROOT)), OMP_NUM_THREADS="1")
+    for i, (argv, extra) in enumerate(argvs):
+        out = [open(os.path.join(tmp, f"{i}.{k}"), "w+")
+               for k in ("out", "err")]
+        job["outs"].append(out)
+        job["procs"].append(subprocess.Popen(
+            argv, env=dict(env, **extra), stdout=out[0], stderr=out[1],
+            text=True, start_new_session=True))
+    COMMANDS.append(job)
+
+    def wait():
+        for p in job["procs"]:
+            p.wait()
+        job["end"] = time.perf_counter()
+    job["thread"] = threading.Thread(target=wait, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def stop_command(job):
+    """End the job's processes and every process they started, close and
+    remove its files."""
+    import signal
+    for p in job["procs"]:
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    for out in job["outs"]:
+        for f in out:
+            f.close()
+    shutil.rmtree(job["tmp"], ignore_errors=True)
+    if job in COMMANDS:
+        COMMANDS.remove(job)
+
+
+def finish_command(job, timeout_s: float) -> tuple:
+    """(each process's output, seconds from the job's start to its last
+    exit, seconds waited here) of ``job``, after its processes have
+    exited; fails with the end of their errors unless each exited 0."""
+    t0 = time.perf_counter()
+    try:
+        job["thread"].join(timeout_s)
+        check(not job["thread"].is_alive(),
+              f"{job['what']} took over {timeout_s:.0f} s more")
+        outs = []
+        for p, (out, err) in zip(job["procs"], job["outs"]):
+            out.seek(0)
+            err.seek(0)
+            outs.append(out.read())
+            check(p.returncode == 0, f"{job['what']} exited {p.returncode}:"
+                                     f"\n{err.read()[-3000:]}")
+    finally:
+        stop_command(job)
+    return outs, job["end"] - job["t0"], time.perf_counter() - t0
+
+
+def stop_commands():
+    for job in list(COMMANDS):
+        stop_command(job)
+
+
+def fed_bench_rows():
+    """``bench.federation`` at ``FED_BENCH`` (a host lane job)."""
+    from repro_torch.bench import federation
+    return federation.bench(**FED_BENCH, reduced=False)
+
+
+def phase_fed_bench(card, lane):
+    """``bench.federation`` at the JAX artifact's scale (8 hosts x 256
+    engines, 120,000 requests, fair_share, partition rate 0.05), from the
+    host lane: every gate and the scale floor hold, base digest == rerun
+    digest, and the base and faults digests equal the JAX benchmark's.
+    The driver's engines are dict-backed: it runs on the host, not on the
+    card."""
+    rows, counts, secs = lane_result(lane, "fed_bench")
     base, rerun, faults, summary = rows
     check(summary["all_gates"] and all(summary["gates"].values())
           and all(summary["scale"].values()),
@@ -3189,27 +3419,23 @@ def phase_fed_bench(card, job):
             f"{r['engines'] // r['hosts']} engines, {r['admitted']:,} "
             f"admitted, {r['tokens']:,} tokens in {r['wall_s']:.3f} s: "
             f"{r['admits_per_s']:.1f} admits/s, {r['tokens_per_s']:.1f} "
-            f"tokens/s on the host, in its own process beside the card's "
+            f"tokens/s on the host, in the host lane beside the card's "
             f"groups (the driver's engines hold no tensor); digest "
             f"{r['digest']} | card {card}")
-    log(f"bench.federation: {secs:.1f} s in its own process; waited "
-        f"{time.perf_counter() - t0:.1f} s for it here")
-    return {"rows": rows, "process_s": secs,
-            "waited_s": time.perf_counter() - t0}
+    return {"rows": rows, "launches": counts, **secs}
 
 
 def run_federation(torch, ops, args, card, report, launches, params, paged,
-                   fed_bench):
+                   lane):
     """The federation group at qwen3-0.6b's full width, each phase with the
     launch counts set to 0 just before it and added to ``launches`` just
     after: two hosts' engines with cross-host migrations (``paged``: the
-    undisturbed paged bf16 engine's streams), ``federation_snapshot``,
-    the fed scenarios and the network-fault matrix with the sim state on
-    the card, ``bench.federation`` (read from ``fed_bench``, the job of
-    ``start_fed_bench``)."""
+    undisturbed paged bf16 engine's streams), ``federation_snapshot``;
+    then, from the host lane (``lane``), the fed scenarios and the
+    network-fault matrix with the sim state on the card and
+    ``bench.federation``."""
     from repro_torch.configs import make_run_config
     run = make_run_config("qwen3-0.6b", "decode_32k", seed=args.seed)
-    device = torch.device("cuda")
     report["federation"] = {}
     workdir = tempfile.mkdtemp(prefix="fed_smoke_")
     phases = (
@@ -3219,18 +3445,17 @@ def run_federation(torch, ops, args, card, report, launches, params, paged,
         ("snapshot", lambda: phase_federation_snapshot(
             torch, run, params, args.seed, os.path.join(workdir, "snap"),
             card), ()),
-        ("scenarios", lambda: phase_fed_scenarios(card, device,
-                                                  FED_SCENARIO_S), ()),
-        ("matrix", lambda: phase_fed_matrix(card, device), ()),
-        ("bench", lambda: phase_fed_bench(card, fed_bench), ()))
+        ("scenarios", lambda: lane_phase(lane, "fed_scenarios"), ()),
+        ("matrix", lambda: lane_phase(lane, "fed_matrix"), ()),
+        ("bench", lambda: phase_fed_bench(card, lane), ()))
     t_group = time.perf_counter()
     try:
         for name, phase, need in phases:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             res = phase()
-            counts = ops.launch_counts()
-            res["launches"] = counts
+            # the lane's phases bring their own counts
+            counts = res.setdefault("launches", ops.launch_counts())
             res["phase_s"] = time.perf_counter() - t0
             report["federation"][name] = res
             log(f"federation {name}: {res['phase_s']:.1f} s | launches "
@@ -3433,6 +3658,7 @@ def dist_rank(rank: int, world: int, init: str, seed: int, results):
     from repro_torch.kernels import ops
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
     run = make_run_config("qwen3-0.6b", "decode_32k", seed=seed)
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=world)
@@ -3451,22 +3677,35 @@ def dist_rank(rank: int, world: int, init: str, seed: int, results):
         dist.destroy_process_group()
 
 
-def spawn_ranks(world: int, seed: int) -> list:
-    """Run ``dist_rank`` in ``world`` spawned processes; their results in
-    rank order. Every process is joined, or ended, before this returns."""
+def start_ranks(world: int, seed: int) -> dict:
+    """Start ``dist_rank`` in ``world`` spawned processes, beside the
+    groups before ``run_distributed``; returns the job that
+    ``finish_ranks`` reads and joins."""
     import multiprocessing as mp
-    import queue
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="dist_smoke_")
     init = f"file://{os.path.join(tmp, 'pg')}"
+    # daemonic: ended with this process if a check fails before the finish
     procs = [ctx.Process(target=dist_rank, args=(r, world, init, seed,
-                                                 results))
+                                                 results), daemon=True)
              for r in range(world)]
+    for p in procs:
+        p.start()
+    return {"procs": procs, "results": results, "tmp": tmp,
+            "t0": time.perf_counter()}
+
+
+def finish_ranks(job) -> tuple:
+    """(the results of ``start_ranks``'s processes in rank order, seconds
+    from their start, seconds waited here). Every process is joined, or
+    ended, before this returns."""
+    import queue
+    procs, results = job["procs"], job["results"]
+    world = len(procs)
+    t0 = time.perf_counter()
     got = {}
     try:
-        for p in procs:
-            p.start()
         deadline = time.perf_counter() + DIST_TIMEOUT_S
         while len(got) < world:
             try:
@@ -3476,10 +3715,11 @@ def spawn_ranks(world: int, seed: int) -> list:
                         if p.exitcode not in (None, 0) and i not in got]
                 check(not dead, f"rank processes {dead} died")
                 check(time.perf_counter() < deadline,
-                      f"the ranks took over {DIST_TIMEOUT_S:.0f} s")
+                      f"the ranks took over {DIST_TIMEOUT_S:.0f} s more")
                 continue
             check(not isinstance(res, str), f"rank {rank} failed:\n{res}")
             got[rank] = res
+        secs = time.perf_counter() - job["t0"]
         for p in procs:
             p.join(timeout=60)
             check(p.exitcode == 0, f"a rank process exited {p.exitcode}")
@@ -3488,8 +3728,9 @@ def spawn_ranks(world: int, seed: int) -> list:
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=30)
-        shutil.rmtree(tmp, ignore_errors=True)
-    return [got[r] for r in range(world)]
+        shutil.rmtree(job["tmp"], ignore_errors=True)
+    return ([got[r] for r in range(world)], secs,
+            time.perf_counter() - t0)
 
 
 def phase_collectives(ranks, card) -> dict:
@@ -3546,17 +3787,21 @@ def phase_pipeline_apply(torch, run, ranks, ref, card) -> dict:
     return out
 
 
-EXAMPLES = (("quickstart", []), ("elastic_reconf", []),
-            ("serve_batched", []), ("train_100m", ["--steps", "20"]))
+EXAMPLES = (("quickstart", []), ("serve_batched", []),
+            ("train_100m", ["--steps", "20"]))
+#: the fourth example: eight ranks of its own, run as its command beside
+#: the serve plane and pipeline groups (``start_elastic_example``)
+ELASTIC_EXAMPLE = "elastic_reconf"
+EXAMPLE_TIMEOUT_S = 600.0
 
 
 def phase_examples(torch, ops, card, report, launches):
-    """The port's four examples in this process through ``main``, their
+    """Three of the port's examples in this process through ``main``, their
     output to the log; the launch counts set to 0 just before each."""
     import contextlib
     import importlib
     import io
-    report["examples"] = {}
+    report.setdefault("examples", {})
     for name, argv in EXAMPLES:
         mod = importlib.import_module(f"repro_torch.examples.{name}")
         workdir = tempfile.mkdtemp(prefix=f"{name}_smoke_")
@@ -3583,21 +3828,47 @@ def phase_examples(torch, ops, card, report, launches):
           > 0, "flash_attention was never launched by serve_batched")
 
 
-def run_distributed(torch, ops, args, card, report, launches, params):
+def start_elastic_example() -> dict:
+    """``python -m repro_torch.examples.elastic_reconf --device cuda``, the
+    user's command, started beside the serve plane and pipeline groups: its
+    ``RankPool`` of eight worker processes runs no kernel of the port in
+    this process."""
+    return start_command([([sys.executable, "-m",
+                            f"repro_torch.examples.{ELASTIC_EXAMPLE}",
+                            "--device", "cuda"], {})],
+                         f"example {ELASTIC_EXAMPLE}")
+
+
+def finish_elastic_example(job, card, report):
+    """The elastic example's output to the log, once it has exited 0."""
+    (out,), secs, waited = finish_command(job, EXAMPLE_TIMEOUT_S)
+    for line in out.splitlines():
+        log(f"  {ELASTIC_EXAMPLE}: {line}")
+    log(f"example {ELASTIC_EXAMPLE}: {secs:.1f} s as its own command beside "
+        f"the serve plane and pipeline groups, waited {waited:.1f} s for it "
+        f"here | {card}")
+    report.setdefault("examples", {})[ELASTIC_EXAMPLE] = {
+        "s": secs, "waited_s": waited}
+
+
+def run_distributed(torch, ops, args, card, report, launches, params,
+                    job):
     """The distributed runtime on the card: ``DIST_RANKS`` spawned ranks
-    under gloo (NCCL refuses several ranks on one device) run the
+    under gloo (NCCL refuses several ranks on one device), started by
+    ``start_ranks`` beside the federation group (``job``), run the
     compressed gradient all-reduce on qwen3-0.6b-shaped replicas and
-    ``pipeline_apply`` over qwen's 28 layers; then the four examples.
-    The ranks' launch counts go into ``launches``."""
+    ``pipeline_apply`` over qwen's 28 layers; then three of the examples
+    (the fourth runs beside the serve plane and pipeline groups). The
+    ranks' launch
+    counts go into ``launches``."""
     from repro_torch.configs import make_run_config
     run = make_run_config("qwen3-0.6b", "decode_32k", seed=args.seed)
     t_group = time.perf_counter()
     ref = pipe_sequential(torch, run, params, args.seed, DIST_RANKS)
     ref = ref.cpu()
     release(torch)
-    t0 = time.perf_counter()
-    ranks = spawn_ranks(DIST_RANKS, args.seed)
-    report["distributed"] = {"ranks_s": time.perf_counter() - t0}
+    ranks, secs, waited = finish_ranks(job)
+    report["distributed"] = {"ranks_s": secs, "waited_s": waited}
     for phase, need in DIST_KERNELS.items():
         for i, r in enumerate(ranks):
             counts = r[phase]["launches"]
@@ -3613,7 +3884,9 @@ def run_distributed(torch, ops, args, card, report, launches, params):
     phase_examples(torch, ops, card, report, launches)
     report["distributed"]["group_s"] = time.perf_counter() - t_group
     log(f"distributed group: {report['distributed']['group_s']:.1f} s "
-        f"(ranks {report['distributed']['ranks_s']:.1f} s)")
+        f"(ranks {report['distributed']['ranks_s']:.1f} s from their start "
+        f"beside the federation group, waited "
+        f"{report['distributed']['waited_s']:.1f} s for them here)")
 
 
 #: the dry-run's one-card cells, qwen3-0.6b at full width: (shape, batch,
@@ -3760,10 +4033,18 @@ FP32_LOGITS_TOL = 1e-3   # qwen's fp32 prefill logits and the generate
                          # path's, kernel path vs plain path, of max |logit|
                          # (the bf16 limit is LOGITS_REL_TOL, 1.5e-2)
 FP32_LOSS_RTOL = 1e-5    # the eval step's loss at fp32 vs the plain loss
+FP32_PAGED_SHARE = 0.25  # the fp32 paged kernels' largest share of the
+                         # FP32_TOL limit at the serve pool: their tensor-core
+                         # pieces hold fp32 with a margin (0.013-0.027
+                         # emulated, tests/test_torch_fp32.py)
 FP32_KERNELS = ("flash_attention", "flash_decode", "paged_decode",
                 "paged_decode_quant")
-#: the device's name for fp32 flash_attention's tensor-core kernel
+#: the device's names for the fp32 paths' tensor-core kernels:
+#: flash_attention's, the paged decode's over fp32 pages (3xTF32) and over
+#: int8 pages under fp32 q (three bf16 pieces of q and P)
 FP32_ATTN_KERNEL = "flash_attention_tf32x3_kernel"
+FP32_PAGED_KERNEL = "paged_decode_tf32x3_kernel"
+FP32_QUANT_KERNEL = "paged_decode_bf16x3_kernel"
 
 
 def fp32_attention_shapes(cfg, families) -> list:
@@ -3783,10 +4064,12 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
     versions on the card, timed: flash_attention at
     ``fp32_attention_shapes``; flash_decode at q (8,1,16,128) over
     (8,1024,8,128), int pos 511 and 1023; both paged kernels at the paged
-    phase's pool and positions (fp32 pages; int8 pages under fp32 q).
-    Bound: bytes at 3.35 TB/s or the products at the rate each kernel
-    runs them, the larger: flash_attention's as 3xTF32 on the tensor
-    cores (FP32_ATTN_FLOP_PER_S), the decodes' at the CUDA cores' 67
+    phase's pool and positions (fp32 pages; int8 pages under fp32 q),
+    these within FP32_PAGED_SHARE of the limit. Bound: bytes at 3.35 TB/s or the products at the rate each kernel
+    runs them, the larger: flash_attention's and the paged decode's over
+    fp32 pages as 3xTF32 on the tensor cores (FP32_ATTN_FLOP_PER_S), the
+    paged decode's over int8 pages as three bf16 products on the tensor
+    cores (FP32_QUANT_FLOP_PER_S), flash_decode's at the CUDA cores' 67
     TFLOP/s fp32. Library: SDPA at fp32 (tf32 off) for the dense
     kernels."""
     import torch.nn.functional as F
@@ -3797,11 +4080,11 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
     rows = {k: [] for k in FP32_KERNELS}
 
     def row(name, label, fn, plain, nbytes, flops, lib=None,
-            rate=FP32_FLOP_PER_S):
+            rate=FP32_FLOP_PER_S, most=1.0):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err, share = attn_err(got, want, FP32_TOL, FP32_TOL)
-        check(got.dtype == torch.float32 and share <= 1,
+        check(got.dtype == torch.float32 and share <= most,
               f"{name} fp32 {label}: max_abs_err {err}, {share:.3g} of the "
               "limit")
         check(torch.equal(got, fn()), f"{name} fp32 {label}: not "
@@ -3852,7 +4135,9 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
         nbytes, flops = paged_work(a[0], a[1], a[-2], a[-1], quant)
         row(name, f"q {tuple(a[0].shape)}, pages (513,16,{K},{hd}) "
             f"{'int8' if quant else 'fp32'}, NP=64, pos {list(PAGED_POS)}",
-            lambda: fn(*a), lambda: fn(*a, backend="ref"), nbytes, flops)
+            lambda: fn(*a), lambda: fn(*a, backend="ref"), nbytes, flops,
+            rate=FP32_QUANT_FLOP_PER_S if quant else FP32_ATTN_FLOP_PER_S,
+            most=FP32_PAGED_SHARE)
     return rows
 
 
@@ -3954,6 +4239,17 @@ def fp32_generate(torch, ops, run, params, seed) -> dict:
     return {"rel_err": rel, "steps": new, "launches": counts}
 
 
+def decode_step_names(torch, found: dict):
+    """A ``serve`` hook: at the first step with no request waiting (every
+    request admitted, so the step decodes only), the device's names for
+    one decode step's launches into ``found["names"]`` (``device_kernels``:
+    a warm step, then the profiled one, both outside the loop's count)."""
+    def hook(eng, steps):
+        if "names" not in found and not eng.queue:
+            found["names"] = device_kernels(torch, [eng.step])[0]
+    return hook
+
+
 def run_fp32(torch, ops, args, card, report, launches, params, kern):
     """qwen3-0.6b at full width under ``PrecisionConfig(compute="float32")``
     (fp32 params ``params``) through the attention kernels' fp32 paths:
@@ -3963,9 +4259,12 @@ def run_fp32(torch, ops, args, card, report, launches, params, kern):
     names for one prefill's launches (each layer's attention
     FP32_ATTN_KERNEL, the 3xTF32 kernel); the serve traffic
     through the paged engine with fp32 pages, with int8 pages (fp32 q)
-    and through the dense ring, each with fused == host sampling (I10)
-    and each stream equal to the plain engine's (reference kernels, the
-    same KV layout; the dense ring against the plain fp32 pages), a
+    and through the dense ring, each with fused == host sampling (I10),
+    the device's names for one paged decode step's launches (one a layer,
+    FP32_PAGED_KERNEL on fp32 pages, FP32_QUANT_KERNEL on int8 pages:
+    the tensor-core kernels) and each stream equal to the plain engine's
+    (reference kernels, the same KV layout; the dense ring against the
+    plain fp32 pages), a
     stream that differs allowed only at a near tie (``stream_gaps``
     within FP32_LOGITS_TOL); the generate path within FP32_LOGITS_TOL of
     the plain path; the eval step's loss within FP32_LOSS_RTOL of the
@@ -4026,12 +4325,25 @@ def run_fp32(torch, ops, args, card, report, launches, params, kern):
     for label, kv, paged in (("fp32 pages", None, True),
                              ("int8 pages", "int8", True),
                              ("dense ring", None, False)):
+        found = {}
         out, met, _ = serve(torch, ops, run, params, kv, args.seed,
-                            paged=paged)
+                            paged=paged, hook=decode_step_names(torch, found)
+                            if paged else None)
         host, _, _ = serve(torch, ops, run, params, kv, args.seed,
                            fused=False, paged=paged)
         check(host == out, f"fp32 serve {label}: host sampling gives other "
                            "tokens than fused sampling (I10)")
+        if paged:
+            want_name = FP32_QUANT_KERNEL if kv else FP32_PAGED_KERNEL
+            names = [n for n in found.get("names", ())
+                     if "paged_decode" in n]
+            met["decode_step_paged_kernels"] = sorted(set(names))
+            log(f"fp32 serve {label}: one decode step put {len(names)} "
+                f"paged launches on the card, as {sorted(set(names))}")
+            check(len(names) == cfg.num_layers
+                  and all(want_name in n for n in names),
+                  f"fp32 serve {label}: a decode step ran {names}, not "
+                  f"{cfg.num_layers} launches of {want_name}")
         gaps = stream_gaps(reqs, out, *want[kv], cfg.vocab_size)
         met["streams_equal_plain"] = len(reqs) - len(gaps)
         met["diverged"] = gaps
@@ -4498,8 +4810,13 @@ SPMD_GNORM_RTOL = 1e-3   # a sharded step's grad norm vs the twin's,
                          # relative (read: 1.41e-4; a gradient summed
                          # twice, or of half the batch, is off by tens of
                          # percent)
-SPMD_PARAM_SHARE = 0.1   # per param leaf after 4 steps: |sharded - twin's|
-                         # over |twin's - init| (L2): AdamW's update is
+SPMD_TWIN_STEPS = 3      # the tenant's steps before the int8 reshard (2 on
+                         # (2, 1), 1 on (2, 2)), each held against the
+                         # one-device twin's; then one step after it
+SPMD_LAUNCH_STEPS = 2    # launch.train's steps, 2 ranks against 1
+SPMD_PARAM_SHARE = 0.1   # per param leaf after SPMD_TWIN_STEPS steps:
+                         # |sharded - twin's| over |twin's - init| (L2):
+                         # AdamW's update is
                          # about lr * sign(g), so a rounding difference
                          # where g is near zero turns that element's step
                          # (read: 0.021)
@@ -4524,7 +4841,7 @@ def host_leaves(snap) -> dict:
 def spmd_tenant(torch, rp, run, seed, workdir, twin, card):
     """One train tenant on 2-rank VFs ((2, 1) meshes) of the rank pool: 2
     steps, a pause with plain staging, ``set_num_vfs(1,
-    devices_per_vf=4)``, the unpause onto (2, 2), 2 steps, one eval step
+    devices_per_vf=4)``, the unpause onto (2, 2), 1 step, one eval step
     through ``flash_attention`` on each rank's local heads; then a pause
     with int8 staging (packed and digested on the ranks), ``set_num_vfs(2,
     devices_per_vf=2)``, the unpause onto (2, 1) (unpacked there) and one
@@ -4596,7 +4913,7 @@ def spmd_tenant(torch, rp, run, seed, workdir, twin, card):
                     f"onto (2, 2) ({diff[:3]})")
     res["leaves_changed_by_unpause"] = len(diff)
     del snap, after
-    ms += steps(2, "(2, 2)")
+    ms += steps(1, "(2, 2)")
     ev = tn.export_state().eval(twin["eval_batch"])
     after = host_leaves(StagingEngine().save(tn.export_state()))
     drift = param_drift(after, twin)
@@ -4613,11 +4930,12 @@ def spmd_tenant(torch, rp, run, seed, workdir, twin, card):
     counts = rp.launch_counts()
     tn.export_state().release()
     losses = [m["loss"] for m in ms]
-    dl = max(abs(a - b) for a, b in zip(losses[:4], twin["losses"]))
-    d8 = abs(losses[4] - twin["losses"][4])
+    n = SPMD_TWIN_STEPS
+    dl = max(abs(a - b) for a, b in zip(losses[:n], twin["losses"]))
+    d8 = abs(losses[n] - twin["losses"][n])
     de = abs(ev["loss"] - twin["eval_loss"])
     dg = max(abs(m["grad_norm"] - g) / g
-             for m, g in zip(ms[:4], twin["grad_norms"]))
+             for m, g in zip(ms[:n], twin["grad_norms"]))
     res.update(losses=losses, max_loss_diff=dl, int8_loss_diff=d8,
                eval_loss=ev["loss"], eval_loss_diff=de,
                grad_norm_rel_diff=dg, param_drift=drift, launches=counts)
@@ -4630,7 +4948,7 @@ def spmd_tenant(torch, rp, run, seed, workdir, twin, card):
         f" ms, unpause {res['int8_unpause_ms']:.0f} ms (max rel move "
         f"{share:.3g}) | losses {losses} vs twin max diff {dl:.3g}, after "
         f"int8 {d8:.3g}, eval diff {de:.3g}, grad norms rel {dg:.3g}, "
-        f"params after 4 steps {drift:.3g} of their move | rank bytes "
+        f"params after {n} steps {drift:.3g} of their move | rank bytes "
         f"{json.dumps(res['rank_bytes'])} | collectives rank 0, 2 steps "
         f"(calls, input bytes) "
         f"{json.dumps(res['collective_bytes_2_steps']['0'])} | CommDebugMode"
@@ -4641,17 +4959,17 @@ def spmd_tenant(torch, rp, run, seed, workdir, twin, card):
     check(res["meshes"] == [[2, 1], [2, 2], [2, 1]],
           f"spmd: meshes {res['meshes']}")
     check(all(np.isfinite(losses)) and dl <= SPMD_LOSS_TOL,
-          f"spmd: losses {losses[:4]} vs the one-device twin's "
-          f"{twin['losses'][:4]} (max diff {dl:.3g} > {SPMD_LOSS_TOL})")
+          f"spmd: losses {losses[:n]} vs the one-device twin's "
+          f"{twin['losses'][:n]} (max diff {dl:.3g} > {SPMD_LOSS_TOL})")
     check(d8 <= SPMD_LOSS_TOL, f"spmd: the step after the int8 reshard "
-                               f"{losses[4]} vs the twin's "
-                               f"{twin['losses'][4]} (> {SPMD_LOSS_TOL})")
+                               f"{losses[n]} vs the twin's "
+                               f"{twin['losses'][n]} (> {SPMD_LOSS_TOL})")
     check(de <= SPMD_LOSS_TOL, f"spmd: eval loss {ev['loss']} vs the twin's "
                                f"{twin['eval_loss']} (> {SPMD_LOSS_TOL})")
     check(dg <= SPMD_GNORM_RTOL,
-          f"spmd: grad norms {[m['grad_norm'] for m in ms[:4]]} vs the "
-          f"twin's {twin['grad_norms'][:4]} (> {SPMD_GNORM_RTOL} relative)")
-    check(drift <= SPMD_PARAM_SHARE, f"spmd: after 4 steps a param leaf lies "
+          f"spmd: grad norms {[m['grad_norm'] for m in ms[:n]]} vs the "
+          f"twin's {twin['grad_norms'][:n]} (> {SPMD_GNORM_RTOL} relative)")
+    check(drift <= SPMD_PARAM_SHARE, f"spmd: after {n} steps a param leaf lies "
                                      f"{drift:.3g} of its move from the "
                                      f"twin's (> {SPMD_PARAM_SHARE})")
     for k in SPMD_KERNELS:
@@ -4726,11 +5044,12 @@ def phase_spmd_attention(rp, run, seed, card):
 
 def param_drift(got, twin) -> float:
     """The largest, over the param leaves, of |got - the twin's| over
-    |the twin's - its init| (L2 norms, after the same 4 steps): how far
+    |the twin's - its init| (L2 norms, after the same SPMD_TWIN_STEPS
+    steps): how far
     the sharded run's params lie from the one-device run's, in units of
     what the steps moved them."""
     worst = 0.0
-    for p, want in twin["params4"].items():
+    for p, want in twin["params_n"].items():
         move = float((want - twin["params0"][p]).norm())
         d = float((got[p].float() - want).norm())
         worst = max(worst, d / move if move else (0.0 if d == 0 else
@@ -4758,60 +5077,64 @@ def cut_layers(run):
                                                  num_layers=SPMD_LAYERS))
 
 
-def spmd_launch_args(wd: str, steps: int = 3) -> list:
+def spmd_launch_args(wd: str, steps: int = SPMD_LAUNCH_STEPS) -> list:
     return ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
             str(TRAIN_SEQ), "--steps", str(steps), "--lr", TRAIN_LR,
             "--warmup", "5", "--workdir", wd, "--checkpoint-every", "0",
             "--log-every", "0", "--device", "cuda"]
 
 
-def phase_spmd_launch(torch, workdir, card):
+def start_spmd_launch() -> dict:
     """``repro_torch.launch.train``'s ``main`` (``SPMD_LAUNCH_CODE``) as a
     2-rank world on the card (gloo, the (2, 1) mesh; rank 0 writes the
-    metrics and the full-value checkpoint) against the same arguments
-    and cut on one rank in this process: 3 steps each, per-step losses
-    within SPMD_LOSS_TOL."""
+    metrics and the full-value checkpoint), started beside the train
+    group; ``phase_spmd_launch`` reads it."""
     import socket
+    wd = tempfile.mkdtemp(prefix="spmd_launch_")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    job = start_command(
+        [([sys.executable, "-c", SPMD_LAUNCH_CODE, *spmd_launch_args(wd)],
+          dict(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port)))
+         for r in range(2)], "launch.train on 2 ranks")
+    job["workdir"] = wd
+    return job
+
+
+def phase_spmd_launch(torch, workdir, card, job):
+    """The 2-rank ``launch.train`` that ``start_spmd_launch`` started
+    (``job``) against the same arguments and cut on one rank in this
+    process: SPMD_LAUNCH_STEPS steps each, per-step losses within
+    SPMD_LOSS_TOL."""
     from unittest import mock
 
     from repro_torch.launch import train as launch
-    make = launch.make_run_config
-    out = {}
-    for world in (1, 2):
-        wd = os.path.join(workdir, f"launch_{world}")
-        t0 = time.perf_counter()
-        if world == 1:
-            with mock.patch.object(launch, "make_run_config",
-                                   lambda *a, **k: cut_layers(make(*a, **k))):
-                launch.train(launch.parser().parse_args(
-                    spmd_launch_args(wd)))
-        else:
-            with socket.socket() as sk:
-                sk.bind(("localhost", 0))
-                port = sk.getsockname()[1]
-            procs = [subprocess.Popen(
-                [sys.executable, "-c", SPMD_LAUNCH_CODE,
-                 *spmd_launch_args(wd)],
-                env=dict(os.environ, PYTHONPATH=os.pathsep.join(
-                    (os.path.join(ROOT, "src"), ROOT)),
-                         RANK=str(r), LOCAL_RANK=str(r),
-                         WORLD_SIZE=str(world), MASTER_ADDR="localhost",
-                         MASTER_PORT=str(port)),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True) for r in range(world)]
-            logs = [p.communicate(timeout=DIST_TIMEOUT_S)[0] for p in procs]
-            check(all(p.returncode == 0 for p in procs),
-                  "launch.train on 2 ranks: " + " | ".join(
-                      log_[-1500:] for log_ in logs))
+
+    def metrics(wd, wall):
         with open(os.path.join(wd, "metrics.jsonl")) as f:
             lines = [json.loads(line) for line in f]
-        out[world] = {"losses": [m["loss"] for m in lines],
-                      "step_ms": [m["step_s"] * 1e3 for m in lines],
-                      "wall_s": time.perf_counter() - t0}
-        release(torch)
+        return {"losses": [m["loss"] for m in lines],
+                "step_ms": [m["step_s"] * 1e3 for m in lines],
+                "wall_s": wall}
+    make = launch.make_run_config
+    wd = os.path.join(workdir, "launch_1")
+    t0 = time.perf_counter()
+    with mock.patch.object(launch, "make_run_config",
+                           lambda *a, **k: cut_layers(make(*a, **k))):
+        launch.train(launch.parser().parse_args(spmd_launch_args(wd)))
+    out = {1: metrics(wd, time.perf_counter() - t0)}
+    release(torch)
+    try:
+        _, wall, _ = finish_command(job, DIST_TIMEOUT_S)
+        out[2] = metrics(job["workdir"], wall)
+    finally:
+        shutil.rmtree(job["workdir"], ignore_errors=True)
     diff = max(abs(a - b) for a, b in zip(out[1]["losses"],
                                           out[2]["losses"]))
-    check(len(out[2]["losses"]) == 3 and diff <= SPMD_LOSS_TOL,
+    check(len(out[2]["losses"]) == SPMD_LAUNCH_STEPS
+          and diff <= SPMD_LOSS_TOL,
           f"launch.train 2 ranks {out[2]['losses']} vs 1 rank "
           f"{out[1]['losses']}")
     log(f"launch.train qwen3-0.6b full width {SPMD_LAYERS} layers, 2-rank "
@@ -4819,7 +5142,8 @@ def phase_spmd_launch(torch, workdir, card):
         f"{out[1]['losses']} (max diff {diff:.3g}) | step ms 2 ranks "
         f"{', '.join(f'{x:.0f}' for x in out[2]['step_ms'])}, 1 rank "
         f"{', '.join(f'{x:.0f}' for x in out[1]['step_ms'])} | wall "
-        f"{out[2]['wall_s']:.1f} s / {out[1]['wall_s']:.1f} s | {card}")
+        f"{out[2]['wall_s']:.1f} s (beside the train group) / "
+        f"{out[1]['wall_s']:.1f} s | {card}")
     return {"by_world": {str(k): v for k, v in out.items()},
             "max_loss_diff": diff}
 
@@ -4844,7 +5168,8 @@ def start_spmd_pool():
     return job
 
 
-def run_spmd(torch, ops, args, card, report, launches, workdir, job):
+def run_spmd(torch, ops, args, card, report, launches, workdir, job,
+             launch_job):
     """The train tenant sharded over its VF's mesh: the ``RankPool`` of
     SPMD_RANKS workers on the card (gloo) that ``start_spmd_pool``
     started, one tenant through plain and int8 reshards
@@ -4871,8 +5196,8 @@ def run_spmd(torch, ops, args, card, report, launches, workdir, job):
             twin.export_state())[0] if p.startswith("['params']")}
     ref = {"params0": params(), "eval_batch": eval_batch,
            "state_bytes": state_bytes(torch, twin.export_state())}
-    ms = [twin.run_steps(1) for _ in range(4)]
-    ref["params4"] = params()
+    ms = [twin.run_steps(1) for _ in range(SPMD_TWIN_STEPS)]
+    ref["params_n"] = params()
     ref["eval_loss"] = float(make_eval_step(run)(
         twin.export_state()["params"], to_device(eval_batch, "cuda"))["loss"])
     ms.append(twin.run_steps(1))
@@ -4883,7 +5208,7 @@ def run_spmd(torch, ops, args, card, report, launches, workdir, job):
     release(torch)
     res = {"layers": SPMD_LAYERS, "ranks": SPMD_RANKS,
            "twin": {k: v for k, v in ref.items()
-                    if k not in ("eval_batch", "params0", "params4")}}
+                    if k not in ("eval_batch", "params0", "params_n")}}
     t0 = time.perf_counter()
     job["thread"].join()
     res["pool_wait_s"] = time.perf_counter() - t0
@@ -4896,7 +5221,8 @@ def run_spmd(torch, ops, args, card, report, launches, workdir, job):
         for k in SPMD_KERNELS:
             launches[k] = launches.get(k, 0) + res["tenant"]["launches"][k]
         res["attention"] = phase_spmd_attention(rp, run, args.seed, card)
-    res["launch_train"] = phase_spmd_launch(torch, workdir, card)
+    res["launch_train"] = phase_spmd_launch(torch, workdir, card,
+                                            launch_job)
     res["group_s"] = time.perf_counter() - t_group
     log(f"spmd group: {res['group_s']:.1f} s (rank pool start "
         f"{res['pool_start_s']:.1f} s beside the earlier groups, "
@@ -4911,9 +5237,6 @@ def run_spmd(torch, ops, args, card, report, launches, workdir, job):
 SIM_POLICIES = ("first_fit", "best_fit", "fair_share")
 SIM_SWEEP_S = 60.0       # the first sweep pass fills about this long
 SIM_SERVE_SWEEP_S = 20.0  # the second (serve 0.3, crash 0.1) pass
-#: the sweeps close the script: on a slow host they fill only what is left
-#: up to this mark of its clock (the contract's limit is 1,200 s)
-SMOKE_END_S = 1050.0
 SIM_CRASH_SEEDS = 3
 PAUSE_PATH_REPEATS = 3
 PAUSE_PATH_KERNELS = ("qdma_pack", "qdma_pack_rows", "qdma_unpack")
@@ -5062,29 +5385,22 @@ def phase_pause_path(torch, ops, card, device):
     return rows, counts
 
 
-def run_sim(torch, ops, card, report, launches, elapsed):
-    """The sim plane's phases on the card, the pause path's staging kernel
-    launches added to ``launches``; the two sweeps last, their budgets
-    scaled down together where ``elapsed()``, the script's clock, leaves
-    less than their sum before ``SMOKE_END_S``."""
+def run_sim(torch, ops, card, report, launches, lane):
+    """The sim plane's phases on the card: the crash matrix and the two
+    sweeps from the host lane (``lane``, joined here), the pause path in
+    this process with its staging kernel launches added to
+    ``launches``."""
     device = torch.device("cuda")
-    report["sim_crash"] = phase_sim_crash(card, device)
+    report["sim_crash"] = lane_phase(lane, "sim_crash")
     rows, counts = phase_pause_path(torch, ops, card, device)
     report["pause_path"] = {"rows": rows, "launches": counts}
     for k in PAUSE_PATH_KERNELS:
         launches[k] = launches.get(k, 0) + counts[k]
     release(torch)
-    left = SMOKE_END_S - elapsed()
-    scale = min(1.0, max(0.0, left) / (SIM_SWEEP_S + SIM_SERVE_SWEEP_S))
-    report["sim_sweep_scale"] = scale
-    if scale < 1.0:
-        log(f"sim sweeps: {left:.1f} s left before the {SMOKE_END_S:.0f} s "
-            f"mark, so each budget is {scale:.3f} of its own")
-    report["sim_sweep"] = phase_sim_sweep(torch, card, device,
-                                          SIM_SWEEP_S * scale)
-    report["sim_sweep_serve_crash"] = phase_sim_sweep(
-        torch, card, device, SIM_SERVE_SWEEP_S * scale, serve_rate=0.3,
-        crash_rate=0.1)
+    report["sim_sweep"] = lane_phase(lane, "sim_sweep")
+    report["sim_sweep_serve_crash"] = lane_phase(lane,
+                                                 "sim_sweep_serve_crash")
+    close_lane(lane)
 
 
 # ---------------------------------------------------------------------------
@@ -5421,6 +5737,8 @@ def main(argv=None) -> int:
         return 2
 
     t_start = time.perf_counter()
+    # the commands started beside the groups end with this process
+    atexit.register(stop_commands)
 
     def elapsed() -> float:
         return time.perf_counter() - t_start
@@ -5466,8 +5784,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     mark("serve")
-    # the host-only federation bench runs beside the card's groups
-    fed_bench = start_fed_bench()
+    # the lanes' jobs run beside this process's groups from here on
+    lane = start_lane(card)
+    model_lane = start_lane(card, "models", args)
     t0 = time.perf_counter()
     params = build_model(run).init(seed=args.seed, device="cuda")
     torch.cuda.synchronize()
@@ -5533,19 +5852,29 @@ def main(argv=None) -> int:
     log_svff(report, card)
     mark("elastic")
     run_elastic(torch, ops, args, card, report, launches, params=params,
-                ref=ref)
+                ref=ref, lane=lane)
     mark("serve plane")
+    # the elastic example's eight ranks run beside the serve plane and
+    # pipeline groups
+    example = start_elastic_example()
     run_serve_plane(torch, ops, args, card, report, launches, params, paged)
     mark("pipeline")
-    run_pipeline(torch, ops, args, card, report, launches, params, ref)
+    run_pipeline(torch, ops, args, card, report, launches, params, ref, lane)
     mark("federation")
+    # the distributed group's ranks run beside the federation group
+    dist_job = start_ranks(DIST_RANKS, args.seed)
     run_federation(torch, ops, args, card, report, launches, params,
-                   paged, fed_bench)
+                   paged, lane)
     mark("distributed")
-    run_distributed(torch, ops, args, card, report, launches, params)
+    finish_elastic_example(example, card, report)
+    run_distributed(torch, ops, args, card, report, launches, params,
+                    dist_job)
     mark("dry-run")
     run_dryrun(torch, ops, args, card, report, launches, params)
     mark("fp32")
+    # its kernels are timed with no job of the lanes beside them
+    waited = lane_wait(lane) + lane_wait(model_lane)
+    log(f"fp32: waited {waited:.1f} s for the lanes' last jobs")
     run_fp32(torch, ops, args, card, report, launches, params, kern)
     if args.profile:
         report["profile"] = phase_profile(torch, run, params, args.seed)
@@ -5553,7 +5882,9 @@ def main(argv=None) -> int:
     release(torch)
 
     mark("hybrid")
-    run_hybrid(torch, ops, args, card, report, launches)
+    # the 2-rank launch.train runs beside the train group
+    spmd_launch = start_spmd_launch()
+    lane_group(model_lane, "hybrid", report, launches)
     mark("train")
     # the sharded group's workers start beside the train group
     spmd_pool = start_spmd_pool()
@@ -5568,13 +5899,14 @@ def main(argv=None) -> int:
     workdir = tempfile.mkdtemp(prefix="spmd_smoke_")
     try:
         run_spmd(torch, ops, args, card, report, launches, workdir,
-                 spmd_pool)
+                 spmd_pool, spmd_launch)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     mark("families")
-    run_families(torch, ops, args, card, report, launches)
+    lane_group(model_lane, "families", report, launches)
+    close_lane(model_lane)
     mark("sim")
-    run_sim(torch, ops, card, report, launches, elapsed)
+    run_sim(torch, ops, card, report, launches, lane)
     mark("end")
 
     sources = {"flash_attention": ("flash_attention.cu",
@@ -5616,6 +5948,7 @@ def main(argv=None) -> int:
             "library_ms": main_row["library_ms"],
             "shape": main_row["shape"]})
     report["kernels"] = kern
+    report["log_times"] = LOG_TIMES
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     for key, name in (("profile", "decode"), ("profile_hybrid",

@@ -42,7 +42,8 @@ __device__ __forceinline__ float warp_max(float x) {
 // ---------------------------------------------------------------------------
 // Tensor-core building blocks of the attention kernels (sm_80 and later):
 // cp.async copies into shared memory, ldmatrix fragment loads, movmatrix
-// transposes and the bf16 mma.sync.m16n8k16 with fp32 accumulation.
+// transposes and the bf16 mma.sync.m16n8k16 with fp32 accumulation; the
+// TF32 mma.sync.m16n8k8 below.
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for
 // lane = 4 * g + t: A (16x16) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..),
 // a2 = (g, 2t+8..), a3 = (g+8, 2t+8..); B (16x8, k x n) b0 = (2t..2t+1, g),
@@ -129,6 +130,58 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// (x0, x1) as three bf16 pairs p1 + p2 + p3, each rounded to nearest from
+// what the pieces before it leave over (every remainder is exact in fp32):
+// together they hold x to about 2^-27 of its value, so products of the
+// pieces with exact bf16 values (int8 widened) carry fp32's precision. x0
+// goes to the low halves.
+__device__ __forceinline__ void split_bf16x3(float x0, float x1,
+                                             uint32_t& p1, uint32_t& p2,
+                                             uint32_t& p3) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x0, x1);
+  const float2 af = __bfloat1622float2(a);
+  const float r0 = x0 - af.x, r1 = x1 - af.y;
+  const __nv_bfloat162 b = __floats2bfloat162_rn(r0, r1);
+  const float2 bf = __bfloat1622float2(b);
+  const __nv_bfloat162 c = __floats2bfloat162_rn(r0 - bf.x, r1 - bf.y);
+  p1 = *reinterpret_cast<const uint32_t*>(&a);
+  p2 = *reinterpret_cast<const uint32_t*>(&b);
+  p3 = *reinterpret_cast<const uint32_t*>(&c);
+}
+
+// ---------------------------------------------------------------------------
+// TF32 on the tensor cores (fp32 flash_attention, the fp32 paged decode):
+// 3xTF32 products, each fp32 operand as a TF32 pair hi + lo and a product
+// as lo hi + hi lo + hi hi (CUTLASS's mma_tensor_op_fast_f32.h)
+// ---------------------------------------------------------------------------
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
+// cvt.rna.tf32.f32's rounding, as an integer add and mask (cvt.rna
+// compiles to a longer sequence with NaN and infinity checks). The tensor
+// core itself would ignore the low 13 bits, which truncates.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x as hi + lo, both TF32: x - hi is exact in fp32, and hi + lo holds x
+// to about 2^-22 of its value
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - __uint_as_float(hi));
+}
+
+// c += a b, TF32 inputs, fp32 accumulator. Fragments (PTX ISA, mma.m16n8k8
+// .tf32), lane = 4 g + t: A (16 x 8) a0 = (g, t), a1 = (g + 8, t), a2 =
+// (g, t + 4), a3 = (g + 8, t + 4); B (8 x 8, k x n) b0 = (t, g), b1 = (t +
+// 4, g); C as mma.m16n8k16's
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------
@@ -247,7 +300,7 @@ __device__ __forceinline__ void decode_merge(float* smem, int G, int hd,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 decode on the CUDA cores (the decode kernels' fp32 q): one warp's
+// fp32 decode on the CUDA cores (flash_decode's fp32 path): one warp's
 // kR cache rows (in shared memory as the cache holds them: fp32, or int8
 // with fp32 row scales) against the G query heads of a KV head, every
 // product an fp32 FMA. Scores: lane = (row lane % kR, heads lane / kR +

@@ -529,6 +529,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 // ---------------------------------------------------------------------------
 // fp32: the same attention on the tensor cores as 3xTF32 products (see the
 // note at the top): mma.sync.m16n8k8 on TF32 pairs split in registers
+// (tf32_round, split_tf32 and mma_tf32 in common.cuh)
 // ---------------------------------------------------------------------------
 namespace tf32x3 {
 
@@ -539,34 +540,6 @@ constexpr int kThreads = 32 * kWarps;
 // are both held by the longest query tile's 6 tiles, read 0.0323 against
 // 0.0452 ms (NVIDIA H100 80GB HBM3, 700 W)
 constexpr double kRows32Cost = 0.7;
-
-// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
-// cvt.rna.tf32.f32's rounding, as an integer add and mask (cvt.rna
-// compiles to a longer sequence with NaN and infinity checks). The tensor
-// core itself would ignore the low 13 bits, which truncates.
-__device__ __forceinline__ uint32_t tf32_round(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x as hi + lo, both TF32: x - hi is exact in fp32, and hi + lo holds x
-// to about 2^-22 of its value
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_round(x);
-  lo = tf32_round(x - __uint_as_float(hi));
-}
-
-// c += a b, TF32 inputs, fp32 accumulator. Fragments (PTX ISA, mma.m16n8k8
-// .tf32), lane = 4 g + t: A (16 x 8) a0 = (g, t), a1 = (g + 8, t), a2 =
-// (g, t + 4), a3 = (g + 8, t + 4); B (8 x 8, k x n) b0 = (t, g), b1 = (t +
-// 4, g); C as mma.m16n8k16's
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // RW row warps of 16 query rows each, 8 / RW key groups
 template <int RW>

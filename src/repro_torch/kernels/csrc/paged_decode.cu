@@ -15,7 +15,8 @@
 // head, reads its split's page ids from
 // tables[b, .] and pos[b] from device memory (the host reads neither, so
 // a call never waits on it), and walks its rows up to pos[b] in tiles of
-// 64, 16 rows per warp, each warp with its own online softmax; the warps
+// 64 (fp32 pages: 32, below), 16 rows per warp, each warp with its own
+// online softmax; the warps
 // merge in shared memory into the block's unnormalised partial state
 // (running max, denominator, G x hd accumulator). The splits of one
 // (b, KV head) form a thread block cluster (at most 8 blocks), and after
@@ -69,15 +70,49 @@
 // Output acc / max(l, 1e-30) in bf16.
 //
 // fp32 q (a model at fp32 compute), over fp32 pages or int8 pages, takes
-// the same blocks, splits, cluster and merges with every product an fp32
-// FMA on the CUDA cores (DecF32 in common.cuh): fp32 pages in tiles of 32
-// rows (8 per warp, 34 KB a stage at hd 128), int8 pages in the int8
-// tiles above, each value converted to fp32 as it is read, the scales in
-// fp32 as above. Output in fp32. At G <= 8 that is 2 G flops per fp32
-// element read, at most 4 flops a byte, below the card's 20 (67 TFLOP/s
-// fp32 over 3.35 TB/s): the bytes still bound it. A bf16 pair of each
-// fp32 operand (2^-16 of its value) on the tensor cores would use 0.7-1.0
-// of the fp32 limit 2e-5 + 2e-5 |plain| (tests/test_torch_fp32.py).
+// the same blocks, splits, cluster and merges, both products on the tensor
+// cores too, with every fp32 operand in pieces that together carry fp32's
+// precision. A bf16 pair of each fp32 operand (2^-16 of its value) would
+// use 0.17-0.53 of JAX's fp32 limit 2e-5 + 2e-5 |plain| at the serve pool
+// before the tensor core's truncating sums, these pieces 0.013-0.027
+// (emulated, tests/test_torch_fp32.py; 0.012-0.015 on the card):
+//   - int8 pages (paged_decode_bf16x3_kernel): the int8 tiles, their
+//     scales and the widening to bf16 as above, exact. q is split once per
+//     block into three bf16 pieces q1 + q2 + q3 (8 + 8 + 8 significant
+//     bits, about 2^-27 of q), and P^T into three the same way; each
+//     product is three mma.m16n8k16 of exact bf16 products: S^T = K q1^T
+//     in one sum and K q2^T + K q3^T in another, added in fp32 after the
+//     row's last k-step; O^T = V^T P1^T from zero and V^T P2^T + V^T P3^T
+//     from zero for each 16-row tile, added in fp32 and folded into the
+//     accumulator in the rescale's fma. Six bf16 products per 16 rows
+//     where the bf16 path issues three.
+//   - fp32 pages (paged_decode_tf32x3_kernel): 3xTF32 on
+//     mma.sync.m16n8k8.tf32 as fp32 flash_attention (tf32_round,
+//     split_tf32, mma_tf32 in common.cuh). Raw fp32 tiles in shared memory,
+//     split hi/lo in registers; q split once per block. S^T = K Q^T: K by
+//     32-bit loads (the 16-byte row pad puts lane (g, t) on bank 4 g + t),
+//     hi hi of even and odd k-steps in two sums and the cross terms in a
+//     third. P V as O^T = V^T P^T: V^T, the A operand, by 32-bit loads of
+//     rows 2t and 2t + 1 at column g (bank 8 t + g), its k order matching
+//     P^T's: the score tile's fp32 C fragment is transposed in registers
+//     by movmatrix on its 16-bit halves (bits kept), then split hi/lo.
+//     At G = 2 the products no longer hide behind the bytes (three TF32
+//     mma for each, 2 of their 8 columns used): tiles of 32 rows, two
+//     stages (67 KB a block at hd 128, three blocks an SM), and
+//     two warps on each 16 rows, each with half the scores' k-steps (the
+//     two partial sums added through shared memory, the same sum in both)
+//     and half of O^T's m-tiles, both keeping the same softmax. Tiles of
+//     64 rows, a 128-row split wholly in flight, take 135 KB and one block
+//     an SM: the serve pool's call then took 0.0310 ms where 32-row tiles
+//     took 0.0244 (one call, NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6).
+// The tensor core's fp32 accumulate aligns a step's addends to the largest
+// and truncates, so a leading product and its corrections never share a
+// running sum (PERF.md §6). q is loaded with pos[b] and the page ids and
+// split while the first pages fly; over int8 pages its pieces sit in
+// registers up to HDP 128 and in shared memory, in fragment order, at HDP
+// 256. Output in fp32.
+// At G <= 8 these paths do 2 G flops per element read: the bytes still
+// bound them.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -89,41 +124,81 @@ constexpr int kWarps = kDecWarps;
 constexpr int kMaxG = kDecMaxG;        // query heads per KV head: the mma's N
 constexpr int kMaxHd = 256;
 constexpr int kMaxSplits = kDecMaxSplits;  // blocks of a cluster
-constexpr int kSplitRows = 128;  // rows of a split, at least: two tiles
+constexpr int kSplitRows = 128;  // rows of a split, at least: two 64-row tiles
 
 // Shared memory of a block, bytes: two stages of K and V tiles as the
-// pages hold them (rows padded by 16 bytes), then for int8 pages under
-// bf16 q each warp's bf16 rows, for int8 pages two stages of k and v
-// scales, for fp32 q the heads' q and each warp's scratch, then the
-// split's page ids. The merges reuse the tiles. Q: q's and the output's
-// type; T: the pages'.
+// pages hold them (rows padded by 16 bytes), then for int8 pages each
+// warp's bf16 rows and two stages of k and v scales, for fp32 q over int8
+// pages at HDP 256 q's pieces, for fp32 pages the warps' partial scores,
+// then the split's page ids. The merges reuse the tiles. Q: q's and the
+// output's type; T: the pages'.
 template <typename Q, typename T, int HDP>
 struct Layout {
   static constexpr bool kQuant = sizeof(T) == 1;
   static constexpr bool kF32 = sizeof(Q) == 4;
-  static constexpr int kRows = sizeof(T) == 4 ? 32 : 64;  // rows per tile
-  static constexpr int kWarpRows = kRows / kWarps;
+  static constexpr bool kTf32 = sizeof(T) == 4;  // fp32 pages: 3xTF32
+  // rows per tile: 64, 16 a warp; fp32 pages 32, 16 a pair of warps that
+  // split each product's work (at the same 67 KB a block at hd 128, three
+  // blocks an SM)
+  static constexpr int kRows = kTf32 ? 32 : 64;
   static constexpr int kVals = 16 / sizeof(T);          // values per chunk
   static constexpr int kChunks = HDP / kVals;           // chunks per row
   static constexpr int kStride = HDP * sizeof(T) + 16;  // bytes per row
   static constexpr int kTileBytes = kRows * kStride;
   static constexpr int kStageBytes = 4 * kTileBytes;
   static constexpr int kBStride = HDP + 8;  // bf16 elements per row
-  static constexpr int kWideBytes =
-      kQuant && !kF32 ? kWarps * 16 * kBStride * 2 : 0;
+  static constexpr int kWideBytes = kQuant ? kWarps * 16 * kBStride * 2 : 0;
   static constexpr int kScaleBytes = kQuant ? 2 * 2 * kRows * 4 : 0;
-  using F32 = DecF32<HDP, kWarpRows>;
-  static constexpr int kF32Bytes =
-      kF32 ? (kMaxG * HDP + kWarps * F32::kScratch) * 4 : 0;
+  // fp32 q: a lane's words of q's pieces as B fragments, three bf16 pieces
+  // of each pair over int8 pages (in registers up to HDP 128, else in
+  // shared memory), a TF32 hi and lo of each value over fp32 pages (the
+  // warp's half of the columns, in registers)
+  static constexpr int kQWords =
+      !kF32 ? 0 : kQuant ? 6 * (HDP / 16) : 4 * (HDP / 16);
+  static constexpr bool kQRegs = kTf32 || HDP <= 128;
+  static constexpr int kQBytes = kQRegs ? 0 : kQWords * 32 * 4;
+  static constexpr int kXBytes = kTf32 ? kWarps * 32 * 16 : 0;
   static constexpr int kFixedBytes =
-      kStageBytes + kWideBytes + kScaleBytes + kF32Bytes;
+      kStageBytes + kWideBytes + kScaleBytes + kQBytes + kXBytes;
   static_assert(DecMerge<HDP>::kFloats * 4 <= kStageBytes,
                 "merges fit the tiles");
   static_assert(sizeof(T) != 2 || kBStride * 2 == kStride,
                 "bf16 rows as ldmatrix's");
   static_assert(kThreads % kChunks == 0 && (!kQuant || 2 * kRows == kThreads),
                 "a thread copies one column of chunks and one scale");
+  static_assert(kF32 || !kTf32, "fp32 pages take fp32 q");
 };
+
+// A lane's fragment words of fp32 q's pieces: registers, or a warp's 32
+// words of each side by side in shared memory (no bank conflict)
+template <int N, bool kRegs>
+struct QPieces {
+  uint32_t r[kRegs && N > 0 ? N : 1];
+  uint32_t* s;
+  __device__ __forceinline__ void put(int i, uint32_t w, int lane) {
+    if constexpr (kRegs)
+      r[i] = w;
+    else
+      s[i * 32 + lane] = w;
+  }
+  __device__ __forceinline__ uint32_t operator()(int i, int lane) const {
+    if constexpr (kRegs)
+      return r[i];
+    else
+      return s[i * 32 + lane];
+  }
+};
+
+// An 8x8 fp32 matrix held as (row g, columns 2t and 2t + 1) by lane 4 g +
+// t, transposed: x0, x1 become (row 2t, column g) and (row 2t + 1, column
+// g), by movmatrix on the values' high and low 16-bit halves (bits kept)
+__device__ __forceinline__ void movmatrix_trans_f32(float& x0, float& x1) {
+  const uint32_t a = __float_as_uint(x0), b = __float_as_uint(x1);
+  const uint32_t hi = movmatrix_trans(__byte_perm(a, b, 0x7632));
+  const uint32_t lo = movmatrix_trans(__byte_perm(a, b, 0x5410));
+  x0 = __uint_as_float(__byte_perm(lo, hi, 0x5410));
+  x1 = __uint_as_float(__byte_perm(lo, hi, 0x7632));
+}
 
 // 4 bytes from global to shared memory, asynchronously; src_bytes 0
 // writes zeros and reads nothing.
@@ -178,23 +253,28 @@ __device__ __forceinline__ void widen_rows(const unsigned char* src,
 // q: (B,1,H,hd) Q; kp/vp: (P,page,K,hd) T; ks/vs: (P,page,K) fp32 (int8
 // pages); tables: (B,NP) int32; pos: (B,) int32; out: (B,1,H,hd) Q.
 // hd <= HDP; columns hd..HDP are zero in shared memory and in q's
-// fragments (or q's fp32 rows). Block (bk = b*K + kh, split); the
-// gridDim.y splits of a bk are one cluster.
+// fragments. Block (bk = b*K + kh, split); the gridDim.y splits of a bk
+// are one cluster.
 template <typename Q, typename T, int HDP>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const Q* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp,
-                    const float* __restrict__ ks, const float* __restrict__ vs,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ pos, Q* __restrict__ out, int NP,
-                    int page, int K, int hd, int G, int split_pages,
-                    float scale_log2) {
+__device__ __forceinline__ void paged_decode_block(
+    const Q* __restrict__ q, const T* __restrict__ kp,
+    const T* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ vs, const int* __restrict__ tables,
+    const int* __restrict__ pos, Q* __restrict__ out, int NP, int page, int K,
+    int hd, int G, int split_pages, float scale_log2) {
   using L = Layout<Q, T, HDP>;
   constexpr int kKSteps = HDP / 16;  // k-steps of the scores, m-tiles of O^T
+  constexpr bool kTf32 = L::kTf32;
+  // fp32 pages: warps w and w + 2 take the same 16 rows, each half h = w /
+  // 2 of the scores' k-steps (kSK of m16n8k8's) and of O^T's m-tiles
+  constexpr int kMT = kTf32 ? kKSteps / 2 : kKSteps;  // a warp's m-tiles
+  constexpr int kSK = HDP / 16;  // fp32 pages: a warp's TF32 k-steps
   const int bk = blockIdx.x, split = blockIdx.y;
   const int b = bk / K, kh = bk % K, H = G * K;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
+  const int wr = kTf32 ? (warp & 1) * 16 : warp * 16;  // the warp's rows
+  const int half = kTf32 ? warp >> 1 : 0;
 
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* kst = smem;                       // two stages of K
@@ -204,15 +284,13 @@ paged_decode_kernel(const Q* __restrict__ q, const T* __restrict__ kp,
   float* ksc = reinterpret_cast<float*>(smem + L::kStageBytes +
                                         L::kWideBytes);   // [2][kRows]
   float* vsc = ksc + 2 * L::kRows;                        // [2][kRows]
-  // fp32 q: the heads' q rows, then the warps' scratch
-  float* qs = reinterpret_cast<float*>(smem + L::kStageBytes +
-                                       L::kWideBytes + L::kScaleBytes);
+  unsigned char* qsm = smem + L::kStageBytes + L::kWideBytes + L::kScaleBytes;
+  float4* xch = reinterpret_cast<float4*>(qsm + L::kQBytes);  // fp32 pages
   int* pid = reinterpret_cast<int*>(smem + L::kFixedBytes);  // split_pages
   float* smem_f = reinterpret_cast<float*>(smem);
 
   // q as the B operand of S^T = K Q^T: head g, columns 2t.. of each step;
   // its loads, pos[b]'s and the split's first page ids' in flight at once
-  // (fp32 q: the heads' rows go to shared memory below)
   uint32_t qf[L::kF32 ? 1 : kKSteps][2];
   if constexpr (!L::kF32) {
     const __nv_bfloat16* qh = reinterpret_cast<const __nv_bfloat16*>(q) +
@@ -220,12 +298,41 @@ paged_decode_kernel(const Q* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk)
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int d = kk * 16 + half * 8 + 2 * t;
-        qf[kk][half] = g < G && d < hd
-                           ? *reinterpret_cast<const uint32_t*>(qh + d)
-                           : 0u;
+      for (int hf = 0; hf < 2; ++hf) {
+        const int d = kk * 16 + hf * 8 + 2 * t;
+        qf[kk][hf] = g < G && d < hd
+                         ? *reinterpret_cast<const uint32_t*>(qh + d)
+                         : 0u;
       }
+  }
+  // fp32 q, loaded here and split once the pages are in flight: int8
+  // pages, columns kk*16 + hf*8 + 2t, + 1 (m16n8k16's b0, b1); fp32 pages,
+  // columns 8 kk + t and + 4 of the warp's k-steps (m16n8k8's b0, b1)
+  constexpr int kQRaw = !L::kF32 ? 1 : L::kQuant ? 4 * kKSteps : 2 * kSK;
+  float qv[kQRaw];
+  if constexpr (L::kF32) {
+    if (L::kQRegs || warp == 0) {
+      const float* qh = reinterpret_cast<const float*>(q) +
+                        (static_cast<size_t>(b) * H + kh * G + g) * hd;
+      if constexpr (L::kQuant) {
+#pragma unroll
+        for (int i = 0; i < 2 * kKSteps; ++i) {
+          const int d = i * 8 + 2 * t;  // k-step i / 2, half i % 2
+          const float2 x = g < G && d < hd
+                               ? *reinterpret_cast<const float2*>(qh + d)
+                               : make_float2(0.f, 0.f);
+          qv[2 * i] = x.x;
+          qv[2 * i + 1] = x.y;
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kSK; ++kk) {
+          const int d = 8 * (half * kSK + kk) + t;
+          qv[2 * kk] = g < G && d < hd ? qh[d] : 0.f;
+          qv[2 * kk + 1] = g < G && d + 4 < hd ? qh[d + 4] : 0.f;
+        }
+      }
+    }
   }
 
   const int p0 = split * split_pages;
@@ -249,15 +356,7 @@ paged_decode_kernel(const Q* __restrict__ q, const T* __restrict__ kp,
   const int ntiles = r_end > r_begin ? (r_end - r_begin + L::kRows - 1) /
                                            L::kRows
                                      : 0;
-  if constexpr (L::kF32) {
-    const float* qb = reinterpret_cast<const float*>(q) +
-                      (static_cast<size_t>(b) * H + kh * G) * hd;
-    for (int i = threadIdx.x; i < kMaxG * HDP; i += kThreads) {
-      const int hq = i / HDP, d = i % HDP;
-      qs[i] = hq < G && d < hd ? qb[hq * hd + d] : 0.f;
-    }
-  }
-  __syncthreads();  // pid, qs
+  __syncthreads();  // pid
 
   // the (page, head) row of logical row r0 + r of this split, r < r_end:
   // pid[lp] * page + rip, with lp, rip = divmod(r0 + r - r_begin, page)
@@ -299,61 +398,67 @@ paged_decode_kernel(const Q* __restrict__ q, const T* __restrict__ kp,
   if (ntiles > 1) stage(1, r_begin + L::kRows);
   cp_async_commit();
 
+  // fp32 q's pieces, while the pages fly: int8 pages, word 6 kk + 3 hf + i
+  // is piece i of k-step kk's b0 (hf 0) or b1 (hf 1); fp32 pages, words
+  // 4 kk .. 4 kk + 3 are the hi of the warp's k-step kk's b0, b1, then
+  // their lo. In shared memory (int8 pages at HDP 256) warp 0 writes them
+  // before the loop's first barrier.
+  QPieces<L::kQWords, L::kQRegs> qp;
+  qp.s = reinterpret_cast<uint32_t*>(qsm);
   if constexpr (L::kF32) {
-    float* scratch = qs + kMaxG * HDP + warp * L::F32::kScratch;
-    typename L::F32 st;
-    st.init();
-    for (int j = 0; j < ntiles; ++j) {
-      cp_async_wait<1>();  // tile j has landed; tile j + 1 may still fly
-      __syncthreads();
-      const int r0 = r_begin + j * L::kRows + warp * L::kWarpRows;
-      if (r0 < r_end) {
-        const int wrow = (j & 1) * L::kRows + warp * L::kWarpRows;
-        const int off = (j & 1) * L::kTileBytes +
-                        warp * L::kWarpRows * L::kStride;
-        st.template tile<T>(reinterpret_cast<const T*>(kst + off),
-                            reinterpret_cast<const T*>(vst + off),
-                            L::kStride / static_cast<int>(sizeof(T)), qs,
-                            scratch, r_end - r0,
-                            L::kQuant ? ksc + wrow : nullptr,
-                            L::kQuant ? vsc + wrow : nullptr, scale_log2, G,
-                            lane);
-      }
-      __syncthreads();  // stage j & 1 is consumed before it is refilled
-      if (j + 2 < ntiles) stage(j & 1, r_begin + (j + 2) * L::kRows);
-      cp_async_commit();
-    }
-    cp_async_wait<0>();
-    st.publish(smem_f, warp, lane);
-  } else {
-    // acc[mt]: O^T rows (columns of the output) mt*16 + g and + 8, heads
-    // 2t and 2t + 1; m and l of heads 2t, 2t + 1 (l: this thread's rows)
-    float acc[kKSteps][4];
+    if (L::kQRegs || warp == 0) {
+      if constexpr (L::kQuant) {
 #pragma unroll
-    for (int mt = 0; mt < kKSteps; ++mt)
+        for (int i = 0; i < 2 * kKSteps; ++i) {
+          uint32_t w[3];
+          split_bf16x3(qv[2 * i], qv[2 * i + 1], w[0], w[1], w[2]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-    for (int j = 0; j < ntiles; ++j) {
-      const int st = j & 1;
-      cp_async_wait<1>();  // tile j has landed; tile j + 1 may still fly
-      __syncthreads();
-      const int r0 = r_begin + j * L::kRows + warp * 16;  // warp's first row
-      if (r0 < r_end) {
-        const int wrow = st * L::kRows + warp * 16;  // the warp's tile rows
-        const unsigned char* kt = kst + st * L::kTileBytes +
-                                  warp * 16 * L::kStride;
-        const unsigned char* vt = vst + st * L::kTileBytes +
-                                  warp * 16 * L::kStride;
-        const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(kt);
-        if constexpr (L::kQuant) {
-          widen_rows<HDP>(kt, L::kStride, wide, lane);
-          __syncwarp();
-          kb = wide;
+          for (int p = 0; p < 3; ++p) qp.put(3 * i + p, w[p], lane);
         }
-        // s: rows g, g + 8 (of the warp's 16) x heads 2t, 2t + 1
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kSK; ++kk) {
+          uint32_t h0, l0, h1, l1;
+          split_tf32(qv[2 * kk], h0, l0);
+          split_tf32(qv[2 * kk + 1], h1, l1);
+          qp.put(4 * kk, h0, lane);
+          qp.put(4 * kk + 1, h1, lane);
+          qp.put(4 * kk + 2, l0, lane);
+          qp.put(4 * kk + 3, l1, lane);
+        }
+      }
+    }
+  }
+
+  // acc[mt]: O^T rows (columns of the output) (mt0 + mt)*16 + g and + 8,
+  // heads 2t and 2t + 1; m and l of heads 2t, 2t + 1 (l: this thread's
+  // rows)
+  const int mt0 = half * kMT;
+  float acc[kMT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1;
+    cp_async_wait<1>();  // tile j has landed; tile j + 1 may still fly
+    __syncthreads();
+    const int r0 = r_begin + j * L::kRows + wr;  // warp's first row
+    if (r0 < r_end) {
+      const int wrow = st * L::kRows + wr;  // the warp's tile rows
+      const unsigned char* kt = kst + st * L::kTileBytes + wr * L::kStride;
+      const unsigned char* vt = vst + st * L::kTileBytes + wr * L::kStride;
+      const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(kt);
+      if constexpr (L::kQuant) {
+        widen_rows<HDP>(kt, L::kStride, wide, lane);
+        __syncwarp();
+        kb = wide;
+      }
+      // s: rows g, g + 8 (of the warp's 16) x heads 2t, 2t + 1
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (!L::kF32) {
 #pragma unroll
         for (int kk = 0; kk < kKSteps; ++kk) {
           uint32_t a[4];
@@ -361,34 +466,85 @@ paged_decode_kernel(const Q* __restrict__ q, const T* __restrict__ kp,
                              (lane >> 4) * 8);
           mma_bf16(s, a, qf[kk][0], qf[kk][1]);
         }
-        const bool ok_a = r0 + g < r_end, ok_b = r0 + g + 8 < r_end;
-        float sa = scale_log2, sb = scale_log2;
-        if constexpr (L::kQuant) {
-          sa *= ksc[wrow + g];
-          sb *= ksc[wrow + g + 8];
-        }
-        s[0] = ok_a ? s[0] * sa : -INFINITY;
-        s[1] = ok_a ? s[1] * sa : -INFINITY;
-        s[2] = ok_b ? s[2] * sb : -INFINITY;
-        s[3] = ok_b ? s[3] * sb : -INFINITY;
-        // max over the 16 rows: the eight lanes sharing t
-        float mx0 = fmaxf(m0, fmaxf(s[0], s[2]));
-        float mx1 = fmaxf(m1, fmaxf(s[1], s[3]));
+      } else if constexpr (L::kQuant) {
+        // q1 k in s, q2 k + q3 k in sx
+        float sx[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        for (int kk = 0; kk < kKSteps; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4(a, kb + (lane & 15) * L::kBStride + kk * 16 +
+                             (lane >> 4) * 8);
+          mma_bf16(s, a, qp(6 * kk, lane), qp(6 * kk + 3, lane));
+          mma_bf16(sx, a, qp(6 * kk + 1, lane), qp(6 * kk + 4, lane));
+          mma_bf16(sx, a, qp(6 * kk + 2, lane), qp(6 * kk + 5, lane));
         }
-        // row r0 is valid, so both maxima are finite
-        const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
-        m0 = mx0;
-        m1 = mx1;
-        s[0] = fast_exp2(s[0] - mx0);
-        s[1] = fast_exp2(s[1] - mx1);
-        s[2] = fast_exp2(s[2] - mx0);
-        s[3] = fast_exp2(s[3] - mx1);
-        l0 = l0 * alpha0 + s[0] + s[2];
-        l1 = l1 * alpha1 + s[1] + s[3];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[e] += sx[e];
+      } else {
+        // the warp's half of the k-steps: K rows g, g + 8 at columns
+        // 8 kk + t and + 4, hi hi of even and odd k-steps in s and s1,
+        // the cross terms in sx; then the pair's two halves added, the
+        // same sum in both warps
+        constexpr int kSF = L::kStride / 4;  // floats per row
+        const float* kf = reinterpret_cast<const float*>(kt) + g * kSF +
+                          8 * half * kSK + t;
+        float s1[4] = {0.f, 0.f, 0.f, 0.f}, sx[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < kSK; ++kk) {
+          const float* kr = kf + 8 * kk;
+          uint32_t ah[4], al[4];
+          split_tf32(kr[0], ah[0], al[0]);
+          split_tf32(kr[8 * kSF], ah[1], al[1]);
+          split_tf32(kr[4], ah[2], al[2]);
+          split_tf32(kr[8 * kSF + 4], ah[3], al[3]);
+          const uint32_t qh0 = qp(4 * kk, lane), qh1 = qp(4 * kk + 1, lane);
+          mma_tf32(sx, al, qh0, qh1);
+          mma_tf32(sx, ah, qp(4 * kk + 2, lane), qp(4 * kk + 3, lane));
+          mma_tf32(kk % 2 ? s1 : s, ah, qh0, qh1);
+        }
+        float4 mine;
+        mine.x = s[0] + (s1[0] + sx[0]);
+        mine.y = s[1] + (s1[1] + sx[1]);
+        mine.z = s[2] + (s1[2] + sx[2]);
+        mine.w = s[3] + (s1[3] + sx[3]);
+        xch[warp * 32 + lane] = mine;
+        // the pair's barrier: warps w and w + 2, named barrier 1 + w % 2
+        asm volatile("bar.sync %0, 64;\n" ::"r"(1 + (warp & 1)) : "memory");
+        const float4 other = xch[(warp ^ 2) * 32 + lane];
+        s[0] = mine.x + other.x;
+        s[1] = mine.y + other.y;
+        s[2] = mine.z + other.z;
+        s[3] = mine.w + other.w;
+      }
+      const bool ok_a = r0 + g < r_end, ok_b = r0 + g + 8 < r_end;
+      float sa = scale_log2, sb = scale_log2;
+      if constexpr (L::kQuant) {
+        sa *= ksc[wrow + g];
+        sb *= ksc[wrow + g + 8];
+      }
+      s[0] = ok_a ? s[0] * sa : -INFINITY;
+      s[1] = ok_a ? s[1] * sa : -INFINITY;
+      s[2] = ok_b ? s[2] * sb : -INFINITY;
+      s[3] = ok_b ? s[3] * sb : -INFINITY;
+      // max over the 16 rows: the eight lanes sharing t
+      float mx0 = fmaxf(m0, fmaxf(s[0], s[2]));
+      float mx1 = fmaxf(m1, fmaxf(s[1], s[3]));
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // row r0 is valid, so both maxima are finite
+      const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      s[0] = fast_exp2(s[0] - mx0);
+      s[1] = fast_exp2(s[1] - mx1);
+      s[2] = fast_exp2(s[2] - mx0);
+      s[3] = fast_exp2(s[3] - mx1);
+      l0 = l0 * alpha0 + s[0] + s[2];
+      l1 = l1 * alpha1 + s[1] + s[3];
+      if constexpr (!L::kF32) {
 #pragma unroll
         for (int mt = 0; mt < kKSteps; ++mt) {
           acc[mt][0] *= alpha0;
@@ -396,19 +552,21 @@ paged_decode_kernel(const Q* __restrict__ q, const T* __restrict__ kp,
           acc[mt][2] *= alpha0;
           acc[mt][3] *= alpha1;
         }
-        const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(vt);
-        if constexpr (L::kQuant) {
-          // the v scale rides on P: sum_r p_r vs_r vq_r
-          const float va = vsc[wrow + g], vb8 = vsc[wrow + g + 8];
-          s[0] *= va;
-          s[1] *= va;
-          s[2] *= vb8;
-          s[3] *= vb8;
-          __syncwarp();  // K's rows are read
-          widen_rows<HDP>(vt, L::kStride, wide, lane);
-          __syncwarp();
-          vb = wide;
-        }
+      }
+      const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(vt);
+      if constexpr (L::kQuant) {
+        // the v scale rides on P: sum_r p_r vs_r vq_r
+        const float va = vsc[wrow + g], vb8 = vsc[wrow + g + 8];
+        s[0] *= va;
+        s[1] *= va;
+        s[2] *= vb8;
+        s[3] *= vb8;
+        __syncwarp();  // K's rows are read
+        widen_rows<HDP>(vt, L::kStride, wide, lane);
+        __syncwarp();
+        vb = wide;
+      }
+      if constexpr (!L::kF32) {
         // P^T as the B operand: rows 2t, 2t + 1 (and + 8) of head g
         uint32_t hi_a, lo_a, hi_b, lo_b;
         split_bf16x2(s[0], s[1], hi_a, lo_a);
@@ -423,39 +581,169 @@ paged_decode_kernel(const Q* __restrict__ q, const T* __restrict__ kp,
           mma_bf16(acc[mt], a, bh0, bh1);
           mma_bf16(acc[mt], a, bl0, bl1);
         }
+      } else if constexpr (L::kQuant) {
+        // P^T in three bf16 pieces, each transposed as above: piece i of
+        // rows 2t, 2t + 1 (b0) and + 8 (b1) of head g
+        uint32_t pa[3], pb[3];
+        split_bf16x3(s[0], s[1], pa[0], pa[1], pa[2]);
+        split_bf16x3(s[2], s[3], pb[0], pb[1], pb[2]);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          pa[i] = movmatrix_trans(pa[i]);
+          pb[i] = movmatrix_trans(pb[i]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kKSteps; ++mt) {
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, vb + ((lane & 7) + (lane >> 4) * 8) * L::kBStride +
+                                   mt * 16 + ((lane >> 3) & 1) * 8);
+          float h[4] = {0.f, 0.f, 0.f, 0.f}, x[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(h, a, pa[0], pb[0]);
+          mma_bf16(x, a, pa[1], pb[1]);
+          mma_bf16(x, a, pa[2], pb[2]);
+          acc[mt][0] = fmaf(acc[mt][0], alpha0, h[0] + x[0]);
+          acc[mt][1] = fmaf(acc[mt][1], alpha1, h[1] + x[1]);
+          acc[mt][2] = fmaf(acc[mt][2], alpha0, h[2] + x[2]);
+          acc[mt][3] = fmaf(acc[mt][3], alpha1, h[3] + x[3]);
+        }
+      } else {
+        // P^T as m16n8k8's B operand in k order (rows 2t, 2t + 1 of each
+        // 8): the C fragment's rows g (k-step 0) and g + 8 (k-step 1)
+        // transposed, then split; V^T's A fragments of the warp's
+        // m-tiles in the same k order
+        movmatrix_trans_f32(s[0], s[1]);
+        movmatrix_trans_f32(s[2], s[3]);
+        uint32_t ph[4], pl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(s[e], ph[e], pl[e]);
+        constexpr int kSF = L::kStride / 4;
+        const float* vf = reinterpret_cast<const float*>(vt) +
+                          2 * t * kSF + 16 * mt0 + g;
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          float h[4] = {0.f, 0.f, 0.f, 0.f}, x[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int k8 = 0; k8 < 2; ++k8) {
+            const float* vr = vf + 8 * k8 * kSF + mt * 16;
+            uint32_t ah[4], al[4];
+            split_tf32(vr[0], ah[0], al[0]);
+            split_tf32(vr[8], ah[1], al[1]);
+            split_tf32(vr[kSF], ah[2], al[2]);
+            split_tf32(vr[kSF + 8], ah[3], al[3]);
+            const uint32_t bh0 = ph[2 * k8], bh1 = ph[2 * k8 + 1];
+            mma_tf32(x, al, bh0, bh1);
+            mma_tf32(x, ah, pl[2 * k8], pl[2 * k8 + 1]);
+            mma_tf32(h, ah, bh0, bh1);
+          }
+          acc[mt][0] = fmaf(acc[mt][0], alpha0, h[0] + x[0]);
+          acc[mt][1] = fmaf(acc[mt][1], alpha1, h[1] + x[1]);
+          acc[mt][2] = fmaf(acc[mt][2], alpha0, h[2] + x[2]);
+          acc[mt][3] = fmaf(acc[mt][3], alpha1, h[3] + x[3]);
+        }
       }
-      __syncthreads();  // stage st is consumed before it is refilled
-      if (j + 2 < ntiles) stage(st, r_begin + (j + 2) * L::kRows);
-      cp_async_commit();
     }
-    cp_async_wait<0>();
+    __syncthreads();  // stage st is consumed before it is refilled
+    if (j + 2 < ntiles) stage(st, r_begin + (j + 2) * L::kRows);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
 
 #pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    // this warp's state for the merges (the tiles are consumed)
-    float* wm = DecMerge<HDP>::wm(smem_f);
-    float* wl = DecMerge<HDP>::wl(smem_f);
-    if (g == 0) {
-      wm[warp * kMaxG + 2 * t] = m0;
-      wm[warp * kMaxG + 2 * t + 1] = m1;
-      wl[warp * kMaxG + 2 * t] = l0;
-      wl[warp * kMaxG + 2 * t + 1] = l1;
-    }
-    float* wa = DecMerge<HDP>::wacc(smem_f) + warp * kMaxG * HDP;
+  for (int off = 4; off < 32; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // this warp's state for the merges (the tiles are consumed); of a pair
+  // of fp32-page warps, which share m and l, the second adds l 0 and its
+  // half of the columns, the other half zero
+  float* wm = DecMerge<HDP>::wm(smem_f);
+  float* wl = DecMerge<HDP>::wl(smem_f);
+  if (g == 0) {
+    wm[warp * kMaxG + 2 * t] = m0;
+    wm[warp * kMaxG + 2 * t + 1] = m1;
+    wl[warp * kMaxG + 2 * t] = half ? 0.f : l0;
+    wl[warp * kMaxG + 2 * t + 1] = half ? 0.f : l1;
+  }
+  float* wa = DecMerge<HDP>::wacc(smem_f) + warp * kMaxG * HDP;
 #pragma unroll
-    for (int mt = 0; mt < kKSteps; ++mt) {
-      const int d = mt * 16 + g;
-      wa[(2 * t) * HDP + d] = acc[mt][0];
-      wa[(2 * t + 1) * HDP + d] = acc[mt][1];
-      wa[(2 * t) * HDP + d + 8] = acc[mt][2];
-      wa[(2 * t + 1) * HDP + d + 8] = acc[mt][3];
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int d = (mt0 + mt) * 16 + g;
+    wa[(2 * t) * HDP + d] = acc[mt][0];
+    wa[(2 * t + 1) * HDP + d] = acc[mt][1];
+    wa[(2 * t) * HDP + d + 8] = acc[mt][2];
+    wa[(2 * t + 1) * HDP + d + 8] = acc[mt][3];
+  }
+  if constexpr (kTf32) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int d = (kMT - mt0 + mt) * 16 + g;
+      wa[(2 * t) * HDP + d] = 0.f;
+      wa[(2 * t + 1) * HDP + d] = 0.f;
+      wa[(2 * t) * HDP + d + 8] = 0.f;
+      wa[(2 * t + 1) * HDP + d + 8] = 0.f;
     }
   }
   decode_merge<HDP>(smem_f, G, hd, split, nkeep,
                     out + (static_cast<size_t>(b) * H + kh * G) * hd);
+}
+
+// bf16 q over bf16 or int8 pages
+template <typename Q, typename T, int HDP>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const Q* __restrict__ q, const T* __restrict__ kp,
+                    const T* __restrict__ vp,
+                    const float* __restrict__ ks, const float* __restrict__ vs,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ pos, Q* __restrict__ out, int NP,
+                    int page, int K, int hd, int G, int split_pages,
+                    float scale_log2) {
+  paged_decode_block<Q, T, HDP>(q, kp, vp, ks, vs, tables, pos, out, NP, page,
+                                K, hd, G, split_pages, scale_log2);
+}
+
+// fp32 q over fp32 pages: 3xTF32 products
+template <int HDP>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_tf32x3_kernel(const float* __restrict__ q,
+                           const float* __restrict__ kp,
+                           const float* __restrict__ vp,
+                           const float* __restrict__ ks,
+                           const float* __restrict__ vs,
+                           const int* __restrict__ tables,
+                           const int* __restrict__ pos,
+                           float* __restrict__ out, int NP, int page, int K,
+                           int hd, int G, int split_pages, float scale_log2) {
+  paged_decode_block<float, float, HDP>(q, kp, vp, ks, vs, tables, pos, out,
+                                        NP, page, K, hd, G, split_pages,
+                                        scale_log2);
+}
+
+// fp32 q over int8 pages: three bf16 pieces of q and of P
+template <int HDP>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_bf16x3_kernel(const float* __restrict__ q,
+                           const int8_t* __restrict__ kp,
+                           const int8_t* __restrict__ vp,
+                           const float* __restrict__ ks,
+                           const float* __restrict__ vs,
+                           const int* __restrict__ tables,
+                           const int* __restrict__ pos,
+                           float* __restrict__ out, int NP, int page, int K,
+                           int hd, int G, int split_pages, float scale_log2) {
+  paged_decode_block<float, int8_t, HDP>(q, kp, vp, ks, vs, tables, pos, out,
+                                         NP, page, K, hd, G, split_pages,
+                                         scale_log2);
+}
+
+// the kernel of (q's type, the pages' type)
+template <typename Q, typename T, int HDP>
+static auto kernel_of() {
+  if constexpr (sizeof(Q) == 2)
+    return paged_decode_kernel<Q, T, HDP>;
+  else if constexpr (sizeof(T) == 4)
+    return paged_decode_tf32x3_kernel<HDP>;
+  else
+    return paged_decode_bf16x3_kernel<HDP>;
 }
 
 template <typename Q, typename T, int HDP>
@@ -465,7 +753,7 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
            int nsplit, cudaStream_t st) {
   using L = Layout<Q, T, HDP>;
   const int smem = L::kFixedBytes + (split_pages * 4 + 15) / 16 * 16;
-  auto kernel = paged_decode_kernel<Q, T, HDP>;
+  auto kernel = kernel_of<Q, T, HDP>();
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 =

@@ -11,9 +11,11 @@ the paged decodes) within 1e-4 + 2**-6 * |plain| elementwise on bf16
 inputs, two bf16 steps of the value (kernel and plain version each round
 an fp32 result to bf16 once, after sums taken in other orders, so they
 may differ by one step), and within JAX's fp32 tolerance, atol = rtol =
-2e-5, on fp32 inputs (``flash_attention`` as 3xTF32 products on the
-tensor cores, at most a quarter of that limit; the decodes' fp32 FMA on
-the CUDA cores; sums in other orders than the plain version's);
+2e-5, on fp32 inputs (``flash_attention`` and the paged decode over
+fp32 pages as 3xTF32 products on the tensor cores, the paged decode over
+int8 pages as three bf16 pieces of q and P, each at most a quarter of
+that limit at the main shapes; ``flash_decode``'s fp32 FMA on the CUDA
+cores; sums in other orders than the plain version's);
 ``ssm_scan`` within 1e-4 * max |plain| for y and for the
 state (the plain version computes in fp32; the kernel's tensor-core
 products take each fp32 operand as a bf16 pair and sum in fp32 in other
@@ -230,6 +232,8 @@ def _poison_unread(args, quant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("case", [
     # split edges at NP 64, page 16 (8 pages = 128 rows a block)
@@ -263,20 +267,27 @@ def _poison_unread(args, quant):
 ], ids=["edges", "edges2", "np128", "page8", "page32", "g1", "g8",
         "g8_hd64", "hd64", "repeat", "page128", "page1", "hd256", "hd32",
         "g1_hd96", "g7_hd64", "g7_hd128", "g7_hd96"])
-def test_paged_decode_split_shapes(cuda, quant, case):
+def test_paged_decode_split_shapes(cuda, full_fp32, quant, case, q_dtype):
     """The page-split kernels at the edges of their splits and tiles, pages
-    of 1 to 128 rows, G 1/2/4/8 and hd 32 to 256: within two bf16 steps of
-    the plain version, inactive rows exactly zero, the same bits on a
-    second call, and the same bits with NaN (int8: NaN scales) in every
-    row no slot reads (rows past pos[b] are zero-filled, never read)."""
+    of 1 to 128 rows, G 1/2/4/8 and hd 32 to 256, under bf16 q and under
+    fp32 q (fp32 pages, or int8 pages: the tensor-core kernels of three
+    bf16 pieces and of 3xTF32): within two bf16 steps of the plain
+    version (fp32 q: JAX's fp32 limit), inactive rows exactly zero, the
+    same bits on a second call, and the same bits with NaN (int8: NaN
+    scales) in every row no slot reads (rows past pos[b] are zero-filled,
+    never read)."""
     args = _paged_args(cuda, quant, 7 + case["NP"] + case["G"],
                        len(case["positions"]), case["G"], 4, case["hd"],
                        case["page"], case["NP"], case["positions"],
-                       distinct=case.get("distinct", True))
+                       distinct=case.get("distinct", True), dtype=q_dtype)
     fn = ops.paged_decode_quant if quant else ops.paged_decode
     got, want = fn(*args), fn(*args, backend="ref")
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
-                               rtol=2 ** -6)
+    if q_dtype == torch.float32:
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                                   rtol=2 ** -6)
     for b, p in enumerate(case["positions"]):
         if p < 0:
             assert torch.all(got[b] == 0)
@@ -1225,6 +1236,10 @@ def _attention_f64(q, k, v):
 #: limit around the float64 answer (the plain fp32 version itself uses
 #: 0.22-0.32 of it at 4 and 1.1-1.7 at 16, emulated; tests/test_torch_fp32.py)
 SHARP_SCORES_SHARE = {4.0: FP32_ATTN_SHARE, 16.0: 1.0}
+#: the paged decodes under fp32 q (three bf16 pieces of q and P over int8
+#: pages, 3xTF32 over fp32 pages): their largest share of the fp32 limit at
+#: the serve engine's pool (0.013-0.027 emulated, tests/test_torch_fp32.py)
+FP32_PAGED_SHARE = 0.25
 
 
 @pytest.mark.cuda
@@ -1380,8 +1395,9 @@ def test_flash_decode_fp32_on_card(cuda, full_fp32, B, T, H, K, hd, pos):
 def test_paged_decode_fp32_on_card(cuda, full_fp32, quant, B, G, K, hd,
                                    page, NP, P, positions):
     """The paged kernels under fp32 q (fp32 pages, or int8 pages with their
-    fp32 scales): within JAX's fp32 tolerance of the plain version,
-    inactive rows exactly zero, the same bits again."""
+    fp32 scales): within JAX's fp32 tolerance of the plain version, at
+    most FP32_PAGED_SHARE of it at the serve engine's pool, inactive rows
+    exactly zero, the same bits again."""
     args = _paged_args(cuda, quant, 31 + NP + G + hd, B, G, K, hd, page, NP,
                        positions, P, dtype=torch.float32)
     name = "paged_decode_quant" if quant else "paged_decode"
@@ -1392,10 +1408,77 @@ def test_paged_decode_fp32_on_card(cuda, full_fp32, quant, B, G, K, hd,
     assert got.dtype == torch.float32
     want = fn(*args, backend="ref")
     torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    share = _fp32_share(got, want)
+    print(f"{name} fp32 q {tuple(args[0].shape)} pages "
+          f"{tuple(args[1].shape)} pos {positions}: {share:.4f} of the fp32 "
+          "limit")
+    if (B, NP, P) == (8, 64, 513):
+        assert share <= FP32_PAGED_SHARE
     for b, p in enumerate(positions):
         if p < 0:
             assert torch.all(got[b] == 0)
     assert torch.equal(got, fn(*args))
+
+
+#: outputs of the attention kernels that the fp32 paged decodes' redesign
+#: left alone, each as ``_digest`` gave it from the sources of 56737b4
+#: (before the TF32 helpers moved from flash_attention.cu to common.cuh):
+#: case -> digest; the inputs come from numpy seeds (``_pinned_output``)
+PINNED_DIGESTS = {
+    "flash_attention_fp32_qwen": "b746ed27514e3aa0",
+    "flash_attention_fp32_phi3": "0beeaee6aafb96f6",
+    "flash_attention_fp32_internvl2": "418c008f5920d15e",
+    "flash_attention_bf16_qwen": "250ed769daf9a3d7",
+    "flash_decode_bf16": "2803d8f5c3346511",
+    "flash_decode_fp32": "1158a3886fb32759",
+    "paged_decode_bf16": "fa716f6f537be8c2",
+    "paged_decode_quant_bf16": "f438480551911db8"}
+PINNED_CASES = ("flash_attention_fp32_qwen", "flash_attention_fp32_phi3",
+                "flash_attention_fp32_internvl2", "flash_attention_bf16_qwen",
+                "flash_decode_bf16", "flash_decode_fp32",
+                "paged_decode_bf16", "paged_decode_quant_bf16")
+
+
+def _digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()[:16]
+
+
+def _pinned_output(cuda, case):
+    """One launch of ``case``'s kernel on inputs from numpy seeds:
+    flash_attention causal at qwen3-0.6b's S 384 (16/8 heads of 128),
+    phi3-mini's hd 96 (32/32) and internvl2's S 640 (14/2 heads of 64);
+    flash_decode at B 4, T 1,024, 16/8 heads of 128, pos 700; the paged
+    decodes under bf16 q at the serve engine's pool and positions."""
+    if case.startswith("flash_attention"):
+        who = case.rsplit("_", 1)[1]
+        dt = torch.float32 if "fp32" in case else torch.bfloat16
+        S, H, K, hd = {"qwen": (384, 16, 8, 128), "phi3": (384, 32, 32, 96),
+                       "internvl2": (640, 14, 2, 64)}[who]
+        q, k, v = _attn_inputs(cuda, S + H + hd, 1, S, S, H, K, hd, dt)
+        return ops.flash_attention(q, k, v, causal=True)
+    if case.startswith("flash_decode"):
+        dt = torch.float32 if case.endswith("fp32") else torch.bfloat16
+        q, k, v = _attn_inputs(cuda, 700, 4, 1, 1024, 16, 8, 128, dt)
+        return ops.flash_decode(q, k, v, 700)
+    name = case[:-len("_bf16")]
+    args = _paged_args(cuda, name.endswith("quant"), 30, 8, 2, 8, 128, 16,
+                       64, (1023, -1, 600, 15, 0, 384, 200, -1), 513)
+    return getattr(ops, name)(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PINNED_CASES)
+def test_attention_kernels_keep_their_bits_on_card(cuda, case):
+    """fp32 flash_attention, its bf16 kernel, flash_decode (bf16 and fp32)
+    and the paged decodes under bf16 q give the bits they gave before the
+    fp32 paged decodes' redesign (PINNED_DIGESTS): moving the TF32 helpers
+    into common.cuh and the new fp32 paths beside the bf16 ones changed
+    no other kernel's arithmetic."""
+    got = _pinned_output(cuda, case)
+    assert _digest(got) == PINNED_DIGESTS[case]
 
 
 @pytest.mark.cuda

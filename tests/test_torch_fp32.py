@@ -14,8 +14,10 @@ dtype contract holds on meta tensors (what the dry-run counts); and the
 numerics of fp32 ``flash_attention``'s CUDA kernel, emulated here: its
 tensor-core products take each fp32 operand as a TF32 pair with three
 products a product (3xTF32), well under 2e-5, where a bf16 pair leaves
-no margin and TF32 alone misses it (the decodes' fp32 kernels are FMA on
-the CUDA cores). The card's side of this is in tests/test_torch_cuda.py
+no margin and TF32 alone misses it; and the fp32 paged decodes' at the
+serve pool (three bf16 pieces of q and P over int8 pages, 3xTF32 over
+fp32 pages; ``flash_decode``'s fp32 kernel is FMA on the CUDA cores).
+The card's side of this is in tests/test_torch_cuda.py
 (``*_fp32_on_card``, ``*_fp32_split_on_card``) and chip_smoke.py's
 ``run_fp32``.
 """
@@ -31,6 +33,8 @@ from repro.kernels.flash_attention import flash_attention as jax_fa
 from repro.kernels.flash_decode import flash_decode as jax_fd
 from repro.kernels.paged_decode import paged_decode as jax_pd
 from repro.kernels.paged_decode import paged_decode_quant as jax_pdq
+from repro.kernels.ref import paged_decode_quant_ref as jax_pd_quant_ref
+from repro.kernels.ref import paged_decode_ref as jax_pd_ref
 from repro.models.model import build_model as jax_model
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JEngine
@@ -375,3 +379,118 @@ def test_fp32_attention_tf32_triples_under_sharp_scores(S, H, K, hd,
     exact_share = _share(triple.double(), exact)
     assert exact_share < bound
     assert exact_share <= _share(want.double(), exact)
+
+
+# ---------------------------------------------------------------------------
+# why the fp32 paged decodes' tensor-core products are three bf16 pieces of
+# q and P (int8 pages) and 3xTF32 (fp32 pages): their numerics, emulated at
+# the serve pool's shape and held against the JAX package's paged decodes
+# in fp32 (its plain references, which its own suite holds the Pallas
+# kernels to: Pallas in interpret mode takes minutes at this shape)
+# ---------------------------------------------------------------------------
+SERVE_POS = (1023, -1, 600, 15, 0, 384, 200, -1)   # chip_smoke's PAGED_POS
+
+
+def _bf16_pieces(x, n):
+    """x (fp32) as n bf16 pieces, each rounded to nearest from what the
+    pieces before it leave over (exact in fp32), as float64."""
+    out = []
+    for _ in range(n):
+        piece = x.to(torch.bfloat16).float()
+        out.append(piece.double())
+        x = x - piece
+    return out
+
+
+def _serve_pool(G, seed):
+    """The serve engine's pool at B 8, page 16, NP 64, qwen3-0.6b's 8 KV
+    heads of 128, G query heads each, at SERVE_POS: numpy q, k/v pages
+    (513 pages, each slot's table a distinct run of a permutation)."""
+    B, page, NP, K, hd = 8, 16, 64, 8, 128
+    P = 1 + B * NP
+    q, kp, vp = _normal(seed, (B, 1, G * K, hd), (P, page, K, hd),
+                        (P, page, K, hd))
+    tables = np.random.default_rng(seed).permutation(
+        np.arange(1, P)).reshape(B, NP).astype(np.int32)
+    return q, kp, vp, tables, np.asarray(SERVE_POS, np.int32)
+
+
+def _emulated_paged(quant, G, splits, seed=30):
+    """The paged decode over ``_serve_pool`` with q, k, v and P entered as
+    the pieces of each of ``splits`` (each returns a list: the leading
+    piece, then the corrections; an int8 value is exact and stays whole),
+    products in float64, the leading products' sum and the corrections'
+    sum each rounded to fp32 and added in fp32; the k scale on the score,
+    the v scale on P (int8 pages), the softmax in float64. Returns ([one
+    output per split], JAX's fp32 reference)."""
+    q, kp, vp, tables, pos = _serve_pool(G, seed)
+    t = [torch.from_numpy(x) for x in (q, kp, vp)]
+    if quant:
+        (kq, ks), (vq, vs) = kv_quant_ref(t[1]), kv_quant_ref(t[2])
+        want = jax_pd_quant_ref(q, kq.numpy(), vq.numpy(), ks.numpy(),
+                                vs.numpy(), tables, pos)
+        pages = (kq.double(), vq.double())
+    else:
+        want = jax_pd_ref(q, kp, vp, tables, pos)
+        pages = (t[1], t[2])
+    B, _, H, hd = q.shape
+    page, K = kp.shape[1], kp.shape[2]
+    T = tables.shape[1] * page
+    tbl = torch.from_numpy(tables).long()
+
+    def rows(x):                      # (P, page, K, ...) -> (B, T, K, ...)
+        return x[tbl].reshape(B, T, K, *x.shape[3:])
+    k, v = (rows(x) for x in pages)
+
+    valid = (torch.arange(T)[None, :] <= torch.from_numpy(pos).long()[:, None])
+    outs = []
+    for split in splits:
+        def product(a, b, eq):
+            pa = split(a)
+            pb = [b] if quant else split(b)
+            lead = torch.einsum(eq, pa[0], pb[0]).float()
+            corr = sum(torch.einsum(eq, x, y) for i, x in enumerate(pa)
+                       for j, y in enumerate(pb) if 0 < i + j < 2
+                       or (quant and i > 0)).float()
+            return lead + corr
+
+        s = product(t[0].reshape(B, K, G, hd), k, "bkgh,btkh->bkgt")
+        if quant:
+            s = s * rows(ks).permute(0, 2, 1)[:, :, None, :]
+        s = (s.double() / hd ** 0.5).masked_fill(~valid[:, None, None, :],
+                                                 float("-inf"))
+        p = torch.softmax(s, -1).nan_to_num(0.0).float()
+        if quant:
+            p = p * rows(vs).permute(0, 2, 1)[:, :, None, :]
+        outs.append(product(p, v, "bkgt,btkh->bkgh").reshape(B, 1, H, hd))
+    return outs, torch.from_numpy(np.array(want))
+
+
+def _pieces(n):
+    return lambda x: _bf16_pieces(x.float(), n)
+
+
+@pytest.mark.parametrize("G", [2, 8])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "fp32"])
+def test_fp32_paged_tensor_core_pieces_hold_the_limit(quant, G):
+    """The fp32 paged kernels' numerics at the serve pool (B 8, page 16,
+    NP 64, 8 KV heads of 128, G 2 and 8, the serve phase's positions),
+    against JAX's paged_decode / paged_decode_quant in fp32. Int8 pages
+    (exact in bf16): q and P as three bf16 pieces, q1 k in one sum and
+    q2 k + q3 k in another, the same for P V; they use 0.013 (G 2) and
+    0.024 (G 8) of the fp32 limit 2e-5 + 2e-5 |want|. fp32 pages: 3xTF32,
+    every operand a TF32 pair (``_tf32``'s rounding), hi hi in one sum and
+    hi lo + lo hi in another; 0.014 and 0.027. Each at most 0.25 of the
+    limit and under a third of what a bf16 pair of each split operand
+    uses: 0.17 and 0.32 (int8 pages), 0.45 and 0.53 (fp32 pages), before
+    the tensor core's truncating sums, which the card adds to either."""
+    split = _pieces(3) if quant else (lambda x: list(_tf32_pair(x.float())))
+    (got, pair), want = _emulated_paged(quant, G, [split, _pieces(2)])
+    share, pair_share = _share(got, want), _share(pair, want)
+    print(f"{'int8' if quant else 'fp32'} pages G {G}: {share:.4f} of the "
+          f"fp32 limit, a bf16 pair {pair_share:.4f}")
+    assert share <= 0.25
+    assert 3 * share < pair_share
+    for b, p in enumerate(SERVE_POS):
+        if p < 0:
+            assert torch.all(got[b] == 0)

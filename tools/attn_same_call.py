@@ -17,6 +17,15 @@ one call on one NVIDIA GPU, in turns.
     done
     python3 tools/attn_same_call.py --old build/old_fp32 --kernels fp32
 
+    # the fp32 paged decodes against the CUDA-core paths of 56737b4 (alone)
+    mkdir -p build/old_paged_fp32
+    for f in paged_decode.cu common.cuh; do
+        git show 56737b4:src/repro_torch/kernels/csrc/$f \
+            > build/old_paged_fp32/$f
+    done
+    python3 tools/attn_same_call.py --old build/old_paged_fp32 \
+        --kernels paged_fp32
+
 Builds the chosen kernels' old sources with nvcc beside the current ones
 (into ``build/attn_same_call/``; the old sources share the old
 ``common.cuh``, so kernels compared against different revisions take one
@@ -49,6 +58,19 @@ through both libraries (the old revision's bf16 kernel against the
 current one). Its old sources are a revision whose launcher already
 takes the heads and fp32 arguments (``OLD_FP32_ARGTYPES``), so it runs
 in a call of its own.
+
+``paged_fp32``: ``paged_decode`` over fp32 pages and
+``paged_decode_quant`` over int8 pages, both under fp32 q, at the serve
+pool (``paged_inputs``: B 8, pages (513,16,8,128), NP 64, qwen3-0.6b's
+16/8 heads) at ``PAGED_POS``, with no slot active and with every slot at
+1,023, held to JAX's fp32 limit; each row carries the bound by its bytes
+or its products at the rate the new kernel runs them (3xTF32,
+``FP32_ATTN_FLOP_PER_S``, over fp32 pages; three bf16 products,
+``FP32_QUANT_FLOP_PER_S``, over int8 pages), the larger. Beside each,
+its bf16 twin (bf16 q over bf16 pages, over int8 pages) through both
+libraries, whose old and new outputs must be the same bits. Its old
+sources are a revision whose launchers already take the fp32 argument
+(``OLD_PAGED_FP32_ARGTYPES``), so it runs in a call of its own.
 
 ``paged``: ``paged_decode`` and ``paged_decode_quant`` at
 ``chip_smoke.py``'s paged shapes (``paged_cases``: qwen3-0.6b's 16/8
@@ -90,7 +112,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the sources each kernel group builds
 GROUPS = {"attention": ("flash_attention", "flash_decode"),
-          "fp32": ("flash_attention",),
+          "fp32": ("flash_attention",), "paged_fp32": ("paged_decode",),
           "paged": ("paged_decode",), "ssm": ("ssm_scan",),
           "sample": ("fused_sample",), "qdma": ("qdma_pack",)}
 #: the earlier launchers' C signatures, by source
@@ -107,6 +129,13 @@ OLD_ARGTYPES = {
 #: the fp32 set's old launcher (44abb8d's: heads and fp32 arguments)
 OLD_FP32_ARGTYPES = {
     "flash_attention": {"launch_flash_attention": [P] * 4 + [I] * 9 + [P]}}
+#: the paged_fp32 set's old launchers (56737b4's: the fp32 argument)
+OLD_PAGED_FP32_ARGTYPES = {
+    "paged_decode": {"launch_paged_decode": [P] * 6 + [I] * 7 + [P],
+                     "launch_paged_decode_quant": [P] * 8 + [I] * 7 + [P]}}
+#: the groups that compare against a revision of their own: their old
+#: launchers' signatures
+ALONE = {"fp32": OLD_FP32_ARGTYPES, "paged_fp32": OLD_PAGED_FP32_ARGTYPES}
 OLD_DECODE_SPLIT = 64
 
 
@@ -414,6 +443,61 @@ def time_paged(torch, cs, old, turns, stream, seed):
                   kernel=name)
 
 
+def time_paged_fp32(torch, cs, old, turns, stream, seed):
+    """The paged decodes under fp32 q, old against new, at the serve pool
+    with PAGED_POS, no slot active and every slot at 1,023, each beside
+    its bf16 twin (whose old and new outputs must be the same bits)."""
+    from repro_torch.configs import make_run_config
+    from repro_torch.kernels import ops
+    lib = old["paged_decode"]
+
+    def old_paged(quant, a):
+        q, kp, tables, pos = a[0], a[1], a[-2], a[-1]
+        B, _, H, hd = q.shape
+        page, K = kp.shape[1], kp.shape[2]
+        out = torch.empty_like(q)
+        fn = (lib.launch_paged_decode_quant if quant
+              else lib.launch_paged_decode)
+        rc = fn(*[x.data_ptr() for x in a], out.data_ptr(), B,
+                tables.shape[1], page, K, hd, H // K,
+                int(q.dtype == torch.float32), stream)
+        if rc:
+            raise RuntimeError(lib.kernel_error_string(rc).decode())
+        return out
+
+    def fp32_share(got, want):
+        return cs.attn_err(got, want, cs.FP32_TOL, cs.FP32_TOL)[1]
+
+    qwen = make_run_config("qwen3-0.6b", "decode_32k").model
+    H, K, hd = qwen.num_heads, qwen.num_kv_heads, qwen.head_dim
+    for label, positions in (("serve pool", cs.PAGED_POS),
+                             ("no slot active", [-1] * 8),
+                             ("every slot at 1023", [1023] * 8)):
+        for quant in (False, True):
+            name = "paged_decode_quant" if quant else "paged_decode"
+            for dtype in (torch.float32, torch.bfloat16):
+                fp32 = dtype == torch.float32
+                a = cs.paged_inputs(torch, H, K, hd, positions, 12 + quant,
+                                    quant, dtype=dtype)
+                if not fp32:
+                    cs.check(torch.equal(old_paged(quant, a),
+                                         getattr(ops, name)(*a)),
+                             f"{name} bf16 {label}: the bf16 path's bits "
+                             "changed")
+                pages = "int8" if quant else ("fp32" if fp32 else "bf16")
+                turns(f"{name} {label}, q {'fp32' if fp32 else 'bf16'} "
+                      f"{tuple(a[0].shape)}, {pages} pages (513,16,{K},"
+                      f"{hd}), NP 64, pos {list(positions)}",
+                      {"old": lambda: old_paged(quant, a),
+                       "new": lambda: getattr(ops, name)(*a)},
+                      getattr(ops, name)(*a, backend="ref"),
+                      *cs.paged_work(a[0], a[1], a[-2], a[-1], quant),
+                      share_fn=fp32_share if fp32 else None,
+                      rate=(cs.FP32_QUANT_FLOP_PER_S if quant else
+                            cs.FP32_ATTN_FLOP_PER_S) if fp32 else None,
+                      kernel=name, q_dtype="fp32" if fp32 else "bf16")
+
+
 def time_ssm(torch, cs, old, turns, stream):
     from repro_torch.configs import make_run_config
     from repro_torch.kernels import ops
@@ -620,9 +704,10 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    if "fp32" in args.kernels and len(args.kernels) > 1:
-        ap.error("--kernels fp32 compares against another revision: run it "
-                 "alone")
+    for group in ALONE:
+        if group in args.kernels and len(args.kernels) > 1:
+            ap.error(f"--kernels {group} compares against another revision: "
+                     "run it alone")
     # fp32 products in full fp32 (the plain versions' einsums, SDPA)
     torch.backends.cuda.matmul.allow_tf32 = False
     stems = [s for g in args.kernels for s in GROUPS[g]]
@@ -630,8 +715,8 @@ def main(argv=None) -> int:
     for stem in stems:
         ptxas(build.library_path(stem).with_suffix(".log").read_text(),
               f"new {stem}")
-    old = build_old(args.old, stems, OLD_FP32_ARGTYPES
-                    if args.kernels == ["fp32"] else OLD_ARGTYPES)
+    old = build_old(args.old, stems, ALONE.get(args.kernels[0], OLD_ARGTYPES)
+                    if len(args.kernels) == 1 else OLD_ARGTYPES)
     stream = torch.cuda.current_stream().cuda_stream
     turns = Turns(torch, cs, args.reps)
     one = torch.zeros(1, device="cuda")
@@ -641,6 +726,8 @@ def main(argv=None) -> int:
         time_attention(torch, cs, old, turns, stream)
     if "fp32" in args.kernels:
         time_fp32(torch, cs, old, turns, stream)
+    if "paged_fp32" in args.kernels:
+        time_paged_fp32(torch, cs, old, turns, stream, args.seed)
     if "paged" in args.kernels:
         time_paged(torch, cs, old, turns, stream, args.seed)
     if "ssm" in args.kernels:
