@@ -4033,18 +4033,21 @@ FP32_LOGITS_TOL = 1e-3   # qwen's fp32 prefill logits and the generate
                          # path's, kernel path vs plain path, of max |logit|
                          # (the bf16 limit is LOGITS_REL_TOL, 1.5e-2)
 FP32_LOSS_RTOL = 1e-5    # the eval step's loss at fp32 vs the plain loss
-FP32_PAGED_SHARE = 0.25  # the fp32 paged kernels' largest share of the
-                         # FP32_TOL limit at the serve pool: their tensor-core
-                         # pieces hold fp32 with a margin (0.013-0.027
-                         # emulated, tests/test_torch_fp32.py)
+FP32_DECODE_SHARE = 0.25  # the fp32 decode kernels' largest share of the
+                          # FP32_TOL limit (the paged ones at the serve pool,
+                          # flash_decode at qwen's heads): their tensor-core
+                          # pieces hold fp32 with a margin (0.009-0.027
+                          # emulated, tests/test_torch_fp32.py)
 FP32_KERNELS = ("flash_attention", "flash_decode", "paged_decode",
                 "paged_decode_quant")
 #: the device's names for the fp32 paths' tensor-core kernels:
 #: flash_attention's, the paged decode's over fp32 pages (3xTF32) and over
-#: int8 pages under fp32 q (three bf16 pieces of q and P)
+#: int8 pages under fp32 q (three bf16 pieces of q and P), flash_decode's
+#: (3xTF32)
 FP32_ATTN_KERNEL = "flash_attention_tf32x3_kernel"
 FP32_PAGED_KERNEL = "paged_decode_tf32x3_kernel"
 FP32_QUANT_KERNEL = "paged_decode_bf16x3_kernel"
+FP32_DECODE_KERNEL = "flash_decode_tf32x3_kernel"
 
 
 def fp32_attention_shapes(cfg, families) -> list:
@@ -4064,14 +4067,14 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
     versions on the card, timed: flash_attention at
     ``fp32_attention_shapes``; flash_decode at q (8,1,16,128) over
     (8,1024,8,128), int pos 511 and 1023; both paged kernels at the paged
-    phase's pool and positions (fp32 pages; int8 pages under fp32 q),
-    these within FP32_PAGED_SHARE of the limit. Bound: bytes at 3.35 TB/s or the products at the rate each kernel
-    runs them, the larger: flash_attention's and the paged decode's over
+    phase's pool and positions (fp32 pages; int8 pages under fp32 q);
+    the decodes within FP32_DECODE_SHARE of the limit. Bound: bytes at
+    3.35 TB/s or the products at the rate each kernel runs them, the
+    larger: flash_attention's, flash_decode's and the paged decode's over
     fp32 pages as 3xTF32 on the tensor cores (FP32_ATTN_FLOP_PER_S), the
     paged decode's over int8 pages as three bf16 products on the tensor
-    cores (FP32_QUANT_FLOP_PER_S), flash_decode's at the CUDA cores' 67
-    TFLOP/s fp32. Library: SDPA at fp32 (tf32 off) for the dense
-    kernels."""
+    cores (FP32_QUANT_FLOP_PER_S). Library: SDPA at fp32 (tf32 off) for
+    the dense kernels."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(28)
 
@@ -4079,8 +4082,7 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
         return torch.randn(shape, generator=g, device="cuda")
     rows = {k: [] for k in FP32_KERNELS}
 
-    def row(name, label, fn, plain, nbytes, flops, lib=None,
-            rate=FP32_FLOP_PER_S, most=1.0):
+    def row(name, label, fn, plain, nbytes, flops, lib, rate, most=1.0):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err, share = attn_err(got, want, FP32_TOL, FP32_TOL)
@@ -4126,7 +4128,8 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
             lambda: ops.flash_decode(q, kk, vv, pos, backend="ref"),
             4 * (2 * B * n * K * hd + 2 * B * H * hd), 4 * B * H * hd * n,
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                   enable_gqa=True))
+                                                   enable_gqa=True),
+            FP32_ATTN_FLOP_PER_S, most=FP32_DECODE_SHARE)
     for quant in (False, True):
         name = "paged_decode_quant" if quant else "paged_decode"
         fn = getattr(ops, name)
@@ -4136,8 +4139,9 @@ def fp32_kernel_rows(torch, ops, timer, cfg, families) -> dict:
         row(name, f"q {tuple(a[0].shape)}, pages (513,16,{K},{hd}) "
             f"{'int8' if quant else 'fp32'}, NP=64, pos {list(PAGED_POS)}",
             lambda: fn(*a), lambda: fn(*a, backend="ref"), nbytes, flops,
+            lib=None,
             rate=FP32_QUANT_FLOP_PER_S if quant else FP32_ATTN_FLOP_PER_S,
-            most=FP32_PAGED_SHARE)
+            most=FP32_DECODE_SHARE)
     return rows
 
 
@@ -4202,15 +4206,17 @@ def fp32_generate(torch, ops, run, params, seed) -> dict:
     384 tokens, widen the cache to a dense one of 1,024 positions, then 31
     teacher-forced decode steps at one position for the batch (32 new
     tokens' logits), through the kernels (flash_attention, flash_decode)
-    and through the plain versions; returns the distance of max |logit|
-    and the kernel path's launches."""
+    and through the plain versions; returns the distance of max |logit|,
+    the kernel path's launches and the device's names for one decode
+    step's flash_decode launches (``device_kernels``, outside the count:
+    the last step again, which writes the same cache row)."""
     from repro_torch.models.model import build_model
     from repro_torch.train.step import make_serve_steps
     B, S0, new, T = 4, 384, 32, 1024
     rng = np.random.default_rng(seed + 300)
     toks = torch.tensor(rng.integers(0, run.model.vocab_size, (B, S0 + new)),
                         device="cuda")
-    logits, counts = {}, None
+    logits, counts, names = {}, None, None
     for path, r in (("kernel", run),
                     ("plain", run.replace(kernel_backend="reference"))):
         model = build_model(r)
@@ -4232,11 +4238,19 @@ def fp32_generate(torch, ops, run, params, seed) -> dict:
         logits[path] = torch.stack(out).float()
         if path == "kernel":
             counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            # the loop's last step again: it rewrites row ``last`` of the
+            # cache with the same token, so the cache and logits stand
+            last = S0 + new - 2
+            with torch.no_grad():
+                names = device_kernels(torch, [lambda: decode(
+                    cparams, dense, toks[:, last:last + 1], last)])[0]
+            names = [n for n in names if "flash_decode" in n]
         del dense, cparams, out
     a, b = logits["kernel"], logits["plain"]
     rel = float((a - b).abs().max() / b.abs().max())
     check(bool(torch.isfinite(a).all()), "fp32 generate: non-finite logits")
-    return {"rel_err": rel, "steps": new, "launches": counts}
+    return {"rel_err": rel, "steps": new, "launches": counts,
+            "decode_step_flash_decode": names}
 
 
 def decode_step_names(torch, found: dict):
@@ -4267,8 +4281,10 @@ def run_fp32(torch, ops, args, card, report, launches, params, kern):
     plain fp32 pages), a
     stream that differs allowed only at a near tie (``stream_gaps``
     within FP32_LOGITS_TOL); the generate path within FP32_LOGITS_TOL of
-    the plain path; the eval step's loss within FP32_LOSS_RTOL of the
-    plain loss. Each of the four kernels must have launched."""
+    the plain path, one decode step's launches on the card one
+    FP32_DECODE_KERNEL a layer; the eval step's loss within
+    FP32_LOSS_RTOL of the plain loss. Each of the four kernels must have
+    launched."""
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import Request
     from repro_torch.train.step import make_eval_step
@@ -4378,6 +4394,13 @@ def run_fp32(torch, ops, args, card, report, launches, params, kern):
     check(gen["launches"]["flash_decode"] == (gen["steps"] - 1)
           * cfg.num_layers, "fp32 generate: flash_decode not launched once "
                             "a layer a step")
+    names = gen["decode_step_flash_decode"]
+    log(f"fp32 generate: one decode step put {len(names)} flash_decode "
+        f"launches on the card, as {sorted(set(names))}")
+    check(len(names) == cfg.num_layers
+          and all(FP32_DECODE_KERNEL in n for n in names),
+          f"fp32 generate: a decode step ran {names}, not {cfg.num_layers} "
+          f"launches of {FP32_DECODE_KERNEL}")
 
     batch = train_batch(torch, run, 2000 + args.seed)
     ev = make_eval_step(run)(params, batch)

@@ -103,6 +103,17 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
   return y;
 }
 
+// An 8x8 fp32 matrix held as (row g, columns 2t and 2t + 1) by lane 4 g +
+// t, transposed: x0, x1 become (row 2t, column g) and (row 2t + 1, column
+// g), by movmatrix on the values' high and low 16-bit halves (bits kept)
+__device__ __forceinline__ void movmatrix_trans_f32(float& x0, float& x1) {
+  const uint32_t a = __float_as_uint(x0), b = __float_as_uint(x1);
+  const uint32_t hi = movmatrix_trans(__byte_perm(a, b, 0x7632));
+  const uint32_t lo = movmatrix_trans(__byte_perm(a, b, 0x5410));
+  x0 = __uint_as_float(__byte_perm(lo, hi, 0x5410));
+  x1 = __uint_as_float(__byte_perm(lo, hi, 0x7632));
+}
+
 // 2^x by the special-function unit (relative error about 2^-22; 2^-inf =
 // 0): the attention kernels' softmax
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -152,9 +163,10 @@ __device__ __forceinline__ void split_bf16x3(float x0, float x1,
 }
 
 // ---------------------------------------------------------------------------
-// TF32 on the tensor cores (fp32 flash_attention, the fp32 paged decode):
-// 3xTF32 products, each fp32 operand as a TF32 pair hi + lo and a product
-// as lo hi + hi lo + hi hi (CUTLASS's mma_tensor_op_fast_f32.h)
+// TF32 on the tensor cores (fp32 flash_attention, fp32 flash_decode, the
+// paged decode over fp32 pages): 3xTF32 products, each fp32 operand as a
+// TF32 pair hi + lo and a product as lo hi + hi lo + hi hi (CUTLASS's
+// mma_tensor_op_fast_f32.h)
 // ---------------------------------------------------------------------------
 // x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
 // cvt.rna.tf32.f32's rounding, as an integer add and mask (cvt.rna
@@ -209,6 +221,56 @@ struct DecMerge {
     return s + 2 * kDecWarps * kDecMaxG;
   }
 };
+
+// A warp's state into DecMerge's wm, wl, wacc (the tiles consumed): m and
+// l of heads 2t and 2t + 1 (l: this thread's rows, summed here over the
+// eight lanes of a column), acc[mt] the O^T rows (columns of the output)
+// (half kMT + mt) 16 + g and + 8 of those heads. kMT = HDP / 16: the warp
+// holds every column (half 0). kMT = HDP / 32: a pair of warps shares the
+// rows and their m and l (DecTf32); each writes its half of the columns
+// and zeros in the other, and the second (half 1) l 0.
+template <int HDP, int kMT>
+__device__ __forceinline__ void decode_publish(float* smem,
+                                               const float (&acc)[kMT][4],
+                                               float m0, float m1, float l0,
+                                               float l1, int warp, int lane,
+                                               int half) {
+  static_assert(kMT * 16 == HDP || kMT * 32 == HDP,
+                "all or half the columns");
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  float* wm = DecMerge<HDP>::wm(smem);
+  float* wl = DecMerge<HDP>::wl(smem);
+  if (g == 0) {
+    wm[warp * kDecMaxG + 2 * t] = m0;
+    wm[warp * kDecMaxG + 2 * t + 1] = m1;
+    wl[warp * kDecMaxG + 2 * t] = half ? 0.f : l0;
+    wl[warp * kDecMaxG + 2 * t + 1] = half ? 0.f : l1;
+  }
+  float* wa = DecMerge<HDP>::wacc(smem) + warp * kDecMaxG * HDP;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int d = (half * kMT + mt) * 16 + g;
+    wa[(2 * t) * HDP + d] = acc[mt][0];
+    wa[(2 * t + 1) * HDP + d] = acc[mt][1];
+    wa[(2 * t) * HDP + d + 8] = acc[mt][2];
+    wa[(2 * t + 1) * HDP + d + 8] = acc[mt][3];
+  }
+  if constexpr (kMT * 32 == HDP) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int d = ((1 - half) * kMT + mt) * 16 + g;
+      wa[(2 * t) * HDP + d] = 0.f;
+      wa[(2 * t + 1) * HDP + d] = 0.f;
+      wa[(2 * t) * HDP + d + 8] = 0.f;
+      wa[(2 * t + 1) * HDP + d + 8] = 0.f;
+    }
+  }
+}
 
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -299,190 +361,164 @@ __device__ __forceinline__ void decode_merge(float* smem, int G, int hd,
   cluster.sync();  // the other blocks have read this block's state
 }
 
+
 // ---------------------------------------------------------------------------
-// fp32 decode on the CUDA cores (flash_decode's fp32 path): one warp's
-// kR cache rows (in shared memory as the cache holds them: fp32, or int8
-// with fp32 row scales) against the G query heads of a KV head, every
-// product an fp32 FMA. Scores: lane = (row lane % kR, heads lane / kR +
-// (32 / kR) j); P V: lane = columns kVec lane + 32 kVec i. Between the
-// two, P and the heads' rescale factors pass through the warp's scratch.
+// The decodes' 3xTF32 tile (fp32 flash_decode, the paged decode over fp32
+// pages): a tile of 32 fp32 cache rows in shared memory as the cache holds
+// them (rows padded by 16 bytes, zero past hd), and the block's four warps
+// as two pairs, warps w and w + 2 on the same 16 rows, each with half h =
+// w / 2 of the scores' k-steps and of O^T's m-tiles. At G = 2 three TF32
+// products fill 2 of an mma's 8 columns, so the products, not the bytes,
+// set the busiest warp's time: a pair halves it (PERF.md §6).
+//   - S^T = K Q^T on mma.m16n8k8.tf32, the 16 rows as M and the G <= 8
+//     query heads as N: K by 32-bit loads (the row pad puts lane (g, t) on
+//     bank 4 g + t), split hi/lo in registers; q split once per block; hi
+//     hi of even and odd k-steps in two sums and the cross terms in a
+//     third; then the pair's two partial sums added through shared memory,
+//     the same sum in both warps, so both keep the same softmax.
+//   - The softmax in fp32 and exp2, its max and sum over the eight lanes
+//     of a column by shuffles.
+//   - P V as O^T = V^T P^T: V^T, the A operand, by 32-bit loads of rows 2t
+//     and 2t + 1 at column g (bank 8 t + g), its k order matching P^T's:
+//     the score tile's fp32 C fragment transposed by movmatrix on its
+//     16-bit halves (bits kept), then split hi/lo. The leading products
+//     and the corrections summed apart from zero for each tile, added in
+//     fp32 and folded into the accumulator in the rescale's fma.
+// The tensor core's fp32 accumulate aligns a step's addends to the largest
+// and truncates, so a leading product and its corrections never share a
+// running sum. A warp's state: acc[mt], O^T rows (columns of the output)
+// (h kMT + mt) 16 + g and + 8, heads 2t and 2t + 1; m and l of heads 2t,
+// 2t + 1 (l: this thread's rows).
 // ---------------------------------------------------------------------------
-// n values of a shared-memory row at p as floats (fp32 or int8 rows)
-template <int N>
-__device__ __forceinline__ void load_f32(const float* p, float (&x)[N]) {
-  static_assert(N == 1 || N == 2 || N == 4, "vector of 1, 2 or 4");
-  if constexpr (N == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  } else if constexpr (N == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    x[0] = v.x, x[1] = v.y;
-  } else {
-    x[0] = *p;
-  }
-}
-template <int N>
-__device__ __forceinline__ void load_f32(const int8_t* p, float (&x)[N]) {
-  static_assert(N == 1 || N == 2 || N == 4, "vector of 1, 2 or 4");
-  if constexpr (N == 4) {
-    const char4 v = *reinterpret_cast<const char4*>(p);
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  } else if constexpr (N == 2) {
-    const char2 v = *reinterpret_cast<const char2*>(p);
-    x[0] = v.x, x[1] = v.y;
-  } else {
-    x[0] = *p;
-  }
-}
+template <int HDP>
+struct DecTf32 {
+  static constexpr int kRows = 32;         // cache rows a tile
+  static constexpr int kStride = HDP + 4;  // floats a padded row
+  static constexpr int kSK = HDP / 16;     // a warp's k-steps of the scores
+  static constexpr int kMT = HDP / 32;     // a warp's m-tiles of O^T
+  static constexpr int kQWords = 4 * kSK;  // a lane's words of q's pieces
+  // the pairs' partial scores, one float4 a lane
+  static constexpr int kXBytes = kDecWarps * 32 * 16;
 
-template <int HDP, int kR>
-struct DecF32 {
-  static_assert(kR == 8 || kR == 16, "8 or 16 rows a warp");
-  static constexpr int kPairs = kDecMaxG * kR / 32;  // score pairs a lane
-  static constexpr int kHeadStep = 32 / kR;          // heads between pairs
-  static constexpr int kCols = HDP / 32;             // P V columns a lane
-  static constexpr int kVec = kCols < 4 ? kCols : 4;
-  // the warp's scratch, floats: P (kDecMaxG x kR), then the heads' rescale
-  static constexpr int kScratch = kDecMaxG * kR + kDecMaxG;
-
-  float m[kPairs], l[kPairs];  // the pairs' heads: running max, this
-                               // lane's part of the denominator
-  float acc[kDecMaxG][kCols];  // O: heads x this lane's columns
-
-  __device__ void init() {
+  // q's values for lane (g, t) of a warp of half h: columns 8 (h kSK + kk)
+  // + t and + 4 of head g's row qh (m16n8k8's b0, b1), zero past hd and
+  // for a head past G (ok false)
+  __device__ static void load_q(const float* qh, bool ok, int hd, int h,
+                                int t, float (&qv)[2 * kSK]) {
 #pragma unroll
-    for (int j = 0; j < kPairs; ++j) m[j] = -INFINITY, l[j] = 0.f;
-#pragma unroll
-    for (int h = 0; h < kDecMaxG; ++h)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[h][c] = 0.f;
+    for (int kk = 0; kk < kSK; ++kk) {
+      const int d = 8 * (h * kSK + kk) + t;
+      qv[2 * kk] = ok && d < hd ? qh[d] : 0.f;
+      qv[2 * kk + 1] = ok && d + 4 < hd ? qh[d + 4] : 0.f;
+    }
   }
 
-  // One tile of the warp: rows kt/vt (`stride` elements apart, zero past
-  // hd), the first `nvalid` >= 1 of them valid; qs the heads' q (kDecMaxG
-  // x HDP fp32, zero past hd and past G); ksc/vsc the rows' scales (int8
-  // rows) or null; scale_log2 = log2(e) / sqrt(hd).
-  template <typename T>
-  __device__ void tile(const T* kt, const T* vt, int stride,
-                       const float* qs, float* scratch, int nvalid,
-                       const float* ksc, const float* vsc, float scale_log2,
-                       int G, int lane) {
-    constexpr int kV = 16 / sizeof(T);  // values per 16-byte chunk
-    const int r = lane % kR;
-    const T* kr = kt + r * stride;
-    float s[kPairs];
+  // words 4 kk .. 4 kk + 3: the hi of k-step kk's b0, b1, then their lo
+  __device__ static void split_q(const float (&qv)[2 * kSK],
+                                 uint32_t (&qw)[kQWords]) {
 #pragma unroll
-    for (int j = 0; j < kPairs; ++j) s[j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < HDP / kV; ++c) {
-      float kv[kV];
-      if constexpr (kV == 4) {
-        load_f32<4>(reinterpret_cast<const float*>(kr) + c * 4, kv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < kV; e += 4) {
-          float x[4];
-          load_f32<4>(reinterpret_cast<const int8_t*>(kr) + c * kV + e, x);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) kv[e + i] = x[i];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kPairs; ++j) {
-        const int hq = lane / kR + kHeadStep * j;
-        if (hq < G) {
-          const float* qh = qs + hq * HDP + c * kV;
-#pragma unroll
-          for (int e = 0; e < kV; e += 4) {
-            const float4 qv = *reinterpret_cast<const float4*>(qh + e);
-            s[j] = fmaf(qv.x, kv[e], s[j]);
-            s[j] = fmaf(qv.y, kv[e + 1], s[j]);
-            s[j] = fmaf(qv.z, kv[e + 2], s[j]);
-            s[j] = fmaf(qv.w, kv[e + 3], s[j]);
-          }
-        }
-      }
+    for (int kk = 0; kk < kSK; ++kk) {
+      split_tf32(qv[2 * kk], qw[4 * kk], qw[4 * kk + 2]);
+      split_tf32(qv[2 * kk + 1], qw[4 * kk + 1], qw[4 * kk + 3]);
     }
-    float sl = scale_log2;
-    if (ksc != nullptr) sl *= ksc[r];
-    const float pv = vsc != nullptr ? vsc[r] : 1.f;
-    float* ps = scratch;                    // kDecMaxG x kR
-    float* alpha = scratch + kDecMaxG * kR;  // kDecMaxG
-#pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      const int hq = lane / kR + kHeadStep * j;
-      float x = r < nvalid ? s[j] * sl : -INFINITY;
-      // max over the kR rows: the lanes that share the head
-      float mx = x;
-#pragma unroll
-      for (int off = 1; off < kR; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      if (hq < G) {
-        mx = fmaxf(m[j], mx);  // row 0 is valid: finite
-        const float a = fast_exp2(m[j] - mx);
-        const float p = fast_exp2(x - mx);
-        m[j] = mx;
-        l[j] = l[j] * a + p;
-        ps[hq * kR + r] = p * pv;  // the v scale rides on P
-        if (r == 0) alpha[hq] = a;
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int h = 0; h < kDecMaxG; ++h) {
-      if (h < G) {
-        const float a = alpha[h];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[h][c] *= a;
-      }
-    }
-#pragma unroll 2
-    for (int rr = 0; rr < kR; ++rr) {
-      const T* vr = vt + rr * stride;
-      float v[kCols];
-#pragma unroll
-      for (int i = 0; i < kCols / kVec; ++i) {
-        float x[kVec];
-        load_f32<kVec>(vr + kVec * lane + 32 * kVec * i, x);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) v[i * kVec + e] = x[e];
-      }
-#pragma unroll
-      for (int h = 0; h < kDecMaxG; ++h) {
-        if (h < G) {
-          const float p = ps[h * kR + rr];
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[h][c] = fmaf(p, v[c], acc[h][c]);
-        }
-      }
-    }
-    __syncwarp();  // the scratch is read before the next tile writes it
   }
 
-  // This warp's state into DecMerge's wm, wl, wacc.
-  __device__ void publish(float* smem, int warp, int lane) {
-    float* wm = DecMerge<HDP>::wm(smem);
-    float* wl = DecMerge<HDP>::wl(smem);
-    float* wa = DecMerge<HDP>::wacc(smem) + warp * kDecMaxG * HDP;
+  // One tile of the pair's 16 rows: kt, vt their first K and V rows
+  // (kStride floats apart), the first nvalid >= 1 of them valid; xch the
+  // block's exchange (kXBytes); scale_log2 = log2(e) / sqrt(hd).
+  __device__ static void tile(const float* kt, const float* vt,
+                              const uint32_t (&qw)[kQWords], float4* xch,
+                              int nvalid, float scale_log2,
+                              float (&acc)[kMT][4], float& m0, float& m1,
+                              float& l0, float& l1, int warp, int lane) {
+    const int g = lane / 4, t = lane % 4, half = warp >> 1;
+    // the warp's half of the k-steps: K rows g, g + 8 at columns 8 kk + t
+    // and + 4, hi hi of even and odd k-steps in s and s1, the cross terms
+    // in sx; s: rows g, g + 8 (of the 16) x heads 2t, 2t + 1
+    const float* kf = kt + g * kStride + 8 * half * kSK + t;
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f},
+          sx[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      const int hq = lane / kR + kHeadStep * j;
-      float x = l[j];
-#pragma unroll
-      for (int off = 1; off < kR; off <<= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, off);
-      if (lane % kR == 0 && hq < kDecMaxG) {
-        wm[warp * kDecMaxG + hq] = m[j];
-        wl[warp * kDecMaxG + hq] = x;
-      }
+    for (int kk = 0; kk < kSK; ++kk) {
+      const float* kr = kf + 8 * kk;
+      uint32_t ah[4], al[4];
+      split_tf32(kr[0], ah[0], al[0]);
+      split_tf32(kr[8 * kStride], ah[1], al[1]);
+      split_tf32(kr[4], ah[2], al[2]);
+      split_tf32(kr[8 * kStride + 4], ah[3], al[3]);
+      const uint32_t qh0 = qw[4 * kk], qh1 = qw[4 * kk + 1];
+      mma_tf32(sx, al, qh0, qh1);
+      mma_tf32(sx, ah, qw[4 * kk + 2], qw[4 * kk + 3]);
+      mma_tf32(kk % 2 ? s1 : s, ah, qh0, qh1);
     }
+    float4 mine;
+    mine.x = s[0] + (s1[0] + sx[0]);
+    mine.y = s[1] + (s1[1] + sx[1]);
+    mine.z = s[2] + (s1[2] + sx[2]);
+    mine.w = s[3] + (s1[3] + sx[3]);
+    xch[warp * 32 + lane] = mine;
+    // the pair's barrier: warps w and w + 2, named barrier 1 + w % 2
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + (warp & 1)) : "memory");
+    const float4 other = xch[(warp ^ 2) * 32 + lane];
+    s[0] = mine.x + other.x;
+    s[1] = mine.y + other.y;
+    s[2] = mine.z + other.z;
+    s[3] = mine.w + other.w;
+
+    const bool ok_a = g < nvalid, ok_b = g + 8 < nvalid;
+    s[0] = ok_a ? s[0] * scale_log2 : -INFINITY;
+    s[1] = ok_a ? s[1] * scale_log2 : -INFINITY;
+    s[2] = ok_b ? s[2] * scale_log2 : -INFINITY;
+    s[3] = ok_b ? s[3] * scale_log2 : -INFINITY;
+    // max over the 16 rows: the eight lanes sharing t
+    float mx0 = fmaxf(m0, fmaxf(s[0], s[2]));
+    float mx1 = fmaxf(m1, fmaxf(s[1], s[3]));
 #pragma unroll
-    for (int h = 0; h < kDecMaxG; ++h)
+    for (int off = 4; off < 32; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // the tile's first row is valid, so both maxima are finite
+    const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    s[0] = fast_exp2(s[0] - mx0);
+    s[1] = fast_exp2(s[1] - mx1);
+    s[2] = fast_exp2(s[2] - mx0);
+    s[3] = fast_exp2(s[3] - mx1);
+    l0 = l0 * alpha0 + s[0] + s[2];
+    l1 = l1 * alpha1 + s[1] + s[3];
+
+    // P^T as m16n8k8's B operand in k order (rows 2t, 2t + 1 of each 8):
+    // the C fragment's rows g (k-step 0) and g + 8 (k-step 1) transposed,
+    // then split; V^T's A fragments of the warp's m-tiles in the same k
+    // order
+    movmatrix_trans_f32(s[0], s[1]);
+    movmatrix_trans_f32(s[2], s[3]);
+    uint32_t ph[4], pl[4];
 #pragma unroll
-      for (int i = 0; i < kCols / kVec; ++i)
+    for (int e = 0; e < 4; ++e) split_tf32(s[e], ph[e], pl[e]);
+    const float* vf = vt + 2 * t * kStride + 16 * half * kMT + g;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          wa[h * HDP + kVec * lane + 32 * kVec * i + e] =
-              acc[h][i * kVec + e];
+    for (int mt = 0; mt < kMT; ++mt) {
+      float h[4] = {0.f, 0.f, 0.f, 0.f}, x[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k8 = 0; k8 < 2; ++k8) {
+        const float* vr = vf + 8 * k8 * kStride + mt * 16;
+        uint32_t ah[4], al[4];
+        split_tf32(vr[0], ah[0], al[0]);
+        split_tf32(vr[8], ah[1], al[1]);
+        split_tf32(vr[kStride], ah[2], al[2]);
+        split_tf32(vr[kStride + 8], ah[3], al[3]);
+        const uint32_t bh0 = ph[2 * k8], bh1 = ph[2 * k8 + 1];
+        mma_tf32(x, al, bh0, bh1);
+        mma_tf32(x, ah, pl[2 * k8], pl[2 * k8 + 1]);
+        mma_tf32(h, ah, bh0, bh1);
+      }
+      acc[mt][0] = fmaf(acc[mt][0], alpha0, h[0] + x[0]);
+      acc[mt][1] = fmaf(acc[mt][1], alpha1, h[1] + x[1]);
+      acc[mt][2] = fmaf(acc[mt][2], alpha0, h[2] + x[2]);
+      acc[mt][3] = fmaf(acc[mt][3], alpha1, h[3] + x[3]);
+    }
   }
 };

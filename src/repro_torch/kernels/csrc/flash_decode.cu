@@ -53,21 +53,30 @@
 // the elementwise limit (tests/test_torch_kernels.py). Output acc /
 // max(l, 1e-30) in bf16; no valid row (pos < 0) gives zeros.
 //
-// fp32 inputs (a model at fp32 compute) take the same blocks, splits,
-// cluster and merges, with fp32 tiles of 32 rows (8 per warp, 34 KB a
-// stage at hd 128) and every product an fp32 FMA on the CUDA cores
-// (DecF32 in common.cuh). At G <= 8 a decode does 2 G flops per 4-byte
-// element read, at most 4 flops a byte, below the card's 20 (67 TFLOP/s
-// fp32 over 3.35 TB/s), so the bytes still bound it. The tensor cores
-// with each fp32 operand as a bf16 pair (2^-16 of its value) would use
-// 0.7-1.0 of the fp32 limit 2e-5 + 2e-5 |plain| (tests/test_torch_fp32.py
-// emulates it); fp32 FMA stays within the plain version's own rounding.
+// fp32 inputs (a model at fp32 compute) take their own kernel,
+// flash_decode_tf32x3_kernel, with the same blocks, splits, cluster and
+// merges and both products on the tensor cores as 3xTF32 on
+// mma.sync.m16n8k8.tf32 (each fp32 operand a TF32 pair hi + lo, a product
+// as hi hi + hi lo + lo hi), through the tile the paged decode over fp32
+// pages shares (DecTf32 in common.cuh): raw fp32 tiles of 32 rows, two
+// stages by cp.async, rows padded by 16 bytes (68 KB a block at hd 128,
+// three blocks an SM; 132 KB and one block at hd 256), split hi/lo in
+// registers; q split once per block, its pieces in registers; two warps
+// on each 16 rows, each with half the scores' k-steps (their partial sums
+// added through shared memory in one order, so both keep the same
+// softmax) and half of O^T's m-tiles, since at G = 2 three TF32 products
+// fill 2 of an mma's 8 columns and would otherwise set the busiest warp's
+// time. At G <= 8 a decode does 2 G flops per 4-byte element read: the
+// bytes still bound it. A bf16 pair of each fp32 operand (2^-16 of its
+// value) would use 0.7-1.0 of JAX's fp32 limit 2e-5 + 2e-5 |plain|; the
+// TF32 pairs, with the leading products and the corrections in separate
+// sums (the tensor core's fp32 accumulate truncates), hold a value to
+// about 2^-22 (tests/test_torch_fp32.py emulates both).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = kDecThreads;  // four warps
-constexpr int kWarps = kDecWarps;
 constexpr int kMaxG = kDecMaxG;        // query heads per KV head: the mma's N
 constexpr int kMaxHd = 256;
 constexpr int kMaxSplits = kDecMaxSplits;  // blocks of a cluster
@@ -77,19 +86,19 @@ template <typename E, int HDP>
 struct Tile {
   static constexpr bool kF32 = sizeof(E) == 4;
   static constexpr int kRows = kF32 ? 32 : 64;  // cache rows per tile
-  static constexpr int kWarpRows = kRows / kWarps;
   static constexpr int kVals = 16 / sizeof(E);  // values per 16-byte chunk
   static constexpr int kStride = HDP + kVals;   // padded row, elements
   static constexpr int kElems = kRows * kStride;
   // two stages of K and V; the merges reuse them
   static constexpr int kTileBytes = 4 * kElems * static_cast<int>(sizeof(E));
-  // fp32: the heads' q and each warp's scratch after the tiles
-  using F32 = DecF32<HDP, 8>;
-  static constexpr int kExtraFloats =
-      kF32 ? kMaxG * HDP + kWarps * F32::kScratch : 0;
-  static constexpr int kSmemBytes = kTileBytes + kExtraFloats * 4;
+  // fp32: the warp pairs' partial scores after the tiles
+  static constexpr int kSmemBytes =
+      kTileBytes + (kF32 ? DecTf32<HDP>::kXBytes : 0);
   static_assert(DecMerge<HDP>::kFloats * 4 <= kTileBytes,
                 "merges fit the tiles");
+  static_assert(!kF32 || (kRows == DecTf32<HDP>::kRows &&
+                          kStride == DecTf32<HDP>::kStride),
+                "fp32 tiles as DecTf32's");
 };
 
 __device__ __forceinline__ int last_row(const void* pos_ptr, int pos_is64,
@@ -102,23 +111,33 @@ __device__ __forceinline__ int last_row(const void* pos_ptr, int pos_is64,
 }
 
 // q: (B,1,H,hd); k, v: (B,T,K,hd), all E; hd <= HDP, columns hd..HDP are
-// zero in shared memory and in q's fragments (or q's fp32 rows). Block
-// (bk = b*K + kh, split); the gridDim.y splits of a bk are one cluster.
+// zero in shared memory and in q's fragments. Block (bk = b*K + kh,
+// split); the gridDim.y splits of a bk are one cluster.
 template <typename E, int HDP>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                    const E* __restrict__ v,
-                    const void* __restrict__ pos_ptr, int pos_is64,
-                    int pos_val, E* __restrict__ out, int T, int K, int hd,
-                    int G, int split_rows, float scale_log2) {
+__device__ __forceinline__ void flash_decode_block(
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const void* __restrict__ pos_ptr, int pos_is64,
+    int pos_val, E* __restrict__ out, int T, int K, int hd, int G,
+    int split_rows, float scale_log2) {
   using Tl = Tile<E, HDP>;
+  using X = DecTf32<HDP>;
+  constexpr bool kF32 = Tl::kF32;
   constexpr int kStride = Tl::kStride;
   constexpr int kKSteps = HDP / 16;  // k-steps of the scores, m-tiles of O^T
+  constexpr int kMT = kF32 ? X::kMT : kKSteps;  // a warp's m-tiles
   constexpr int kChunks = HDP / Tl::kVals;  // 16-byte chunks of a row
   const int bk = blockIdx.x, split = blockIdx.y;
   const int b = bk / K, kh = bk % K, H = G * K;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
+  // fp32: warps w and w + 2 take the same 16 rows of a tile (DecTf32)
+  const int wr = kF32 ? (warp & 1) * 16 : warp * 16;  // the warp's rows
+
+  // fp32 q's values, in flight with the position's read
+  float qv[kF32 ? 2 * X::kSK : 1];
+  if constexpr (kF32)
+    X::load_q(q + (static_cast<size_t>(b) * H + kh * G + g) * hd, g < G, hd,
+              warp >> 1, t, qv);
 
   const int last = last_row(pos_ptr, pos_is64, pos_val, T);
   const int r_begin = split * split_rows;
@@ -128,6 +147,7 @@ flash_decode_kernel(const E* __restrict__ q, const E* __restrict__ k,
   E* ks = reinterpret_cast<E*>(smem_raw);  // two stages
   E* vs = ks + 2 * Tl::kElems;             // two stages
   float* smem_f = reinterpret_cast<float*>(smem_raw);
+  float4* xch = reinterpret_cast<float4*>(smem_raw + Tl::kTileBytes);
 
   auto stage = [&](int st, int r0) {
     E* kd = ks + st * Tl::kElems;
@@ -152,72 +172,52 @@ flash_decode_kernel(const E* __restrict__ q, const E* __restrict__ k,
   if (ntiles > 1) stage(1, r_begin + Tl::kRows);
   cp_async_commit();
 
-  if constexpr (Tl::kF32) {
-    // the heads' q rows, zero past hd and past G; the loop's first
-    // barrier orders them
-    float* qs = smem_f + Tl::kTileBytes / 4;
-    float* scratch = qs + kMaxG * HDP + warp * Tl::F32::kScratch;
-    const float* qb = reinterpret_cast<const float*>(q) +
-                      (static_cast<size_t>(b) * H + kh * G) * hd;
-    for (int i = threadIdx.x; i < kMaxG * HDP; i += kThreads) {
-      const int hq = i / HDP, d = i % HDP;
-      qs[i] = hq < G && d < hd ? qb[hq * hd + d] : 0.f;
-    }
-    typename Tl::F32 st;
-    st.init();
-    for (int j = 0; j < ntiles; ++j) {
-      cp_async_wait<1>();  // tile j has landed; tile j + 1 may still fly
-      __syncthreads();
-      const int r0 = r_begin + j * Tl::kRows + warp * Tl::kWarpRows;
-      if (r0 < r_end) {
-        const int off = (j & 1) * Tl::kElems + warp * Tl::kWarpRows * kStride;
-        st.template tile<float>(reinterpret_cast<const float*>(ks) + off,
-                                reinterpret_cast<const float*>(vs) + off,
-                                kStride, qs, scratch, r_end - r0, nullptr,
-                                nullptr, scale_log2, G, lane);
-      }
-      __syncthreads();  // stage j & 1 is consumed before it is refilled
-      if (j + 2 < ntiles) stage(j & 1, r_begin + (j + 2) * Tl::kRows);
-      cp_async_commit();
-    }
-    cp_async_wait<0>();
-    st.publish(smem_f, warp, lane);
+  // q as the B operand of S^T = K Q^T: bf16, head g, columns 2t.. of each
+  // step; fp32, its TF32 pieces (DecTf32::split_q)
+  uint32_t qf[kF32 ? 1 : kKSteps][2];
+  uint32_t qw[kF32 ? X::kQWords : 1];
+  if constexpr (kF32) {
+    X::split_q(qv, qw);
   } else {
-    // q as the B operand of S^T = K Q^T: head g, columns 2t.. of each step
-    uint32_t qf[kKSteps][2];
-    {
-      const __nv_bfloat16* qh = reinterpret_cast<const __nv_bfloat16*>(q) +
-                                (static_cast<size_t>(b) * H + kh * G + g) * hd;
+    const __nv_bfloat16* qh = reinterpret_cast<const __nv_bfloat16*>(q) +
+                              (static_cast<size_t>(b) * H + kh * G + g) * hd;
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
+    for (int kk = 0; kk < kKSteps; ++kk)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int d = kk * 16 + half * 8 + 2 * t;
-          qf[kk][half] = g < G && d < hd
-                             ? *reinterpret_cast<const uint32_t*>(qh + d)
-                             : 0u;
-        }
-    }
+      for (int half = 0; half < 2; ++half) {
+        const int d = kk * 16 + half * 8 + 2 * t;
+        qf[kk][half] = g < G && d < hd
+                           ? *reinterpret_cast<const uint32_t*>(qh + d)
+                           : 0u;
+      }
+  }
 
-    // acc[mt]: O^T rows (columns of the output) mt*16 + g and + 8, heads
-    // 2t and 2t + 1; m and l of heads 2t, 2t + 1 (l: this thread's rows)
-    float acc[kKSteps][4];
+  // acc[mt]: O^T rows (columns of the output) mt*16 + g and + 8 (fp32:
+  // DecTf32's), heads 2t and 2t + 1; m and l of heads 2t, 2t + 1 (l: this
+  // thread's rows)
+  float acc[kMT][4];
 #pragma unroll
-    for (int mt = 0; mt < kKSteps; ++mt)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-    for (int j = 0; j < ntiles; ++j) {
-      const int st = j & 1;
-      cp_async_wait<1>();  // tile j has landed; tile j + 1 may still fly
-      __syncthreads();
-      const int r0 = r_begin + j * Tl::kRows + warp * 16;  // warp's first row
-      if (r0 < r_end) {
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1;
+    cp_async_wait<1>();  // tile j has landed; tile j + 1 may still fly
+    __syncthreads();
+    const int r0 = r_begin + j * Tl::kRows + wr;  // warp's first row
+    if (r0 < r_end) {
+      if constexpr (kF32) {
+        const int off = st * Tl::kElems + wr * kStride;
+        X::tile(reinterpret_cast<const float*>(ks) + off,
+                reinterpret_cast<const float*>(vs) + off, qw, xch,
+                r_end - r0, scale_log2, acc, m0, m1, l0, l1, warp, lane);
+      } else {
         const __nv_bfloat16* kt = reinterpret_cast<const __nv_bfloat16*>(
-            ks + st * Tl::kElems + warp * 16 * kStride);
+            ks + st * Tl::kElems + wr * kStride);
         const __nv_bfloat16* vt = reinterpret_cast<const __nv_bfloat16*>(
-            vs + st * Tl::kElems + warp * 16 * kStride);
+            vs + st * Tl::kElems + wr * kStride);
         // s: rows g, g + 8 (of the warp's 16) x heads 2t, 2t + 1
         float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -275,38 +275,55 @@ flash_decode_kernel(const E* __restrict__ q, const E* __restrict__ k,
           mma_bf16(acc[mt], a, bl0, bl1);
         }
       }
-      __syncthreads();  // stage st is consumed before it is refilled
-      if (j + 2 < ntiles) stage(st, r_begin + (j + 2) * Tl::kRows);
-      cp_async_commit();
     }
-    cp_async_wait<0>();
-
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    // this warp's state for the merges (the tiles are consumed)
-    float* wm = DecMerge<HDP>::wm(smem_f);
-    float* wl = DecMerge<HDP>::wl(smem_f);
-    if (g == 0) {
-      wm[warp * kMaxG + 2 * t] = m0;
-      wm[warp * kMaxG + 2 * t + 1] = m1;
-      wl[warp * kMaxG + 2 * t] = l0;
-      wl[warp * kMaxG + 2 * t + 1] = l1;
-    }
-    float* wa = DecMerge<HDP>::wacc(smem_f) + warp * kMaxG * HDP;
-#pragma unroll
-    for (int mt = 0; mt < kKSteps; ++mt) {
-      const int d = mt * 16 + g;
-      wa[(2 * t) * HDP + d] = acc[mt][0];
-      wa[(2 * t + 1) * HDP + d] = acc[mt][1];
-      wa[(2 * t) * HDP + d + 8] = acc[mt][2];
-      wa[(2 * t + 1) * HDP + d + 8] = acc[mt][3];
-    }
+    __syncthreads();  // stage st is consumed before it is refilled
+    if (j + 2 < ntiles) stage(st, r_begin + (j + 2) * Tl::kRows);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
+
+  // this warp's state for the merges (the tiles are consumed)
+  decode_publish<HDP, kMT>(smem_f, acc, m0, m1, l0, l1, warp, lane,
+                           kF32 ? warp >> 1 : 0);
   decode_merge<HDP>(smem_f, G, hd, split, static_cast<int>(gridDim.y),
                     out + (static_cast<size_t>(b) * H + kh * G) * hd);
+}
+
+// bf16 q, k, v and output
+template <int HDP>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const void* __restrict__ pos_ptr, int pos_is64,
+                    int pos_val, __nv_bfloat16* __restrict__ out, int T,
+                    int K, int hd, int G, int split_rows, float scale_log2) {
+  flash_decode_block<__nv_bfloat16, HDP>(q, k, v, pos_ptr, pos_is64, pos_val,
+                                         out, T, K, hd, G, split_rows,
+                                         scale_log2);
+}
+
+// fp32 q, k, v and output: 3xTF32 products
+template <int HDP>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_tf32x3_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const void* __restrict__ pos_ptr, int pos_is64,
+                           int pos_val, float* __restrict__ out, int T,
+                           int K, int hd, int G, int split_rows,
+                           float scale_log2) {
+  flash_decode_block<float, HDP>(q, k, v, pos_ptr, pos_is64, pos_val, out, T,
+                                 K, hd, G, split_rows, scale_log2);
+}
+
+// the kernel of the element type
+template <typename E, int HDP>
+static auto kernel_of() {
+  if constexpr (sizeof(E) == 4)
+    return flash_decode_tf32x3_kernel<HDP>;
+  else
+    return flash_decode_kernel<HDP>;
 }
 
 template <typename E, int HDP>
@@ -314,7 +331,7 @@ int launch(const void* q, const void* k, const void* v, const void* pos_ptr,
            int pos_is64, int pos_val, void* out, int B, int T, int K, int hd,
            int G, int split_rows, int nsplit, cudaStream_t st) {
   constexpr int smem = Tile<E, HDP>::kSmemBytes;
-  auto kernel = flash_decode_kernel<E, HDP>;
+  auto kernel = kernel_of<E, HDP>();
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 =

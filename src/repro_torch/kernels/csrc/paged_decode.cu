@@ -88,23 +88,18 @@
 //     where the bf16 path issues three.
 //   - fp32 pages (paged_decode_tf32x3_kernel): 3xTF32 on
 //     mma.sync.m16n8k8.tf32 as fp32 flash_attention (tf32_round,
-//     split_tf32, mma_tf32 in common.cuh). Raw fp32 tiles in shared memory,
-//     split hi/lo in registers; q split once per block. S^T = K Q^T: K by
-//     32-bit loads (the 16-byte row pad puts lane (g, t) on bank 4 g + t),
-//     hi hi of even and odd k-steps in two sums and the cross terms in a
-//     third. P V as O^T = V^T P^T: V^T, the A operand, by 32-bit loads of
-//     rows 2t and 2t + 1 at column g (bank 8 t + g), its k order matching
-//     P^T's: the score tile's fp32 C fragment is transposed in registers
-//     by movmatrix on its 16-bit halves (bits kept), then split hi/lo.
-//     At G = 2 the products no longer hide behind the bytes (three TF32
-//     mma for each, 2 of their 8 columns used): tiles of 32 rows, two
-//     stages (67 KB a block at hd 128, three blocks an SM), and
-//     two warps on each 16 rows, each with half the scores' k-steps (the
-//     two partial sums added through shared memory, the same sum in both)
-//     and half of O^T's m-tiles, both keeping the same softmax. Tiles of
-//     64 rows, a 128-row split wholly in flight, take 135 KB and one block
-//     an SM: the serve pool's call then took 0.0310 ms where 32-row tiles
-//     took 0.0244 (one call, NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6).
+//     split_tf32, mma_tf32 in common.cuh), through the tile that fp32
+//     flash_decode shares (DecTf32 in common.cuh): raw fp32 tiles of 32
+//     rows in shared memory, two stages (67 KB a block at hd 128, three
+//     blocks an SM), split hi/lo in registers; q split once per block; two
+//     warps on each 16 rows, each with half the scores' k-steps (the two
+//     partial sums added through shared memory, the same sum in both) and
+//     half of O^T's m-tiles, both keeping the same softmax. At G = 2 the
+//     products no longer hide behind the bytes (three TF32 mma for each,
+//     2 of their 8 columns used). Tiles of 64 rows, a 128-row split wholly
+//     in flight, take 135 KB and one block an SM: the serve pool's call
+//     then took 0.0310 ms where 32-row tiles took 0.0244 (one call, NVIDIA
+//     H100 80GB HBM3 at 700 W; PERF.md §6).
 // The tensor core's fp32 accumulate aligns a step's addends to the largest
 // and truncates, so a leading product and its corrections never share a
 // running sum (PERF.md §6). q is loaded with pos[b] and the page ids and
@@ -157,7 +152,7 @@ struct Layout {
       !kF32 ? 0 : kQuant ? 6 * (HDP / 16) : 4 * (HDP / 16);
   static constexpr bool kQRegs = kTf32 || HDP <= 128;
   static constexpr int kQBytes = kQRegs ? 0 : kQWords * 32 * 4;
-  static constexpr int kXBytes = kTf32 ? kWarps * 32 * 16 : 0;
+  static constexpr int kXBytes = kTf32 ? DecTf32<HDP>::kXBytes : 0;
   static constexpr int kFixedBytes =
       kStageBytes + kWideBytes + kScaleBytes + kQBytes + kXBytes;
   static_assert(DecMerge<HDP>::kFloats * 4 <= kStageBytes,
@@ -167,6 +162,9 @@ struct Layout {
   static_assert(kThreads % kChunks == 0 && (!kQuant || 2 * kRows == kThreads),
                 "a thread copies one column of chunks and one scale");
   static_assert(kF32 || !kTf32, "fp32 pages take fp32 q");
+  static_assert(!kTf32 || (kRows == DecTf32<HDP>::kRows &&
+                           kStride == DecTf32<HDP>::kStride * 4),
+                "fp32 tiles as DecTf32's");
 };
 
 // A lane's fragment words of fp32 q's pieces: registers, or a warp's 32
@@ -188,17 +186,6 @@ struct QPieces {
       return s[i * 32 + lane];
   }
 };
-
-// An 8x8 fp32 matrix held as (row g, columns 2t and 2t + 1) by lane 4 g +
-// t, transposed: x0, x1 become (row 2t, column g) and (row 2t + 1, column
-// g), by movmatrix on the values' high and low 16-bit halves (bits kept)
-__device__ __forceinline__ void movmatrix_trans_f32(float& x0, float& x1) {
-  const uint32_t a = __float_as_uint(x0), b = __float_as_uint(x1);
-  const uint32_t hi = movmatrix_trans(__byte_perm(a, b, 0x7632));
-  const uint32_t lo = movmatrix_trans(__byte_perm(a, b, 0x5410));
-  x0 = __uint_as_float(__byte_perm(lo, hi, 0x5410));
-  x1 = __uint_as_float(__byte_perm(lo, hi, 0x7632));
-}
 
 // 4 bytes from global to shared memory, asynchronously; src_bytes 0
 // writes zeros and reads nothing.
@@ -266,9 +253,8 @@ __device__ __forceinline__ void paged_decode_block(
   constexpr int kKSteps = HDP / 16;  // k-steps of the scores, m-tiles of O^T
   constexpr bool kTf32 = L::kTf32;
   // fp32 pages: warps w and w + 2 take the same 16 rows, each half h = w /
-  // 2 of the scores' k-steps (kSK of m16n8k8's) and of O^T's m-tiles
-  constexpr int kMT = kTf32 ? kKSteps / 2 : kKSteps;  // a warp's m-tiles
-  constexpr int kSK = HDP / 16;  // fp32 pages: a warp's TF32 k-steps
+  // 2 of the scores' k-steps and of O^T's m-tiles (DecTf32)
+  constexpr int kMT = kTf32 ? DecTf32<HDP>::kMT : kKSteps;  // a warp's m-tiles
   const int bk = blockIdx.x, split = blockIdx.y;
   const int b = bk / K, kh = bk % K, H = G * K;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -308,7 +294,8 @@ __device__ __forceinline__ void paged_decode_block(
   // fp32 q, loaded here and split once the pages are in flight: int8
   // pages, columns kk*16 + hf*8 + 2t, + 1 (m16n8k16's b0, b1); fp32 pages,
   // columns 8 kk + t and + 4 of the warp's k-steps (m16n8k8's b0, b1)
-  constexpr int kQRaw = !L::kF32 ? 1 : L::kQuant ? 4 * kKSteps : 2 * kSK;
+  constexpr int kQRaw =
+      !L::kF32 ? 1 : L::kQuant ? 4 * kKSteps : 2 * DecTf32<HDP>::kSK;
   float qv[kQRaw];
   if constexpr (L::kF32) {
     if (L::kQRegs || warp == 0) {
@@ -325,12 +312,7 @@ __device__ __forceinline__ void paged_decode_block(
           qv[2 * i + 1] = x.y;
         }
       } else {
-#pragma unroll
-        for (int kk = 0; kk < kSK; ++kk) {
-          const int d = 8 * (half * kSK + kk) + t;
-          qv[2 * kk] = g < G && d < hd ? qh[d] : 0.f;
-          qv[2 * kk + 1] = g < G && d + 4 < hd ? qh[d + 4] : 0.f;
-        }
+        DecTf32<HDP>::load_q(qh, g < G, hd, half, t, qv);
       }
     }
   }
@@ -416,24 +398,14 @@ __device__ __forceinline__ void paged_decode_block(
           for (int p = 0; p < 3; ++p) qp.put(3 * i + p, w[p], lane);
         }
       } else {
-#pragma unroll
-        for (int kk = 0; kk < kSK; ++kk) {
-          uint32_t h0, l0, h1, l1;
-          split_tf32(qv[2 * kk], h0, l0);
-          split_tf32(qv[2 * kk + 1], h1, l1);
-          qp.put(4 * kk, h0, lane);
-          qp.put(4 * kk + 1, h1, lane);
-          qp.put(4 * kk + 2, l0, lane);
-          qp.put(4 * kk + 3, l1, lane);
-        }
+        DecTf32<HDP>::split_q(qv, qp.r);
       }
     }
   }
 
-  // acc[mt]: O^T rows (columns of the output) (mt0 + mt)*16 + g and + 8,
-  // heads 2t and 2t + 1; m and l of heads 2t, 2t + 1 (l: this thread's
-  // rows)
-  const int mt0 = half * kMT;
+  // acc[mt]: O^T rows (columns of the output) mt*16 + g and + 8 (fp32
+  // pages: DecTf32's), heads 2t and 2t + 1; m and l of heads 2t, 2t + 1
+  // (l: this thread's rows)
   float acc[kMT][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -447,198 +419,142 @@ __device__ __forceinline__ void paged_decode_block(
     __syncthreads();
     const int r0 = r_begin + j * L::kRows + wr;  // warp's first row
     if (r0 < r_end) {
-      const int wrow = st * L::kRows + wr;  // the warp's tile rows
       const unsigned char* kt = kst + st * L::kTileBytes + wr * L::kStride;
       const unsigned char* vt = vst + st * L::kTileBytes + wr * L::kStride;
-      const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(kt);
-      if constexpr (L::kQuant) {
-        widen_rows<HDP>(kt, L::kStride, wide, lane);
-        __syncwarp();
-        kb = wide;
-      }
-      // s: rows g, g + 8 (of the warp's 16) x heads 2t, 2t + 1
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (!L::kF32) {
-#pragma unroll
-        for (int kk = 0; kk < kKSteps; ++kk) {
-          uint32_t a[4];
-          ldmatrix_x4(a, kb + (lane & 15) * L::kBStride + kk * 16 +
-                             (lane >> 4) * 8);
-          mma_bf16(s, a, qf[kk][0], qf[kk][1]);
-        }
-      } else if constexpr (L::kQuant) {
-        // q1 k in s, q2 k + q3 k in sx
-        float sx[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < kKSteps; ++kk) {
-          uint32_t a[4];
-          ldmatrix_x4(a, kb + (lane & 15) * L::kBStride + kk * 16 +
-                             (lane >> 4) * 8);
-          mma_bf16(s, a, qp(6 * kk, lane), qp(6 * kk + 3, lane));
-          mma_bf16(sx, a, qp(6 * kk + 1, lane), qp(6 * kk + 4, lane));
-          mma_bf16(sx, a, qp(6 * kk + 2, lane), qp(6 * kk + 5, lane));
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[e] += sx[e];
+      if constexpr (kTf32) {
+        DecTf32<HDP>::tile(reinterpret_cast<const float*>(kt),
+                           reinterpret_cast<const float*>(vt), qp.r, xch,
+                           r_end - r0, scale_log2, acc, m0, m1, l0, l1, warp,
+                           lane);
       } else {
-        // the warp's half of the k-steps: K rows g, g + 8 at columns
-        // 8 kk + t and + 4, hi hi of even and odd k-steps in s and s1,
-        // the cross terms in sx; then the pair's two halves added, the
-        // same sum in both warps
-        constexpr int kSF = L::kStride / 4;  // floats per row
-        const float* kf = reinterpret_cast<const float*>(kt) + g * kSF +
-                          8 * half * kSK + t;
-        float s1[4] = {0.f, 0.f, 0.f, 0.f}, sx[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < kSK; ++kk) {
-          const float* kr = kf + 8 * kk;
-          uint32_t ah[4], al[4];
-          split_tf32(kr[0], ah[0], al[0]);
-          split_tf32(kr[8 * kSF], ah[1], al[1]);
-          split_tf32(kr[4], ah[2], al[2]);
-          split_tf32(kr[8 * kSF + 4], ah[3], al[3]);
-          const uint32_t qh0 = qp(4 * kk, lane), qh1 = qp(4 * kk + 1, lane);
-          mma_tf32(sx, al, qh0, qh1);
-          mma_tf32(sx, ah, qp(4 * kk + 2, lane), qp(4 * kk + 3, lane));
-          mma_tf32(kk % 2 ? s1 : s, ah, qh0, qh1);
+        const int wrow = st * L::kRows + wr;  // the warp's tile rows
+        const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(kt);
+        if constexpr (L::kQuant) {
+          widen_rows<HDP>(kt, L::kStride, wide, lane);
+          __syncwarp();
+          kb = wide;
         }
-        float4 mine;
-        mine.x = s[0] + (s1[0] + sx[0]);
-        mine.y = s[1] + (s1[1] + sx[1]);
-        mine.z = s[2] + (s1[2] + sx[2]);
-        mine.w = s[3] + (s1[3] + sx[3]);
-        xch[warp * 32 + lane] = mine;
-        // the pair's barrier: warps w and w + 2, named barrier 1 + w % 2
-        asm volatile("bar.sync %0, 64;\n" ::"r"(1 + (warp & 1)) : "memory");
-        const float4 other = xch[(warp ^ 2) * 32 + lane];
-        s[0] = mine.x + other.x;
-        s[1] = mine.y + other.y;
-        s[2] = mine.z + other.z;
-        s[3] = mine.w + other.w;
-      }
-      const bool ok_a = r0 + g < r_end, ok_b = r0 + g + 8 < r_end;
-      float sa = scale_log2, sb = scale_log2;
-      if constexpr (L::kQuant) {
-        sa *= ksc[wrow + g];
-        sb *= ksc[wrow + g + 8];
-      }
-      s[0] = ok_a ? s[0] * sa : -INFINITY;
-      s[1] = ok_a ? s[1] * sa : -INFINITY;
-      s[2] = ok_b ? s[2] * sb : -INFINITY;
-      s[3] = ok_b ? s[3] * sb : -INFINITY;
-      // max over the 16 rows: the eight lanes sharing t
-      float mx0 = fmaxf(m0, fmaxf(s[0], s[2]));
-      float mx1 = fmaxf(m1, fmaxf(s[1], s[3]));
+        // s: rows g, g + 8 (of the warp's 16) x heads 2t, 2t + 1
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (!L::kF32) {
 #pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      // row r0 is valid, so both maxima are finite
-      const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      s[0] = fast_exp2(s[0] - mx0);
-      s[1] = fast_exp2(s[1] - mx1);
-      s[2] = fast_exp2(s[2] - mx0);
-      s[3] = fast_exp2(s[3] - mx1);
-      l0 = l0 * alpha0 + s[0] + s[2];
-      l1 = l1 * alpha1 + s[1] + s[3];
-      if constexpr (!L::kF32) {
-#pragma unroll
-        for (int mt = 0; mt < kKSteps; ++mt) {
-          acc[mt][0] *= alpha0;
-          acc[mt][1] *= alpha1;
-          acc[mt][2] *= alpha0;
-          acc[mt][3] *= alpha1;
-        }
-      }
-      const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(vt);
-      if constexpr (L::kQuant) {
-        // the v scale rides on P: sum_r p_r vs_r vq_r
-        const float va = vsc[wrow + g], vb8 = vsc[wrow + g + 8];
-        s[0] *= va;
-        s[1] *= va;
-        s[2] *= vb8;
-        s[3] *= vb8;
-        __syncwarp();  // K's rows are read
-        widen_rows<HDP>(vt, L::kStride, wide, lane);
-        __syncwarp();
-        vb = wide;
-      }
-      if constexpr (!L::kF32) {
-        // P^T as the B operand: rows 2t, 2t + 1 (and + 8) of head g
-        uint32_t hi_a, lo_a, hi_b, lo_b;
-        split_bf16x2(s[0], s[1], hi_a, lo_a);
-        split_bf16x2(s[2], s[3], hi_b, lo_b);
-        const uint32_t bh0 = movmatrix_trans(hi_a), bh1 = movmatrix_trans(hi_b);
-        const uint32_t bl0 = movmatrix_trans(lo_a), bl1 = movmatrix_trans(lo_b);
-#pragma unroll
-        for (int mt = 0; mt < kKSteps; ++mt) {
-          uint32_t a[4];  // V^T rows mt*16.., the warp's 16 cache rows
-          ldmatrix_x4_trans(a, vb + ((lane & 7) + (lane >> 4) * 8) * L::kBStride +
-                                   mt * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(acc[mt], a, bh0, bh1);
-          mma_bf16(acc[mt], a, bl0, bl1);
-        }
-      } else if constexpr (L::kQuant) {
-        // P^T in three bf16 pieces, each transposed as above: piece i of
-        // rows 2t, 2t + 1 (b0) and + 8 (b1) of head g
-        uint32_t pa[3], pb[3];
-        split_bf16x3(s[0], s[1], pa[0], pa[1], pa[2]);
-        split_bf16x3(s[2], s[3], pb[0], pb[1], pb[2]);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          pa[i] = movmatrix_trans(pa[i]);
-          pb[i] = movmatrix_trans(pb[i]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < kKSteps; ++mt) {
-          uint32_t a[4];
-          ldmatrix_x4_trans(a, vb + ((lane & 7) + (lane >> 4) * 8) * L::kBStride +
-                                   mt * 16 + ((lane >> 3) & 1) * 8);
-          float h[4] = {0.f, 0.f, 0.f, 0.f}, x[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(h, a, pa[0], pb[0]);
-          mma_bf16(x, a, pa[1], pb[1]);
-          mma_bf16(x, a, pa[2], pb[2]);
-          acc[mt][0] = fmaf(acc[mt][0], alpha0, h[0] + x[0]);
-          acc[mt][1] = fmaf(acc[mt][1], alpha1, h[1] + x[1]);
-          acc[mt][2] = fmaf(acc[mt][2], alpha0, h[2] + x[2]);
-          acc[mt][3] = fmaf(acc[mt][3], alpha1, h[3] + x[3]);
-        }
-      } else {
-        // P^T as m16n8k8's B operand in k order (rows 2t, 2t + 1 of each
-        // 8): the C fragment's rows g (k-step 0) and g + 8 (k-step 1)
-        // transposed, then split; V^T's A fragments of the warp's
-        // m-tiles in the same k order
-        movmatrix_trans_f32(s[0], s[1]);
-        movmatrix_trans_f32(s[2], s[3]);
-        uint32_t ph[4], pl[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(s[e], ph[e], pl[e]);
-        constexpr int kSF = L::kStride / 4;
-        const float* vf = reinterpret_cast<const float*>(vt) +
-                          2 * t * kSF + 16 * mt0 + g;
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          float h[4] = {0.f, 0.f, 0.f, 0.f}, x[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int k8 = 0; k8 < 2; ++k8) {
-            const float* vr = vf + 8 * k8 * kSF + mt * 16;
-            uint32_t ah[4], al[4];
-            split_tf32(vr[0], ah[0], al[0]);
-            split_tf32(vr[8], ah[1], al[1]);
-            split_tf32(vr[kSF], ah[2], al[2]);
-            split_tf32(vr[kSF + 8], ah[3], al[3]);
-            const uint32_t bh0 = ph[2 * k8], bh1 = ph[2 * k8 + 1];
-            mma_tf32(x, al, bh0, bh1);
-            mma_tf32(x, ah, pl[2 * k8], pl[2 * k8 + 1]);
-            mma_tf32(h, ah, bh0, bh1);
+          for (int kk = 0; kk < kKSteps; ++kk) {
+            uint32_t a[4];
+            ldmatrix_x4(a, kb + (lane & 15) * L::kBStride + kk * 16 +
+                               (lane >> 4) * 8);
+            mma_bf16(s, a, qf[kk][0], qf[kk][1]);
           }
-          acc[mt][0] = fmaf(acc[mt][0], alpha0, h[0] + x[0]);
-          acc[mt][1] = fmaf(acc[mt][1], alpha1, h[1] + x[1]);
-          acc[mt][2] = fmaf(acc[mt][2], alpha0, h[2] + x[2]);
-          acc[mt][3] = fmaf(acc[mt][3], alpha1, h[3] + x[3]);
+        } else {
+          // q1 k in s, q2 k + q3 k in sx
+          float sx[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < kKSteps; ++kk) {
+            uint32_t a[4];
+            ldmatrix_x4(a, kb + (lane & 15) * L::kBStride + kk * 16 +
+                               (lane >> 4) * 8);
+            mma_bf16(s, a, qp(6 * kk, lane), qp(6 * kk + 3, lane));
+            mma_bf16(sx, a, qp(6 * kk + 1, lane), qp(6 * kk + 4, lane));
+            mma_bf16(sx, a, qp(6 * kk + 2, lane), qp(6 * kk + 5, lane));
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[e] += sx[e];
+        }
+        const bool ok_a = r0 + g < r_end, ok_b = r0 + g + 8 < r_end;
+        float sa = scale_log2, sb = scale_log2;
+        if constexpr (L::kQuant) {
+          sa *= ksc[wrow + g];
+          sb *= ksc[wrow + g + 8];
+        }
+        s[0] = ok_a ? s[0] * sa : -INFINITY;
+        s[1] = ok_a ? s[1] * sa : -INFINITY;
+        s[2] = ok_b ? s[2] * sb : -INFINITY;
+        s[3] = ok_b ? s[3] * sb : -INFINITY;
+        // max over the 16 rows: the eight lanes sharing t
+        float mx0 = fmaxf(m0, fmaxf(s[0], s[2]));
+        float mx1 = fmaxf(m1, fmaxf(s[1], s[3]));
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        // row r0 is valid, so both maxima are finite
+        const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        s[0] = fast_exp2(s[0] - mx0);
+        s[1] = fast_exp2(s[1] - mx1);
+        s[2] = fast_exp2(s[2] - mx0);
+        s[3] = fast_exp2(s[3] - mx1);
+        l0 = l0 * alpha0 + s[0] + s[2];
+        l1 = l1 * alpha1 + s[1] + s[3];
+        if constexpr (!L::kF32) {
+#pragma unroll
+          for (int mt = 0; mt < kKSteps; ++mt) {
+            acc[mt][0] *= alpha0;
+            acc[mt][1] *= alpha1;
+            acc[mt][2] *= alpha0;
+            acc[mt][3] *= alpha1;
+          }
+        }
+        const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(vt);
+        if constexpr (L::kQuant) {
+          // the v scale rides on P: sum_r p_r vs_r vq_r
+          const float va = vsc[wrow + g], vb8 = vsc[wrow + g + 8];
+          s[0] *= va;
+          s[1] *= va;
+          s[2] *= vb8;
+          s[3] *= vb8;
+          __syncwarp();  // K's rows are read
+          widen_rows<HDP>(vt, L::kStride, wide, lane);
+          __syncwarp();
+          vb = wide;
+        }
+        if constexpr (!L::kF32) {
+          // P^T as the B operand: rows 2t, 2t + 1 (and + 8) of head g
+          uint32_t hi_a, lo_a, hi_b, lo_b;
+          split_bf16x2(s[0], s[1], hi_a, lo_a);
+          split_bf16x2(s[2], s[3], hi_b, lo_b);
+          const uint32_t bh0 = movmatrix_trans(hi_a),
+                         bh1 = movmatrix_trans(hi_b);
+          const uint32_t bl0 = movmatrix_trans(lo_a),
+                         bl1 = movmatrix_trans(lo_b);
+#pragma unroll
+          for (int mt = 0; mt < kKSteps; ++mt) {
+            uint32_t a[4];  // V^T rows mt*16.., the warp's 16 cache rows
+            ldmatrix_x4_trans(a, vb +
+                                     ((lane & 7) + (lane >> 4) * 8) *
+                                         L::kBStride +
+                                     mt * 16 + ((lane >> 3) & 1) * 8);
+            mma_bf16(acc[mt], a, bh0, bh1);
+            mma_bf16(acc[mt], a, bl0, bl1);
+          }
+        } else {
+          // P^T in three bf16 pieces, each transposed as above: piece i of
+          // rows 2t, 2t + 1 (b0) and + 8 (b1) of head g
+          uint32_t pa[3], pb[3];
+          split_bf16x3(s[0], s[1], pa[0], pa[1], pa[2]);
+          split_bf16x3(s[2], s[3], pb[0], pb[1], pb[2]);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            pa[i] = movmatrix_trans(pa[i]);
+            pb[i] = movmatrix_trans(pb[i]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < kKSteps; ++mt) {
+            uint32_t a[4];
+            ldmatrix_x4_trans(a, vb +
+                                     ((lane & 7) + (lane >> 4) * 8) *
+                                         L::kBStride +
+                                     mt * 16 + ((lane >> 3) & 1) * 8);
+            float h[4] = {0.f, 0.f, 0.f, 0.f}, x[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(h, a, pa[0], pb[0]);
+            mma_bf16(x, a, pa[1], pb[1]);
+            mma_bf16(x, a, pa[2], pb[2]);
+            acc[mt][0] = fmaf(acc[mt][0], alpha0, h[0] + x[0]);
+            acc[mt][1] = fmaf(acc[mt][1], alpha1, h[1] + x[1]);
+            acc[mt][2] = fmaf(acc[mt][2], alpha0, h[2] + x[2]);
+            acc[mt][3] = fmaf(acc[mt][3], alpha1, h[3] + x[3]);
+          }
         }
       }
     }
@@ -648,41 +564,8 @@ __device__ __forceinline__ void paged_decode_block(
   }
   cp_async_wait<0>();
 
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  // this warp's state for the merges (the tiles are consumed); of a pair
-  // of fp32-page warps, which share m and l, the second adds l 0 and its
-  // half of the columns, the other half zero
-  float* wm = DecMerge<HDP>::wm(smem_f);
-  float* wl = DecMerge<HDP>::wl(smem_f);
-  if (g == 0) {
-    wm[warp * kMaxG + 2 * t] = m0;
-    wm[warp * kMaxG + 2 * t + 1] = m1;
-    wl[warp * kMaxG + 2 * t] = half ? 0.f : l0;
-    wl[warp * kMaxG + 2 * t + 1] = half ? 0.f : l1;
-  }
-  float* wa = DecMerge<HDP>::wacc(smem_f) + warp * kMaxG * HDP;
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    const int d = (mt0 + mt) * 16 + g;
-    wa[(2 * t) * HDP + d] = acc[mt][0];
-    wa[(2 * t + 1) * HDP + d] = acc[mt][1];
-    wa[(2 * t) * HDP + d + 8] = acc[mt][2];
-    wa[(2 * t + 1) * HDP + d + 8] = acc[mt][3];
-  }
-  if constexpr (kTf32) {
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      const int d = (kMT - mt0 + mt) * 16 + g;
-      wa[(2 * t) * HDP + d] = 0.f;
-      wa[(2 * t + 1) * HDP + d] = 0.f;
-      wa[(2 * t) * HDP + d + 8] = 0.f;
-      wa[(2 * t + 1) * HDP + d + 8] = 0.f;
-    }
-  }
+  // this warp's state for the merges (the tiles are consumed)
+  decode_publish<HDP, kMT>(smem_f, acc, m0, m1, l0, l1, warp, lane, half);
   decode_merge<HDP>(smem_f, G, hd, split, nkeep,
                     out + (static_cast<size_t>(b) * H + kh * G) * hd);
 }

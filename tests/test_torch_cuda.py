@@ -12,10 +12,10 @@ inputs, two bf16 steps of the value (kernel and plain version each round
 an fp32 result to bf16 once, after sums taken in other orders, so they
 may differ by one step), and within JAX's fp32 tolerance, atol = rtol =
 2e-5, on fp32 inputs (``flash_attention`` and the paged decode over
-fp32 pages as 3xTF32 products on the tensor cores, the paged decode over
-int8 pages as three bf16 pieces of q and P, each at most a quarter of
-that limit at the main shapes; ``flash_decode``'s fp32 FMA on the CUDA
-cores; sums in other orders than the plain version's);
+fp32 pages as 3xTF32 products on the tensor cores, ``flash_decode`` the
+same way, the paged decode over int8 pages as three bf16 pieces of q and
+P, each at most a quarter of that limit at the main shapes; sums in other
+orders than the plain version's);
 ``ssm_scan`` within 1e-4 * max |plain| for y and for the
 state (the plain version computes in fp32; the kernel's tensor-core
 products take each fp32 operand as a bf16 pair and sum in fp32 in other
@@ -153,20 +153,31 @@ def test_flash_attention_refuses_other_head_dims(cuda, hd):
                                   (4, 72), (1, 96), (7, 96), (7, 64),
                                   (7, 128)])
 @pytest.mark.parametrize("pos", [0, 63, 64, 1023])
-def test_flash_decode_tensor_core_shapes(cuda, G, hd, pos):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_decode_tensor_core_shapes(cuda, request, dtype, G, hd, pos):
     """flash_decode with G query heads per KV head (the mma's N of 8, part
-    unused for G < 8) and hd padded to the mma's 16 (72): the position as
-    an int, an int32 and an int64 device tensor gives the same bits
-    within the limit, a second call the same bits, and NaN in the rows
-    past pos changes nothing (they are never read)."""
+    unused for G < 8) and hd padded to the mma's 16 (72), on bf16 inputs
+    and on fp32 ones (the 3xTF32 kernel, held to JAX's fp32 limit with the
+    plain version in full fp32): the position as an int, an int32 and an
+    int64 device tensor gives the same bits within the limit, a second
+    call the same bits, and NaN in the rows past pos changes nothing (they
+    are never read)."""
     B, T, K = 2, 1024, 4
-    q, k, v = _attn_inputs(cuda, pos + G + hd, B, 1, T, G * K, K, hd)
+    fp32 = dtype == torch.float32
+    if fp32:
+        request.getfixturevalue("full_fp32")
+    q, k, v = _attn_inputs(cuda, pos + G + hd, B, 1, T, G * K, K, hd, dtype)
     want = ops.flash_decode(q, k, v, pos, backend="ref")
     got = ops.flash_decode(q, k, v, pos)
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
-                               rtol=2 ** -6)
-    for dtype in (torch.int32, torch.int64):
-        p = torch.tensor(pos, dtype=dtype, device=cuda)
+    assert got.dtype == dtype
+    if fp32:
+        torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                                   rtol=2 ** -6)
+    for pos_dtype in (torch.int32, torch.int64):
+        p = torch.tensor(pos, dtype=pos_dtype, device=cuda)
         assert torch.equal(got, ops.flash_decode(q, k, v, p))
     assert torch.equal(got, ops.flash_decode(q, k, v, pos))
     k[:, pos + 1:] = float("nan")
@@ -1236,10 +1247,11 @@ def _attention_f64(q, k, v):
 #: limit around the float64 answer (the plain fp32 version itself uses
 #: 0.22-0.32 of it at 4 and 1.1-1.7 at 16, emulated; tests/test_torch_fp32.py)
 SHARP_SCORES_SHARE = {4.0: FP32_ATTN_SHARE, 16.0: 1.0}
-#: the paged decodes under fp32 q (three bf16 pieces of q and P over int8
-#: pages, 3xTF32 over fp32 pages): their largest share of the fp32 limit at
-#: the serve engine's pool (0.013-0.027 emulated, tests/test_torch_fp32.py)
-FP32_PAGED_SHARE = 0.25
+#: the fp32 decodes' largest share of the fp32 limit: the paged ones under
+#: fp32 q (three bf16 pieces of q and P over int8 pages, 3xTF32 over fp32
+#: pages) at the serve engine's pool, flash_decode's 3xTF32 at qwen3-0.6b's
+#: heads (0.009-0.027 emulated, tests/test_torch_fp32.py)
+FP32_DECODE_SHARE = 0.25
 
 
 @pytest.mark.cuda
@@ -1358,8 +1370,9 @@ def test_flash_attention_fp32_block_rows_on_card(cuda, full_fp32, B, S, T,
 ])
 def test_flash_decode_fp32_on_card(cuda, full_fp32, B, T, H, K, hd, pos):
     """flash_decode on fp32 inputs: within JAX's fp32 tolerance of the
-    plain version for an int and a device-tensor position, the same bits
-    again, and NaN past pos changes nothing."""
+    plain version for an int and a device-tensor position, at most
+    FP32_DECODE_SHARE of it at qwen3-0.6b's heads (16/8 of 128), the same
+    bits again, and NaN past pos changes nothing."""
     q, k, v = _attn_inputs(cuda, T + H + hd + pos, B, 1, T, H, K, hd,
                            torch.float32)
     want = ops.flash_decode(q, k, v, pos, backend="ref")
@@ -1368,6 +1381,11 @@ def test_flash_decode_fp32_on_card(cuda, full_fp32, B, T, H, K, hd, pos):
     assert ops.LAUNCHES["flash_decode"] == before + 1
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    share = _fp32_share(got, want)
+    print(f"flash_decode fp32 q ({B},1,{H},{hd}) k/v ({B},{T},{K},{hd}) pos "
+          f"{pos}: {share:.4f} of the fp32 limit")
+    if (H, K, hd) == (16, 8, 128):
+        assert share <= FP32_DECODE_SHARE
     p = torch.tensor(pos, dtype=torch.int64, device=cuda)
     assert torch.equal(got, ops.flash_decode(q, k, v, p))
     k[:, pos + 1:] = float("nan")
@@ -1396,7 +1414,7 @@ def test_paged_decode_fp32_on_card(cuda, full_fp32, quant, B, G, K, hd,
                                    page, NP, P, positions):
     """The paged kernels under fp32 q (fp32 pages, or int8 pages with their
     fp32 scales): within JAX's fp32 tolerance of the plain version, at
-    most FP32_PAGED_SHARE of it at the serve engine's pool, inactive rows
+    most FP32_DECODE_SHARE of it at the serve engine's pool, inactive rows
     exactly zero, the same bits again."""
     args = _paged_args(cuda, quant, 31 + NP + G + hd, B, G, K, hd, page, NP,
                        positions, P, dtype=torch.float32)
@@ -1413,30 +1431,37 @@ def test_paged_decode_fp32_on_card(cuda, full_fp32, quant, B, G, K, hd,
           f"{tuple(args[1].shape)} pos {positions}: {share:.4f} of the fp32 "
           "limit")
     if (B, NP, P) == (8, 64, 513):
-        assert share <= FP32_PAGED_SHARE
+        assert share <= FP32_DECODE_SHARE
     for b, p in enumerate(positions):
         if p < 0:
             assert torch.all(got[b] == 0)
     assert torch.equal(got, fn(*args))
 
 
-#: outputs of the attention kernels that the fp32 paged decodes' redesign
-#: left alone, each as ``_digest`` gave it from the sources of 56737b4
-#: (before the TF32 helpers moved from flash_attention.cu to common.cuh):
-#: case -> digest; the inputs come from numpy seeds (``_pinned_output``)
+#: outputs of the attention kernels, each as ``_digest`` gave it on the
+#: card: case -> digest; the inputs come from numpy seeds
+#: (``_pinned_output``). The paged decodes under fp32 q from the sources
+#: of 21c0d31 (before their 3xTF32 tile moved into common.cuh, which fp32
+#: flash_decode now shares); flash_decode_fp32 from its 3xTF32 kernel,
+#: the one output that tile's move was meant to change; the others from
+#: the sources of 56737b4 (before the TF32 helpers moved from
+#: flash_attention.cu to common.cuh), unchanged since
 PINNED_DIGESTS = {
     "flash_attention_fp32_qwen": "b746ed27514e3aa0",
     "flash_attention_fp32_phi3": "0beeaee6aafb96f6",
     "flash_attention_fp32_internvl2": "418c008f5920d15e",
     "flash_attention_bf16_qwen": "250ed769daf9a3d7",
     "flash_decode_bf16": "2803d8f5c3346511",
-    "flash_decode_fp32": "1158a3886fb32759",
+    "flash_decode_fp32": "c23de67204788371",
     "paged_decode_bf16": "fa716f6f537be8c2",
-    "paged_decode_quant_bf16": "f438480551911db8"}
+    "paged_decode_quant_bf16": "f438480551911db8",
+    "paged_decode_fp32": "b4d63ccdfc161749",
+    "paged_decode_quant_fp32": "9f892098f44adf98"}
 PINNED_CASES = ("flash_attention_fp32_qwen", "flash_attention_fp32_phi3",
                 "flash_attention_fp32_internvl2", "flash_attention_bf16_qwen",
                 "flash_decode_bf16", "flash_decode_fp32",
-                "paged_decode_bf16", "paged_decode_quant_bf16")
+                "paged_decode_bf16", "paged_decode_quant_bf16",
+                "paged_decode_fp32", "paged_decode_quant_fp32")
 
 
 def _digest(t) -> str:
@@ -1451,7 +1476,8 @@ def _pinned_output(cuda, case):
     flash_attention causal at qwen3-0.6b's S 384 (16/8 heads of 128),
     phi3-mini's hd 96 (32/32) and internvl2's S 640 (14/2 heads of 64);
     flash_decode at B 4, T 1,024, 16/8 heads of 128, pos 700; the paged
-    decodes under bf16 q at the serve engine's pool and positions."""
+    decodes under bf16 and fp32 q (bf16, fp32 or int8 pages) at the serve
+    engine's pool and positions."""
     if case.startswith("flash_attention"):
         who = case.rsplit("_", 1)[1]
         dt = torch.float32 if "fp32" in case else torch.bfloat16
@@ -1463,9 +1489,11 @@ def _pinned_output(cuda, case):
         dt = torch.float32 if case.endswith("fp32") else torch.bfloat16
         q, k, v = _attn_inputs(cuda, 700, 4, 1, 1024, 16, 8, 128, dt)
         return ops.flash_decode(q, k, v, 700)
-    name = case[:-len("_bf16")]
+    name, kind = case.rsplit("_", 1)
+    dt = torch.float32 if kind == "fp32" else torch.bfloat16
     args = _paged_args(cuda, name.endswith("quant"), 30, 8, 2, 8, 128, 16,
-                       64, (1023, -1, 600, 15, 0, 384, 200, -1), 513)
+                       64, (1023, -1, 600, 15, 0, 384, 200, -1), 513,
+                       dtype=dt)
     return getattr(ops, name)(*args)
 
 
@@ -1473,10 +1501,11 @@ def _pinned_output(cuda, case):
 @pytest.mark.parametrize("case", PINNED_CASES)
 def test_attention_kernels_keep_their_bits_on_card(cuda, case):
     """fp32 flash_attention, its bf16 kernel, flash_decode (bf16 and fp32)
-    and the paged decodes under bf16 q give the bits they gave before the
-    fp32 paged decodes' redesign (PINNED_DIGESTS): moving the TF32 helpers
-    into common.cuh and the new fp32 paths beside the bf16 ones changed
-    no other kernel's arithmetic."""
+    and the paged decodes under bf16 and fp32 q give the bits pinned in
+    PINNED_DIGESTS: moving the TF32 helpers into common.cuh, the fp32
+    paged decodes' redesign and the move of their 3xTF32 tile into
+    common.cuh for fp32 flash_decode's kernel changed no other kernel's
+    arithmetic."""
     got = _pinned_output(cuda, case)
     assert _digest(got) == PINNED_DIGESTS[case]
 

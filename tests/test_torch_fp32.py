@@ -14,9 +14,9 @@ dtype contract holds on meta tensors (what the dry-run counts); and the
 numerics of fp32 ``flash_attention``'s CUDA kernel, emulated here: its
 tensor-core products take each fp32 operand as a TF32 pair with three
 products a product (3xTF32), well under 2e-5, where a bf16 pair leaves
-no margin and TF32 alone misses it; and the fp32 paged decodes' at the
+no margin and TF32 alone misses it; the fp32 paged decodes' at the
 serve pool (three bf16 pieces of q and P over int8 pages, 3xTF32 over
-fp32 pages; ``flash_decode``'s fp32 kernel is FMA on the CUDA cores).
+fp32 pages); and fp32 ``flash_decode``'s (3xTF32) at its timed rows.
 The card's side of this is in tests/test_torch_cuda.py
 (``*_fp32_on_card``, ``*_fp32_split_on_card``) and chip_smoke.py's
 ``run_fp32``.
@@ -33,6 +33,7 @@ from repro.kernels.flash_attention import flash_attention as jax_fa
 from repro.kernels.flash_decode import flash_decode as jax_fd
 from repro.kernels.paged_decode import paged_decode as jax_pd
 from repro.kernels.paged_decode import paged_decode_quant as jax_pdq
+from repro.kernels.ref import flash_decode_ref as jax_fd_ref
 from repro.kernels.ref import paged_decode_quant_ref as jax_pd_quant_ref
 from repro.kernels.ref import paged_decode_ref as jax_pd_ref
 from repro.models.model import build_model as jax_model
@@ -494,3 +495,58 @@ def test_fp32_paged_tensor_core_pieces_hold_the_limit(quant, G):
     for b, p in enumerate(SERVE_POS):
         if p < 0:
             assert torch.all(got[b] == 0)
+
+
+# ---------------------------------------------------------------------------
+# fp32 flash_decode's tensor-core products (3xTF32, the paged decode's tile
+# over a dense cache), emulated at chip_smoke.py's fp32 rows and held
+# against the JAX package's plain flash_decode in fp32
+# ---------------------------------------------------------------------------
+def _emulated_decode(H, pos, splits, seed=31):
+    """flash_decode over seeded fp32 q (8,1,H,128), k and v (8,1024,8,128)
+    at ``pos``, with q, k, v and P entered as the pieces of each of
+    ``splits`` (a list: the leading piece, then the correction), products
+    in float64, the leading product's sum and the cross terms' sum each
+    rounded to fp32 and added in fp32, the softmax in float64. Returns
+    ([one output per split], JAX's fp32 reference)."""
+    B, T, K, hd = 8, 1024, 8, 128
+    q, k, v = _normal(seed, (B, 1, H, hd), (B, T, K, hd), (B, T, K, hd))
+    want = torch.from_numpy(np.array(jax_fd_ref(q, k, v, pos)))
+    q, k, v = (torch.from_numpy(x) for x in (q, k, v))
+    valid = torch.arange(T) <= pos
+    outs = []
+    for split in splits:
+        def product(a, b, eq):
+            (ah, al), (bh, bl) = split(a), split(b)
+            lead = torch.einsum(eq, ah, bh).float()
+            return lead + (torch.einsum(eq, ah, bl)
+                           + torch.einsum(eq, al, bh)).float()
+
+        s = product(q.reshape(B, K, H // K, hd), k, "bkgh,btkh->bkgt")
+        s = (s.double() / hd ** 0.5).masked_fill(~valid, float("-inf"))
+        p = torch.softmax(s, -1).float()
+        outs.append(product(p, v, "bkgt,btkh->bkgh").reshape(B, 1, H, hd))
+    return outs, want
+
+
+@pytest.mark.parametrize("pos", [511, 1023])
+@pytest.mark.parametrize("H", [16, 64], ids=["G2", "G8"])
+def test_fp32_decode_tf32_triples_hold_the_limit(H, pos):
+    """fp32 flash_decode's numerics at chip_smoke.py's fp32 rows (q
+    (8,1,16,128) over k/v (8,1024,8,128), qwen3-0.6b's heads, G 2) and at
+    G 8 (q (8,1,64,128)), pos 511 and 1023, against JAX's flash_decode_ref
+    in fp32: 3xTF32, q, k, v and P each a TF32 pair (``_tf32``'s
+    rounding), hi hi in one sum and hi lo + lo hi in another, uses
+    0.0093-0.0141 (G 2) and 0.0119-0.0142 (G 8) of the fp32 limit 2e-5 +
+    2e-5 |want|; a bf16 pair of each operand the same way uses
+    0.083-0.137 and 0.103-0.137. The emulation is held to at most 0.25 of
+    the limit and to under a third of the bf16 pair's share, before the
+    tensor core's truncating sums, which the card adds to either (the
+    card's kernel reads 0.0058-0.0094)."""
+    tf32 = (lambda x: list(_tf32_pair(x.float())))
+    (got, pair), want = _emulated_decode(H, pos, [tf32, _pieces(2)])
+    share, pair_share = _share(got, want), _share(pair, want)
+    print(f"flash_decode G {H // 8} pos {pos}: {share:.4f} of the fp32 "
+          f"limit, a bf16 pair {pair_share:.4f}")
+    assert share <= 0.25
+    assert 3 * share < pair_share

@@ -26,6 +26,15 @@ one call on one NVIDIA GPU, in turns.
     python3 tools/attn_same_call.py --old build/old_paged_fp32 \
         --kernels paged_fp32
 
+    # fp32 flash_decode against the CUDA-core kernel of 21c0d31 (alone)
+    mkdir -p build/old_decode_fp32
+    for f in flash_decode.cu common.cuh; do
+        git show 21c0d31:src/repro_torch/kernels/csrc/$f \
+            > build/old_decode_fp32/$f
+    done
+    python3 tools/attn_same_call.py --old build/old_decode_fp32 \
+        --kernels decode_fp32
+
 Builds the chosen kernels' old sources with nvcc beside the current ones
 (into ``build/attn_same_call/``; the old sources share the old
 ``common.cuh``, so kernels compared against different revisions take one
@@ -72,6 +81,19 @@ libraries, whose old and new outputs must be the same bits. Its old
 sources are a revision whose launchers already take the fp32 argument
 (``OLD_PAGED_FP32_ARGTYPES``), so it runs in a call of its own.
 
+``decode_fp32``: ``flash_decode`` on fp32 inputs at ``chip_smoke.py``'s
+two fp32 rows (q (8,1,16,128) over k/v (8,1024,8,128), qwen3-0.6b's
+heads, int pos 511 and 1,023), with no row valid (pos -1: zeros) and at
+the fp32 generate path's shape (q (4,1,16,128) over (4,1024,8,128), pos
+400), with SDPA at fp32 (tf32 off) and a plain read of the same rows
+(``torch.amax`` over k and v up to pos) beside them, held to JAX's fp32
+limit; each row carries the bound by its bytes or its products at the
+3xTF32 rate (``FP32_ATTN_FLOP_PER_S``), the larger. Beside each, its bf16
+twin through both libraries, whose old and new outputs must be the same
+bits. Its old sources are a revision whose launcher already takes the
+fp32 argument and an int position (``OLD_DECODE_FP32_ARGTYPES``), so it
+runs in a call of its own.
+
 ``paged``: ``paged_decode`` and ``paged_decode_quant`` at
 ``chip_smoke.py``'s paged shapes (``paged_cases``: qwen3-0.6b's 16/8
 heads at the timed positions, the hybrid's 64/8 heads, every slot
@@ -113,6 +135,7 @@ P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the sources each kernel group builds
 GROUPS = {"attention": ("flash_attention", "flash_decode"),
           "fp32": ("flash_attention",), "paged_fp32": ("paged_decode",),
+          "decode_fp32": ("flash_decode",),
           "paged": ("paged_decode",), "ssm": ("ssm_scan",),
           "sample": ("fused_sample",), "qdma": ("qdma_pack",)}
 #: the earlier launchers' C signatures, by source
@@ -133,9 +156,14 @@ OLD_FP32_ARGTYPES = {
 OLD_PAGED_FP32_ARGTYPES = {
     "paged_decode": {"launch_paged_decode": [P] * 6 + [I] * 7 + [P],
                      "launch_paged_decode_quant": [P] * 8 + [I] * 7 + [P]}}
+#: the decode_fp32 set's old launcher (21c0d31's: an int or device
+#: position, the fp32 argument)
+OLD_DECODE_FP32_ARGTYPES = {
+    "flash_decode": {"launch_flash_decode": [P] * 5 + [I] * 9 + [P]}}
 #: the groups that compare against a revision of their own: their old
 #: launchers' signatures
-ALONE = {"fp32": OLD_FP32_ARGTYPES, "paged_fp32": OLD_PAGED_FP32_ARGTYPES}
+ALONE = {"fp32": OLD_FP32_ARGTYPES, "paged_fp32": OLD_PAGED_FP32_ARGTYPES,
+         "decode_fp32": OLD_DECODE_FP32_ARGTYPES}
 OLD_DECODE_SPLIT = 64
 
 
@@ -402,6 +430,80 @@ def time_fp32(torch, cs, old, turns, stream):
                   rate=cs.FP32_ATTN_FLOP_PER_S if fp32 else None,
                   kernel="flash_attention", dtype=kind,
                   new_ms_by_rows_per_block=forced)
+
+
+def time_decode_fp32(torch, cs, old, turns, stream):
+    """fp32 flash_decode, old against new, at chip_smoke.py's fp32 rows, no
+    row valid and the generate path's shape, each beside its bf16 twin
+    (whose old and new outputs must be the same bits)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import make_run_config
+    from repro_torch.kernels import ops
+    lib = old["flash_decode"]
+
+    def old_decode(q, k, v, pos):
+        B, _, H, hd = q.shape
+        T, K = k.shape[1], k.shape[2]
+        out = torch.empty_like(q)
+        rows = max(ops.FLASH_DECODE_SPLIT,
+                   -(-T // ops.FLASH_DECODE_MAX_SPLITS))
+        rc = lib.launch_flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+            max(-1, min(pos, T - 1)), 0, B, T, K, hd, H // K, rows,
+            int(q.dtype == torch.float32), stream)
+        if rc:
+            raise RuntimeError(lib.kernel_error_string(rc).decode())
+        return out
+
+    def fp32_share(got, want):
+        return cs.attn_err(got, want, cs.FP32_TOL, cs.FP32_TOL)[1]
+
+    qwen = make_run_config("qwen3-0.6b", "decode_32k").model
+    H, K, hd, T = qwen.num_heads, qwen.num_kv_heads, qwen.head_dim, 1024
+    g = torch.Generator(device="cuda").manual_seed(28)
+    for B, pos in ((8, 511), (8, 1023), (8, -1), (4, 400)):
+        base = [torch.randn(shape, generator=g, device="cuda")
+                for shape in ((B, 1, H, hd), (B, T, K, hd), (B, T, K, hd))]
+        n = max(pos + 1, 0)
+        for dtype in (torch.float32, torch.bfloat16):
+            fp32 = dtype == torch.float32
+            kind = "fp32" if fp32 else "bf16"
+            q, k, v = (x.to(dtype) for x in base)
+            if not fp32:
+                cs.check(torch.equal(old_decode(q, k, v, pos),
+                                     ops.flash_decode(q, k, v, pos)),
+                         f"flash_decode bf16 pos {pos}: the bf16 path's "
+                         "bits changed")
+            # no row valid: the kernels' zeros (the plain version averages
+            # every row)
+            want = (torch.zeros_like(q) if n == 0 else
+                    ops.flash_decode(q, k, v, pos, backend="ref"))
+            sdpa, read_ms = None, None
+            if n:
+                qt = q.transpose(1, 2).contiguous()
+                kt, vt = (x[:, :n].transpose(1, 2).contiguous()
+                          for x in (k, v))
+                sdpa = (lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True))
+                # a plain read of the rows the kernel reads: one reduction
+                # over k and v up to pos, side by side
+                rows = torch.stack((k[:, :n], v[:, :n]))
+                read_ms = turns.timer.ms(lambda: torch.amax(rows),
+                                         reps=turns.reps)
+                mb = rows.numel() * q.element_size() / 1e6
+                print(f"torch.amax over the {mb:.1f} MB of rows up to pos "
+                      f"{pos} ({kind}): {read_ms:.4f} ms", flush=True)
+                del rows
+            turns(f"flash_decode {kind} q ({B},1,{H},{hd}), k/v ({B},{T},"
+                  f"{K},{hd}), int pos {pos}",
+                  {"old": lambda: old_decode(q, k, v, pos),
+                   "new": lambda: ops.flash_decode(q, k, v, pos)},
+                  want,
+                  q.element_size() * (2 * B * n * K * hd + 2 * B * H * hd),
+                  4 * B * H * hd * n, lib=sdpa,
+                  share_fn=fp32_share if fp32 else None,
+                  rate=cs.FP32_ATTN_FLOP_PER_S if fp32 else None,
+                  kernel="flash_decode", dtype=kind, read_ms=read_ms)
 
 
 def time_paged(torch, cs, old, turns, stream, seed):
@@ -728,6 +830,8 @@ def main(argv=None) -> int:
         time_fp32(torch, cs, old, turns, stream)
     if "paged_fp32" in args.kernels:
         time_paged_fp32(torch, cs, old, turns, stream, args.seed)
+    if "decode_fp32" in args.kernels:
+        time_decode_fp32(torch, cs, old, turns, stream)
     if "paged" in args.kernels:
         time_paged(torch, cs, old, turns, stream, args.seed)
     if "ssm" in args.kernels:
